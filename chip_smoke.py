@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``concepthash_tpu_torch``) on one NVIDIA GPU and
+check every kernel of its serving path. Run from the root of the repository:
+
+    python3 chip_smoke.py
+
+It needs a CUDA device and exits non-zero without one, or on any failed
+check; it imports nothing of JAX or of the JAX package. Phases:
+
+1. the card's name and power limit; both CUDA sources built from
+   ``concepthash_tpu_torch/csrc`` (one nvcc each, started together);
+2. the encoder-layer kernel against its plain version at ViT-B/32 width
+   (B=8, L=54, D=768, F=3072, 12 heads, quick_gelu, bf16), with both
+   adapters (bottleneck 384) and without;
+3. the subblock-min kernel against its plain version, exactly: 1024 queries
+   over 1,000,003 codes, nbit 64 packed and plain, nbit 32 packed;
+4. the serving slice, counted: the canonical ConceptHash (ViT-B/32, adapters
+   384, 4 concepts, 64 bits, 200 classes, random weights from seed 0, bf16)
+   encodes 256 seeded uint8 images; their codes are planted at known rows of a
+   1,048,576-entry seeded +-1 gallery, packed with ``pack_serving_gallery``
+   and ``pack_bits_serving``, and served by ``retrieve_topk(exact=True)`` and
+   ``retrieve_topk_streaming(exact=True)`` at k=100. Checked: each planted
+   row comes back at distance 0; the distances equal those of a plain
+   full-matrix top-k on the card; the codes agree in sign with a plain
+   encode (every layer through the kernel's plain version) on >= 99% of
+   bits; each kernel was launched (12 layer launches per encode);
+5. timings on the card: encode img/s, serving queries/s, each kernel's
+   time beside its bound, its plain version and a PyTorch yardstick, and
+   one traced encode and one traced serving call (torch.profiler): device
+   time by kernel and the device's busy share.
+
+The second-to-last line is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+INT8_PEAK = 1979e12     # H100 SXM dense int8 tensor-core OP/s
+HBM_RATE = 3.35e12      # H100 SXM device-memory bytes/s
+
+# kernel 1 vs its plain version: |got - ref| <= LAYER_ATOL + LAYER_RTOL*|ref|
+# (both round to bf16 at the same points; f32 sums in another order can put
+# an intermediate on the neighbouring bf16 value, a few ulps at the output)
+LAYER_ATOL, LAYER_RTOL = 0.05, 0.02
+MIN_SIGN_AGREEMENT = 0.99
+
+
+@dataclasses.dataclass(frozen=True)
+class Sizes:
+    vision: dict = dataclasses.field(default_factory=dict)   # ViT-B/32
+    head: dict = dataclasses.field(default_factory=lambda: dict(
+        nbit=64, nclass=200, text_projection_dims=(512,)))
+    bottleneck: int = 384
+    layer_batch: int = 8           # images in the layer check
+    mins_queries: int = 1024
+    mins_codes: int = 1_000_003
+    images: int = 256
+    image_side: int = 256          # center-cropped to the model's size
+    gallery: int = 1 << 20
+    k: int = 100
+    reps: int = 10
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back runs, after one
+    warm-up, from CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_s(fn, reps: int) -> float:
+    """Mean wall seconds of ``fn`` ending in a device synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def device_breakdown(name: str, fn, wall_s: float, rows: int = 12) -> None:
+    """Trace one call of ``fn``: device time by kernel, and the device's busy
+    share, the summed kernel time over ``wall_s`` (the untraced wall time of
+    one call, as ``host_s`` measured it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and _self_device_us(e) > 0),
+                  key=_self_device_us, reverse=True)
+    busy_ms = sum(_self_device_us(e) for e in evts) / 1e3
+    print(f"{name}: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms "
+          f"wall ({100 * busy_ms / (wall_s * 1e3):.1f}%)")
+    for e in evts[:rows]:
+        print(f"  {_self_device_us(e) / 1e3:9.3f} ms {e.count:6d}x  "
+              f"{e.key[:100]}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: the encoder layer
+# ---------------------------------------------------------------------------
+
+def random_layer(gen, D, F_, A, with_adapters, device):
+    """Layer (and adapter) weights with std 1/sqrt(fan_in) matrices and small
+    vectors, bf16 matrices on ``device``. The adapters' up-projections are
+    random too, so both adapters carry signal."""
+    from concepthash_tpu_torch.ops.fused_layer import (AdapterWeights,
+                                                       LayerWeights)
+
+    def mat(o, i):
+        return torch.randn(o, i, generator=gen) / math.sqrt(i)
+
+    def vec(n, s=0.02, base=0.0):
+        return base + s * torch.randn(n, generator=gen)
+
+    w = LayerWeights(vec(D, 0.1, 1.0), vec(D), mat(3 * D, D), vec(3 * D),
+                     mat(D, D), vec(D), vec(D, 0.1, 1.0), vec(D), mat(F_, D),
+                     vec(F_), mat(D, F_), vec(D))
+    w = LayerWeights(*(t.to(device) for t in w)).cast(torch.bfloat16)
+    if not with_adapters:
+        return w, None, None
+    ads = []
+    for _ in range(2):
+        a = AdapterWeights(vec(D, 0.1, 1.0), vec(D), mat(A, D), vec(A),
+                           mat(D, A), vec(D), torch.ones(1))
+        ads.append(AdapterWeights(*(t.to(device) for t in a)).cast(
+            torch.bfloat16))
+    return w, ads[0], ads[1]
+
+
+def check_layer(sizes: Sizes, vcfg, device) -> float:
+    from concepthash_tpu_torch.ops.fused_layer import (encoder_layer_cuda,
+                                                       layer_reference)
+
+    gen = torch.Generator().manual_seed(11)
+    D, F_, H = vcfg.hidden_size, vcfg.intermediate_size, vcfg.num_heads
+    L = vcfg.num_patches + 1 + sizes.head.get("ncontext", 4)
+    worst = 0.0
+    for with_adapters in (True, False):
+        w, a1, a2 = random_layer(gen, D, F_, sizes.bottleneck, with_adapters,
+                                 device)
+        x = torch.randn(sizes.layer_batch, L, D, generator=gen).to(
+            device, torch.bfloat16)
+        kw = dict(num_heads=H, eps=vcfg.layer_norm_eps, act=vcfg.hidden_act,
+                  adapter_attn=a1, adapter_mlp=a2)
+        got = encoder_layer_cuda(x, w, **kw).float()
+        torch.cuda.synchronize()
+        want = layer_reference(x, w, **kw).float()
+        err = (got - want).abs()
+        excess = (err - (LAYER_ATOL + LAYER_RTOL * want.abs())).max().item()
+        print(f"layer kernel vs plain, B={sizes.layer_batch} L={L} D={D} "
+              f"F={F_} H={H} adapters={'both' if with_adapters else 'none'}: "
+              f"max |d| {err.max().item():.6g}, mean |d| "
+              f"{err.mean().item():.3g}, max |ref| "
+              f"{want.abs().max().item():.4g}")
+        if not torch.isfinite(got).all() or excess > 0:
+            fail(f"layer kernel outside |d| <= {LAYER_ATOL} + "
+                 f"{LAYER_RTOL}|ref| (adapters={with_adapters})")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def layer_library(x, w, a1, a2, num_heads, eps):
+    """The same layer as a composition of PyTorch's own bf16 operators
+    (F.layer_norm, F.linear, scaled_dot_product_attention): the timing
+    yardstick, never called by the port. Weights all in bf16."""
+    B, L, D = x.shape
+    hd = D // num_heads
+
+    def adapter(z, a):
+        h = F.layer_norm(z, (D,), a.ln_scale, a.ln_bias, 1e-5)
+        h = F.gelu(F.linear(h, a.w_down, a.b_down))
+        return F.linear(h, a.w_up, a.b_up) * a.scale
+
+    h = F.layer_norm(x, (D,), w.ln1_scale, w.ln1_bias, eps)
+    q, k, v = F.linear(h, w.w_qkv, w.b_qkv).view(
+        B, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
+        B, L, D)
+    h = F.linear(o, w.w_out, w.b_out)
+    if a1 is not None:
+        h = h + adapter(h, a1)
+    x = x + h
+    h = F.linear(F.layer_norm(x, (D,), w.ln2_scale, w.ln2_bias, eps),
+                 w.w_fc1, w.b_fc1)
+    h = F.linear(h * torch.sigmoid(1.702 * h), w.w_fc2, w.b_fc2)
+    if a2 is not None:
+        h = h + adapter(h, a2)
+    return x + h
+
+
+def layer_flops_bytes(B, L, D, F_, A, n_adapters, w, adapters):
+    flops = B * (2 * L * D * (3 * D + D + 2 * F_) + 4 * L * L * D
+                 + n_adapters * 4 * L * D * A)
+    params = sum(t.numel() * t.element_size() for t in w)
+    params += sum(t.numel() * t.element_size()
+                  for a in adapters if a is not None for t in a)
+    return flops, 2 * B * L * D * 2 + params
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: the subblock mins
+# ---------------------------------------------------------------------------
+
+def check_mins(sizes: Sizes, device) -> float:
+    from concepthash_tpu_torch.ops import topk_select as ts
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    Q, N, S = sizes.mins_queries, sizes.mins_codes, 64
+    worst = 0.0
+    for nbit, layout, dt in ((64, "packed", torch.bfloat16),
+                             (64, "packed", torch.float32),
+                             (64, "plain", torch.bfloat16),
+                             (32, "packed", torch.bfloat16)):
+        q = torch.randint(-1, 2, (Q, nbit), generator=gen, device=device)
+        db = torch.randint(0, 2, (N, nbit), generator=gen, device=device,
+                           dtype=torch.int8) * 2 - 1
+        if layout == "packed":
+            gal, n_codes = ts.pack_serving_gallery(db)
+            got = ts.subblock_min_dists_packed(q, gal, subblock=S,
+                                               out_dtype=dt)
+        else:
+            gal, n_codes = db, N
+            got = ts.subblock_min_dists(q, gal, subblock=S, out_dtype=dt)
+        torch.cuda.synchronize()
+        m = -(-n_codes // S)
+        want = ts._mins_reference(ts.strict_signs(q),
+                                  gal.reshape(n_codes, nbit), S, m, dt)
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"mins kernel vs plain, Q={Q} N={n_codes} nbit={nbit} "
+              f"{layout} {str(dt).split('.')[-1]}: shape "
+              f"{tuple(got.shape)}, max |d| {err}")
+        if got.shape != want.shape or err != 0:
+            fail(f"mins kernel differs from its plain version "
+                 f"(nbit={nbit}, {layout}, {dt})")
+        worst = max(worst, err)
+        del gal, db, got, want
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the serving slice
+# ---------------------------------------------------------------------------
+
+class plain_layers:
+    """Inside this block the model's encoder layers run the kernel's plain
+    version (the reference encode the kernel's codes are checked against)."""
+
+    def __enter__(self):
+        from concepthash_tpu_torch.models import clip
+        from concepthash_tpu_torch.ops.fused_layer import layer_reference
+
+        self.clip, self.saved = clip, clip.encoder_layer
+        clip.encoder_layer = lambda x, w, **kw: layer_reference(x, w, **kw)
+
+    def __exit__(self, *exc):
+        self.clip.encoder_layer = self.saved
+
+
+def build_model(sizes: Sizes, device):
+    from concepthash_tpu_torch.models.clip import (AdapterConfig,
+                                                   ClipVisionConfig)
+    from concepthash_tpu_torch.models.concepthash import (ConceptHash,
+                                                          ConceptHashConfig)
+
+    gen = torch.Generator().manual_seed(0)
+    vcfg = ClipVisionConfig(**sizes.vision)
+    model = ConceptHash(vcfg, ConceptHashConfig(**sizes.head),
+                        AdapterConfig(bottleneck_dim=sizes.bottleneck),
+                        dtype=torch.bfloat16, device=device, generator=gen)
+    # the adapters' up-projections start at zero; seeded values make both
+    # adapters change the codes, so the check covers them
+    with torch.no_grad():
+        for layer in model.backbone.layers:
+            for ad in (layer.adapter_attn, layer.adapter_mlp):
+                ad.up.weight.copy_(0.02 * torch.randn(
+                    ad.up.weight.shape, generator=gen))
+    return model.eval(), vcfg
+
+
+def count_reset():
+    from concepthash_tpu_torch.ops.fused_layer import encoder_layer_cuda
+    from concepthash_tpu_torch.ops.topk_select import subblock_mins_cuda
+
+    encoder_layer_cuda.launches = 0
+    subblock_mins_cuda.launches = 0
+
+
+def counts():
+    from concepthash_tpu_torch.ops.fused_layer import encoder_layer_cuda
+    from concepthash_tpu_torch.ops.topk_select import subblock_mins_cuda
+
+    return encoder_layer_cuda.launches, subblock_mins_cuda.launches
+
+
+def run(sizes: Sizes, device) -> dict:
+    from concepthash_tpu_torch import _build
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.ops import fused_layer as fl
+    from concepthash_tpu_torch.ops import topk_select as ts
+    from concepthash_tpu_torch.ops.retrieval import (exact_topk_blocked,
+                                                     retrieve_topk,
+                                                     retrieve_topk_streaming,
+                                                     sign_distances)
+
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s wall ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in build_s.items()) + ")")
+
+    model, vcfg = build_model(sizes, device)
+    nbit, k = model.cfg.nbit, sizes.k
+    layer_err = check_layer(sizes, vcfg, device)
+    mins_err = check_mins(sizes, device)
+
+    # ---- inputs of the main path, made on the device from seeds ----
+    gen = torch.Generator(device=device).manual_seed(0)
+    raw = torch.randint(0, 256, (sizes.images, sizes.image_side,
+                                 sizes.image_side, 3), generator=gen,
+                        device=device, dtype=torch.uint8)
+    N = sizes.gallery
+    gallery = torch.randint(0, 2, (N, nbit), generator=gen, device=device,
+                            dtype=torch.int8) * 2 - 1
+    planted = torch.randperm(N, generator=gen, device=device)[:sizes.images]
+    torch.cuda.synchronize()
+
+    # ---- the main path, once, with the launch counts from zero ----
+    count_reset()
+    with torch.inference_mode():
+        images = normalize(center_crop(raw, vcfg.image_size), 3)
+        out = model(images)
+        codes = out["codes"]
+        gallery[planted] = ts.strict_signs(codes)
+        packed, n_pad = ts.pack_serving_gallery(gallery)
+        bits = ts.pack_bits_serving(packed, nbit)
+        d, idx = retrieve_topk(codes, packed.reshape(n_pad, nbit), k=k,
+                               exact=True, n_valid=N)
+        d_s, i_s = retrieve_topk_streaming(codes, packed, k=k,
+                                           db_block=n_pad, exact=True,
+                                           n_valid=N, db_bits=bits)
+    torch.cuda.synchronize()
+    n_layer, n_mins = counts()
+    print(f"main path launches: encoder_layer {n_layer} (12 per encode "
+          f"expected: {vcfg.num_layers}), subblock_mins {n_mins}")
+    if n_layer != vcfg.num_layers or n_mins < 1:
+        fail("a kernel of the main path was not launched as expected")
+
+    # ---- what came out ----
+    B = sizes.images
+    if codes.shape != (B, nbit) or not torch.isfinite(codes).all():
+        fail(f"codes {tuple(codes.shape)} not finite of shape {(B, nbit)}")
+    for key, shape in (("logits_cont", (B, model.cfg.nclass)),
+                       ("logits_bin", (B, model.cfg.nclass)),
+                       ("logits_concept", (model.cfg.ncontext, B,
+                                           model.cfg.nclass))):
+        if out[key].shape != shape or not torch.isfinite(out[key]).all():
+            fail(f"{key} not finite of shape {shape}")
+    hit = ((idx == planted[:, None]) & (d == 0)).any(dim=1)
+    print(f"planted rows found at distance 0: {int(hit.sum())}/{B}")
+    if not hit.all():
+        fail("a planted gallery row did not come back at distance 0")
+    with torch.inference_mode():
+        dist = sign_distances(codes, gallery)
+        pd, _ = exact_topk_blocked(dist, k)
+        same_d = torch.equal(d, pd) and torch.equal(d_s, pd)
+        consistent = (torch.equal(dist.gather(1, idx), d)
+                      and torch.equal(dist.gather(1, i_s), d_s))
+        with plain_layers():
+            codes_plain = model(images)["codes"]
+    agree = ((codes > 0) == (codes_plain > 0)).float().mean().item()
+    print(f"top-{k} distances equal the plain full-matrix top-k: {same_d}; "
+          f"indices score their distances: {consistent}")
+    print(f"codes vs plain encode: sign agreement {agree:.6f}, max |d| "
+          f"{(codes - codes_plain).abs().max().item():.4g}")
+    if not (same_d and consistent):
+        fail("exact top-k differs from the plain full-matrix top-k")
+    if agree < MIN_SIGN_AGREEMENT:
+        fail(f"codes agree in sign on {agree:.4f} < {MIN_SIGN_AGREEMENT}")
+    del dist, pd, codes_plain
+
+    # ---- timings on the card ----
+    with torch.inference_mode():
+        enc_s = host_s(lambda: model(images), 3)
+        srv_s = host_s(lambda: retrieve_topk(
+            codes, packed.reshape(n_pad, nbit), k=k, exact=True,
+            n_valid=N), 5)
+    print(f"encode: {B / enc_s:.1f} img/s ({B} images, bf16, "
+          f"{enc_s * 1e3:.2f} ms per batch)")
+    print(f"serving: {B / srv_s:.1f} queries/s (retrieve_topk exact, "
+          f"k={k}, {B} queries over {N} codes, {srv_s * 1e3:.2f} ms)")
+
+    layers = model.backbone.layers
+    L = images.shape[1] // vcfg.patch_size
+    L = L * L + 1 + model.cfg.ncontext
+    ws = [lay.layer_weights(torch.bfloat16) for lay in layers]
+    ads = [(lay.adapter_attn.weights(torch.bfloat16),
+            lay.adapter_mlp.weights(torch.bfloat16)) for lay in layers]
+    lib_w = [fl.LayerWeights(*(t.to(torch.bfloat16) for t in w)) for w in ws]
+    lib_a = [tuple(fl.AdapterWeights(*(t.to(torch.bfloat16) for t in a))
+                   for a in pair) for pair in ads]
+    x0 = torch.randn(B, L, vcfg.hidden_size, generator=gen,
+                     device=device).to(torch.bfloat16)
+    kw = dict(num_heads=vcfg.num_heads, eps=vcfg.layer_norm_eps,
+              act=vcfg.hidden_act)
+
+    def through_layers(fn, weights, adapters, **extra):
+        def go():
+            x = x0
+            for w, (a1, a2) in zip(weights, adapters):
+                x = fn(x, w, adapter_attn=a1, adapter_mlp=a2, **extra)
+            return x
+        return go
+
+    n_l = len(layers)
+    with torch.inference_mode():
+        layer_ms = cuda_ms(through_layers(fl.encoder_layer_cuda, ws, ads,
+                                          **kw), sizes.reps) / n_l
+        layer_plain_ms = cuda_ms(through_layers(fl.layer_reference, ws, ads,
+                                                **kw), 3) / n_l
+        layer_lib_ms = cuda_ms(through_layers(
+            lambda x, w, adapter_attn, adapter_mlp: layer_library(
+                x, w, adapter_attn, adapter_mlp, vcfg.num_heads,
+                vcfg.layer_norm_eps), lib_w, lib_a), sizes.reps) / n_l
+    flops, nbytes = layer_flops_bytes(B, L, vcfg.hidden_size,
+                                      vcfg.intermediate_size,
+                                      sizes.bottleneck, 2, ws[0], ads[0])
+    layer_bound = max(flops / BF16_PEAK, nbytes / HBM_RATE) * 1e3
+    layer_by = "operations" if flops / BF16_PEAK >= nbytes / HBM_RATE \
+        else "bytes"
+
+    qi = ts.strict_signs(codes)
+    m = -(-n_pad // 64)
+    flat = packed.reshape(n_pad, nbit)
+    with torch.inference_mode():
+        mins_ms = cuda_ms(lambda: ts.subblock_mins_cuda(
+            qi, packed, n_pad, 64, m, torch.bfloat16), sizes.reps)
+        mins_plain_ms = cuda_ms(lambda: ts._mins_reference(
+            qi, flat, 64, m, torch.bfloat16), 3)
+        mins_lib_ms = cuda_ms(lambda: (0.5 * (nbit - torch._int_mm(
+            flat, qi.t()).view(m, 64, B).amax(dim=1))).to(torch.bfloat16),
+            sizes.reps)
+    mins_bytes = n_pad * nbit + B * nbit + m * B * 2
+    mins_ops = 2 * B * n_pad * nbit
+    mins_bound = max(mins_bytes / HBM_RATE, mins_ops / INT8_PEAK) * 1e3
+    mins_by = "bytes" if mins_bytes / HBM_RATE >= mins_ops / INT8_PEAK \
+        else "operations"
+
+    print(f"encoder_layer (B={B}, L={L}, both adapters, per layer): kernel "
+          f"{layer_ms:.4f} ms, bound {layer_bound:.4f} ms ({layer_by}: "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain "
+          f"{layer_plain_ms:.4f} ms, library (F.linear + SDPA) "
+          f"{layer_lib_ms:.4f} ms; {flops / layer_ms / 1e9:.1f} TFLOP/s")
+    print(f"subblock_mins (Q={B}, N={n_pad}, nbit={nbit}, packed, bf16): "
+          f"kernel {mins_ms:.4f} ms, bound {mins_bound:.4f} ms ({mins_by}: "
+          f"{mins_bytes / 1e6:.1f} MB, {mins_ops / 1e9:.1f} G int8 ops), "
+          f"plain {mins_plain_ms:.4f} ms, library (torch._int_mm + amax) "
+          f"{mins_lib_ms:.4f} ms")
+
+    with torch.inference_mode():
+        device_breakdown("encode", lambda: model(images), enc_s)
+        device_breakdown("serving", lambda: retrieve_topk(
+            codes, packed.reshape(n_pad, nbit), k=k, exact=True,
+            n_valid=N), srv_s)
+
+    return {"kernels": [
+        {"name": "encoder_layer", "route": "cuda",
+         "source": "concepthash_tpu_torch/csrc/fused_layer.cu",
+         "replaces": "concepthash_tpu/ops/fused_layer.py:156",
+         "launches": n_layer, "max_abs_err": layer_err, "ms": layer_ms,
+         "plain_ms": layer_plain_ms, "bound_ms": layer_bound,
+         "bound_by": layer_by, "library_ms": layer_lib_ms},
+        {"name": "subblock_mins", "route": "cuda",
+         "source": "concepthash_tpu_torch/csrc/topk_select.cu",
+         "replaces": "concepthash_tpu/ops/topk_select.py:86",
+         "launches": n_mins, "max_abs_err": mins_err, "ms": mins_ms,
+         "plain_ms": mins_plain_ms, "bound_ms": mins_bound,
+         "bound_by": mins_by, "library_ms": mins_lib_ms},
+    ]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "drives the port on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import concepthash_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    result = run(Sizes(), torch.device("cuda"))
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s")
+    print(card)
+    print(json.dumps(result))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

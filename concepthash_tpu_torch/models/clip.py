@@ -1,0 +1,312 @@
+"""CLIP vision tower with parallel bottleneck adapters (counterpart of the
+vision part of concepthash_tpu/models/clip.py).
+
+Images are NHWC. The patch embedding is a matmul over patches flattened in
+(ph, pw, C) order, with its kernel stored in HWIO form (p, p, C, D), as in
+the reference. Each encoder layer whose adapters (if any) take a LayerNorm
+on their input, and that returns no attention probabilities, runs through
+``ops.fused_layer.encoder_layer``: the CUDA kernel on the card, its plain
+version on the CPU. Asking for attention probabilities takes the discrete
+path (separate LayerNorm, attention, MLP and adapter modules), as in the
+reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from concepthash_tpu_torch.models.layers import (dense, layer_norm, linear,
+                                                 normal_)
+from concepthash_tpu_torch.ops.fused_layer import (AdapterWeights,
+                                                   LayerWeights, activation,
+                                                   encoder_layer)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipVisionConfig:
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    image_size: int = 224
+    patch_size: int = 32
+    projection_dim: int = 512
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    patch_bias: bool = False
+    use_pre_layernorm: bool = True
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterConfig:
+    """Bottleneck adapters added in parallel to the attention and MLP branch
+    outputs. Per-projection adapters (``attention_qkvo``) are not ported."""
+
+    bottleneck_dim: int = 384
+    after_attention: bool = True
+    after_mlp: bool = True
+    layernorm_in: bool = True
+    attention_qkvo: bool = False
+
+
+class Adapter(nn.Module):
+    """LN in -> down -> exact GELU -> up (zero-init) -> learnable scale."""
+
+    def __init__(self, cfg: AdapterConfig, dim: int, dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.ln = nn.LayerNorm(dim, eps=1e-5) if cfg.layernorm_in else None
+        self.down = linear(dim, cfg.bottleneck_dim, generator=generator)
+        self.up = linear(cfg.bottleneck_dim, dim, zero=True)
+        self.scale = nn.Parameter(torch.ones(1))
+
+    def weights(self, dtype: torch.dtype) -> AdapterWeights:
+        return AdapterWeights(self.ln.weight, self.ln.bias, self.down.weight,
+                              self.down.bias, self.up.weight, self.up.bias,
+                              self.scale).cast(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ln is not None:
+            x = layer_norm(self.ln, x, self.dtype)
+        h = F.gelu(dense(self.down, x, self.dtype))
+        h = dense(self.up, h, self.dtype)
+        return h * self.scale.to(self.dtype)
+
+
+class PatchEmbedding(nn.Module):
+    """Patch projection: (B, P, p*p*C) @ kernel.reshape(p*p*C, D)."""
+
+    def __init__(self, features: int, patch_size: int, in_channels: int = 3,
+                 use_bias: bool = False, dtype=torch.float32, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        fan_in = patch_size * patch_size * in_channels
+        self.weight = nn.Parameter(normal_(
+            torch.empty(patch_size, patch_size, in_channels, features),
+            1.0 / math.sqrt(fan_in), generator))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+        w = self.weight.reshape(-1, self.weight.shape[-1]).to(self.dtype)
+        out = patches.to(self.dtype) @ w
+        if self.bias is not None:
+            out = out + self.bias.to(self.dtype)
+        return out
+
+
+class MultiHeadAttention(nn.Module):
+    """CLIP-style attention with biased q|k|v and out projections (q, k, v
+    concatenated into one (3D, D) weight). Returns (out, probs)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.qkv_proj = nn.Linear(dim, 3 * dim)
+        with torch.no_grad():
+            normal_(self.qkv_proj.weight, 1.0 / math.sqrt(dim), generator)
+            self.qkv_proj.bias.zero_()
+        self.out_proj = linear(dim, dim, generator=generator)
+
+    def forward(self, x: torch.Tensor):
+        B, L, D = x.shape
+        H = self.num_heads
+        hd = D // H
+        q, k, v = (t.reshape(B, L, H, hd)
+                   for t in dense(self.qkv_proj, x, self.dtype).split(D, -1))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
+        probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, D)
+        return dense(self.out_proj, out, self.dtype), probs
+
+
+class EncoderLayer(nn.Module):
+    """Pre-LN transformer block with optional parallel adapters:
+    x = residual + branch(ln(x)) + adapter(branch(ln(x)))."""
+
+    def __init__(self, dim: int, num_heads: int, intermediate_size: int,
+                 eps: float = 1e-5, act: str = "quick_gelu",
+                 adapters: Optional[AdapterConfig] = None,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        if adapters is not None and adapters.attention_qkvo:
+            raise NotImplementedError(
+                "per-projection (q/k/v/out) adapters are not ported yet")
+        self.num_heads = num_heads
+        self.eps = eps
+        self.act = act
+        self.dtype = dtype
+        self.fusable = adapters is None or adapters.layernorm_in
+        self.layer_norm1 = nn.LayerNorm(dim, eps=eps)
+        self.self_attn = MultiHeadAttention(dim, num_heads, dtype, generator)
+        self.layer_norm2 = nn.LayerNorm(dim, eps=eps)
+        self.fc1 = linear(dim, intermediate_size, generator=generator)
+        self.fc2 = linear(intermediate_size, dim, generator=generator)
+        self.adapter_attn = (
+            Adapter(adapters, dim, dtype, generator)
+            if adapters is not None and adapters.after_attention else None)
+        self.adapter_mlp = (
+            Adapter(adapters, dim, dtype, generator)
+            if adapters is not None and adapters.after_mlp else None)
+
+    def layer_weights(self, dtype: torch.dtype) -> LayerWeights:
+        a = self.self_attn
+        return LayerWeights(
+            self.layer_norm1.weight, self.layer_norm1.bias,
+            a.qkv_proj.weight, a.qkv_proj.bias, a.out_proj.weight,
+            a.out_proj.bias, self.layer_norm2.weight, self.layer_norm2.bias,
+            self.fc1.weight, self.fc1.bias, self.fc2.weight,
+            self.fc2.bias).cast(dtype)
+
+    def forward(self, x: torch.Tensor, output_attentions: bool = False):
+        if self.fusable and not output_attentions:
+            out = encoder_layer(
+                x, self.layer_weights(self.dtype), num_heads=self.num_heads,
+                eps=self.eps, act=self.act,
+                adapter_attn=(self.adapter_attn.weights(self.dtype)
+                              if self.adapter_attn is not None else None),
+                adapter_mlp=(self.adapter_mlp.weights(self.dtype)
+                             if self.adapter_mlp is not None else None))
+            return out, None
+        h, probs = self.self_attn(layer_norm(self.layer_norm1, x, self.dtype))
+        if self.adapter_attn is not None:
+            h = h + self.adapter_attn(h)
+        x = x + h
+        h = dense(self.fc1, layer_norm(self.layer_norm2, x, self.dtype),
+                  self.dtype)
+        h = dense(self.fc2, activation(self.act, h), self.dtype)
+        if self.adapter_mlp is not None:
+            h = h + self.adapter_mlp(h)
+        return x + h, probs
+
+
+def _torch_bicubic_matrix(n_in: int, n_out: int, scale: float) -> np.ndarray:
+    """(n_out, n_in) matrix replaying torch F.interpolate(mode='bicubic',
+    align_corners=False): cubic kernel a=-0.75, source coordinate
+    (i+0.5)/scale - 0.5, edge clamping."""
+    a = -0.75
+
+    def w(x):
+        x = abs(x)
+        if x <= 1:
+            return (a + 2) * x ** 3 - (a + 3) * x ** 2 + 1
+        if x < 2:
+            return a * (x ** 3 - 5 * x ** 2 + 8 * x - 4)
+        return 0.0
+
+    m = np.zeros((n_out, n_in), np.float64)
+    for i in range(n_out):
+        c = (i + 0.5) / scale - 0.5
+        i0 = math.floor(c)
+        t = c - i0
+        for k, dx in zip((i0 - 1, i0, i0 + 1, i0 + 2),
+                         (1 + t, t, 1 - t, 2 - t)):
+            m[i, min(max(k, 0), n_in - 1)] += w(dx)
+    return m.astype(np.float32)
+
+
+def resize_position_embedding(pos: torch.Tensor,
+                              num_patches: int) -> torch.Tensor:
+    """Bicubic-resize the grid part of a (1+N, D) position embedding to a new
+    patch count, with the (side_new + 0.1) / side_old scale of the
+    reference."""
+    n_old = pos.shape[0] - 1
+    if n_old == num_patches:
+        return pos
+    side_old = int(math.sqrt(n_old))
+    side_new = int(math.sqrt(num_patches))
+    scale = (side_new + 0.1) / side_old
+    m = torch.from_numpy(_torch_bicubic_matrix(side_old, side_new, scale)).to(
+        pos.device)
+    grid = pos[1:].reshape(side_old, side_old, -1).float()
+    grid = torch.einsum("oi,ijd->ojd", m, grid)
+    grid = torch.einsum("pj,ojd->opd", m, grid).to(pos.dtype)
+    return torch.cat([pos[:1], grid.reshape(side_new * side_new, -1)])
+
+
+class ClipVisionTower(nn.Module):
+    """CLIP vision transformer over NHWC pixels, with extra (concept) tokens
+    appended after the patch sequence. Returns a dict: last_hidden_state
+    (B, L[+M], D), pooled (B, proj), cls_prenorm, cls_postnorm, and
+    attentions when asked."""
+
+    def __init__(self, cfg: ClipVisionConfig,
+                 adapters: Optional[AdapterConfig] = None,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        D = cfg.hidden_size
+        self.patch_embedding = PatchEmbedding(D, cfg.patch_size, 3,
+                                              cfg.patch_bias, dtype, generator)
+        self.class_embedding = nn.Parameter(
+            normal_(torch.empty(D), 0.02, generator))
+        self.position_embedding = nn.Parameter(
+            normal_(torch.empty(cfg.seq_len, D), 0.02, generator))
+        self.pre_layernorm = (nn.LayerNorm(D, eps=cfg.layer_norm_eps)
+                              if cfg.use_pre_layernorm else None)
+        self.layers = nn.ModuleList(
+            EncoderLayer(D, cfg.num_heads, cfg.intermediate_size,
+                         cfg.layer_norm_eps, cfg.hidden_act, adapters, dtype,
+                         generator)
+            for _ in range(cfg.num_layers))
+        self.post_layernorm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
+        self.visual_projection = linear(D, cfg.projection_dim, bias=False,
+                                        generator=generator)
+
+    def forward(self, pixel_values: torch.Tensor,
+                extra_tokens: Optional[torch.Tensor] = None,
+                output_attentions: bool = False,
+                project_extra: bool = False) -> dict:
+        c = self.cfg
+        dt = self.dtype
+        B, Hh, Ww, C = pixel_values.shape
+        p = c.patch_size
+        gh, gw = Hh // p, Ww // p
+        patches = pixel_values.to(dt).reshape(B, gh, p, gw, p, C)
+        patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(
+            B, gh * gw, p * p * C)
+        x = self.patch_embedding(patches)
+        cls = self.class_embedding.to(dt).expand(B, 1, -1)
+        x = torch.cat([cls, x], dim=1)
+        pos = resize_position_embedding(self.position_embedding, gh * gw)
+        x = x + pos.to(dt)[None]
+        if extra_tokens is not None:
+            x = torch.cat([x, extra_tokens.to(dt)], dim=1)
+        if self.pre_layernorm is not None:
+            x = layer_norm(self.pre_layernorm, x, dt)
+        attns = []
+        for layer in self.layers:
+            x, probs = layer(x, output_attentions)
+            if output_attentions:
+                attns.append(probs)
+        cls_out = x[:, 0, :]
+        cls_postnorm = layer_norm(self.post_layernorm, cls_out, dt)
+        out = {"last_hidden_state": x,
+               "pooled": dense(self.visual_projection, cls_postnorm, dt),
+               "cls_prenorm": cls_out, "cls_postnorm": cls_postnorm}
+        if project_extra and extra_tokens is not None:
+            n_extra = extra_tokens.shape[1]
+            out["extra_projected"] = dense(
+                self.visual_projection,
+                layer_norm(self.post_layernorm, x[:, -n_extra:, :], dt), dt)
+        if output_attentions:
+            out["attentions"] = tuple(attns)
+        return out

@@ -1,0 +1,366 @@
+"""Exact top-k serving over an int8 sign gallery: the subblock-min CUDA
+kernel of ``csrc/topk_select.cu``, its plain PyTorch version, and the
+selection, rescore and certificate around it.
+
+Counterpart of concepthash_tpu/ops/topk_select.py (the Pallas
+``_mins_kernel_packed`` and ``_mins_kernel``, and ``exact_topk_minspass``).
+Differences by design:
+
+- the mins array has ``m = ceil(N / subblock)`` rows; the reference pads it
+  to its TPU row-block, and those pad rows read nbit + 1 exactly as the
+  tail rows here do;
+- every ``lax.top_k`` of the reference is a stable ascending sort here, so
+  ties resolve to the lower position first on every device, as ``lax.top_k``
+  resolves them (``torch.topk`` makes no such promise on CUDA);
+- bit-packed words are int32 tensors holding the uint32 pattern
+  (``ops.hamming``);
+- the reference's ``lax.cond`` on the certificate is a host-side branch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from concepthash_tpu_torch import _build
+from concepthash_tpu_torch.ops.hamming import pack_bits, popcount32
+
+# direct selection over the subblock mins below this many mins per row; above
+# it the superblock hierarchy (tests monkeypatch this to force that branch)
+_INNER_DIRECT_MAX = 32768
+
+# codes bit-packed per step of pack_bits_serving (bounds its int64 temporary)
+_PACK_CHUNK_CODES = 1 << 20
+
+_KERNEL_NBITS = (16, 32, 64, 128)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def strict_signs(x: torch.Tensor) -> torch.Tensor:
+    """Strict +-1 int8 signs: > 0 -> +1, everything else (0 included) -> -1,
+    the pack_bits convention."""
+    return ((x > 0).to(torch.int8) * 2 - 1).to(torch.int8)
+
+
+def smallest(x: torch.Tensor, k: int):
+    """(values, int64 indices) of the k smallest entries of each row in
+    ascending order, lower position first among ties — ``lax.top_k(-x, k)``
+    of the reference, negated back."""
+    vals, idx = torch.sort(x, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def pack_serving_gallery(db_signs: torch.Tensor):
+    """(N, nbit) +-1 -> ((N_pad // P, 128) int8, N_pad), P = 128 // nbit
+    codes per 128-byte row. Pad rows are all-zero codes (distance nbit/2),
+    so callers pass ``n_valid``. The layout is a row-major reshape of the
+    plain (N_pad, nbit) gallery, byte for byte the reference's."""
+    db = strict_signs(db_signs)
+    N, nbit = db.shape
+    if 128 % nbit:
+        raise ValueError(f"nbit must divide 128 for the packed layout, got {nbit}")
+    P = 128 // nbit
+    pad = (-N) % P
+    if pad:
+        db = torch.cat([db, db.new_zeros((pad, nbit))])
+    return db.reshape((N + pad) // P, 128), N + pad
+
+
+def _mins_reference(qi: torch.Tensor, db_i8: torch.Tensor, subblock: int,
+                    m: int, out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the mins kernel: qi (Q, nbit) and db_i8 (N, nbit)
+    int8 -> (m, Q) mins; entries past N count as similarity -(nbit + 2)."""
+    Q, nbit = qi.shape
+    N = db_i8.shape[0]
+    sim = (db_i8.float() @ qi.float().t()).to(torch.int32)          # (N, Q)
+    pad = m * subblock - N
+    if pad:
+        sim = torch.cat([sim, sim.new_full((pad, Q), -(nbit + 2))])
+    gmax = sim.reshape(m, subblock, Q).amax(dim=1)
+    return (0.5 * (nbit - gmax).float()).to(out_dtype)
+
+
+def _lib():
+    lib = _build.load("topk_select")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.subblock_mins_fwd.argtypes = [vp, vp, cll, ci, ci, ci, cll, ci,
+                                          vp, vp]
+        lib.subblock_mins_fwd.restype = ci
+        lib.subblock_mins_error_string.argtypes = [ci]
+        lib.subblock_mins_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def subblock_mins_cuda(qi: torch.Tensor, db: torch.Tensor, n_codes: int,
+                       subblock: int, m: int,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the mins kernel. qi: (Q, nbit) strict +-1 int8; db: int8
+    gallery holding ``n_codes`` codes of nbit bytes, row-major (plain or
+    128-lane packed). Returns (m, Q) in ``out_dtype`` (bf16 or f32).
+    ``subblock_mins_cuda.launches`` counts the launches."""
+    Q, nbit = qi.shape
+    if qi.device.type != "cuda" or db.device != qi.device:
+        raise ValueError(f"subblock_mins_cuda needs q and gallery on one CUDA "
+                         f"device, got {qi.device} and {db.device}")
+    if qi.dtype != torch.int8 or db.dtype != torch.int8:
+        raise TypeError("q and gallery must be int8")
+    if nbit not in _KERNEL_NBITS:
+        raise ValueError(f"the mins kernel takes nbit in {_KERNEL_NBITS}, got {nbit}")
+    if db.numel() != n_codes * nbit:
+        raise ValueError(f"gallery holds {db.numel()} bytes, expected "
+                         f"{n_codes} codes x {nbit}")
+    for name, t in (("q", qi), ("gallery", db)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    if m < _cdiv(n_codes, subblock):
+        raise ValueError(f"m={m} rows cannot hold {n_codes} codes in "
+                         f"subblocks of {subblock}")
+    out = torch.empty((m, Q), dtype=out_dtype, device=qi.device)
+    lib = _lib()
+    code = lib.subblock_mins_fwd(
+        _build.ptr(qi), _build.ptr(db), n_codes, Q, nbit, subblock, m,
+        int(out_dtype == torch.bfloat16), _build.ptr(out),
+        _build.stream_ptr(qi.device))
+    _build.check(code, lib.subblock_mins_error_string, "subblock_mins_fwd")
+    subblock_mins_cuda.launches += 1
+    return out
+
+
+subblock_mins_cuda.launches = 0
+
+
+def _mins(qi, db, n_codes: int, nbit: int, subblock: int, out_dtype):
+    m = _cdiv(n_codes, subblock)
+    if db.device.type == "cpu":
+        return _mins_reference(qi, db.reshape(n_codes, nbit), subblock, m,
+                               out_dtype)
+    return subblock_mins_cuda(qi, db, n_codes, subblock, m, out_dtype)
+
+
+def subblock_min_dists_packed(q_signs: torch.Tensor, db_packed: torch.Tensor,
+                              subblock: int = 64,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """Per-subblock min Hamming distances over the packed gallery:
+    (Q, nbit) x (Np, 128) int8 (P = 128 // nbit codes per row, from
+    ``pack_serving_gallery``) -> (ceil(Np * P / S), Q). bf16 is exact for
+    nbit <= 128."""
+    Q, nbit = q_signs.shape
+    if 128 % nbit:
+        raise ValueError(f"nbit must divide 128, got {nbit}")
+    P = 128 // nbit
+    if subblock % P:
+        raise ValueError(f"subblock {subblock} must be a multiple of P={P}")
+    return _mins(strict_signs(q_signs), db_packed, db_packed.shape[0] * P,
+                 nbit, subblock, out_dtype)
+
+
+def subblock_min_dists(q_signs: torch.Tensor, db_i8: torch.Tensor,
+                       subblock: int = 64,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """Per-subblock min Hamming distances, (Q, nbit) x (N, nbit) int8 +-1
+    -> (ceil(N / S), Q), transposed (subblock-major). Entries past N count
+    as distance nbit + 1."""
+    Q, nbit = q_signs.shape
+    return _mins(strict_signs(q_signs), db_i8, db_i8.shape[0], nbit,
+                 subblock, out_dtype)
+
+
+def _approx_smallest_rows(x: torch.Tensor, kk: int, sub2: int = 64,
+                          cap2: int | None = None, return_theta: bool = False,
+                          mins2: torch.Tensor | None = None):
+    """Indices of about the kk smallest entries of each row of (Q, m), by a
+    superblock-min hierarchy with no exactness fallback (callers pair it
+    with the certificate of ``exact_topk_minspass``).
+
+    ``return_theta`` also returns theta, the exact min over the unselected
+    entries of each row: the smaller of the (kk+1)-th gathered value and the
+    (cap2+1)-th superblock min. ``mins2``: precomputed (Q, m / sub2)
+    superblock mins (m must then be a multiple of sub2)."""
+    Q, m = x.shape
+    if cap2 is None:
+        cap2 = kk
+    cap2 = max(cap2, 2 * _cdiv(kk, sub2))
+    if mins2 is None:
+        pad = (-m) % sub2
+        if pad:
+            x = torch.cat([x, x.new_full((Q, pad), float("inf"))], dim=1)
+        m2 = (m + pad) // sub2
+        x3 = x.reshape(Q, m2, sub2)
+        mins2 = x3.amin(dim=-1)
+    else:
+        if m % sub2:
+            raise ValueError("precomputed mins2 needs a sub2-aligned m")
+        m2 = m // sub2
+        if tuple(mins2.shape) != (Q, m2):
+            raise ValueError(f"mins2 has shape {tuple(mins2.shape)}, "
+                             f"expected {(Q, m2)}")
+        x3 = x.reshape(Q, m2, sub2)
+    cap2 = min(cap2, m2)
+    cap2p = min(cap2 + 1, m2) if return_theta else cap2
+    sb_vals, si_all = smallest(mins2, cap2p)
+    si = si_all[:, :cap2]
+    g = torch.gather(x3, 1, si[:, :, None].expand(Q, cap2, sub2))
+    g_vals, li_all = smallest(g.reshape(Q, cap2 * sub2),
+                              kk + 1 if return_theta else kk)
+    li = li_all[:, :kk]
+    idx = torch.gather(si, 1, li // sub2) * sub2 + li % sub2
+    if not return_theta:
+        return idx
+    theta_gathered = g_vals[:, kk]
+    theta_sb = (sb_vals[:, cap2] if cap2p > cap2
+                else x.new_full((Q,), float("inf")))
+    return idx, torch.minimum(theta_gathered, theta_sb)
+
+
+def pack_bits_serving(db_i8: torch.Tensor, nbit: int | None = None,
+                      subblock: int = 64) -> torch.Tensor:
+    """Bit-pack of a sign gallery for the rescore gather: (N, nbit) int8
+    signs or the 128-lane packed form -> (ceil(N / subblock),
+    subblock * nbit // 32) words, one subblock of codes per row. Bit j set
+    iff sign > 0 (``ops.hamming.pack_bits``). Pad rows (all-zero codes)
+    pack to 0 and rescore as popcount(q), not nbit/2, so galleries with pad
+    rows must pass ``n_valid`` to the serving calls."""
+    if nbit is None:
+        if db_i8.shape[1] == 128:
+            raise ValueError(
+                "a 128-lane gallery is ambiguous (plain nbit=128 vs the "
+                "packed layout of any nbit dividing 128) — pass nbit "
+                "explicitly")
+        nbit = db_i8.shape[1]
+    if nbit % 32:
+        raise ValueError(f"serving bit-pack needs nbit to be a multiple of "
+                         f"32, got {nbit}; the sign-row rescore handles other "
+                         f"widths")
+    L = nbit // 32
+    P = db_i8.shape[1] // nbit
+    rows_per_chunk = max(1, _PACK_CHUNK_CODES // P)
+    words = torch.cat([
+        pack_bits(db_i8[r:r + rows_per_chunk].reshape(-1, nbit))
+        for r in range(0, db_i8.shape[0], rows_per_chunk)])
+    pad = (-words.shape[0]) % subblock
+    if pad:
+        words = torch.cat([words, words.new_zeros((pad, L))])
+    return words.reshape(-1, subblock * L)
+
+
+def exact_topk_minspass(q_signs: torch.Tensor, db_i8: torch.Tensor, k: int,
+                        subblock: int = 64, cap: int | None = None,
+                        n_valid: int | None = None,
+                        db_bits: torch.Tensor | None = None,
+                        retry_mult: int = 2):
+    """Exact top-k candidates over an int8 sign gallery: subblock mins (the
+    kernel on CUDA), selection of the ``cap`` best subblocks, and a rescore
+    of their codes.
+
+    ``db_i8`` is (N, nbit) int8 signs or the packed (Np, 128) form of
+    ``pack_serving_gallery`` (detected by shape). ``db_bits``: the
+    ``pack_bits_serving`` form of the same gallery; with it the rescore
+    gathers words and scores by XOR and popcount; it is built here when
+    omitted in the large-m regime. ``n_valid``: the real row count when the
+    gallery carries pad rows; rows at or past it are masked to +inf.
+
+    Returns (distances (Q, k) f32, indices (Q, k) int64, valid bool).
+    ``valid`` is the exactness certificate: every query's k-th distance is
+    strictly below the best unselected subblock min. When it fails at
+    ``cap``, one retry runs at ``retry_mult * cap`` on the same mins; when
+    it still fails, the caller must fall back to an exact path."""
+    Q, nbit = q_signs.shape
+    packed = db_i8.dim() == 2 and db_i8.shape[1] == 128 and nbit != 128
+    P = 128 // nbit if packed else 1
+    N = db_i8.shape[0] * P
+    if cap is None:
+        cap = 512
+    qi = strict_signs(q_signs)
+    m_real = _cdiv(N, subblock)
+    nv = N if n_valid is None else int(n_valid)
+    dev = qi.device
+
+    if m_real <= cap:
+        # fewer subblocks than the candidate budget: a dense rescore of the
+        # whole gallery, exact unconditionally
+        sim = qi.float() @ db_i8.reshape(N, nbit).float().t()
+        dist = 0.5 * (nbit - sim)
+        if n_valid is not None:
+            col = torch.arange(N, device=dev)
+            dist = torch.where(col < nv, dist, float("inf"))
+        d, idx = smallest(dist, k)
+        return d, idx, True
+
+    large_m = m_real > _INNER_DIRECT_MAX
+    if large_m and db_bits is None and nbit % 32 == 0:
+        db_bits = pack_bits_serving(db_i8, nbit, subblock=subblock)
+    # bf16 mins are exact for nbit <= 128 (half-integers up to 129)
+    mdt = torch.bfloat16 if nbit <= 128 else torch.float32
+    mins_fn = subblock_min_dists_packed if packed else subblock_min_dists
+    mins_t = mins_fn(qi, db_i8, subblock=subblock, out_dtype=mdt)  # (m, Q)
+    sub2 = 64
+    msb = None
+    if large_m:
+        pad2 = (-mins_t.shape[0]) % sub2
+        if pad2:
+            mins_t = torch.cat(
+                [mins_t, mins_t.new_full((pad2, Q), float(nbit + 1))])
+        msb = mins_t.reshape(-1, sub2, Q).amin(dim=1).t().contiguous()
+    mins = mins_t.t().contiguous()                                  # (Q, m)
+
+    if db_bits is not None:
+        L = nbit // 32
+        if db_bits.shape[1] % L:
+            raise ValueError(f"db_bits width {db_bits.shape[1]} does not fit "
+                             f"nbit={nbit}")
+        if db_bits.shape[1] == subblock * L:
+            src_sb = db_bits
+        else:
+            words = db_bits if db_bits.shape[1] == L else db_bits.reshape(-1, L)
+            pad_rows = (-words.shape[0]) % subblock
+            if pad_rows:
+                words = torch.cat([words, words.new_zeros((pad_rows, L))])
+            src_sb = words.reshape(-1, subblock * L)
+        q_bits = pack_bits(qi)                                      # (Q, L)
+    else:
+        pad_rows = (-db_i8.shape[0]) % ((subblock // P) if packed else subblock)
+        dbp = (torch.cat([db_i8, db_i8.new_zeros((pad_rows, db_i8.shape[1]))])
+               if pad_rows else db_i8)
+        src_sb = dbp.reshape(-1, subblock * nbit)
+
+    def select_rescore(cap_i: int):
+        if not large_m:
+            mv, sel_all = smallest(mins, cap_i + 1)
+            sel = sel_all[:, :cap_i]
+            theta_next = mv[:, cap_i]
+        else:
+            sel, theta_next = _approx_smallest_rows(
+                mins, cap_i, sub2=sub2, return_theta=True, mins2=msb)
+        rows = (sel[:, :, None] * subblock
+                + torch.arange(subblock, device=dev)).reshape(Q, cap_i * subblock)
+        gathered = src_sb.index_select(
+            0, sel.clamp(max=src_sb.shape[0] - 1).reshape(-1))
+        if db_bits is not None:
+            x = torch.bitwise_xor(gathered.reshape(Q, cap_i, subblock, L),
+                                  q_bits[:, None, None, :])
+            dist_c = popcount32(x).sum(dim=-1).float().reshape(
+                Q, cap_i * subblock)
+        else:
+            cand = gathered.reshape(Q, cap_i * subblock, nbit).float()
+            sim_c = torch.bmm(cand, qi.float()[:, :, None])[..., 0]
+            dist_c = 0.5 * (nbit - sim_c)
+        dist_c = torch.where(rows >= nv, float("inf"), dist_c)
+        d, li = smallest(dist_c, k)
+        idx = torch.gather(rows, 1, li)
+        valid = bool((d[:, -1] < theta_next).all())
+        return d, idx, valid
+
+    d1, i1, v1 = select_rescore(cap)
+    # m_real - 1: the direct branch selects cap_i + 1 mins per row
+    cap_retry = min(retry_mult * cap, m_real - 1)
+    if v1 or cap_retry <= cap:
+        return d1, i1, v1
+    return select_rescore(cap_retry)

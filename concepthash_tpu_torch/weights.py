@@ -1,0 +1,133 @@
+"""Carry a JAX ConceptHash's variables across to the port.
+
+``from_flax(variables)`` takes the reference model's ``params``,
+``batch_stats`` and ``constants`` collections as nested dicts of numpy arrays
+(``jax.tree_util.tree_map(np.asarray, variables)``) and returns a state dict
+for ``models.concepthash.ConceptHash``, so that both compute the same
+function:
+
+- flax Dense kernels are (in, out); torch Linear weights are (out, in);
+- an encoder layer's separate ``self_attn/{q,k,v}_proj`` become one (3D, D)
+  ``qkv_proj``;
+- ``HashQueryBlock.sa`` is a flax MultiHeadDotProductAttention whose
+  query/key/value kernels are (D, H, hd) with (H, hd) biases and whose out
+  kernel is (H, hd, D);
+- ``hash_bn/bn/{scale,bias}`` and ``batch_stats/hash_bn/bn/{mean,var}``
+  become the code batch-norm's weight, bias and running statistics;
+- ``constants/center`` becomes the ``center`` buffer.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(sd: dict, prefix: str, p: dict) -> None:
+    kernel = np.asarray(p["kernel"])
+    sd[f"{prefix}.weight"] = _t(kernel.reshape(-1, kernel.shape[-1]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _ln(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _adapter(sd: dict, prefix: str, p: dict) -> None:
+    if "ln" in p:
+        _ln(sd, f"{prefix}.ln", p["ln"])
+    _dense(sd, f"{prefix}.down", p["down"])
+    _dense(sd, f"{prefix}.up", p["up"])
+    sd[f"{prefix}.scale"] = _t(p["scale"])
+
+
+def _encoder_layer(sd: dict, prefix: str, p: dict) -> None:
+    _ln(sd, f"{prefix}.layer_norm1", p["layer_norm1"])
+    _ln(sd, f"{prefix}.layer_norm2", p["layer_norm2"])
+    a = p["self_attn"]
+    sd[f"{prefix}.self_attn.qkv_proj.weight"] = _t(np.concatenate(
+        [np.asarray(a[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")]))
+    sd[f"{prefix}.self_attn.qkv_proj.bias"] = _t(np.concatenate(
+        [np.asarray(a[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")]))
+    _dense(sd, f"{prefix}.self_attn.out_proj", a["out_proj"])
+    _dense(sd, f"{prefix}.fc1", p["fc1"])
+    _dense(sd, f"{prefix}.fc2", p["fc2"])
+    for name in ("adapter_attn", "adapter_mlp"):
+        if name in p:
+            _adapter(sd, f"{prefix}.{name}", p[name])
+
+
+def _vision_tower(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.patch_embedding.weight"] = _t(p["patch_embedding"]["kernel"])
+    if "bias" in p["patch_embedding"]:
+        sd[f"{prefix}.patch_embedding.bias"] = _t(p["patch_embedding"]["bias"])
+    sd[f"{prefix}.class_embedding"] = _t(p["class_embedding"])
+    sd[f"{prefix}.position_embedding"] = _t(p["position_embedding"])
+    if "pre_layernorm" in p:
+        _ln(sd, f"{prefix}.pre_layernorm", p["pre_layernorm"])
+    layers = sorted((k for k in p if re.fullmatch(r"layers_\d+", k)),
+                    key=lambda k: int(k.split("_")[1]))
+    for k in layers:
+        _encoder_layer(sd, f"{prefix}.layers.{k.split('_')[1]}", p[k])
+    _ln(sd, f"{prefix}.post_layernorm", p["post_layernorm"])
+    _dense(sd, f"{prefix}.visual_projection", p["visual_projection"])
+
+
+def _hash_query_block(sd: dict, prefix: str, p: dict) -> None:
+    for n in ("query", "key", "value"):
+        q = p["sa"][n]
+        kernel = np.asarray(q["kernel"])                       # (D, H, hd)
+        sd[f"{prefix}.sa.{n}.weight"] = _t(kernel.reshape(kernel.shape[0], -1).T)
+        sd[f"{prefix}.sa.{n}.bias"] = _t(np.asarray(q["bias"]).reshape(-1))
+    out = p["sa"]["out"]
+    kernel = np.asarray(out["kernel"])                         # (H, hd, D)
+    sd[f"{prefix}.sa.out.weight"] = _t(kernel.reshape(-1, kernel.shape[-1]).T)
+    sd[f"{prefix}.sa.out.bias"] = _t(out["bias"])
+    _ln(sd, f"{prefix}.norm1", p["norm1"])
+    _ln(sd, f"{prefix}.norm2", p["norm2"])
+    for n in ("ffn_fc1", "ffn_fc2", "ffn2"):
+        _dense(sd, f"{prefix}.{n}", p[n])
+
+
+def from_flax(variables: dict) -> dict:
+    """State dict of the port's ConceptHash from the reference's variables
+    (numpy leaves). Keys match ``ConceptHash.state_dict()``; load it with
+    ``load_state_dict(..., strict=True)``."""
+    p = variables["params"]
+    sd: dict = {}
+    sd["hash_queries"] = _t(p["hash_queries"])
+    _hash_query_block(sd, "hash_attention", p["hash_attention"])
+    _vision_tower(sd, "backbone", p["backbone"])
+    for name in ("hash_pe", "concept_pe"):
+        if name in p:
+            sd[name] = _t(p[name])
+    _dense(sd, "hash_fc", p["hash_fc"])
+    if "hash_bn" in p:
+        bn = p["hash_bn"]["bn"]
+        stats = variables["batch_stats"]["hash_bn"]["bn"]
+        sd["hash_bn.weight"] = _t(bn["scale"])
+        sd["hash_bn.bias"] = _t(bn["bias"])
+        sd["hash_bn.running_mean"] = _t(stats["mean"])
+        sd["hash_bn.running_var"] = _t(stats["var"])
+    if "center" in p:
+        sd["center"] = _t(p["center"])
+    else:
+        sd["center"] = _t(variables["constants"]["center"])
+        tp = p["text_projection"]
+        for k in sorted(tp, key=lambda k: int(k[2:])):
+            _dense(sd, f"text_projection.layers.{k[2:]}", tp[k])
+    if "concept_ce" in p:
+        ce = p["concept_ce"]
+        if "centroids" in ce:
+            sd["concept_ce.centroids"] = _t(ce["centroids"])
+        else:
+            _dense(sd, "concept_ce", ce)
+    return sd

@@ -1,0 +1,134 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. This file imports
+nothing of JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+(``--noconftest`` skips tests/conftest.py, which sets up JAX's CPU mesh.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import concepthash_tpu_torch.ops.fused_layer as tfl
+import concepthash_tpu_torch.ops.topk_select as tts
+
+B, L, D, H, F, A = 2, 21, 64, 4, 128, 32   # L = 16 patches + cls + 4 concepts
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def np_rng():
+    return np.random.default_rng(7)
+
+
+def _weights(rng, cls, shapes, device, dtype):
+    """cls(**random tensors); matrices in ``dtype``, vectors f32."""
+    t = {k: torch.tensor((rng.standard_normal(s) * 0.1).astype(np.float32))
+         for k, s in shapes.items()}
+    for k in t:
+        if k.startswith("ln") and k.endswith("scale"):
+            t[k] = t[k] + 1.0
+    return cls(**{k: v.to(device) for k, v in t.items()}).cast(dtype)
+
+
+def _layer(rng, device, dtype=torch.bfloat16):
+    return _weights(rng, tfl.LayerWeights, dict(
+        ln1_scale=(D,), ln1_bias=(D,), w_qkv=(3 * D, D), b_qkv=(3 * D,),
+        w_out=(D, D), b_out=(D,), ln2_scale=(D,), ln2_bias=(D,),
+        w_fc1=(F, D), b_fc1=(F,), w_fc2=(D, F), b_fc2=(D,)), device, dtype)
+
+
+def _adapter(rng, device, dtype=torch.bfloat16):
+    return _weights(rng, tfl.AdapterWeights, dict(
+        ln_scale=(D,), ln_bias=(D,), w_down=(A, D), b_down=(A,),
+        w_up=(D, A), b_up=(D,), scale=(1,)), device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adapters", ["none", "attn", "mlp", "both"])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_layer_kernel_matches_plain(np_rng, cuda_device, adapters, act):
+    """bf16 kernel vs the plain version: |d| <= 0.05 + 0.02|ref| (a few bf16
+    ulps: both round at the same points, but their f32 sums run in another
+    order, so an intermediate can round to the neighbouring bf16 value)."""
+    w = _layer(np_rng, cuda_device)
+    a1 = _adapter(np_rng, cuda_device) if adapters in ("attn", "both") else None
+    a2 = _adapter(np_rng, cuda_device) if adapters in ("mlp", "both") else None
+    x = torch.tensor(np_rng.standard_normal((B, L, D)).astype(np.float32),
+                     device=cuda_device).to(torch.bfloat16)
+    kw = dict(num_heads=H, act=act, adapter_attn=a1, adapter_mlp=a2)
+    before = tfl.encoder_layer_cuda.launches
+    got = tfl.encoder_layer(x, w, **kw)
+    torch.cuda.synchronize()
+    assert tfl.encoder_layer_cuda.launches == before + 1
+    want = tfl.layer_reference(x, w, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.02,
+                               atol=0.05)
+
+
+@pytest.mark.cuda
+def test_layer_kernel_rejects_bad_inputs(np_rng, cuda_device):
+    w = _layer(np_rng, cuda_device)
+    x = torch.zeros((B, L, D), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(TypeError):
+        tfl.encoder_layer_cuda(x, w, num_heads=H)
+    with pytest.raises(ValueError):
+        tfl.encoder_layer_cuda(x.to(torch.bfloat16), w, num_heads=H,
+                               act="relu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbit,N", [(16, 5003), (32, 70_001), (64, 100_003),
+                                    (128, 4097)])
+def test_mins_kernel_matches_plain(cuda_device, nbit, N):
+    """The CUDA kernel equals its plain version element for element, over a
+    ragged N and two rows past the last real subblock."""
+    g = torch.Generator(device=cuda_device).manual_seed(nbit)
+    q = torch.randint(0, 2, (300, nbit), generator=g, device=cuda_device)
+    db = torch.randint(0, 2, (N, nbit), generator=g, device=cuda_device)
+    qi, dbi = tts.strict_signs(q), tts.strict_signs(db)
+    for S in (64, 8):
+        m = -(-N // S) + 2
+        for dt in (torch.bfloat16, torch.float32):
+            got = tts.subblock_mins_cuda(qi, dbi, N, S, m, dt)
+            want = tts._mins_reference(qi, dbi, S, m, dt)
+            torch.testing.assert_close(got, want, atol=0, rtol=0)
+            assert (got[-2:] == nbit + 1).all()
+
+
+@pytest.mark.cuda
+def test_packed_mins_and_minspass_match_cpu(cuda_device):
+    """The packed-gallery mins and exact_topk_minspass on the card equal the
+    same calls on the CPU (plain versions): distances, indices, certificate."""
+    rng = np.random.default_rng(3)
+    nbit, N, Q = 64, 70_000, 50
+    db = np.where(rng.random((N, nbit)) < 0.5, -1, 1).astype(np.float32)
+    q = np.where(rng.random((Q, nbit)) < 0.5, -1, 1).astype(np.float32)
+    q[:, :2] = 0.0                                       # zeros count as -1
+    packed, n_pad = tts.pack_serving_gallery(torch.tensor(db))
+    bits = tts.pack_bits_serving(packed, nbit)
+    cpu = tts.subblock_min_dists_packed(torch.tensor(q), packed,
+                                        out_dtype=torch.bfloat16)
+    gpu = tts.subblock_min_dists_packed(torch.tensor(q, device=cuda_device),
+                                        packed.to(cuda_device),
+                                        out_dtype=torch.bfloat16)
+    torch.testing.assert_close(gpu.cpu(), cpu, atol=0, rtol=0)
+    for kw in (dict(cap=64), dict(cap=64, db_bits=bits, n_valid=N - 5)):
+        want = tts.exact_topk_minspass(torch.tensor(q), packed, 20, **kw)
+        kw_gpu = {k: (v.to(cuda_device) if torch.is_tensor(v) else v)
+                  for k, v in kw.items()}
+        got = tts.exact_topk_minspass(torch.tensor(q, device=cuda_device),
+                                      packed.to(cuda_device), 20, **kw_gpu)
+        torch.testing.assert_close(got[0].cpu(), want[0], atol=0, rtol=0)
+        torch.testing.assert_close(got[1].cpu(), want[1], atol=0, rtol=0)
+        assert got[2] == want[2]

@@ -1,0 +1,228 @@
+"""The serving slice of the PyTorch port end to end on the CPU, against the
+JAX package: the whole ConceptHash forward from weights carried by
+``from_flax`` (codes and all logits, f32, atol 1e-4), then exact top-k over
+a 20k-entry gallery with indices equal. Also: the port imports nothing of
+JAX or the JAX package, and its CUDA entry points raise without CUDA."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from concepthash_tpu.models.clip import AdapterConfig as JAdapterConfig
+from concepthash_tpu.models.clip import ClipVisionConfig as JVisionConfig
+from concepthash_tpu.models.concepthash import ConceptHash as JConceptHash
+from concepthash_tpu.models.concepthash import (ConceptHashConfig as
+                                                JConceptHashConfig)
+from concepthash_tpu.ops import retrieval as jr
+from concepthash_tpu_torch import resolve_device
+from concepthash_tpu_torch.models.clip import AdapterConfig, ClipVisionConfig
+from concepthash_tpu_torch.models.concepthash import (ConceptHash,
+                                                      ConceptHashConfig)
+from concepthash_tpu_torch.ops import retrieval as tr
+from concepthash_tpu_torch.ops import topk_select as tts
+from concepthash_tpu_torch.weights import from_flax
+
+ROOT = Path(__file__).resolve().parent.parent
+VISION = dict(hidden_size=64, intermediate_size=128, num_layers=2, num_heads=4,
+              image_size=32, patch_size=8, projection_dim=32)
+HEAD = dict(nbit=64, nclass=10, ncontext=4, center_dim=32,
+            text_projection_dims=(32,))
+BOTTLENECK = 32
+
+
+@pytest.fixture(scope="module")
+def models():
+    """The JAX model with its variables (adapter up-projections and BN stats
+    made non-trivial, so every path carries signal) and the port's model
+    loaded from them."""
+    rng = np.random.default_rng(3)
+    center = rng.standard_normal((HEAD["nclass"], HEAD["center_dim"])).astype(
+        np.float32)
+    jm = JConceptHash(JVisionConfig(**VISION), JConceptHashConfig(**HEAD),
+                      adapters=JAdapterConfig(bottleneck_dim=BOTTLENECK),
+                      fixed_center=jnp.asarray(center))
+    imgs = rng.standard_normal((6, 32, 32, 3)).astype(np.float32)
+    variables = jm.init({"params": jax.random.PRNGKey(0),
+                         "dropout": jax.random.PRNGKey(1)},
+                        jnp.asarray(imgs[:1]), train=False)
+    variables = jax.tree_util.tree_map(lambda a: np.array(a), variables)
+    for i in range(VISION["num_layers"]):
+        layer = variables["params"]["backbone"][f"layers_{i}"]
+        for name in ("adapter_attn", "adapter_mlp"):
+            up = layer[name]["up"]
+            up["kernel"] = (0.1 * rng.standard_normal(up["kernel"].shape)
+                            ).astype(np.float32)
+    stats = variables["batch_stats"]["hash_bn"]["bn"]
+    stats["mean"] = (0.1 * rng.standard_normal(stats["mean"].shape)).astype(
+        np.float32)
+    stats["var"] = (1 + 0.5 * rng.random(stats["var"].shape)).astype(np.float32)
+    pm = ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD),
+                     AdapterConfig(bottleneck_dim=BOTTLENECK),
+                     fixed_center=torch.tensor(center), device="cpu")
+    pm.load_state_dict(from_flax(variables), strict=True)
+    return jm, variables, pm, imgs
+
+
+def test_forward_matches_jax(models):
+    jm, variables, pm, imgs = models
+    want = jm.apply(variables, jnp.asarray(imgs), train=False)
+    with torch.no_grad():
+        got = pm(torch.tensor(imgs))
+    for key in ("codes", "logits_cont", "logits_bin", "logits_concept",
+                "hash_features"):
+        assert got[key].shape == tuple(want[key].shape), key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=0, atol=1e-4, err_msg=key)
+
+
+def test_discrete_path_matches_fused_path(models):
+    """Asking for attention maps takes the discrete modules; the outputs
+    agree with the fused-layer path and the maps match the reference's."""
+    jm, variables, pm, imgs = models
+    with torch.no_grad():
+        fused = pm(torch.tensor(imgs))
+        discrete = pm(torch.tensor(imgs), output_attentions=True)
+    want = jm.apply(variables, jnp.asarray(imgs), train=False,
+                    output_attentions=True)
+    for key in ("codes", "logits_cont", "logits_concept"):
+        np.testing.assert_allclose(discrete[key].numpy(),
+                                   fused[key].numpy(), rtol=0, atol=1e-4)
+    for got, ref in zip(discrete["attn_cache"], want["attn_cache"]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=1e-5)
+
+
+def test_retrieval_on_slice_codes_matches_jax(models):
+    """Codes from the port's encode, planted in a 20k-entry gallery, served
+    exactly: distances and indices equal the reference's, and each query
+    finds its planted row at distance 0."""
+    _, _, pm, imgs = models
+    with torch.no_grad():
+        codes = pm(torch.tensor(imgs))["codes"]
+    rng = np.random.default_rng(5)
+    N = 20_000
+    gallery = np.where(rng.random((N, HEAD["nbit"])) < 0.5, -1.0, 1.0
+                       ).astype(np.float32)
+    planted = rng.choice(N, codes.shape[0], replace=False)
+    gallery[planted] = np.where(codes.numpy() > 0, 1.0, -1.0)
+    jd, ji = jr.retrieve_topk(jnp.asarray(codes.numpy()), jnp.asarray(gallery),
+                              k=50, exact=True)
+    td, ti = tr.retrieve_topk(codes, torch.tensor(gallery), k=50, exact=True)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert (td[:, 0] == 0).all()
+    assert all(p in row for p, row in zip(planted, ti.numpy()))
+
+    packed, n_pad = tts.pack_serving_gallery(torch.tensor(gallery))
+    bits = tts.pack_bits_serving(packed, HEAD["nbit"])
+    sd, si = tr.retrieve_topk_streaming(codes, packed, k=50, db_block=n_pad,
+                                        exact=True, n_valid=N, db_bits=bits)
+    np.testing.assert_array_equal(sd.numpy(), np.asarray(jd))
+    jsd, jsi = jr.retrieve_topk_streaming(
+        jnp.asarray(codes.numpy()), jnp.asarray(packed.numpy()), k=50,
+        db_block=n_pad, exact=True, n_valid=N,
+        db_bits=jnp.asarray(bits.numpy().view(np.uint32)))
+    np.testing.assert_array_equal(si.numpy(), np.asarray(jsi))
+
+
+def test_port_imports_nothing_of_jax():
+    """A fresh interpreter that imports every port module has loaded no
+    jax, flax or concepthash_tpu module."""
+    mods = [f"concepthash_tpu_torch.{m}" for m in (
+        "_build", "weights", "data.preprocess", "ops.numerics",
+        "ops.fused_layer", "ops.hamming", "ops.topk_select", "ops.retrieval",
+        "models.layers", "models.clip", "models.concepthash")]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'concepthash_tpu'))\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_cuda_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD))
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        ConceptHash(ClipVisionConfig(**VISION),
+                    ConceptHashConfig(**HEAD, add_bn="dbn"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD),
+                    token_embeds=torch.zeros(10, 3, 32), device="cpu")
+    pm = ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD),
+                     device="cpu")
+    with pytest.raises(NotImplementedError):
+        pm(torch.zeros(1, 32, 32, 3), train=True)
+
+
+def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
+    """chip_smoke.py's phases at a tiny size on the CPU, with each kernel
+    wrapper replaced by its plain version (counting its calls) and the CUDA
+    timers by host ones: every check passes and the kernels' JSON line has
+    every key the card run prints."""
+    import importlib.util
+    import json
+    import time
+
+    from concepthash_tpu_torch import _build
+    from concepthash_tpu_torch.models import clip
+    from concepthash_tpu_torch.ops import fused_layer as fl
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    spec.loader.exec_module(cs)
+
+    def layer(x, w, **kw):
+        layer.launches += 1
+        return fl.layer_reference(x, w, **kw)
+
+    def mins(qi, db, n_codes, subblock, m, out_dtype=torch.float32):
+        mins.launches += 1
+        return tts._mins_reference(qi, db.reshape(n_codes, -1), subblock, m,
+                                   out_dtype)
+
+    layer.launches = mins.launches = 0
+
+    def host_ms(fn, reps):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "cuda_ms", host_ms)
+    monkeypatch.setattr(_build, "build", lambda *a: {})
+    monkeypatch.setattr(fl, "encoder_layer_cuda", layer)
+    monkeypatch.setattr(clip, "encoder_layer", layer)
+    monkeypatch.setattr(tts, "subblock_mins_cuda", mins)
+    monkeypatch.setattr(tts, "_mins", lambda qi, db, n, nbit, s, dt: mins(
+        qi, db, n, s, -(-n // s), dt))
+    sizes = cs.Sizes(vision=VISION, head=dict(HEAD, text_projection_dims=(32,)),
+                     bottleneck=BOTTLENECK, layer_batch=2, mins_queries=16,
+                     mins_codes=70_001, images=6, image_side=40,
+                     gallery=70_016, k=10, reps=1)
+    result = cs.run(sizes, torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "planted rows found at distance 0: 6/6" in out
+    assert f"encoder_layer {VISION['num_layers']} " in out
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    kernels = json.loads(json.dumps(result))["kernels"]
+    assert [k["name"] for k in kernels] == ["encoder_layer", "subblock_mins"]
+    for k in kernels:
+        assert set(k) == keys and k["launches"] > 0
+        assert (ROOT / k["source"]).exists()
