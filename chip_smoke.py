@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``concepthash_tpu_torch``) on one NVIDIA GPU and
-check every kernel of its serving path. Run from the root of the repository:
+check every kernel of its serving and training paths. Run from the root of
+the repository:
 
     python3 chip_smoke.py
 
 It needs a CUDA device and exits non-zero without one, or on any failed
 check; it imports nothing of JAX or of the JAX package. Phases:
 
-1. the card's name and power limit; both CUDA sources built from
+1. the card's name and power limit; the four CUDA sources built from
    ``concepthash_tpu_torch/csrc`` (one nvcc each, started together);
 2. the encoder-layer kernel against its plain version at ViT-B/32 width
    (B=8, L=54, D=768, F=3072, 12 heads, quick_gelu, bf16), with both
@@ -27,7 +28,26 @@ check; it imports nothing of JAX or of the JAX package. Phases:
 5. timings on the card: encode img/s, serving queries/s, each kernel's
    time beside its bound, its plain version and a PyTorch yardstick, and
    one traced encode and one traced serving call (torch.profiler): device
-   time by kernel and the device's busy share.
+   time by kernel and the device's busy share;
+6. the LayerNorm -> matmul kernel against its plain version at N = 1,728
+   (32 images x 54 tokens) and N = 1,000 (a tail), D = 768, F = 2,304
+   (q|k|v) and 3,072 (fc1), bf16; the attention kernel against its plain
+   version at B = 32, H = 12, hd = 64, L = 54 and 197 (ViT-B/16's length),
+   reading q, k, v in place from one q|k|v tensor;
+7. the train slice, counted: the canonical ConceptHash (the config dicts of
+   configs/model/concepthash.yaml: adam at lr 1e-3, weight decay 1e-5, csw,
+   frozen backbone, dropout 0.1) in bf16 with random weights from seed 0,
+   ``attention_impl="pallas"``, ``fused_ln="pallas"``, seeded (200, 512)
+   centers, 32 seeded uint8 images center-cropped and normalized, seeded
+   labels; five steps on that batch, each drawing the same dropout masks.
+   Checked: 24 LayerNorm -> matmul and 12 attention launches per step; a
+   finite loss every step and a lower one at step 5 than at step 1; the
+   frozen parameters bit-unchanged; then one step with the kernels against
+   one step with their plain versions from the same state: loss within 2%,
+   each trained tensor's update at cosine >= 0.99;
+8. train timings: img/s at batch 32 and 256 with the kernels and with the
+   'xla' configuration, both new kernels' times beside bound, plain version
+   and yardstick, and one traced train step.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -35,6 +55,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -54,6 +75,22 @@ HBM_RATE = 3.35e12      # H100 SXM device-memory bytes/s
 # an intermediate on the neighbouring bf16 value, a few ulps at the output)
 LAYER_ATOL, LAYER_RTOL = 0.05, 0.02
 MIN_SIGN_AGREEMENT = 0.99
+# kernels 5 and 6 vs their plain versions: |got - ref| <= atol + rtol*|ref|
+# (LN -> matmul: both round x_hat*gamma+beta and the output to bf16 at the
+# same points; attention: f32 inside, one bf16 rounding at the output; f32
+# sums in another order can put a value on the neighbouring bf16 number)
+LN_ATOL, LN_RTOL = 0.02, 0.02
+ATTN_ATOL, ATTN_RTOL = 0.01, 0.01
+# one train step with the kernels vs one with their plain versions
+TRAIN_LOSS_RTOL = 0.02
+MIN_UPDATE_COSINE = 0.99
+# Trained parameters whose gradient is zero in exact arithmetic (the
+# hash-query softmax is invariant to the key bias, the train-mode code
+# BatchNorm to hash_pe): adam turns their rounding noise into updates that
+# no two runs share, so their cosines are printed, not held.
+NULL_GRADIENT = ("hash_attention.sa.key.bias", "hash_pe")
+TRAIN_VISION = dict(attention_impl="pallas", fused_ln="pallas")
+XLA_VISION = dict(attention_impl="xla", fused_ln="xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +107,13 @@ class Sizes:
     gallery: int = 1 << 20
     k: int = 100
     reps: int = 10
+    ln_rows: tuple = (32 * 54, 1000)   # LN -> matmul check: N, and a tail
+    attn_batch: int = 32
+    attn_lengths: tuple = (54, 197)    # ViT-B/32 + 4 concepts; ViT-B/16
+    train_batch: int = 32              # the flagship's batch
+    train_batch_big: int = 256
+    train_steps: int = 5
+    steps_per_epoch: int = 188         # CUB-200: 5,994 train images / 32
 
 
 def fail(msg: str) -> None:
@@ -109,10 +153,14 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
-def device_breakdown(name: str, fn, wall_s: float, rows: int = 12) -> None:
+def device_breakdown(name: str, fn, wall_s: float, rows: int = 12,
+                     host_rows: int = 0) -> None:
     """Trace one call of ``fn``: device time by kernel, and the device's busy
     share, the summed kernel time over ``wall_s`` (the untraced wall time of
-    one call, as ``host_s`` measured it)."""
+    one call, as ``host_s`` measured it). Ranges that user annotations put
+    on the device timeline (``Optimizer.step#...``) span kernels already
+    counted and are left out. ``host_rows``: also the host operators with
+    the most self CPU time (inflated by the profiler's own cost)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,16 +170,24 @@ def device_breakdown(name: str, fn, wall_s: float, rows: int = 12) -> None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    evts = sorted((e for e in prof.key_averages()
+    averages = prof.key_averages()
+    evts = sorted((e for e in averages
                    if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and _self_device_us(e) > 0),
                   key=_self_device_us, reverse=True)
     busy_ms = sum(_self_device_us(e) for e in evts) / 1e3
     print(f"{name}: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms "
-          f"wall ({100 * busy_ms / (wall_s * 1e3):.1f}%)")
+          f"wall ({100 * busy_ms / (wall_s * 1e3):.1f}%), "
+          f"{sum(e.count for e in evts)} kernels")
     for e in evts[:rows]:
         print(f"  {_self_device_us(e) / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}")
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in host[:host_rows]:
+        print(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  "
+              f"{e.key[:90]}")
 
 
 def card_line() -> str:
@@ -323,19 +379,301 @@ def build_model(sizes: Sizes, device):
     return model.eval(), vcfg
 
 
+def _wrappers():
+    """The launch-counting kernel wrappers: encoder layer, subblock mins,
+    LN -> matmul, attention."""
+    from concepthash_tpu_torch.ops.attention import attention_cuda
+    from concepthash_tpu_torch.ops.fused_layer import encoder_layer_cuda
+    from concepthash_tpu_torch.ops.fused_ln import ln_matmul_cuda
+    from concepthash_tpu_torch.ops.topk_select import subblock_mins_cuda
+
+    return (encoder_layer_cuda, subblock_mins_cuda, ln_matmul_cuda,
+            attention_cuda)
+
+
 def count_reset():
-    from concepthash_tpu_torch.ops.fused_layer import encoder_layer_cuda
-    from concepthash_tpu_torch.ops.topk_select import subblock_mins_cuda
-
-    encoder_layer_cuda.launches = 0
-    subblock_mins_cuda.launches = 0
+    for w in _wrappers():
+        w.launches = 0
 
 
-def counts():
-    from concepthash_tpu_torch.ops.fused_layer import encoder_layer_cuda
-    from concepthash_tpu_torch.ops.topk_select import subblock_mins_cuda
+def counts() -> tuple:
+    return tuple(w.launches for w in _wrappers())
 
-    return encoder_layer_cuda.launches, subblock_mins_cuda.launches
+
+# ---------------------------------------------------------------------------
+# kernels 5 and 6: attention and LayerNorm -> matmul
+# ---------------------------------------------------------------------------
+
+def ln_inputs(gen, N, D, F_, device):
+    """x with a non-zero mean and spread; gamma near 1; W with std
+    1/sqrt(D); bf16 x and W, f32 vectors."""
+    x = (2 * torch.randn(N, D, generator=gen) + 0.5).to(device, torch.bfloat16)
+    gamma = (1 + 0.1 * torch.randn(D, generator=gen)).to(device)
+    beta = (0.1 * torch.randn(D, generator=gen)).to(device)
+    w = (torch.randn(F_, D, generator=gen) / math.sqrt(D)).to(
+        device, torch.bfloat16)
+    bias = (0.1 * torch.randn(F_, generator=gen)).to(device)
+    return x, gamma, beta, w, bias
+
+
+def qkv_views(gen, B, L, D, H, device):
+    """q, k, v as (B, L, H, hd) views of one (B, L, 3D) bf16 tensor, the
+    layout the model hands the attention kernel."""
+    qkv = torch.randn(B, L, 3 * D, generator=gen).to(device, torch.bfloat16)
+    return [t.reshape(B, L, H, D // H) for t in qkv.split(D, dim=-1)]
+
+
+def check_close(name, got, want, atol, rtol) -> float:
+    err = (got.float() - want.float()).abs()
+    excess = (err - (atol + rtol * want.float().abs())).max().item()
+    print(f"{name}: max |d| {err.max().item():.6g}, mean |d| "
+          f"{err.mean().item():.3g}, max |ref| "
+          f"{want.float().abs().max().item():.4g}")
+    if got.shape != want.shape or not torch.isfinite(got).all() or excess > 0:
+        fail(f"{name} outside |d| <= {atol} + {rtol}|ref|")
+    return err.max().item()
+
+
+def check_ln_matmul(sizes: Sizes, vcfg, device) -> float:
+    from concepthash_tpu_torch.ops.fused_ln import (ln_matmul_cuda,
+                                                    ln_matmul_reference)
+
+    gen = torch.Generator().manual_seed(13)
+    D = vcfg.hidden_size
+    worst = 0.0
+    for N in sizes.ln_rows:
+        for F_ in (3 * D, vcfg.intermediate_size):
+            args = ln_inputs(gen, N, D, F_, device)
+            got = ln_matmul_cuda(*args, eps=vcfg.layer_norm_eps)
+            torch.cuda.synchronize()
+            want = ln_matmul_reference(*args, eps=vcfg.layer_norm_eps)
+            worst = max(worst, check_close(
+                f"ln_matmul kernel vs plain, N={N} D={D} F={F_}", got, want,
+                LN_ATOL, LN_RTOL))
+    return worst
+
+
+def check_attention(sizes: Sizes, vcfg, device) -> float:
+    from concepthash_tpu_torch.ops.attention import (attention_cuda,
+                                                     attention_reference)
+
+    gen = torch.Generator().manual_seed(17)
+    D, H = vcfg.hidden_size, vcfg.num_heads
+    worst = 0.0
+    for L in sizes.attn_lengths:
+        q, k, v = qkv_views(gen, sizes.attn_batch, L, D, H, device)
+        got = attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        want = attention_reference(q, k, v)
+        worst = max(worst, check_close(
+            f"attention kernel vs plain, B={sizes.attn_batch} L={L} H={H} "
+            f"hd={D // H} (q|k|v views)", got, want, ATTN_ATOL, ATTN_RTOL))
+    return worst
+
+
+class plain_kernels:
+    """Inside this block the LN -> matmul and attention wrappers run their
+    plain versions (the reference train step the kernels' is held
+    against)."""
+
+    def __enter__(self):
+        from concepthash_tpu_torch.ops import attention, fused_ln
+
+        self.saved = (fused_ln.ln_matmul_cuda, attention.attention_cuda)
+        self.mods = (fused_ln, attention)
+        fused_ln.ln_matmul_cuda = fused_ln.ln_matmul_reference
+        attention.attention_cuda = attention.attention_reference
+
+    def __exit__(self, *exc):
+        self.mods[0].ln_matmul_cuda, self.mods[1].attention_cuda = self.saved
+
+
+# ---------------------------------------------------------------------------
+# the train slice
+# ---------------------------------------------------------------------------
+
+def train_config(sizes: Sizes) -> dict:
+    """main.py's config dicts for the canonical ConceptHash
+    (configs/model/concepthash.yaml with adam and csw), in bf16."""
+    head = sizes.head
+    return {
+        "model": {"name": "concepthash", "nbit": head["nbit"],
+                  "nclass": head["nclass"],
+                  "ncontext": head.get("ncontext", 4), "has_adapter": True,
+                  "adapter_bottleneck_dim": sizes.bottleneck,
+                  "upt_config": {"multi": True, "num_heads": 8,
+                                 "dropout": 0.1, "ensemble_method": "concat",
+                                 "single_hash_fc": True, "hash_pe": True},
+                  "add_bn": True, "use_before_projection": True,
+                  "concept_reg": True,
+                  "text_projection_dims": list(head["text_projection_dims"])},
+        "backbone": ({"name": "cut", **sizes.vision} if sizes.vision
+                     else {"name": "openai/clip-vit-base-patch32"}),
+        "criterion": {"name": "lgh", "margin": 0.2, "scale": 8,
+                      "loss_scales": {"logits": 0, "hash_logits": 0,
+                                      "bin_logits": 1, "cont_logits": 1,
+                                      "attn_div_loss": 0,
+                                      "concept_logits": 1},
+                      "avg_before_softmax": False, "lmbd": 0.5,
+                      "div_method": 1, "ncontext": head.get("ncontext", 4)},
+        "optim": {"name": "adam", "lr": 0.001, "weight_decay": 0.00001},
+        "scheduler": {"name": "csw", "warmup_epochs": 10},
+        "epochs": 100, "backbone_lr_scale": 0,
+        "batch_size": sizes.train_batch, "compute_dtype": "bfloat16",
+        "seed": 0,
+    }
+
+
+def run_train(sizes: Sizes, device) -> dict:
+    """Phases 7 and 8. Returns the numbers of both kernels' JSON entries."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.methods import build_training
+    from concepthash_tpu_torch.ops import attention as at
+    from concepthash_tpu_torch.ops import fused_ln as fln
+
+    cfg = train_config(sizes)
+    nclass = cfg["model"]["nclass"]
+    centers = torch.randn(nclass, sizes.head.get("center_dim", 512),
+                          generator=torch.Generator().manual_seed(0))
+    tr = build_training(cfg, centers, sizes.steps_per_epoch, device=device,
+                        vision=TRAIN_VISION)
+    model = tr.model
+    vcfg = model.vision_cfg
+    n_lay = vcfg.num_layers
+    dgen = torch.Generator(device=device).manual_seed(1)
+
+    def batch_of(n):
+        raw = torch.randint(0, 256, (n, sizes.image_side, sizes.image_side, 3),
+                            generator=dgen, device=device, dtype=torch.uint8)
+        y = torch.randint(0, nclass, (n,), generator=dgen, device=device)
+        return {"image": normalize(center_crop(raw, vcfg.image_size), 3),
+                "label": F.one_hot(y, nclass).float()}
+
+    batch = batch_of(sizes.train_batch)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    trained = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    torch.cuda.synchronize()
+
+    # ---- the main path, with the launch counts from zero ----
+    count_reset()
+    losses, per_step = [], []
+    for _ in range(sizes.train_steps):
+        before = counts()
+        tr.generator.manual_seed(1)         # the same dropout masks each step
+        losses.append(float(tr.step(batch)["loss"]))
+        per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"train steps (B={sizes.train_batch}): loss "
+          + ", ".join(f"{x:.5f}" for x in losses))
+    print(f"train launches per step (encoder_layer, subblock_mins, "
+          f"ln_matmul, attention): {per_step}; expected (0, 0, {2 * n_lay}, "
+          f"{n_lay})")
+    if any(s != (0, 0, 2 * n_lay, n_lay) for s in per_step):
+        fail("a kernel of the train path was not launched as expected")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail("train loss not finite, or not lower at the last step")
+    moved = [n for n, p in model.named_parameters()
+             if n in frozen and not torch.equal(p.detach(), frozen[n])]
+    print(f"frozen parameters: {len(frozen)}, changed: {len(moved)}; "
+          f"trained: {len(trained)}")
+    if moved or not frozen:
+        fail(f"frozen parameters changed: {moved[:5]}")
+
+    # ---- one step with the kernels against one with the plain versions ----
+    snap = (copy.deepcopy(model.state_dict()),
+            copy.deepcopy(tr.optimizer.state_dict()),
+            copy.deepcopy(tr.scheduler.state_dict()))
+    start = {n: p.detach().clone() for n, p in trained.items()}
+
+    def one_step():
+        tr.generator.manual_seed(1)
+        loss = float(tr.step(batch)["loss"])
+        upd = {n: (p.detach() - start[n]).double().flatten()
+               for n, p in trained.items()}
+        model.load_state_dict(snap[0])
+        tr.optimizer.load_state_dict(snap[1])
+        tr.scheduler.load_state_dict(snap[2])
+        return loss, upd
+
+    loss_k, upd_k = one_step()
+    with plain_kernels():
+        loss_p, upd_p = one_step()
+    cos = {n: F.cosine_similarity(upd_k[n], upd_p[n], dim=0).item()
+           for n in trained}
+    held = {n: c for n, c in cos.items() if n not in NULL_GRADIENT}
+    worst = min(held, key=held.get)
+    print(f"train step, kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f}; "
+          f"update cosine min {held[worst]:.6f} ({worst}), mean "
+          f"{sum(held.values()) / len(held):.6f}; null-gradient tensors "
+          + ", ".join(f"{n} {cos[n]:.3f}" for n in NULL_GRADIENT))
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p):
+        fail(f"train loss with kernels {loss_k} vs plain {loss_p}")
+    if held[worst] < MIN_UPDATE_COSINE:
+        fail(f"update of {worst} at cosine {held[worst]} < "
+             f"{MIN_UPDATE_COSINE}")
+
+    # ---- train timings ----
+    xla = build_training(cfg, centers, sizes.steps_per_epoch, device=device,
+                         vision=XLA_VISION)
+    xla.model.load_state_dict(model.state_dict())
+    big = batch_of(sizes.train_batch_big)
+    step_s = {}
+    for name, t in (("kernels", tr), ("xla", xla)):
+        for b in (batch, big):
+            n = b["label"].shape[0]
+            step_s[name, n] = host_s(lambda: t.step(b), 3)
+            print(f"train ({name}, B={n}): {n / step_s[name, n]:.1f} img/s "
+                  f"({step_s[name, n] * 1e3:.2f} ms per step)")
+    n_big = sizes.train_batch_big
+    device_breakdown(f"train step (B={n_big}, kernels)", lambda: tr.step(big),
+                     step_s["kernels", n_big], rows=8)
+    del xla, big
+
+    D, H, Fm = vcfg.hidden_size, vcfg.num_heads, vcfg.intermediate_size
+    L = vcfg.num_patches + 1 + cfg["model"]["ncontext"]
+    N = sizes.train_batch * L
+    gen = torch.Generator().manual_seed(19)
+    eps = vcfg.layer_norm_eps
+    ln = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
+    for F_ in (3 * D, Fm):
+        x, g, b, w, bias = ln_inputs(gen, N, D, F_, device)
+        g16, b16, bias16 = (t.to(torch.bfloat16) for t in (g, b, bias))
+        ln["ms"] += cuda_ms(lambda: fln.ln_matmul_cuda(x, g, b, w, bias, eps),
+                            sizes.reps)
+        ln["plain_ms"] += cuda_ms(
+            lambda: fln.ln_matmul_reference(x, g, b, w, bias, eps), 3)
+        ln["library_ms"] += cuda_ms(lambda: F.linear(
+            F.layer_norm(x, (D,), g16, b16, eps), w, bias16), sizes.reps)
+        ln["flops"] += 2 * N * D * F_
+        ln["bytes"] += N * D * 2 + 2 * D * 4 + F_ * D * 2 + F_ * 4 + N * F_ * 2
+    q, k, v = qkv_views(gen, sizes.train_batch, L, D, H, device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    att = dict(ms=cuda_ms(lambda: at.attention_cuda(q, k, v), sizes.reps),
+               plain_ms=cuda_ms(lambda: at.attention_reference(q, k, v), 3),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt), sizes.reps),
+               flops=4 * sizes.train_batch * H * L * L * (D // H),
+               bytes=4 * sizes.train_batch * L * D * 2)
+    for name, r, shape in (
+            ("ln_matmul", ln, f"N={N}, D={D}, F={3 * D} + F={Fm}, one "
+                              "q|k|v and one fc1 call"),
+            ("attention", att, f"B={sizes.train_batch}, L={L}, H={H}, "
+                               f"hd={D // H}")):
+        t_ops, t_bytes = r["flops"] / BF16_PEAK, r["bytes"] / HBM_RATE
+        r["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"{name} ({shape}): kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB), "
+              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+              f"ms")
+    device_breakdown(f"train step (B={sizes.train_batch}, kernels)",
+                     lambda: tr.step(batch),
+                     step_s["kernels", sizes.train_batch], host_rows=10)
+    ln["launches"], att["launches"] = launches[2], launches[3]
+    return {"ln_matmul": ln, "attention": att}
 
 
 def run(sizes: Sizes, device) -> dict:
@@ -357,6 +695,8 @@ def run(sizes: Sizes, device) -> dict:
     nbit, k = model.cfg.nbit, sizes.k
     layer_err = check_layer(sizes, vcfg, device)
     mins_err = check_mins(sizes, device)
+    ln_err = check_ln_matmul(sizes, vcfg, device)
+    attn_err = check_attention(sizes, vcfg, device)
 
     # ---- inputs of the main path, made on the device from seeds ----
     gen = torch.Generator(device=device).manual_seed(0)
@@ -384,7 +724,7 @@ def run(sizes: Sizes, device) -> dict:
                                            db_block=n_pad, exact=True,
                                            n_valid=N, db_bits=bits)
     torch.cuda.synchronize()
-    n_layer, n_mins = counts()
+    n_layer, n_mins = counts()[:2]
     print(f"main path launches: encoder_layer {n_layer} (12 per encode "
           f"expected: {vcfg.num_layers}), subblock_mins {n_mins}")
     if n_layer != vcfg.num_layers or n_mins < 1:
@@ -506,7 +846,10 @@ def run(sizes: Sizes, device) -> dict:
         device_breakdown("serving", lambda: retrieve_topk(
             codes, packed.reshape(n_pad, nbit), k=k, exact=True,
             n_valid=N), srv_s)
+    del gallery, packed, bits, images, raw, model
+    torch.cuda.empty_cache()
 
+    tr = run_train(sizes, device)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",
          "source": "concepthash_tpu_torch/csrc/fused_layer.cu",
@@ -520,6 +863,18 @@ def run(sizes: Sizes, device) -> dict:
          "launches": n_mins, "max_abs_err": mins_err, "ms": mins_ms,
          "plain_ms": mins_plain_ms, "bound_ms": mins_bound,
          "bound_by": mins_by, "library_ms": mins_lib_ms},
+        *({"name": name, "route": "cuda",
+           "source": f"concepthash_tpu_torch/csrc/{src}.cu",
+           "replaces": replaces, "launches": tr[name]["launches"],
+           "max_abs_err": err, "ms": tr[name]["ms"],
+           "plain_ms": tr[name]["plain_ms"], "bound_ms": tr[name]["bound_ms"],
+           "bound_by": tr[name]["bound_by"],
+           "library_ms": tr[name]["library_ms"]}
+          for name, src, replaces, err in (
+              ("ln_matmul", "fused_ln", "concepthash_tpu/ops/fused_ln.py:41",
+               ln_err),
+              ("attention", "attention", "concepthash_tpu/ops/attention.py:35",
+               attn_err))),
     ]}
 
 

@@ -1,0 +1,149 @@
+"""The ``concepthash`` method from config dicts (counterpart of the
+concepthash entry of concepthash_tpu/methods.py): the model factory, the
+loss and, wired as the reference's experiment loop wires them, the optimizer,
+the LR schedule and the train step.
+
+The config dicts are main.py's: ``model``, ``backbone``, ``criterion``,
+``optim``, ``scheduler``, ``epochs``, ``backbone_lr_scale``,
+``compute_dtype``. The class centers come in as an array (the
+language-guided codebook needs the CLIP text tower, which is not ported).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from concepthash_tpu_torch import resolve_device
+from concepthash_tpu_torch.losses.concepthash import lgh_loss
+from concepthash_tpu_torch.models.backbone_factory import (
+    adapter_config_from_model_cfg, vision_config_from_backbone_cfg)
+from concepthash_tpu_torch.models.concepthash import (ConceptHash,
+                                                      ConceptHashConfig)
+from concepthash_tpu_torch.train.optim import build_optimizer
+from concepthash_tpu_torch.train.state import make_train_step
+
+
+def _compute_dtype(config) -> torch.dtype:
+    """``compute_dtype: bfloat16`` runs the model's math in bf16 (parameters
+    stay f32; codes, logits and centers come back in f32)."""
+    name = str(config.get("compute_dtype", "float32")).lower()
+    table = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+             "float32": torch.float32, "f32": torch.float32}
+    if name not in table:
+        raise ValueError(f"compute_dtype {name!r} not supported; "
+                         f"use one of {sorted(table)}")
+    return table[name]
+
+
+def _build_concepthash(config, codebook, *, device=None,
+                       generator: Optional[torch.Generator] = None,
+                       vision: Optional[dict] = None) -> ConceptHash:
+    """ConceptHash from ``config``; ``codebook`` (nclass, center_dim) fixes
+    the centers, None learns them. ``vision`` overrides fields of the
+    backbone's ClipVisionConfig (e.g. ``attention_impl``, ``fused_ln``),
+    which the backbone group does not set."""
+    m = config["model"]
+    upt = m.get("upt_config", {}) or {}
+    vcfg = vision_config_from_backbone_cfg(config.get("backbone", {}) or {})
+    if vision:
+        vcfg = dataclasses.replace(vcfg, **vision)
+    acfg = adapter_config_from_model_cfg(m)
+    if m.get("token_embeds_array") is not None:
+        raise NotImplementedError("FILIP token embeddings are not ported yet")
+    ccfg = ConceptHashConfig(
+        nbit=int(m["nbit"]),
+        nclass=int(m["nclass"]),
+        ncontext=int(m.get("ncontext", 4)),
+        nregs=int(m.get("nregs", 0)),
+        num_heads=int(upt.get("num_heads", 8)),
+        dropout=float(upt.get("dropout", 0.1)),
+        add_bn=m.get("add_bn", True),
+        use_before_projection=bool(m.get("use_before_projection", True)),
+        hash_pe=bool(upt.get("hash_pe", True)),
+        ensemble_method=upt.get("ensemble_method", "concat"),
+        concept_reg=bool(m.get("concept_reg", True)),
+        concept_cossim=bool(m.get("concept_cossim", True)),
+        vpt_pe=bool(m.get("vpt_pe", False)),
+        learnable_center=codebook is None,
+        center_dim=int(codebook.shape[1]) if codebook is not None else 512,
+        text_projection_dims=tuple(m.get("text_projection_dims", (512,))),
+        self_attn_at_last=m.get("self_attn_at_last") or None,
+    )
+    fixed = (torch.as_tensor(codebook, dtype=torch.float32)
+             if codebook is not None else None)
+    return ConceptHash(vcfg, ccfg, acfg, fixed_center=fixed,
+                       dtype=_compute_dtype(config), device=device,
+                       generator=generator)
+
+
+def _criterion_kwargs(config) -> dict:
+    crit = dict(config.get("criterion", {}) or {})
+    crit.pop("name", None)
+    crit.setdefault("multiclass", bool(
+        config.get("dataset", {}).get("multiclass", False)))
+    return crit
+
+
+def _lgh_build_loss(config, codebook) -> Callable:
+    """loss(outputs, batch) -> (total, parts) of the LGH objective."""
+    kw = _criterion_kwargs(config)
+    kw.pop("multiclass", None)
+    kw.setdefault("ncontext", int(config["model"].get("ncontext", 4)))
+    kw.setdefault("concept_cossim",
+                  bool(config["model"].get("concept_cossim", True)))
+    # the attention-diversity slices depend on the register-token count
+    kw.setdefault("nregs", int(config["model"].get("nregs", 0) or 0))
+    # LGHv3: labels replaced by the batch diagonal
+    v3 = kw.pop("v3", False) or (config.get("criterion", {}) or {}) \
+        .get("name") in ("lghv3", "lgh_v3")
+
+    def loss(outputs, batch):
+        y = batch["label"]
+        if v3:
+            y = torch.eye(y.shape[0], dtype=torch.float32, device=y.device)
+        return lgh_loss(outputs, y, **kw)
+
+    return loss
+
+
+def _needs_attentions(config) -> bool:
+    return ((config.get("criterion", {}) or {}).get("loss_scales", {})
+            or {}).get("attn_div_loss", 0) != 0
+
+
+@dataclasses.dataclass
+class Training:
+    """What one ConceptHash training run steps: ``step(batch) -> metrics``
+    updates ``model``, ``optimizer`` and ``scheduler`` in place."""
+
+    model: ConceptHash
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    loss_fn: Callable
+    generator: torch.Generator
+    step: Callable
+
+
+def build_training(config: dict, codebook, steps_per_epoch: int, *,
+                   device=None, vision: Optional[dict] = None) -> Training:
+    """The concepthash train step from main.py's config dicts: model (seeded
+    from ``config['seed']``; load other weights into ``Training.model`` in
+    place), LGH loss, optimizer and schedule with the backbone policy, and a
+    dropout generator on the model's device seeded from the same seed."""
+    dev = resolve_device(device)
+    seed = int(config.get("seed", 42))
+    model = _build_concepthash(config, codebook, device=dev, vision=vision,
+                               generator=torch.Generator().manual_seed(seed))
+    loss_fn = _lgh_build_loss(config, codebook)
+    optimizer, scheduler = build_optimizer(
+        config.get("optim", {}) or {}, config.get("scheduler", {}) or {},
+        int(config.get("epochs", 100)), steps_per_epoch, model,
+        backbone_lr_scale=float(config.get("backbone_lr_scale", 1.0)))
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    step = make_train_step(model, loss_fn, optimizer, scheduler,
+                           output_attentions=_needs_attentions(config),
+                           generator=generator)
+    return Training(model, optimizer, scheduler, loss_fn, generator, step)

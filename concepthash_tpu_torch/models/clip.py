@@ -3,12 +3,18 @@ vision part of concepthash_tpu/models/clip.py).
 
 Images are NHWC. The patch embedding is a matmul over patches flattened in
 (ph, pw, C) order, with its kernel stored in HWIO form (p, p, C, D), as in
-the reference. Each encoder layer whose adapters (if any) take a LayerNorm
-on their input, and that returns no attention probabilities, runs through
-``ops.fused_layer.encoder_layer``: the CUDA kernel on the card, its plain
-version on the CPU. Asking for attention probabilities takes the discrete
-path (separate LayerNorm, attention, MLP and adapter modules), as in the
-reference.
+the reference. ``EncoderLayer`` dispatches as the reference does:
+
+- the whole-layer kernel (``ops.fused_layer.encoder_layer``: the CUDA kernel
+  on the card, its plain version on the CPU) for inference forwards under
+  ``fused_ln='auto'`` (the port's counterpart of the reference's "auto on
+  TPU"), and under 'pallas_layer', whenever the adapters take a LayerNorm on
+  their input and no attention probabilities are asked for;
+- otherwise the discrete path (training forwards, attention maps): separate
+  LayerNorm, attention, MLP and adapter modules, where ``fused_ln='pallas'``
+  runs LN1 -> q|k|v and LN2 -> fc1 through ``ops.fused_ln.ln_matmul`` and
+  ``attention_impl='pallas'`` runs attention through
+  ``ops.attention.fused_attention`` (CUDA kernels on the card).
 """
 
 from __future__ import annotations
@@ -24,9 +30,11 @@ from torch import nn
 
 from concepthash_tpu_torch.models.layers import (dense, layer_norm, linear,
                                                  normal_)
+from concepthash_tpu_torch.ops.attention import attention
 from concepthash_tpu_torch.ops.fused_layer import (AdapterWeights,
                                                    LayerWeights, activation,
                                                    encoder_layer)
+from concepthash_tpu_torch.ops.fused_ln import ln_matmul, resolve_fused_ln
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +50,9 @@ class ClipVisionConfig:
     hidden_act: str = "quick_gelu"
     patch_bias: bool = False
     use_pre_layernorm: bool = True
+    attention_impl: str = "auto"  # 'auto' | 'pallas' | 'xla' (ops/attention.py)
+    fused_ln: str = "auto"        # 'auto' | 'pallas' | 'pallas_mlp' | 'xla' |
+                                  # 'pallas_layer' (ops/fused_ln.py)
 
     @property
     def num_patches(self) -> int:
@@ -112,29 +123,48 @@ class PatchEmbedding(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """CLIP-style attention with biased q|k|v and out projections (q, k, v
-    concatenated into one (3D, D) weight). Returns (out, probs)."""
+    concatenated into one (3D, D) weight). Returns (out, probs or None).
+
+    ``attention_impl``: 'pallas' runs ``ops.attention.fused_attention`` (the
+    kernel), 'xla' and 'auto' the einsum path, which attention maps always
+    take. ``ln``: the preceding LayerNorm module; when given, x is not
+    normalized yet and q|k|v come from one ``ln_matmul`` (the fused
+    LN -> matmul kernel)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
-                 generator=None):
+                 generator=None, attention_impl: str = "auto"):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.attention_impl = attention_impl
         self.qkv_proj = nn.Linear(dim, 3 * dim)
         with torch.no_grad():
             normal_(self.qkv_proj.weight, 1.0 / math.sqrt(dim), generator)
             self.qkv_proj.bias.zero_()
         self.out_proj = linear(dim, dim, generator=generator)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, output_attentions: bool = False,
+                ln: Optional[nn.LayerNorm] = None):
         B, L, D = x.shape
         H = self.num_heads
         hd = D // H
-        q, k, v = (t.reshape(B, L, H, hd)
-                   for t in dense(self.qkv_proj, x, self.dtype).split(D, -1))
-        logits = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
-        probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, D)
-        return dense(self.out_proj, out, self.dtype), probs
+        if ln is not None:
+            qkv = ln_matmul(x, ln.weight, ln.bias,
+                            self.qkv_proj.weight.to(self.dtype),
+                            self.qkv_proj.bias, eps=ln.eps, impl="pallas")
+        else:
+            qkv = dense(self.qkv_proj, x, self.dtype)
+        # views of qkv: the kernel reads them in place
+        q, k, v = (t.reshape(B, L, H, hd) for t in qkv.split(D, -1))
+        probs = None
+        if output_attentions or self.attention_impl != "pallas":
+            logits = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
+            probs = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, D)
+        else:
+            out = attention(q, k, v, impl="pallas").reshape(B, L, D)
+        return (dense(self.out_proj, out, self.dtype),
+                probs if output_attentions else None)
 
 
 class EncoderLayer(nn.Module):
@@ -144,7 +174,8 @@ class EncoderLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, intermediate_size: int,
                  eps: float = 1e-5, act: str = "quick_gelu",
                  adapters: Optional[AdapterConfig] = None,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None,
+                 attention_impl: str = "auto", fused_ln: str = "auto"):
         super().__init__()
         if adapters is not None and adapters.attention_qkvo:
             raise NotImplementedError(
@@ -153,9 +184,11 @@ class EncoderLayer(nn.Module):
         self.eps = eps
         self.act = act
         self.dtype = dtype
+        self.fused_ln = fused_ln
         self.fusable = adapters is None or adapters.layernorm_in
         self.layer_norm1 = nn.LayerNorm(dim, eps=eps)
-        self.self_attn = MultiHeadAttention(dim, num_heads, dtype, generator)
+        self.self_attn = MultiHeadAttention(dim, num_heads, dtype, generator,
+                                            attention_impl)
         self.layer_norm2 = nn.LayerNorm(dim, eps=eps)
         self.fc1 = linear(dim, intermediate_size, generator=generator)
         self.fc2 = linear(intermediate_size, dim, generator=generator)
@@ -175,8 +208,17 @@ class EncoderLayer(nn.Module):
             self.fc1.weight, self.fc1.bias, self.fc2.weight,
             self.fc2.bias).cast(dtype)
 
-    def forward(self, x: torch.Tensor, output_attentions: bool = False):
-        if self.fusable and not output_attentions:
+    def forward(self, x: torch.Tensor, output_attentions: bool = False,
+                train: bool = False):
+        # the whole-layer kernel takes inference forwards under 'auto' (the
+        # reference's "auto on TPU"): it has no backward here yet
+        whole = self.fused_ln == "pallas_layer" or (
+            self.fused_ln == "auto" and not train)
+        if whole and self.fusable and not output_attentions:
+            if train:
+                raise NotImplementedError(
+                    "fused_ln='pallas_layer' in training needs the backward "
+                    "of the whole-layer kernel, which is not ported yet")
             out = encoder_layer(
                 x, self.layer_weights(self.dtype), num_heads=self.num_heads,
                 eps=self.eps, act=self.act,
@@ -185,12 +227,23 @@ class EncoderLayer(nn.Module):
                 adapter_mlp=(self.adapter_mlp.weights(self.dtype)
                              if self.adapter_mlp is not None else None))
             return out, None
-        h, probs = self.self_attn(layer_norm(self.layer_norm1, x, self.dtype))
+        fused = resolve_fused_ln(self.fused_ln)
+        if fused and self.fused_ln != "pallas_mlp":
+            h, probs = self.self_attn(x, output_attentions,
+                                      ln=self.layer_norm1)
+        else:
+            h, probs = self.self_attn(
+                layer_norm(self.layer_norm1, x, self.dtype), output_attentions)
         if self.adapter_attn is not None:
             h = h + self.adapter_attn(h)
         x = x + h
-        h = dense(self.fc1, layer_norm(self.layer_norm2, x, self.dtype),
-                  self.dtype)
+        if fused:
+            ln2 = self.layer_norm2
+            h = ln_matmul(x, ln2.weight, ln2.bias, self.fc1.weight.to(self.dtype),
+                          self.fc1.bias, eps=ln2.eps, impl="pallas")
+        else:
+            h = dense(self.fc1, layer_norm(self.layer_norm2, x, self.dtype),
+                      self.dtype)
         h = dense(self.fc2, activation(self.act, h), self.dtype)
         if self.adapter_mlp is not None:
             h = h + self.adapter_mlp(h)
@@ -265,7 +318,7 @@ class ClipVisionTower(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(D, cfg.num_heads, cfg.intermediate_size,
                          cfg.layer_norm_eps, cfg.hidden_act, adapters, dtype,
-                         generator)
+                         generator, cfg.attention_impl, cfg.fused_ln)
             for _ in range(cfg.num_layers))
         self.post_layernorm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
         self.visual_projection = linear(D, cfg.projection_dim, bias=False,
@@ -274,7 +327,7 @@ class ClipVisionTower(nn.Module):
     def forward(self, pixel_values: torch.Tensor,
                 extra_tokens: Optional[torch.Tensor] = None,
                 output_attentions: bool = False,
-                project_extra: bool = False) -> dict:
+                project_extra: bool = False, train: bool = False) -> dict:
         c = self.cfg
         dt = self.dtype
         B, Hh, Ww, C = pixel_values.shape
@@ -294,7 +347,7 @@ class ClipVisionTower(nn.Module):
             x = layer_norm(self.pre_layernorm, x, dt)
         attns = []
         for layer in self.layers:
-            x, probs = layer(x, output_attentions)
+            x, probs = layer(x, output_attentions, train)
             if output_attentions:
                 attns.append(probs)
         cls_out = x[:, 0, :]

@@ -1,5 +1,5 @@
-"""ConceptHash, the flagship model, inference forward (counterpart of
-concepthash_tpu/models/concepthash.py).
+"""ConceptHash, the flagship model, inference and training forward
+(counterpart of concepthash_tpu/models/concepthash.py).
 
 M learnable concept queries are refined by one self-attention block,
 projected into the vision width, appended to the CLIP patch sequence and
@@ -12,9 +12,11 @@ MLP.
 Ported: the canonical configuration (configs/model/concepthash.yaml) — multi
 hash queries, hash_pe, concat ensemble, BatchNorm on codes, fixed centers,
 CosSim concept classifier, use_before_projection — plus the mean ensemble,
-registers and the learnable-center fallback. Not ported yet, and raising
-``NotImplementedError``: SelfAttentionAtLast, DecorrelatedBN (add_bn='dbn'),
-FILIP token embeddings, vpt_pe, and ``train=True``.
+registers and the learnable-center fallback; ``train=True`` (dropout in the
+hash-query block from an explicit generator, batch statistics in the code
+BatchNorm). Not ported yet, and raising ``NotImplementedError``:
+SelfAttentionAtLast, DecorrelatedBN (add_bn='dbn'), FILIP token embeddings
+and vpt_pe.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from concepthash_tpu_torch.models.clip import (AdapterConfig,
                                                ClipVisionConfig,
                                                ClipVisionTower)
 from concepthash_tpu_torch.models.layers import (MLP, CodeBatchNorm, CosSim,
-                                                 dense, layer_norm, linear,
-                                                 normal_)
+                                                 dense, dropout, layer_norm,
+                                                 linear, normal_)
 from concepthash_tpu_torch.ops.numerics import l2_normalize
 
 
@@ -83,7 +85,8 @@ class _DotProductAttention(nn.Module):
         self.value = linear(dim, dim, generator=generator)
         self.out = linear(dim, dim, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, L, D = x.shape
         H = self.num_heads
         hd = D // H
@@ -91,6 +94,8 @@ class _DotProductAttention(nn.Module):
                    for m in (self.query, self.key, self.value))
         logits = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(hd), k)
         w = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        # flax drops the weights with one mask over batch and heads
+        w = dropout(w, dropout_rate, generator, broadcast_dims=(0, 1))
         o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, D)
         return dense(self.out, o, self.dtype)
 
@@ -98,12 +103,15 @@ class _DotProductAttention(nn.Module):
 class HashQueryBlock(nn.Module):
     """One self-attention block refining the hash queries, then a projection
     into the vision width: x = norm1(x) + sa(x); x = norm2(x) + ffn(x);
-    return ffn2(x). flax LayerNorm's eps 1e-6; dropout is off in eval."""
+    return ffn2(x). flax LayerNorm's eps 1e-6. In training, dropout at
+    ``dropout`` on the attention weights and after the ffn's ReLU, drawn
+    from ``generator``."""
 
     def __init__(self, embed_dim: int, vision_dim: int, num_heads: int,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.sa = _DotProductAttention(embed_dim, num_heads, dtype, generator)
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-6)
         self.ffn_fc1 = linear(embed_dim, embed_dim, generator=generator)
@@ -111,10 +119,13 @@ class HashQueryBlock(nn.Module):
         self.norm2 = nn.LayerNorm(embed_dim, eps=1e-6)
         self.ffn2 = linear(embed_dim, vision_dim, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
-        x = layer_norm(self.norm1, x, dt) + self.sa(x)
-        h = dense(self.ffn_fc2, F.relu(dense(self.ffn_fc1, x, dt)), dt)
+        rate = self.dropout if train else 0.0
+        x = layer_norm(self.norm1, x, dt) + self.sa(x, rate, generator)
+        h = F.relu(dense(self.ffn_fc1, x, dt))
+        h = dense(self.ffn_fc2, dropout(h, rate, generator), dt)
         x = layer_norm(self.norm2, x, dt) + h
         return dense(self.ffn2, x, dt)
 
@@ -154,7 +165,7 @@ class ConceptHash(nn.Module):
         self.hash_queries = nn.Parameter(
             normal_(torch.empty(1, M + cfg.nregs, embed_dim), 1.0, g))
         self.hash_attention = HashQueryBlock(embed_dim, D, cfg.num_heads,
-                                             dtype, g)
+                                             dtype, g, cfg.dropout)
         self.backbone = ClipVisionTower(vision_cfg, adapters, dtype, g)
         if cfg.hash_pe:
             self.hash_pe = nn.Parameter(normal_(torch.empty(1, M, D), 1.0, g))
@@ -183,19 +194,21 @@ class ConceptHash(nn.Module):
         self.to(dev)
 
     def forward(self, images: torch.Tensor, train: bool = False,
-                output_attentions: bool = False) -> dict:
-        if train:
-            raise NotImplementedError(
-                "ConceptHash(train=True) comes with the training port")
+                output_attentions: bool = False,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """``train=True``: dropout in the hash-query block, drawn from
+        ``generator`` (a ``torch.Generator`` on the model's device, needed
+        when the dropout rate is not 0), and batch statistics in the code
+        BatchNorm, whose running statistics it updates."""
         c = self.cfg
         dt = self.dtype
         B = images.shape[0]
         M = c.ncontext
         D = self.vision_cfg.hidden_size
-        ctx = self.hash_attention(self.hash_queries.to(dt))
+        ctx = self.hash_attention(self.hash_queries.to(dt), train, generator)
         ctx = ctx.expand(B, M + c.nregs, D)
         enc = self.backbone(images, extra_tokens=ctx,
-                            output_attentions=output_attentions)
+                            output_attentions=output_attentions, train=train)
         last = enc["last_hidden_state"]
         concept_tokens = (last[:, -(M + c.nregs):-c.nregs, :] if c.nregs
                           else last[:, -M:, :])
@@ -205,7 +218,7 @@ class ConceptHash(nn.Module):
         codes = (sub_codes.reshape(B, c.nbit) if c.ensemble_method == "concat"
                  else sub_codes.mean(dim=1))
         if self.hash_bn is not None:
-            codes = self.hash_bn(codes)
+            codes = self.hash_bn(codes, train)
         codes = codes.float()
 
         if c.learnable_center:

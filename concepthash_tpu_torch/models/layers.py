@@ -1,5 +1,5 @@
 """Shared model layers: cosine classifier, sign straight-through estimator,
-code batch-norm (eval form), small MLP (counterpart of
+code batch-norm, flax-style dropout, small MLP (counterpart of
 concepthash_tpu/models/layers.py, the paths the canonical ConceptHash uses).
 
 Parameters are float32; ``dtype`` is the compute dtype, as in the reference.
@@ -75,8 +75,14 @@ def sign_ste(x: torch.Tensor) -> torch.Tensor:
 
 
 class CodeBatchNorm(nn.Module):
-    """BatchNorm over hash codes, eval form: running statistics, eps 1e-5.
-    Training (batch statistics, momentum) comes with the training port."""
+    """BatchNorm over hash codes with flax ``nn.BatchNorm``'s semantics
+    (momentum 0.9, eps 1e-5), not torch's.
+
+    Eval uses the running statistics. Training normalizes with the batch
+    mean and the biased batch variance, both in f32 and the variance as
+    flax takes it (``max(0, E[x^2] - E[x]^2)``), and updates the running
+    statistics as ``r = 0.9 r + 0.1 batch_stat`` with that biased variance
+    (``F.batch_norm(training=True)`` would store the unbiased one)."""
 
     def __init__(self, num_features: int, dtype=torch.float32):
         super().__init__()
@@ -87,13 +93,41 @@ class CodeBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "CodeBatchNorm(train=True) needs batch statistics, which "
-                "come with the training port")
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False,
-                            eps=1e-5).to(self.dtype)
+        if not train:
+            return F.batch_norm(x.float(), self.running_mean,
+                                self.running_var, self.weight, self.bias,
+                                training=False, eps=1e-5).to(self.dtype)
+        xf = x.float()
+        mean = xf.mean(dim=0)
+        var = torch.clamp_min((xf * xf).mean(dim=0) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = 0.9
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        y = (xf - mean) * (torch.rsqrt(var + 1e-5) * self.weight) + self.bias
+        return y.to(self.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            broadcast_dims: tuple = ()) -> torch.Tensor:
+    """flax-style dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). The mask has size 1 along
+    ``broadcast_dims`` (flax attention drops its weights with one mask for
+    every batch element and head) and is drawn from ``generator``, a
+    ``torch.Generator`` on x's device: the draws are explicit, and a fixed
+    generator state gives the same mask again."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator")
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    shape = tuple(1 if i in broadcast_dims else n
+                  for i, n in enumerate(x.shape))
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 class MLP(nn.Module):

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+import concepthash_tpu_torch.ops.attention as tat
 import concepthash_tpu_torch.ops.fused_layer as tfl
+import concepthash_tpu_torch.ops.fused_ln as tln
 import concepthash_tpu_torch.ops.topk_select as tts
 
 B, L, D, H, F, A = 2, 21, 64, 4, 128, 32   # L = 16 patches + cls + 4 concepts
@@ -132,3 +134,111 @@ def test_packed_mins_and_minspass_match_cpu(cuda_device):
         torch.testing.assert_close(got[0].cpu(), want[0], atol=0, rtol=0)
         torch.testing.assert_close(got[1].cpu(), want[1], atol=0, rtol=0)
         assert got[2] == want[2]
+
+
+def _ln_inputs(rng, N, D, F_, device):
+    t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32))
+    x = (t(N, D) * 2 + 0.5).to(device, torch.bfloat16)
+    gamma = (1 + 0.1 * t(D)).to(device)
+    beta = (0.1 * t(D)).to(device)
+    w = (t(F_, D) / np.sqrt(D)).to(device, torch.bfloat16)
+    bias = (0.1 * t(F_)).to(device)
+    return x, gamma, beta, w, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,F_", [(1, 8, 8), (37, 64, 200), (41 * 3, 64, 192),
+                                    (1000, 768, 2304), (1728, 768, 3072)])
+def test_ln_matmul_kernel_matches_plain(np_rng, cuda_device, N, D, F_):
+    """bf16 kernel vs the plain version, any N (tails of the 64-row tile):
+    |d| <= 0.02 + 0.02|ref| (both round x_hat*gamma+beta and the output to
+    bf16 at the same points; f32 sums in another order and fused multiply-adds
+    can move a value to the neighbouring bf16 number)."""
+    x, gamma, beta, w, bias = _ln_inputs(np_rng, N, D, F_, cuda_device)
+    before = tln.ln_matmul_cuda.launches
+    got = tln.ln_matmul(x, gamma, beta, w, bias, impl="pallas")
+    torch.cuda.synchronize()
+    assert tln.ln_matmul_cuda.launches == before + 1
+    want = tln.ln_matmul_reference(x, gamma, beta, w, bias)
+    assert got.dtype == torch.bfloat16 and got.shape == (N, F_)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.02, atol=0.02)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,F_", [(123, 64, 96), (1728, 768, 2304)])
+def test_ln_matmul_gradients_match_cpu(np_rng, cuda_device, N, D, F_):
+    """The autograd rule around the kernel gives the gradients the CPU gives
+    (plain forward, same recomputing backward), f32 sums in another order:
+    |d| <= 1e-2 + 2^-7|ref|, one bf16 ulp of the bf16 gradients (dx, dW)."""
+    args = _ln_inputs(np_rng, N, D, F_, cuda_device)
+    g = torch.tensor(np_rng.standard_normal((N, F_)).astype(np.float32))
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = [a.detach().to(dev).requires_grad_(True) for a in args]
+        out = tln.ln_matmul(*leaves, impl="pallas")
+        out.backward(g.to(dev, out.dtype))
+        grads.append([t.grad.cpu().float() for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_ln_matmul_kernel_rejects_bad_inputs(np_rng, cuda_device):
+    x, gamma, beta, w, bias = _ln_inputs(np_rng, 8, 64, 64, cuda_device)
+    with pytest.raises(TypeError):
+        tln.ln_matmul_cuda(x.float(), gamma, beta, w, bias)
+    with pytest.raises(ValueError):
+        tln.ln_matmul_cuda(x[:, :60], gamma[:60], beta[:60], w[:, :60], bias)
+
+
+def _qkv(rng, B, L, H, hd, device):
+    qkv = torch.tensor(rng.standard_normal((B, L, 3 * H * hd)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    return [t.reshape(B, L, H, hd) for t in qkv.split(H * hd, dim=-1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,hd", [(2, 16, 4, 16), (3, 41, 4, 16),
+                                      (32, 54, 12, 64), (4, 197, 12, 64)])
+def test_attention_kernel_matches_plain(np_rng, cuda_device, B, L, H, hd):
+    """bf16 kernel vs the plain version, q|k|v read in place from one
+    (B, L, 3D) tensor: |d| <= 0.01 + 0.01|ref| (f32 throughout, one bf16
+    rounding at the output; f32 sums in another order)."""
+    q, k, v = _qkv(np_rng, B, L, H, hd, cuda_device)
+    assert not q.is_contiguous()
+    before = tat.attention_cuda.launches
+    got = tat.attention(q, k, v, impl="pallas")
+    torch.cuda.synchronize()
+    assert tat.attention_cuda.launches == before + 1
+    want = tat.attention_reference(q, k, v)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, L, H, hd)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.01, atol=0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,hd", [(2, 41, 4, 16), (32, 54, 12, 64)])
+def test_attention_gradients_match_cpu(np_rng, cuda_device, B, L, H, hd):
+    """The recomputing backward around the kernel gives the CPU's gradients
+    (bf16 q*scale.k on both, f32 after): atol 2e-2 on bf16 gradients."""
+    args = _qkv(np_rng, B, L, H, hd, cuda_device)
+    g = torch.tensor(np_rng.standard_normal((B, L, H, hd)).astype(np.float32))
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = [a.detach().to(dev).requires_grad_(True) for a in args]
+        out = tat.attention(*leaves, impl="pallas")
+        out.backward(g.to(dev, out.dtype))
+        grads.append([t.grad.cpu().float() for t in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_attention_kernel_rejects_bad_inputs(np_rng, cuda_device):
+    q, k, v = _qkv(np_rng, 2, 16, 4, 16, cuda_device)
+    with pytest.raises(TypeError):
+        tat.attention_cuda(q.float(), k, v)
+    with pytest.raises(ValueError):
+        tat.attention_cuda(q, k[:, :8], v)
+    with pytest.raises(ValueError):
+        tat.attention_cuda(q.transpose(-1, -2), k.transpose(-1, -2),
+                           v.transpose(-1, -2))

@@ -137,7 +137,9 @@ def test_port_imports_nothing_of_jax():
     mods = [f"concepthash_tpu_torch.{m}" for m in (
         "_build", "weights", "data.preprocess", "ops.numerics",
         "ops.fused_layer", "ops.hamming", "ops.topk_select", "ops.retrieval",
-        "models.layers", "models.clip", "models.concepthash")]
+        "ops.fused_ln", "ops.attention", "models.layers", "models.clip",
+        "models.concepthash", "models.backbone_factory", "losses.common",
+        "losses.concepthash", "train.optim", "train.state", "methods")]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'concepthash_tpu'))\nprint(bad)\n")
@@ -162,24 +164,28 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD),
                     token_embeds=torch.zeros(10, 3, 32), device="cpu")
-    pm = ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD),
-                     device="cpu")
-    with pytest.raises(NotImplementedError):
-        pm(torch.zeros(1, 32, 32, 3), train=True)
+    pm = ConceptHash(ClipVisionConfig(**VISION, fused_ln="pallas_layer"),
+                     ConceptHashConfig(**HEAD), device="cpu")
+    with pytest.raises(NotImplementedError):    # the whole-layer backward
+        pm(torch.zeros(1, 32, 32, 3), train=True,
+           generator=torch.Generator())
 
 
 def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
-    """chip_smoke.py's phases at a tiny size on the CPU, with each kernel
-    wrapper replaced by its plain version (counting its calls) and the CUDA
-    timers by host ones: every check passes and the kernels' JSON line has
-    every key the card run prints."""
+    """chip_smoke.py's phases, serving and training, at a tiny size on the
+    CPU, with each kernel wrapper replaced by its plain version (counting
+    its calls) and the CUDA timers by host ones: every check passes, the
+    train path launches 2 LN -> matmul and 1 attention per layer and step,
+    and the kernels' JSON line has every key the card run prints."""
     import importlib.util
     import json
     import time
 
     from concepthash_tpu_torch import _build
     from concepthash_tpu_torch.models import clip
+    from concepthash_tpu_torch.ops import attention as tat
     from concepthash_tpu_torch.ops import fused_layer as fl
+    from concepthash_tpu_torch.ops import fused_ln as tln
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -196,7 +202,16 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
         return tts._mins_reference(qi, db.reshape(n_codes, -1), subblock, m,
                                    out_dtype)
 
+    def ln_matmul(x2, gamma, beta, w, bias, eps=1e-5):
+        ln_matmul.launches += 1
+        return tln.ln_matmul_reference(x2, gamma, beta, w, bias, eps)
+
+    def attention(q, k, v):
+        attention.launches += 1
+        return tat.attention_reference(q, k, v)
+
     layer.launches = mins.launches = 0
+    ln_matmul.launches = attention.launches = 0
 
     def host_ms(fn, reps):
         t0 = time.perf_counter()
@@ -211,18 +226,30 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(tts, "subblock_mins_cuda", mins)
     monkeypatch.setattr(tts, "_mins", lambda qi, db, n, nbit, s, dt: mins(
         qi, db, n, s, -(-n // s), dt))
+    # the autograd forwards call the (swapped) wrappers whatever the device
+    monkeypatch.setattr(tln, "ln_matmul_cuda", ln_matmul)
+    monkeypatch.setattr(tln, "_forward", lambda *a: tln.ln_matmul_cuda(*a))
+    monkeypatch.setattr(tat, "attention_cuda", attention)
+    monkeypatch.setattr(tat, "_forward", lambda *a: tat.attention_cuda(*a))
     sizes = cs.Sizes(vision=VISION, head=dict(HEAD, text_projection_dims=(32,)),
                      bottleneck=BOTTLENECK, layer_batch=2, mins_queries=16,
                      mins_codes=70_001, images=6, image_side=40,
-                     gallery=70_016, k=10, reps=1)
+                     gallery=70_016, k=10, reps=1, ln_rows=(4 * 21, 50),
+                     attn_batch=2, attn_lengths=(21, 40), train_batch=4,
+                     train_batch_big=8)
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
     assert "planted rows found at distance 0: 6/6" in out
     assert f"encoder_layer {VISION['num_layers']} " in out
+    n = VISION["num_layers"]
+    assert f"{[(0, 0, 2 * n, n)] * 5}" in out
+    assert "train (xla, B=8)" in out and "train step (B=4, kernels)" in out
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
-    assert [k["name"] for k in kernels] == ["encoder_layer", "subblock_mins"]
+    assert [k["name"] for k in kernels] == ["encoder_layer", "subblock_mins",
+                                            "ln_matmul", "attention"]
+    assert [k["launches"] for k in kernels[2:]] == [5 * 2 * n, 5 * n]
     for k in kernels:
         assert set(k) == keys and k["launches"] > 0
         assert (ROOT / k["source"]).exists()
