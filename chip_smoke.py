@@ -8,7 +8,7 @@ the repository:
 It needs a CUDA device and exits non-zero without one, or on any failed
 check; it imports nothing of JAX or of the JAX package. Phases:
 
-1. the card's name and power limit; the four CUDA sources built from
+1. the card's name and power limit; the five CUDA sources built from
    ``concepthash_tpu_torch/csrc`` (one nvcc each, started together);
 2. the encoder-layer kernel against its plain version at ViT-B/32 width
    (B=8, L=54, D=768, F=3072, 12 heads, quick_gelu, bf16), with both
@@ -47,7 +47,34 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    each trained tensor's update at cosine >= 0.99;
 8. train timings: img/s at batch 32 and 256 with the kernels and with the
    'xla' configuration, both new kernels' times beside bound, plain version
-   and yardstick, and one traced train step.
+   and yardstick, and one traced train step;
+9. the bit-plane mins kernel against its plain version, exactly: 1024
+   queries over 1,000,003 codes at nbit 64 and 32, bf16 and f32, S=128,
+   ``n_rows`` masking the byte-pad rows while the pack-pad slots stay in;
+10. the bit-plane serving slice, counted: a gallery of 10^8 seeded 64-bit
+   codes born bit-plane (6,250,000 random byte rows, 800 MB) with phase 4's
+   256 codes planted by unpacking, editing and repacking their byte rows,
+   served by ``exact_topk_bitplane(k=100, n_valid=N)`` at S=128 (the
+   hierarchical selection over 781,250 subblock mins). Checked: the
+   certificate holds; each planted row comes back at distance 0; the
+   distances equal those of a plain walk over the unpacked gallery (full
+   distances and an exact top-k per 2^22-code block, merged), and the
+   kernel's (781,250, 256) mins at the path's own arguments equal that
+   walk's subblock mins; the indices score their distances, read from the
+   bytes; the kernel was launched. Timed: queries/s, the kernel at the
+   serving point (the JSON numbers) with its bound, plain version and a
+   yardstick (``unpack_bitplane`` + ``torch._int_mm`` + amax, both in
+   2^22-code blocks), the same at Q=256, N=2^20 (S=64, beside kernel 2),
+   and one traced call;
+11. ``exact=False``: ``retrieve_topk`` and ``retrieve_topk_streaming`` over
+   phase 4's 2^20 gallery at k=100 beside the exact path (the other option
+   for it): queries/s and distance-level recall@100 against the exact
+   answer (>= 0.95), indices scoring their distances;
+12. scoring: ``calculate_mAP`` (R=-1 and R=[10, 100], PRs 1, 5, 10) and
+   ``calculate_pr_curve`` on the card, over the 256 encoded codes as
+   queries and 4,096 seeded labelled codes as database, equal to the same
+   calls on the CPU within 1e-5; then both timed on the card at the size
+   of a CUB-200 eval (5,794 queries, 5,994 database codes, seeded).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -75,6 +102,11 @@ HBM_RATE = 3.35e12      # H100 SXM device-memory bytes/s
 # an intermediate on the neighbouring bf16 value, a few ulps at the output)
 LAYER_ATOL, LAYER_RTOL = 0.05, 0.02
 MIN_SIGN_AGREEMENT = 0.99
+# exact=False: least distance-level recall@k against the exact top-k (the
+# reference's approx_min_k recall_target)
+MIN_APPROX_RECALL = 0.95
+# scoring on the card vs the CPU: f32 sums in another order
+SCORING_ATOL = 1e-5
 # kernels 5 and 6 vs their plain versions: |got - ref| <= atol + rtol*|ref|
 # (LN -> matmul: both round x_hat*gamma+beta and the output to bf16 at the
 # same points; attention: f32 inside, one bf16 rounding at the output; f32
@@ -114,6 +146,11 @@ class Sizes:
     train_batch_big: int = 256
     train_steps: int = 5
     steps_per_epoch: int = 188         # CUB-200: 5,994 train images / 32
+    bitplane_codes: int = 100_000_000  # bench.py's serving_exact_100m point
+    bitplane_subblock: int = 128       # exact_topk_bitplane's default
+    walk_codes: int = 1 << 22          # codes per block of the plain walk
+    scoring_db: int = 4096             # labelled database codes, phase 12
+    scoring_split: tuple = (5794, 5994)  # CUB-200 test x train: timed only
 
 
 def fail(msg: str) -> None:
@@ -146,48 +183,62 @@ def host_s(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps
 
 
-def _self_device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
+def _device_us(evt, self_only: bool = True) -> float:
+    kind = "self_" if self_only else ""
+    for name in (f"{kind}device_time_total", f"{kind}cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
 
 
 def device_breakdown(name: str, fn, wall_s: float, rows: int = 12,
-                     host_rows: int = 0) -> None:
+                     host_rows: int = 0, op_rows: int = 0) -> None:
     """Trace one call of ``fn``: device time by kernel, and the device's busy
     share, the summed kernel time over ``wall_s`` (the untraced wall time of
     one call, as ``host_s`` measured it). Ranges that user annotations put
     on the device timeline (``Optimizer.step#...``) span kernels already
     counted and are left out. ``host_rows``: also the host operators with
-    the most self CPU time (inflated by the profiler's own cost)."""
+    the most self CPU time (inflated by the profiler's own cost).
+    ``op_rows``: also the PyTorch operators, by input shapes, with the most
+    device time of the kernels they launched (inclusive: an operator that
+    calls another counts that one's kernels too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=op_rows > 0) as prof:
         fn()
         torch.cuda.synchronize()
     averages = prof.key_averages()
     evts = sorted((e for e in averages
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)
-                   and _self_device_us(e) > 0),
-                  key=_self_device_us, reverse=True)
-    busy_ms = sum(_self_device_us(e) for e in evts) / 1e3
+                   and _device_us(e) > 0),
+                  key=_device_us, reverse=True)
+    busy_ms = sum(_device_us(e) for e in evts) / 1e3
     print(f"{name}: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms "
           f"wall ({100 * busy_ms / (wall_s * 1e3):.1f}%), "
           f"{sum(e.count for e in evts)} kernels")
     for e in evts[:rows]:
-        print(f"  {_self_device_us(e) / 1e3:9.3f} ms {e.count:6d}x  "
+        print(f"  {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}")
     host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     for e in host[:host_rows]:
         print(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:90]}")
+    if op_rows:
+        ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                      if e.device_type == DeviceType.CPU
+                      and e.key.startswith("aten::")
+                      and _device_us(e, self_only=False) > 0),
+                     key=lambda e: _device_us(e, self_only=False),
+                     reverse=True)
+        for e in ops[:op_rows]:
+            print(f"  op {_device_us(e, self_only=False) / 1e3:9.3f} ms "
+                  f"{e.count:4d}x  {e.key} {str(e.input_shapes)[:70]}")
 
 
 def card_line() -> str:
@@ -381,14 +432,15 @@ def build_model(sizes: Sizes, device):
 
 def _wrappers():
     """The launch-counting kernel wrappers: encoder layer, subblock mins,
-    LN -> matmul, attention."""
+    LN -> matmul, attention, bit-plane mins."""
     from concepthash_tpu_torch.ops.attention import attention_cuda
     from concepthash_tpu_torch.ops.fused_layer import encoder_layer_cuda
     from concepthash_tpu_torch.ops.fused_ln import ln_matmul_cuda
-    from concepthash_tpu_torch.ops.topk_select import subblock_mins_cuda
+    from concepthash_tpu_torch.ops.topk_select import (
+        subblock_mins_bitplane_cuda, subblock_mins_cuda)
 
     return (encoder_layer_cuda, subblock_mins_cuda, ln_matmul_cuda,
-            attention_cuda)
+            attention_cuda, subblock_mins_bitplane_cuda)
 
 
 def count_reset():
@@ -568,9 +620,9 @@ def run_train(sizes: Sizes, device) -> dict:
     print(f"train steps (B={sizes.train_batch}): loss "
           + ", ".join(f"{x:.5f}" for x in losses))
     print(f"train launches per step (encoder_layer, subblock_mins, "
-          f"ln_matmul, attention): {per_step}; expected (0, 0, {2 * n_lay}, "
-          f"{n_lay})")
-    if any(s != (0, 0, 2 * n_lay, n_lay) for s in per_step):
+          f"ln_matmul, attention, bitplane_mins): {per_step}; expected "
+          f"(0, 0, {2 * n_lay}, {n_lay}, 0)")
+    if any(s != (0, 0, 2 * n_lay, n_lay, 0) for s in per_step):
         fail("a kernel of the train path was not launched as expected")
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         fail("train loss not finite, or not lower at the last step")
@@ -674,6 +726,358 @@ def run_train(sizes: Sizes, device) -> dict:
                      step_s["kernels", sizes.train_batch], host_rows=10)
     ln["launches"], att["launches"] = launches[2], launches[3]
     return {"ln_matmul": ln, "attention": att}
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: the bit-plane mins, and the bit-plane serving slice
+# ---------------------------------------------------------------------------
+
+def check_bitplane_mins(sizes: Sizes, device) -> float:
+    """Phase 9: the kernel against its plain version, exactly, with n_rows
+    masking the byte-pad rows while the pack-pad slots stay in."""
+    from concepthash_tpu_torch.ops import topk_select as ts
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    Q, N, S = sizes.mins_queries, sizes.mins_codes, sizes.bitplane_subblock
+    worst = 0.0
+    for nbit, dt in ((64, torch.bfloat16), (64, torch.float32),
+                     (32, torch.bfloat16), (32, torch.float32)):
+        P = 128 // nbit
+        q = torch.randint(-1, 2, (Q, nbit), generator=gen, device=device)
+        db = torch.randint(0, 2, (N, nbit), generator=gen, device=device,
+                           dtype=torch.int8) * 2 - 1
+        bp, n_pad = ts.pack_bitplane_serving(db)
+        n_rows = -(-N // P)
+        got = ts.subblock_min_dists_bitplane(q, bp, subblock=S, out_dtype=dt,
+                                             n_rows=n_rows)
+        torch.cuda.synchronize()
+        m = -(-n_pad // S)
+        want = ts._bitplane_mins_reference(ts.strict_signs(q), bp, n_rows, S,
+                                           m, dt)
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"bitplane mins kernel vs plain, Q={Q} N={N} (stored {n_pad}, "
+              f"{n_rows} of {bp.shape[0] * 8} packed rows valid) nbit={nbit} "
+              f"S={S} {str(dt).split('.')[-1]}: shape {tuple(got.shape)}, "
+              f"max |d| {err}")
+        if got.shape != want.shape or err != 0:
+            fail(f"bit-plane mins kernel differs from its plain version "
+                 f"(nbit={nbit}, {dt})")
+        worst = max(worst, err)
+        del bp, db, got, want
+    return worst
+
+
+def plant_bitplane(bp, codes, nbit, gen):
+    """Write ``codes`` into a bit-plane gallery at random codes, one per
+    byte row, by unpacking, editing and repacking those byte rows. Returns
+    the planted code indices."""
+    from concepthash_tpu_torch.ops import topk_select as ts
+
+    B, P = codes.shape[0], 128 // nbit
+    g = torch.randperm(bp.shape[0], generator=gen, device=bp.device)[:B]
+    slot = torch.randint(0, 8 * P, (B,), generator=gen, device=bp.device)
+    rows = ts.unpack_bitplane(bp[g]).view(B, 8, P, nbit)
+    rows[torch.arange(B, device=bp.device), slot // P, slot % P] = \
+        ts.strict_signs(codes)
+    bp[g] = ts.pack_bitplane_serving(rows.view(B * 8, 128), nbit=nbit)[0]
+    return g * 8 * P + slot
+
+
+def bitplane_code_distances(bp, codes, idx, nbit):
+    """Hamming distances of the codes at ``idx`` (Q, k) of a bit-plane
+    gallery to their queries, read straight from the bytes."""
+    P = 128 // nbit
+    g, plane, slot = idx // (8 * P), (idx // P) % 8, idx % P
+    lanes = slot[..., None] * nbit + torch.arange(nbit, device=idx.device)
+    bits = (bp[g[..., None], lanes] >> plane[..., None].to(torch.uint8)) & 1
+    qbits = (codes > 0).to(torch.uint8)[:, None, :]
+    return (bits != qbits).sum(dim=-1).float()
+
+
+def plain_walk(bp, codes, k, nbit, block_codes, subblock, n_codes):
+    """The reference answer for a bit-plane gallery: unpack it a block at a
+    time, full distance matrix per block, exact top-k per block (values),
+    merged; and the subblock mins of those distances, (Q, m), with codes at
+    or past ``n_codes`` and past the stored ones at nbit + 1, as the mins
+    kernel counts them. ``block_codes`` is a multiple of ``subblock``."""
+    from concepthash_tpu_torch.ops import topk_select as ts
+    from concepthash_tpu_torch.ops.retrieval import sign_distances
+
+    Q = codes.shape[0]
+    gb = block_codes * nbit // 1024                  # byte rows per block
+    best = torch.full((Q, k), float("inf"), device=codes.device)
+    mins = []
+    for g0 in range(0, bp.shape[0], gb):
+        rows = ts.unpack_bitplane(bp[g0:g0 + gb]).view(-1, nbit)
+        d = sign_distances(codes, rows)
+        vals = torch.topk(d, min(k, d.shape[1]), dim=1, largest=False).values
+        best = torch.topk(torch.cat([best, vals], dim=1), k, dim=1,
+                          largest=False).values
+        c0 = g0 * 1024 // nbit
+        col = torch.arange(d.shape[1], device=d.device) + c0
+        d = torch.where(col < n_codes, d, float(nbit + 1))
+        pad = (-d.shape[1]) % subblock
+        d = F.pad(d, (0, pad), value=float(nbit + 1))
+        mins.append(d.view(Q, -1, subblock).amin(dim=2))
+    return best, torch.cat(mins, dim=1)
+
+
+def distance_recall(got, want, nbit) -> float:
+    """Distance-level recall: the share of the exact top-k distance
+    multiset that ``got`` recovers, averaged over queries."""
+    def hist(d):
+        return F.one_hot(d.clamp(max=nbit + 1).long(), nbit + 2).sum(dim=1)
+    k = want.shape[1]
+    return (torch.minimum(hist(got), hist(want)).sum(dim=1).float()
+            / k).mean().item()
+
+
+def run_bitplane(sizes: Sizes, device, codes, nbit: int) -> dict:
+    """Phase 10: serve the encoded codes from a 10^8-code bit-plane gallery,
+    counted, checked against a plain walk (kernel 4's mins at the path's own
+    arguments too), and timed with kernel 4 at the serving point and at
+    2^20. Returns kernel 4's JSON numbers, those of the serving point."""
+    from concepthash_tpu_torch.ops import topk_select as ts
+
+    gen = torch.Generator(device=device).manual_seed(29)
+    B, k, S = codes.shape[0], sizes.k, sizes.bitplane_subblock
+    N = sizes.bitplane_codes
+    G = N * nbit // 1024
+    bp = torch.randint(0, 256, (G, 128), generator=gen, device=device,
+                       dtype=torch.uint8)               # born bit-plane
+    planted = plant_bitplane(bp, codes, nbit, gen)
+    torch.cuda.synchronize()
+
+    # ---- the main path, once, with the launch counts from zero ----
+    count_reset()
+    with torch.inference_mode():
+        d, idx, valid = ts.exact_topk_bitplane(codes, bp, k, subblock=S,
+                                               n_valid=N)
+    torch.cuda.synchronize()
+    n_bp = counts()[4]
+    m = -(-N // S)
+    print(f"bit-plane serving: {B} queries over {N} codes ({G} byte rows, "
+          f"{G * 128 / 1e6:.0f} MB), S={S}, m={m}; launches: bitplane_mins "
+          f"{n_bp}; certificate {valid}")
+    if n_bp < 1:
+        fail("the bit-plane mins kernel was not launched on the main path")
+    hit = ((idx == planted[:, None]) & (d == 0)).any(dim=1)
+    print(f"bit-plane serving: planted rows found at distance 0: "
+          f"{int(hit.sum())}/{B}")
+    # kernel 4 at the main path's own arguments (the rows exact_topk_bitplane
+    # keeps for an int n_valid, its bf16 mins) against the walk's mins
+    P = 128 // nbit
+    n_rows = min(G * 8, -(-N // P))
+    with torch.inference_mode():
+        walk, walk_mins = plain_walk(bp, codes, k, nbit, sizes.walk_codes, S,
+                                     n_rows * P)
+        scored = bitplane_code_distances(bp, codes, idx, nbit)
+        got_mins = ts.subblock_min_dists_bitplane(
+            codes, bp, subblock=S, out_dtype=torch.bfloat16, n_rows=n_rows)
+    torch.cuda.synchronize()
+    same_shape = tuple(got_mins.shape) == (m, B) == tuple(walk_mins.t().shape)
+    mins_err = ((got_mins.float().t() - walk_mins).abs().max().item()
+                if same_shape else float("inf"))
+    del got_mins, walk_mins
+    same_d, consistent = torch.equal(d, walk), torch.equal(scored, d)
+    print(f"bit-plane serving: kernel 4's ({m}, {B}) mins at the main path's "
+          f"arguments (n_rows={n_rows}) vs the plain walk's subblock mins: "
+          f"max |d| {mins_err}")
+    print(f"bit-plane serving: distances equal the plain walk's: {same_d}; "
+          f"indices score their distances: {consistent}")
+    if mins_err != 0:
+        fail("bit-plane mins kernel differs from the plain walk's mins at "
+             "the serving point")
+    if not (valid and hit.all() and same_d and consistent):
+        fail("bit-plane serving: certificate, planted rows or distances "
+             "wrong")
+
+    with torch.inference_mode():
+        srv_s = host_s(lambda: ts.exact_topk_bitplane(codes, bp, k,
+                                                      subblock=S, n_valid=N),
+                       3)
+    print(f"bit-plane serving: {B / srv_s:.1f} queries/s "
+          f"(exact_topk_bitplane, k={k}, {B} queries over {N} codes, "
+          f"{srv_s * 1e3:.2f} ms)")
+    qi = ts.strict_signs(codes)
+
+    def bound(n_codes, m_rows):
+        nbytes = n_codes * nbit // 8 + B * nbit + m_rows * B * 2
+        ops = 2 * B * n_codes * nbit
+        t_b, t_o = nbytes / HBM_RATE, ops / INT8_PEAK
+        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+                nbytes, ops)
+
+    # plain version and yardstick in blocks of walk_codes codes: neither
+    # holds the serving point's (N, Q) products in device memory at once
+    gb = sizes.walk_codes * nbit // 1024
+
+    def in_blocks(fn):
+        def go():
+            for g0 in range(0, G, gb):
+                blk = bp[g0:g0 + gb]
+                fn(blk, blk.shape[0] * 8 * P)
+        return go
+
+    def library(blk, n):                     # unpack + int8 GEMM + amax
+        sim = torch._int_mm(ts.unpack_bitplane(blk).view(n, nbit), qi.t())
+        return (0.5 * (nbit - sim.view(n // S, S, B).amax(dim=1))).to(
+            torch.bfloat16)
+
+    with torch.inference_mode():
+        big_ms = cuda_ms(lambda: ts.subblock_mins_bitplane_cuda(
+            qi, bp, n_rows, S, m, torch.bfloat16), max(3, sizes.reps // 2))
+        big_plain_ms = cuda_ms(in_blocks(
+            lambda blk, n: ts._bitplane_mins_reference(
+                qi, blk, n // P, S, -(-n // S), torch.bfloat16)), 2)
+        big_lib_ms = cuda_ms(in_blocks(library), 2)
+    big = bound(N, m)
+    print(f"bitplane_mins at the serving point (Q={B}, N={N}, nbit={nbit}, "
+          f"S={S}, bf16): kernel {big_ms:.4f} ms, bound {big[0]:.4f} ms "
+          f"({big[1]}: {big[2] / 1e6:.1f} MB, {big[3] / 1e9:.1f} G int8 "
+          f"ops), plain {big_plain_ms:.4f} ms and library (unpack_bitplane + "
+          f"torch._int_mm + amax) {big_lib_ms:.4f} ms, both in "
+          f"{-(-G // gb)} blocks of {sizes.walk_codes} codes")
+    with torch.inference_mode():
+        device_breakdown("bit-plane serving", lambda: ts.exact_topk_bitplane(
+            codes, bp, k, subblock=S, n_valid=N), srv_s, op_rows=8)
+    del bp
+
+    # ---- kernel 4 at Q=256, N=2^20, where it compares with kernel 2 ----
+    n20, s20 = sizes.gallery, 64
+    bp20 = torch.randint(0, 256, (n20 * nbit // 1024, 128), generator=gen,
+                         device=device, dtype=torch.uint8)
+    m20 = -(-n20 // s20)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: ts.subblock_mins_bitplane_cuda(
+            qi, bp20, bp20.shape[0] * 8, s20, m20, torch.bfloat16),
+            sizes.reps)
+        plain_ms = cuda_ms(lambda: ts._bitplane_mins_reference(
+            qi, bp20, bp20.shape[0] * 8, s20, m20, torch.bfloat16), 3)
+        lib_ms = cuda_ms(lambda: (0.5 * (nbit - torch._int_mm(
+            ts.unpack_bitplane(bp20).view(n20, nbit), qi.t()).view(
+                m20, s20, B).amax(dim=1))).to(torch.bfloat16), sizes.reps)
+    b20 = bound(n20, m20)
+    print(f"bitplane_mins (Q={B}, N={n20}, nbit={nbit}, S={s20}, bf16): "
+          f"kernel {ms:.4f} ms, bound {b20[0]:.4f} ms ({b20[1]}: "
+          f"{b20[2] / 1e6:.1f} MB, {b20[3] / 1e9:.1f} G int8 ops), plain "
+          f"{plain_ms:.4f} ms, library (unpack_bitplane + torch._int_mm + "
+          f"amax) {lib_ms:.4f} ms")
+    return dict(launches=n_bp, max_abs_err=mins_err, ms=big_ms,
+                plain_ms=big_plain_ms, bound_ms=big[0], bound_by=big[1],
+                library_ms=big_lib_ms)
+
+
+def run_approx(sizes: Sizes, codes, gallery, packed, bits,
+               n_pad: int) -> None:
+    """Phase 11: exact=False over the 2^20 gallery of phase 4 beside the
+    exact path, the other option for it: queries/s, distance-level recall
+    against the exact answer, and whether the indices score their
+    distances."""
+    from concepthash_tpu_torch.ops.retrieval import (retrieve_topk,
+                                                     retrieve_topk_streaming,
+                                                     sign_distances)
+
+    B, k, nbit = codes.shape[0], sizes.k, codes.shape[1]
+    N = gallery.shape[0]
+    flat = packed.reshape(n_pad, nbit)
+    exact = "retrieve_topk exact=True (subblock mins + rescore)"
+    options = {
+        "retrieve_topk exact=False (bf16 sign products + torch.topk)":
+            lambda: retrieve_topk(codes, flat, k=k, exact=False, n_valid=N),
+        "retrieve_topk_streaming exact=False (the same, per block)":
+            lambda: retrieve_topk_streaming(codes, packed, k=k,
+                                            db_block=n_pad, exact=False,
+                                            n_valid=N),
+        exact: lambda: retrieve_topk(codes, flat, k=k, exact=True,
+                                     n_valid=N),
+        "retrieve_topk_streaming exact=True (minspass, gallery bit-pack "
+        "given)": lambda: retrieve_topk_streaming(
+            codes, packed, k=k, db_block=n_pad, exact=True, n_valid=N,
+            db_bits=bits),
+    }
+    with torch.inference_mode():
+        exact_d, _ = options[exact]()
+        dist = sign_distances(codes, gallery)
+        for name, fn in options.items():
+            d, idx = fn()
+            recall = distance_recall(d, exact_d, nbit)
+            consistent = torch.equal(dist.gather(1, idx), d)
+            s = host_s(fn, 5)
+            print(f"{name}: {B / s:.1f} queries/s ({s * 1e3:.2f} ms), "
+                  f"distance-level recall@{k} {recall:.6f}, indices score "
+                  f"their distances: {consistent}")
+            if recall < MIN_APPROX_RECALL or not consistent:
+                fail(f"{name}: recall {recall} < {MIN_APPROX_RECALL} or "
+                     f"indices inconsistent")
+
+
+def run_scoring(sizes: Sizes, codes, nclass: int, device) -> None:
+    """Phase 12: calculate_mAP and calculate_pr_curve on the card against
+    the same calls on the CPU."""
+    from concepthash_tpu_torch.ops.retrieval import (calculate_mAP,
+                                                     calculate_pr_curve)
+
+    gen = torch.Generator().manual_seed(31)
+    db = torch.randn(sizes.scoring_db, codes.shape[1], generator=gen)
+    db_labels = torch.randint(0, nclass, (sizes.scoring_db,), generator=gen)
+    q_labels = torch.randint(0, nclass, (codes.shape[0],), generator=gen)
+    q = codes.float().cpu()
+    calls = {
+        "mAP R=-1": lambda dev: calculate_mAP(db, db_labels, q, q_labels,
+                                              R=-1, PRs=(1, 5, 10),
+                                              device=dev),
+        "mAP R=[10, 100]": lambda dev: calculate_mAP(
+            db, db_labels, q, q_labels, R=[10, 100], PRs=(1, 5, 10),
+            device=dev),
+        "PR curve": lambda dev: calculate_pr_curve(db, db_labels, q,
+                                                   q_labels, device=dev),
+    }
+    worst = 0.0
+    for name, fn in calls.items():
+        t0 = time.perf_counter()
+        got = fn(device)
+        sec = time.perf_counter() - t0
+        want = fn("cpu")
+        flat_g = [float(x) for x in _flatten(got)]
+        flat_w = [float(x) for x in _flatten(want)]
+        err = max(abs(a - b) for a, b in zip(flat_g, flat_w))
+        worst = max(worst, err)
+        print(f"scoring {name} ({codes.shape[0]} queries, {sizes.scoring_db} "
+              f"database codes, {nclass} classes): card {flat_g[:4]} vs CPU "
+              f"{flat_w[:4]}, max |d| {err:.3g} over {len(flat_g)} numbers, "
+              f"{sec * 1e3:.1f} ms on the card")
+        if len(flat_g) != len(flat_w) or not err <= SCORING_ATOL:
+            fail(f"scoring {name}: card and CPU differ by {err}")
+
+    # the eval's own size, on the card only: seeded codes and labels
+    nq, ndb = sizes.scoring_split
+    gen = torch.Generator(device=device).manual_seed(37)
+    nbit = codes.shape[1]
+    sq = torch.randn(nq, nbit, generator=gen, device=device)
+    sdb = torch.randn(ndb, nbit, generator=gen, device=device)
+    sql = torch.randint(0, nclass, (nq,), generator=gen, device=device)
+    sdbl = torch.randint(0, nclass, (ndb,), generator=gen, device=device)
+    split = {
+        "mAP R=-1, PRs (1, 5, 10)": lambda: calculate_mAP(
+            sdb, sdbl, sq, sql, R=-1, PRs=(1, 5, 10), device=device),
+        "PR curve": lambda: calculate_pr_curve(sdb, sdbl, sq, sql,
+                                               device=device)[:2],
+    }
+    for name, fn in split.items():
+        sec = host_s(fn, 2)
+        vals = [float(x) for x in _flatten(fn())]
+        print(f"scoring at the CUB-200 split size, {name} ({nq} queries, "
+              f"{ndb} database codes, {nclass} classes, seeded codes): "
+              f"{sec * 1e3:.1f} ms on the card, {len(vals)} numbers")
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in vals):
+            fail(f"scoring at the split size, {name}: a value outside [0, 1]")
+
+
+def _flatten(x):
+    if isinstance(x, (list, tuple)):
+        return [y for item in x for y in _flatten(item)]
+    return [x]
 
 
 def run(sizes: Sizes, device) -> dict:
@@ -824,6 +1228,8 @@ def run(sizes: Sizes, device) -> dict:
         mins_lib_ms = cuda_ms(lambda: (0.5 * (nbit - torch._int_mm(
             flat, qi.t()).view(m, 64, B).amax(dim=1))).to(torch.bfloat16),
             sizes.reps)
+        plain_layout_ms = cuda_ms(lambda: ts.subblock_min_dists(
+            qi, flat, 64, torch.bfloat16), sizes.reps)
     mins_bytes = n_pad * nbit + B * nbit + m * B * 2
     mins_ops = 2 * B * n_pad * nbit
     mins_bound = max(mins_bytes / HBM_RATE, mins_ops / INT8_PEAK) * 1e3
@@ -840,16 +1246,26 @@ def run(sizes: Sizes, device) -> dict:
           f"{mins_bytes / 1e6:.1f} MB, {mins_ops / 1e9:.1f} G int8 ops), "
           f"plain {mins_plain_ms:.4f} ms, library (torch._int_mm + amax) "
           f"{mins_lib_ms:.4f} ms")
+    print(f"subblock_mins, plain (N, {nbit}) layout (Q={B}, N={n_pad}, "
+          f"bf16, through subblock_min_dists): kernel {plain_layout_ms:.4f} "
+          f"ms, bound {mins_bound:.4f} ms ({mins_by}), plain "
+          f"{mins_plain_ms:.4f} ms, library {mins_lib_ms:.4f} ms (the same "
+          f"bytes as the packed layout)")
 
     with torch.inference_mode():
         device_breakdown("encode", lambda: model(images), enc_s)
         device_breakdown("serving", lambda: retrieve_topk(
             codes, packed.reshape(n_pad, nbit), k=k, exact=True,
             n_valid=N), srv_s)
-    del gallery, packed, bits, images, raw, model
+    nclass = model.cfg.nclass
+    del images, raw, model
     torch.cuda.empty_cache()
 
     tr = run_train(sizes, device)
+    bp_err = check_bitplane_mins(sizes, device)
+    bp = run_bitplane(sizes, device, codes, nbit)
+    run_approx(sizes, codes, gallery, packed, bits, n_pad)
+    run_scoring(sizes, codes, nclass, device)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",
          "source": "concepthash_tpu_torch/csrc/fused_layer.cu",
@@ -875,6 +1291,13 @@ def run(sizes: Sizes, device) -> dict:
                ln_err),
               ("attention", "attention", "concepthash_tpu/ops/attention.py:35",
                attn_err))),
+        {"name": "bitplane_mins", "route": "cuda",
+         "source": "concepthash_tpu_torch/csrc/bitplane_mins.cu",
+         "replaces": "concepthash_tpu/ops/topk_select.py:765",
+         "launches": bp["launches"],
+         "max_abs_err": max(bp_err, bp["max_abs_err"]), "ms": bp["ms"],
+         "plain_ms": bp["plain_ms"], "bound_ms": bp["bound_ms"],
+         "bound_by": bp["bound_by"], "library_ms": bp["library_ms"]},
     ]}
 
 

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-SOURCES = ("fused_layer", "topk_select", "fused_ln", "attention")
+SOURCES = ("fused_layer", "topk_select", "fused_ln", "attention", "bitplane_mins")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -7,6 +7,7 @@ op, so a word is an int32 tensor element carrying the uint32 bit pattern
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -45,6 +46,51 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
 
 def hamming_packed(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """Pairwise Hamming distance between packed codes: q (Q, L), db (N, L)
-    words -> (Q, N) int32."""
-    x = torch.bitwise_xor(q[:, None, :], db[None, :, :])
-    return popcount32(x).sum(dim=-1).to(torch.int32)
+    words -> (Q, N) int32. One word at a time, so the int64 temporaries
+    are (Q, N), not (Q, N, L)."""
+    dist = torch.zeros((q.shape[0], db.shape[0]), dtype=torch.int32,
+                       device=q.device)
+    for w in range(q.shape[-1]):
+        dist += popcount32(torch.bitwise_xor(q[:, None, w],
+                                             db[None, :, w])).to(torch.int32)
+    return dist
+
+
+def ternary_sign(codes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
+    """sign() with a dead zone, f32: +1 / -1 / 0 (|c| <= threshold -> 0).
+    With threshold 0 it is torch.sign (0 -> 0)."""
+    return (codes > threshold).float() - (codes < -threshold).float()
+
+
+def hamming_signs(q_codes: torch.Tensor, db_codes: torch.Tensor,
+                  threshold: float = 0.0) -> torch.Tensor:
+    """Hamming distance via ternary sign products, (Q, N) f32: a zeroed
+    component contributes 0.5, the generalization of
+    0.5 * (nbit - <s_q, s_db>). Exact in f32 products of -1, 0 and +1."""
+    nbit = q_codes.shape[-1]
+    dot = ternary_sign(q_codes, threshold) @ ternary_sign(db_codes,
+                                                          threshold).t()
+    return 0.5 * (nbit - dot)
+
+
+def get_hamm_dist(codes, codebook, threshold: float = 0.0,
+                  normalize: bool = False) -> torch.Tensor:
+    """API-parity with the reference's ``utils.hashing.get_hamm_dist``:
+    ``hamming_signs``, divided by nbit when ``normalize``."""
+    codes, codebook = torch.as_tensor(codes), torch.as_tensor(codebook)
+    dist = hamming_signs(codes.float(), codebook.float(), threshold)
+    return dist / codes.shape[-1] if normalize else dist
+
+
+def pack_bits_np(codes: np.ndarray, threshold: float = 0.0) -> np.ndarray:
+    """NumPy twin of :func:`pack_bits` for host-side galleries, in uint32
+    words: bit j of word w is set iff ``codes[..., 32*w + j] > threshold``."""
+    nbit = codes.shape[-1]
+    nwords = -(-nbit // 32)
+    pad = nwords * 32 - nbit
+    bits = (codes > threshold).astype(np.uint32)
+    if pad:
+        bits = np.pad(bits, [(0, 0)] * (bits.ndim - 1) + [(0, pad)])
+    bits = bits.reshape(*bits.shape[:-1], nwords, 32)
+    shifts = np.arange(32, dtype=np.uint32)
+    return (bits << shifts).sum(axis=-1).astype(np.uint32)

@@ -1,14 +1,20 @@
-"""Exact top-k serving over an int8 sign gallery: the subblock-min CUDA
-kernel of ``csrc/topk_select.cu``, its plain PyTorch version, and the
-selection, rescore and certificate around it.
+"""Exact top-k serving over an int8 sign gallery and over a bit-plane
+gallery: the subblock-min CUDA kernels of ``csrc/topk_select.cu`` and
+``csrc/bitplane_mins.cu``, their plain PyTorch versions, and the selection,
+rescore and certificate around them.
 
 Counterpart of concepthash_tpu/ops/topk_select.py (the Pallas
-``_mins_kernel_packed`` and ``_mins_kernel``, and ``exact_topk_minspass``).
-Differences by design:
+``_mins_kernel_packed``, ``_mins_kernel`` and ``_mins_kernel_bitplane``,
+``exact_topk_minspass`` and ``exact_topk_bitplane``). Differences by design:
 
 - the mins array has ``m = ceil(N / subblock)`` rows; the reference pads it
   to its TPU row-block, and those pad rows read nbit + 1 exactly as the
   tail rows here do;
+- the bit-plane rescore gathers each selected subblock's own byte rows; the
+  reference clamps the last one's start to G - gps, which misreads a ragged
+  last subblock (ROADMAP Queue 3);
+- the bit-plane rescore runs on int32 words of four lanes rather than eight
+  {0, 1} planes and a slot-sum product;
 - every ``lax.top_k`` of the reference is a stable ascending sort here, so
   ties resolve to the lower position first on every device, as ``lax.top_k``
   resolves them (``torch.topk`` makes no such promise on CUDA);
@@ -352,6 +358,278 @@ def exact_topk_minspass(q_signs: torch.Tensor, db_i8: torch.Tensor, k: int,
             cand = gathered.reshape(Q, cap_i * subblock, nbit).float()
             sim_c = torch.bmm(cand, qi.float()[:, :, None])[..., 0]
             dist_c = 0.5 * (nbit - sim_c)
+        dist_c = torch.where(rows >= nv, float("inf"), dist_c)
+        d, li = smallest(dist_c, k)
+        idx = torch.gather(rows, 1, li)
+        valid = bool((d[:, -1] < theta_next).all())
+        return d, idx, valid
+
+    d1, i1, v1 = select_rescore(cap)
+    # m_real - 1: the direct branch selects cap_i + 1 mins per row
+    cap_retry = min(retry_mult * cap, m_real - 1)
+    if v1 or cap_retry <= cap:
+        return d1, i1, v1
+    return select_rescore(cap_retry)
+
+
+# ---------------------------------------------------------------------------
+# bit-plane serving layout: one bit per code bit (8 bytes per code at nbit=64)
+# ---------------------------------------------------------------------------
+
+_UNPACK_FORMS = ("i8_stack", "i32_shift", "i8_mask")
+
+
+def pack_bitplane_serving(db: torch.Tensor, nbit: int | None = None):
+    """Sign gallery -> bit-plane serving form: ((G, 128) uint8, n_pad).
+
+    Accepts (N, nbit) +-1 signs or the 128-lane packed int8 form of
+    ``pack_serving_gallery``. Bit j of ``bp[g, l]`` is the sign bit (> 0) of
+    packed row 8g + j at lane l; code (8g + j) * P + p sits at lanes
+    [p * nbit, (p + 1) * nbit). ``n_pad`` counts the stored codes: N rounded
+    up to P codes per packed row, then to 8 packed rows per byte row. A
+    bit-plane has no zero state, so both pad kinds store as all-negative
+    codes (bits 0x00): serving calls pass ``n_valid``. Byte for byte the
+    reference's layout."""
+    if db.shape[1] == 128 and (nbit is None or nbit != 128):
+        if nbit is None:
+            raise ValueError(
+                "a 128-lane input is ambiguous (plain nbit=128 vs the "
+                "packed layout of any nbit dividing 128) — pass nbit")
+        packed, n_pad = db.to(torch.int8), db.shape[0] * (128 // nbit)
+    else:
+        if nbit is None:
+            nbit = db.shape[1]
+        if db.shape[1] != nbit:
+            raise ValueError(f"gallery width {db.shape[1]} is not nbit={nbit}")
+        packed, n_pad = pack_serving_gallery(db)
+    P = 128 // nbit
+    pad_r = (-packed.shape[0]) % 8
+    bits = (packed > 0).to(torch.int32)
+    if pad_r:
+        bits = torch.cat([bits, bits.new_zeros((pad_r, 128))])
+    shifts = torch.arange(8, dtype=torch.int32, device=bits.device)
+    bp = (bits.reshape(-1, 8, 128) << shifts[None, :, None]).sum(dim=1)
+    return bp.to(torch.uint8), n_pad + pad_r * P
+
+
+def unpack_bitplane(bp: torch.Tensor) -> torch.Tensor:
+    """(G, 128) uint8 bit-planes -> (G * 8, 128) int8 +-1 packed rows (the
+    ``pack_serving_gallery`` layout)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bp.device)
+    u = ((bp[:, None, :] >> shifts[None, :, None]) & 1).to(torch.int8)
+    return (u * 2 - 1).reshape(-1, 128)
+
+
+def _bitplane_mins_reference(qi: torch.Tensor, bp: torch.Tensor, n_rows: int,
+                             subblock: int, m: int,
+                             out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the bit-plane mins kernel: unpack the planes, keep
+    the first ``n_rows`` packed rows, and take the int8 layout's mins;
+    codes past them read nbit + 1."""
+    nbit = qi.shape[1]
+    rows_db = unpack_bitplane(bp).reshape(-1, nbit)[:n_rows * (128 // nbit)]
+    return _mins_reference(qi, rows_db, subblock, m, out_dtype)
+
+
+def _bitplane_lib():
+    lib = _build.load("bitplane_mins")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.bitplane_mins_fwd.argtypes = [vp, vp, cll, cll, ci, ci, ci, cll,
+                                          ci, vp, vp]
+        lib.bitplane_mins_fwd.restype = ci
+        lib.bitplane_mins_error_string.argtypes = [ci]
+        lib.bitplane_mins_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
+def subblock_mins_bitplane_cuda(qi: torch.Tensor, bp: torch.Tensor,
+                                n_rows: int, subblock: int, m: int,
+                                out_dtype=torch.float32) -> torch.Tensor:
+    """Launch the bit-plane mins kernel. qi: (Q, nbit) strict +-1 int8; bp:
+    (G, 128) uint8 bit-planes, of which the first ``n_rows`` packed rows
+    count. Returns (m, Q) in ``out_dtype`` (bf16 or f32).
+    ``subblock_mins_bitplane_cuda.launches`` counts the launches."""
+    Q, nbit = qi.shape
+    if qi.device.type != "cuda" or bp.device != qi.device:
+        raise ValueError(f"subblock_mins_bitplane_cuda needs q and gallery on "
+                         f"one CUDA device, got {qi.device} and {bp.device}")
+    if qi.dtype != torch.int8 or bp.dtype != torch.uint8:
+        raise TypeError("q must be int8 and the bit-plane gallery uint8")
+    if nbit not in _KERNEL_NBITS:
+        raise ValueError(f"the mins kernel takes nbit in {_KERNEL_NBITS}, got {nbit}")
+    P = 128 // nbit
+    if subblock <= 0 or subblock % (8 * P):
+        raise ValueError(f"subblock {subblock} must be a multiple of 8*P={8 * P}")
+    if bp.dim() != 2 or bp.shape[1] != 128:
+        raise ValueError(f"bit-plane gallery must be (G, 128), got {tuple(bp.shape)}")
+    G = bp.shape[0]
+    if not 0 <= n_rows <= G * 8:
+        raise ValueError(f"n_rows={n_rows} outside [0, {G * 8}]")
+    for name, t in (("q", qi), ("gallery", bp)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    if m < _cdiv(G * 8 * P, subblock):
+        raise ValueError(f"m={m} rows cannot hold {G * 8 * P} codes in "
+                         f"subblocks of {subblock}")
+    out = torch.empty((m, Q), dtype=out_dtype, device=qi.device)
+    lib = _bitplane_lib()
+    code = lib.bitplane_mins_fwd(
+        _build.ptr(qi), _build.ptr(bp), G, n_rows, Q, nbit, subblock, m,
+        int(out_dtype == torch.bfloat16), _build.ptr(out),
+        _build.stream_ptr(qi.device))
+    _build.check(code, lib.bitplane_mins_error_string, "bitplane_mins_fwd")
+    subblock_mins_bitplane_cuda.launches += 1
+    return out
+
+
+subblock_mins_bitplane_cuda.launches = 0
+
+
+def _bitplane_slots(nbit: int, subblock: int, unpack: str) -> int:
+    """Checks the bit-plane geometry and the reference's ``unpack`` name (one
+    of its TPU plane-extraction forms, whose mins are identical; it has no
+    effect here). Returns P, the codes per packed row."""
+    if unpack not in _UNPACK_FORMS:
+        raise ValueError(f"unpack must be one of {_UNPACK_FORMS}, got {unpack!r}")
+    if 128 % nbit:
+        raise ValueError(f"nbit must divide 128, got {nbit}")
+    P = 128 // nbit
+    if subblock % (8 * P):
+        raise ValueError(f"subblock {subblock} must be a multiple of 8*P={8 * P}")
+    return P
+
+
+def _mins_bitplane(qi, bp, n_rows: int, subblock: int, m: int, out_dtype):
+    if bp.device.type == "cpu":
+        return _bitplane_mins_reference(qi, bp, n_rows, subblock, m, out_dtype)
+    return subblock_mins_bitplane_cuda(qi, bp, n_rows, subblock, m, out_dtype)
+
+
+def subblock_min_dists_bitplane(q_signs: torch.Tensor, bp: torch.Tensor,
+                                subblock: int = 256,
+                                out_dtype=torch.float32,
+                                n_rows: int | None = None,
+                                unpack: str = "i8_stack") -> torch.Tensor:
+    """Per-subblock min Hamming distances over a bit-plane gallery:
+    (Q, nbit) x (G, 128) uint8 (``pack_bitplane_serving``) ->
+    (ceil(G * 8 * P / S), Q), bf16 exact for nbit <= 128. Needs
+    ``subblock % (8 * P) == 0``, so a byte row never straddles two
+    subblocks. ``n_rows``: the valid packed rows (default: all stored);
+    codes of later rows read nbit + 1. ``unpack``: see ``_bitplane_slots``."""
+    P = _bitplane_slots(q_signs.shape[1], subblock, unpack)
+    G = bp.shape[0]
+    if n_rows is None:
+        n_rows = G * 8
+    m = _cdiv(G * 8 * P, subblock)
+    return _mins_bitplane(strict_signs(q_signs), bp, int(n_rows), subblock, m,
+                          out_dtype)
+
+
+def _bitplane_rescore(gath: torch.Tensor, qb: torch.Tensor,
+                      nbit: int) -> torch.Tensor:
+    """Hamming distances of every code in gathered byte rows:
+    gath (Q, C, 128) uint8, qb (Q, 128) uint8 (0xFF where the query's bit
+    for that lane is set) -> (Q, C, 8, P) int32, in (byte row, plane, slot)
+    order. Runs on int32 words of four lanes each: a word's plane-j bits are
+    ``(w >> j) & 0x01010101``, summed over the slot's nbit/4 words with one
+    byte per lane (each at most nbit/4 < 256), then the four bytes added."""
+    Q, C, _ = gath.shape
+    P = 128 // nbit
+    x = torch.bitwise_xor(gath, qb[:, None, :]).view(torch.int32)
+    x = x.reshape(Q, C, P, nbit // 4)                       # (Q, C, P, words)
+    planes = []
+    for j in range(8):
+        s = ((x >> j) & 0x01010101).sum(dim=-1, dtype=torch.int32)
+        planes.append((s & 0xFF) + ((s >> 8) & 0xFF) + ((s >> 16) & 0xFF)
+                      + ((s >> 24) & 0xFF))                  # (Q, C, P)
+    return torch.stack(planes, dim=2)
+
+
+def exact_topk_bitplane(q_signs: torch.Tensor, bp: torch.Tensor, k: int,
+                        subblock: int = 128, cap: int | None = None,
+                        n_valid: int | None = None, retry_mult: int = 2,
+                        unpack: str = "i8_stack"):
+    """Exact top-k over a bit-plane gallery (``pack_bitplane_serving``): the
+    bit-plane mins (the kernel on CUDA), the selection of the ``cap`` best
+    subblocks, and a rescore of their codes gathered as whole byte rows of
+    the same stored array, with the certificate and one retry of
+    ``exact_topk_minspass``.
+
+    Galleries that store more codes than they hold (both pad kinds) pass
+    ``n_valid`` = the real N; codes at or past it are masked to +inf. A
+    Python int ``n_valid`` also masks the pad rows in the mins.
+
+    Returns (distances (Q, k) f32, indices (Q, k) int64, valid bool);
+    ``valid`` False means the caller must use an exact fallback."""
+    Q, nbit = q_signs.shape
+    P = _bitplane_slots(nbit, subblock, unpack)
+    gps = subblock // P // 8                   # byte rows per subblock
+    G = bp.shape[0]
+    N = G * 8 * P                              # stored codes, pads included
+    m_real = _cdiv(N, subblock)
+    if cap is None:
+        cap = 512
+    qi = strict_signs(q_signs)
+    nv = N if n_valid is None else int(n_valid)
+    dev = qi.device
+
+    if m_real <= cap:
+        # fewer subblocks than the candidate budget: a dense rescore of the
+        # unpacked gallery
+        sim = qi.float() @ unpack_bitplane(bp).reshape(N, nbit).float().t()
+        dist = 0.5 * (nbit - sim)
+        dist = torch.where(torch.arange(N, device=dev) < nv, dist,
+                           float("inf"))
+        d, idx = smallest(dist, k)
+        return d, idx, True
+
+    large_m = m_real > _INNER_DIRECT_MAX
+    mdt = torch.bfloat16 if nbit <= 128 else torch.float32
+    # byte-pad codes are all-negative (real-looking): mask their rows in the
+    # mins too when n_valid is a plain int
+    nr = G * 8
+    if isinstance(n_valid, int):
+        nr = min(nr, _cdiv(n_valid, P))
+    mins_t = _mins_bitplane(qi, bp, nr, subblock, m_real, mdt)      # (m, Q)
+    sub2 = 64
+    msb = None
+    if large_m:
+        pad2 = (-mins_t.shape[0]) % sub2
+        if pad2:
+            mins_t = torch.cat(
+                [mins_t, mins_t.new_full((pad2, Q), float(nbit + 1))])
+        msb = mins_t.reshape(-1, sub2, Q).amin(dim=1).t().contiguous()
+    mins = mins_t.t().contiguous()                                  # (Q, m)
+
+    # the query's byte for lane l: 0xFF iff its bit l % nbit is set (a byte
+    # holds that lane of 8 codes, one per plane)
+    lane_bit = torch.arange(128, device=dev) % nbit
+    qb = ((qi[:, lane_bit] > 0).to(torch.uint8) * 255).to(torch.uint8)
+
+    def select_rescore(cap_i: int):
+        if not large_m:
+            mv, sel_all = smallest(mins, cap_i + 1)
+            sel = sel_all[:, :cap_i]
+            theta_next = mv[:, cap_i]
+        else:
+            sel, theta_next = _approx_smallest_rows(
+                mins, cap_i, sub2=sub2, return_theta=True, mins2=msb)
+        rows = (sel[:, :, None] * subblock
+                + torch.arange(subblock, device=dev)).reshape(Q, cap_i * subblock)
+        # whole subblocks as gps consecutive byte rows; rows past the stored
+        # ones (a ragged last subblock) hold codes >= N >= n_valid, which the
+        # mask below sends to +inf
+        g_idx = (sel[:, :, None] * gps
+                 + torch.arange(gps, device=dev)).reshape(-1).clamp(max=G - 1)
+        gath = bp.index_select(0, g_idx).reshape(Q, cap_i * gps, 128)
+        # (byte row, plane, slot) order is the in-subblock code order:
+        # code (8 * g_local + j) * P + p
+        dist_c = _bitplane_rescore(gath, qb, nbit).float().reshape(
+            Q, cap_i * subblock)
         dist_c = torch.where(rows >= nv, float("inf"), dist_c)
         d, li = smallest(dist_c, k)
         idx = torch.gather(rows, 1, li)

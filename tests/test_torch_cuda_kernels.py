@@ -136,6 +136,105 @@ def test_packed_mins_and_minspass_match_cpu(cuda_device):
         assert got[2] == want[2]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbit,G", [(16, 301), (32, 1003), (64, 6251),
+                                    (128, 517)])
+def test_bitplane_mins_kernel_matches_plain(cuda_device, nbit, G):
+    """The bit-plane kernel equals its plain version element for element:
+    random byte rows, n_rows cutting into the last subblocks, two rows of
+    m past the stored codes, at S = 8P and at a larger subblock."""
+    P = 128 // nbit
+    g = torch.Generator(device=cuda_device).manual_seed(nbit)
+    bp = torch.randint(0, 256, (G, 128), generator=g, device=cuda_device,
+                       dtype=torch.uint8)
+    qi = tts.strict_signs(torch.randint(0, 2, (300, nbit), generator=g,
+                                        device=cuda_device))
+    for S in (8 * P, 128):
+        m = -(-G * 8 * P // S) + 2
+        for n_rows in (G * 8, G * 8 - 13):
+            for dt in (torch.bfloat16, torch.float32):
+                before = tts.subblock_mins_bitplane_cuda.launches
+                got = tts.subblock_mins_bitplane_cuda(qi, bp, n_rows, S, m, dt)
+                torch.cuda.synchronize()
+                assert tts.subblock_mins_bitplane_cuda.launches == before + 1
+                want = tts._bitplane_mins_reference(qi, bp, n_rows, S, m, dt)
+                torch.testing.assert_close(got, want, atol=0, rtol=0)
+                assert (got[-2:] == nbit + 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inner_direct_max", [32768, 8])
+def test_exact_topk_bitplane_matches_cpu(cuda_device, monkeypatch,
+                                         inner_direct_max):
+    """exact_topk_bitplane on the card (the kernel) equals the same call on
+    the CPU (plain versions), on the direct and the hierarchical selection,
+    with pad codes masked by n_valid: distances, indices, certificate."""
+    monkeypatch.setattr(tts, "_INNER_DIRECT_MAX", inner_direct_max)
+    rng = np.random.default_rng(5)
+    nbit, N, Q = 64, 70_001, 40
+    db = np.where(rng.random((N, nbit)) < 0.5, -1, 1).astype(np.float32)
+    q = np.where(rng.random((Q, nbit)) < 0.5, -1, 1).astype(np.float32)
+    q[:, :2] = 0.0                                       # zeros count as -1
+    bp, n_pad = tts.pack_bitplane_serving(torch.tensor(db))
+    assert n_pad > N
+    for kw in (dict(cap=64, n_valid=N), dict(cap=8, n_valid=N - 1000)):
+        want = tts.exact_topk_bitplane(torch.tensor(q), bp, 20, **kw)
+        got = tts.exact_topk_bitplane(torch.tensor(q, device=cuda_device),
+                                      bp.to(cuda_device), 20, **kw)
+        torch.testing.assert_close(got[0].cpu(), want[0], atol=0, rtol=0)
+        torch.testing.assert_close(got[1].cpu(), want[1], atol=0, rtol=0)
+        assert got[2] == want[2]
+
+
+@pytest.mark.cuda
+def test_approx_serving_on_card_matches_cpu(cuda_device):
+    """exact=False on the card (bf16 sign products + torch.topk) against the
+    CPU's stable selection, over a tie-heavy gallery with pad rows: the
+    same distances; the card's indices score them and stay below n_valid."""
+    from concepthash_tpu_torch.ops import hamming as th
+    from concepthash_tpu_torch.ops import retrieval as tr
+
+    rng = np.random.default_rng(9)
+    nbit, N, Q, k = 64, 80_000, 33, 50
+    base = np.where(rng.random((40, nbit)) < 0.5, -1, 1).astype(np.float32)
+    db = base[rng.integers(0, 40, N)]
+    q = np.where(rng.random((Q, nbit)) < 0.5, -1, 1).astype(np.float32)
+    q[:, :3] = 0.0
+    dist = tr.sign_distances(torch.tensor(q), torch.tensor(db)).numpy()
+    packed, n_pad = tts.pack_serving_gallery(torch.tensor(db))
+    for nv in (None, N - 77):
+        calls = (
+            lambda t, d: tr.retrieve_topk(t, d, k=k, n_valid=nv),
+            lambda t, d: tr.retrieve_topk(t, th.pack_bits(d), k=k,
+                                          method="popcount", n_valid=nv),
+            lambda t, d: tr.retrieve_topk_streaming(
+                t, d.reshape(-1, 128).to(torch.int8), k=k, db_block=20_000,
+                n_valid=nv))
+        for call in calls:
+            want_d, _ = call(torch.tensor(q), torch.tensor(db))
+            got_d, got_i = call(torch.tensor(q, device=cuda_device),
+                                torch.tensor(db, device=cuda_device))
+            torch.testing.assert_close(got_d.cpu(), want_d, atol=0, rtol=0)
+            got_i = got_i.cpu().numpy()
+            np.testing.assert_array_equal(
+                np.take_along_axis(dist, got_i, 1), got_d.cpu().numpy())
+            assert got_i.max() < (nv or N)
+
+
+@pytest.mark.cuda
+def test_bitplane_kernel_rejects_bad_inputs(cuda_device):
+    bp = torch.zeros((16, 128), dtype=torch.uint8, device=cuda_device)
+    qi = torch.ones((4, 64), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(TypeError):
+        tts.subblock_mins_bitplane_cuda(qi, bp.to(torch.int8), 128, 16, 16)
+    with pytest.raises(ValueError):
+        tts.subblock_mins_bitplane_cuda(qi, bp, 128, 24, 16)     # not 16k
+    with pytest.raises(ValueError):
+        tts.subblock_mins_bitplane_cuda(qi, bp, 129, 16, 16)     # > 8G rows
+    with pytest.raises(ValueError):
+        tts.subblock_mins_bitplane_cuda(qi.cpu(), bp, 128, 16, 16)
+
+
 def _ln_inputs(rng, N, D, F_, device):
     t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32))
     x = (t(N, D) * 2 + 0.5).to(device, torch.bfloat16)

@@ -154,6 +154,9 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD))
+    codes, labels = np.ones((3, 16), np.float32), np.arange(3)
+    with pytest.raises(RuntimeError, match="CUDA"):     # scoring's default
+        tr.calculate_mAP(codes, labels, codes, labels)
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -210,7 +213,12 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
         attention.launches += 1
         return tat.attention_reference(q, k, v)
 
-    layer.launches = mins.launches = 0
+    def bp_mins(qi, bp, n_rows, subblock, m, out_dtype=torch.float32):
+        bp_mins.launches += 1
+        return tts._bitplane_mins_reference(qi, bp, n_rows, subblock, m,
+                                            out_dtype)
+
+    layer.launches = mins.launches = bp_mins.launches = 0
     ln_matmul.launches = attention.launches = 0
 
     def host_ms(fn, reps):
@@ -231,25 +239,43 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(tln, "_forward", lambda *a: tln.ln_matmul_cuda(*a))
     monkeypatch.setattr(tat, "attention_cuda", attention)
     monkeypatch.setattr(tat, "_forward", lambda *a: tat.attention_cuda(*a))
+    monkeypatch.setattr(tts, "subblock_mins_bitplane_cuda", bp_mins)
+    monkeypatch.setattr(tts, "_mins_bitplane", bp_mins)
+    # the 10^8-code phase's hierarchical selection, at a tiny size
+    monkeypatch.setattr(tts, "_INNER_DIRECT_MAX", 64)
     sizes = cs.Sizes(vision=VISION, head=dict(HEAD, text_projection_dims=(32,)),
                      bottleneck=BOTTLENECK, layer_batch=2, mins_queries=16,
                      mins_codes=70_001, images=6, image_side=40,
                      gallery=70_016, k=10, reps=1, ln_rows=(4 * 21, 50),
                      attn_batch=2, attn_lengths=(21, 40), train_batch=4,
-                     train_batch_big=8)
+                     train_batch_big=8, bitplane_codes=1 << 17,
+                     walk_codes=1 << 15, scoring_db=300,
+                     scoring_split=(40, 300))
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
-    assert "planted rows found at distance 0: 6/6" in out
+    assert "\nplanted rows found at distance 0: 6/6" in out
     assert f"encoder_layer {VISION['num_layers']} " in out
     n = VISION["num_layers"]
-    assert f"{[(0, 0, 2 * n, n)] * 5}" in out
+    assert f"{[(0, 0, 2 * n, n, 0)] * 5}" in out
     assert "train (xla, B=8)" in out and "train step (B=4, kernels)" in out
+    assert out.count("bitplane mins kernel vs plain") == 4
+    assert "bit-plane serving: planted rows found at distance 0: 6/6" in out
+    assert ("distances equal the plain walk's: True; indices score their "
+            "distances: True") in out
+    assert out.count("distance-level recall@10 1.000000") == 4
+    assert ("mins at the main path's arguments (n_rows=65536) vs the plain "
+            "walk's subblock mins: max |d| 0.0") in out
+    assert out.count("scoring ") == 5
+    assert out.count("scoring at the CUB-200 split size") == 2
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
     assert [k["name"] for k in kernels] == ["encoder_layer", "subblock_mins",
-                                            "ln_matmul", "attention"]
-    assert [k["launches"] for k in kernels[2:]] == [5 * 2 * n, 5 * n]
+                                            "ln_matmul", "attention",
+                                            "bitplane_mins"]
+    assert [k["launches"] for k in kernels[2:4]] == [5 * 2 * n, 5 * n]
+    assert kernels[4]["replaces"] == "concepthash_tpu/ops/topk_select.py:765"
+    assert kernels[4]["max_abs_err"] == 0
     for k in kernels:
         assert set(k) == keys and k["launches"] > 0
         assert (ROOT / k["source"]).exists()

@@ -194,12 +194,106 @@ def test_exact_topk_blocked_matches(rng):
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
 
 
-def test_approx_serving_raises():
-    q = torch.ones(2, 32)
-    with pytest.raises(NotImplementedError):
-        tr.retrieve_topk(q, q, k=1)
-    with pytest.raises(NotImplementedError):
-        tr.retrieve_topk_streaming(q, q.to(torch.int8), k=1, db_block=2)
+def _tie_gallery(rng, n, nbit):
+    return _signs(rng, 30, nbit)[rng.integers(0, 30, n)]     # heavy ties
+
+
+def _check_approx(td, ti, jd, ji, dist, jd_exact, ji_exact):
+    """The port's exact=False against the reference's, on the CPU. There
+    ``approx_min_k`` is the exact top-k, but its tie order is that of an
+    unstable sort on the values (lower index first only for rows of 16 or
+    fewer): distances equal it; indices equal the reference's stable
+    tie-break (its exact path, ``lax.top_k``), agree with approx_min_k on
+    every entry strictly below the k-th distance, and score their
+    distances."""
+    td, ti = td.numpy(), ti.numpy()
+    jd, ji = np.asarray(jd), np.asarray(ji)
+    np.testing.assert_array_equal(td, jd)
+    np.testing.assert_array_equal(td, np.asarray(jd_exact))
+    np.testing.assert_array_equal(ti, np.asarray(ji_exact))
+    np.testing.assert_array_equal(np.take_along_axis(dist, ti, 1), td)
+    for t_row, j_row, d_row in zip(ti, ji, td):
+        below = d_row < d_row[-1]
+        assert set(t_row[below]) == set(j_row[below])
+
+
+@pytest.mark.parametrize("n_valid", [None, 1990])
+@pytest.mark.parametrize("method", ["mxu", "popcount"])
+def test_approx_retrieve_topk_matches_jax(rng, method, n_valid):
+    """retrieve_topk(exact=False) over a tie-heavy gallery, with pad rows
+    masked (see _check_approx)."""
+    q = _signs(rng, 7, 64)
+    q[2, :5] = 0.0
+    db = _tie_gallery(rng, 2000, 64)
+    jdb, tdb = jnp.asarray(db), torch.tensor(db)
+    if method == "popcount":
+        jdb, tdb = jh.pack_bits(jdb), th.pack_bits(tdb)
+    kw = dict(k=12, method=method, n_valid=n_valid)
+    jd, ji = jr.retrieve_topk(jnp.asarray(q), jdb, exact=False, **kw)
+    je = jr.retrieve_topk(jnp.asarray(q), jdb, exact=True, **kw)
+    td, ti = tr.retrieve_topk(torch.tensor(q), tdb, exact=False, **kw)
+    dist = np.asarray(tr.sign_distances(torch.tensor(q), torch.tensor(db)))
+    if n_valid is not None:
+        dist[:, n_valid:] = np.inf
+        assert ti.max() < n_valid
+    _check_approx(td, ti, jd, ji, dist, *je)
+
+
+@pytest.mark.parametrize("n_valid", [None, 1990])
+@pytest.mark.parametrize("layout", ["packed", "plain"])
+def test_approx_streaming_matches_jax(rng, layout, n_valid):
+    """retrieve_topk_streaming(exact=False) walks four blocks, selecting per
+    block and merging, ties across blocks included (see _check_approx)."""
+    nbit = 32
+    q = _signs(rng, 5, nbit)
+    db = _tie_gallery(rng, 2000, nbit).astype(np.int8)
+    dist = np.asarray(tr.sign_distances(torch.tensor(q), torch.tensor(db)))
+    if n_valid is not None:
+        dist[:, n_valid:] = np.inf
+    if layout == "packed":
+        db = db.reshape(-1, 128)
+    kw = dict(k=9, db_block=500, n_valid=n_valid)
+    jd, ji = jr.retrieve_topk_streaming(jnp.asarray(q), jnp.asarray(db),
+                                        exact=False, **kw)
+    td, ti = tr.retrieve_topk_streaming(torch.tensor(q), torch.tensor(db),
+                                        exact=False, **kw)
+    je = jr.retrieve_topk_streaming(jnp.asarray(q), jnp.asarray(db),
+                                    exact=True, **kw)
+    _check_approx(td, ti, jd, ji, dist, *je)
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_approx_without_ties_is_index_identical(streaming):
+    """Where no two codes tie (code i flips the first i bits of the query),
+    exact=False is index-identical to the reference's approx_min_k."""
+    nbit = 64
+    q = np.ones((1, nbit), np.float32)
+    db = np.ones((64, nbit), np.float32)
+    for i in range(64):
+        db[i, :i] = -1.0
+    db = db[np.random.default_rng(4).permutation(64)]
+    if streaming:
+        args = (db.astype(np.int8),)
+        kw = dict(k=10, db_block=16, exact=False)
+        want = jr.retrieve_topk_streaming(jnp.asarray(q), jnp.asarray(*args),
+                                          **kw)
+        got = tr.retrieve_topk_streaming(torch.tensor(q), torch.tensor(*args),
+                                         **kw)
+    else:
+        want = jr.retrieve_topk(jnp.asarray(q), jnp.asarray(db), k=10)
+        got = tr.retrieve_topk(torch.tensor(q), torch.tensor(db), k=10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_approx_equals_exact_on_cpu(rng):
+    """On the CPU, exact=False and exact=True give the same answer."""
+    q = _signs(rng, 6, 64)
+    db = _tie_gallery(rng, 3000, 64)
+    a = tr.retrieve_topk(torch.tensor(q), torch.tensor(db), k=20)
+    b = tr.retrieve_topk(torch.tensor(q), torch.tensor(db), k=20, exact=True)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, atol=0, rtol=0)
 
 
 
