@@ -12,7 +12,8 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    ``concepthash_tpu_torch/csrc`` (one nvcc each, started together);
 2. the encoder-layer kernel against its plain version at ViT-B/32 width
    (B=8, L=54, D=768, F=3072, 12 heads, quick_gelu, bf16), with both
-   adapters (bottleneck 384) and without;
+   adapters (bottleneck 384) and without, and at the timed batch B=256
+   (M = 13,824 rows) with both;
 3. the subblock-min kernel against its plain version, exactly: 1024 queries
    over 1,000,003 codes, nbit 64 packed and plain, nbit 32 packed;
 4. the serving slice, counted: the canonical ConceptHash (ViT-B/32, adapters
@@ -26,12 +27,15 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    encode (every layer through the kernel's plain version) on >= 99% of
    bits; each kernel was launched (12 layer launches per encode);
 5. timings on the card: encode img/s, serving queries/s, each kernel's
-   time beside its bound, its plain version and a PyTorch yardstick, and
-   one traced encode and one traced serving call (torch.profiler): device
-   time by kernel and the device's busy share;
+   time beside its bound, its plain version and a PyTorch yardstick, the
+   host microseconds to issue one layer call, and one traced encode and one
+   traced serving call (torch.profiler): device time by kernel, the
+   device's busy share, and kernel 1's device time split into its GEMMs,
+   its attention and its LayerNorm passes;
 6. the LayerNorm -> matmul kernel against its plain version at N = 1,728
-   (32 images x 54 tokens) and N = 1,000 (a tail), D = 768, F = 2,304
-   (q|k|v) and 3,072 (fc1), bf16; the attention kernel against its plain
+   (32 images x 54 tokens), N = 1,000 (a tail) and N = 13,824 (the B=256
+   train step), D = 768, F = 2,304 (q|k|v) and 3,072 (fc1), bf16; the
+   attention kernel against its plain
    version at B = 32, H = 12, hd = 64, L = 54 and 197 (ViT-B/16's length),
    reading q, k, v in place from one q|k|v tensor;
 7. the train slice, counted: the canonical ConceptHash (the config dicts of
@@ -46,8 +50,9 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    one step with their plain versions from the same state: loss within 2%,
    each trained tensor's update at cosine >= 0.99;
 8. train timings: img/s at batch 32 and 256 with the kernels and with the
-   'xla' configuration, both new kernels' times beside bound, plain version
-   and yardstick, and one traced train step;
+   'xla' configuration, kernels 5 and 6 beside bound, plain version and
+   yardstick (kernel 6 also at N = 13,824, and the host microseconds per
+   call), and one traced train step;
 9. the bit-plane mins kernel against its plain version, exactly: 1024
    queries over 1,000,003 codes at nbit 64 and 32, bf16 and f32, S=128,
    ``n_rows`` masking the byte-pad rows while the pack-pad slots stay in;
@@ -132,6 +137,7 @@ class Sizes:
         nbit=64, nclass=200, text_projection_dims=(512,)))
     bottleneck: int = 384
     layer_batch: int = 8           # images in the layer check
+    layer_batch_big: int = 256     # and the timed batch (M = 13,824)
     mins_queries: int = 1024
     mins_codes: int = 1_000_003
     images: int = 256
@@ -140,6 +146,7 @@ class Sizes:
     k: int = 100
     reps: int = 10
     ln_rows: tuple = (32 * 54, 1000)   # LN -> matmul check: N, and a tail
+    ln_rows_big: int = 256 * 54        # the B=256 train step's N
     attn_batch: int = 32
     attn_lengths: tuple = (54, 197)    # ViT-B/32 + 4 concepts; ViT-B/16
     train_batch: int = 32              # the flagship's batch
@@ -159,11 +166,15 @@ def fail(msg: str) -> None:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back runs, after one
-    warm-up, from CUDA events."""
+    warm-up, from CUDA events. The device first spins for about 20 ms, so
+    that all ``reps`` calls are queued before the first one runs: a call
+    whose host work outlasts its kernels would otherwise be timed at the
+    host's pace."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -181,6 +192,21 @@ def host_s(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Mean host microseconds to issue one call of ``fn`` (wrapper checks,
+    tensor-map encoding, launches): each call timed alone on an idle device,
+    so a full launch queue never stalls it."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total / reps * 1e6
 
 
 def _device_us(evt, self_only: bool = True) -> float:
@@ -218,6 +244,7 @@ def device_breakdown(name: str, fn, wall_s: float, rows: int = 12,
                    and _device_us(e) > 0),
                   key=_device_us, reverse=True)
     busy_ms = sum(_device_us(e) for e in evts) / 1e3
+    kernels = [(e.key, _device_us(e), e.count) for e in evts]
     print(f"{name}: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms "
           f"wall ({100 * busy_ms / (wall_s * 1e3):.1f}%), "
           f"{sum(e.count for e in evts)} kernels")
@@ -239,6 +266,27 @@ def device_breakdown(name: str, fn, wall_s: float, rows: int = 12,
         for e in ops[:op_rows]:
             print(f"  op {_device_us(e, self_only=False) / 1e3:9.3f} ms "
                   f"{e.count:4d}x  {e.key} {str(e.input_shapes)[:70]}")
+    return kernels
+
+
+# kernel names of csrc/fused_layer.cu, by part of the layer
+LAYER_PARTS = (("GEMM", ("gemm_kernel",)),
+               ("attention", ("attention_mma_kernel",)),
+               ("LayerNorm/element-wise", ("layernorm_kernel",
+                                           "row_stats_kernel")))
+
+
+def layer_split(kernels, n_layers: int) -> None:
+    """Kernel 1's device time in a traced run, split into its GEMMs, its
+    attention and its LayerNorm passes, per layer."""
+    parts = {part: sum(us for key, us, _ in kernels
+                       if any(n in key for n in names))
+             for part, names in LAYER_PARTS}
+    total = sum(parts.values())
+    print(f"  kernel 1 split (per layer, {n_layers} layers): "
+          + ", ".join(f"{part} {us / n_layers / 1e3:.4f} ms "
+                      f"({100 * us / total if total else 0.0:.1f}%)"
+                      for part, us in parts.items()))
 
 
 def card_line() -> str:
@@ -288,11 +336,12 @@ def check_layer(sizes: Sizes, vcfg, device) -> float:
     D, F_, H = vcfg.hidden_size, vcfg.intermediate_size, vcfg.num_heads
     L = vcfg.num_patches + 1 + sizes.head.get("ncontext", 4)
     worst = 0.0
-    for with_adapters in (True, False):
+    for batch, with_adapters in ((sizes.layer_batch, True),
+                                 (sizes.layer_batch, False),
+                                 (sizes.layer_batch_big, True)):
         w, a1, a2 = random_layer(gen, D, F_, sizes.bottleneck, with_adapters,
                                  device)
-        x = torch.randn(sizes.layer_batch, L, D, generator=gen).to(
-            device, torch.bfloat16)
+        x = torch.randn(batch, L, D, generator=gen).to(device, torch.bfloat16)
         kw = dict(num_heads=H, eps=vcfg.layer_norm_eps, act=vcfg.hidden_act,
                   adapter_attn=a1, adapter_mlp=a2)
         got = encoder_layer_cuda(x, w, **kw).float()
@@ -300,14 +349,14 @@ def check_layer(sizes: Sizes, vcfg, device) -> float:
         want = layer_reference(x, w, **kw).float()
         err = (got - want).abs()
         excess = (err - (LAYER_ATOL + LAYER_RTOL * want.abs())).max().item()
-        print(f"layer kernel vs plain, B={sizes.layer_batch} L={L} D={D} "
+        print(f"layer kernel vs plain, B={batch} L={L} D={D} "
               f"F={F_} H={H} adapters={'both' if with_adapters else 'none'}: "
               f"max |d| {err.max().item():.6g}, mean |d| "
               f"{err.mean().item():.3g}, max |ref| "
               f"{want.abs().max().item():.4g}")
         if not torch.isfinite(got).all() or excess > 0:
             fail(f"layer kernel outside |d| <= {LAYER_ATOL} + "
-                 f"{LAYER_RTOL}|ref| (adapters={with_adapters})")
+                 f"{LAYER_RTOL}|ref| (B={batch}, adapters={with_adapters})")
         worst = max(worst, err.max().item())
     return worst
 
@@ -493,7 +542,7 @@ def check_ln_matmul(sizes: Sizes, vcfg, device) -> float:
     gen = torch.Generator().manual_seed(13)
     D = vcfg.hidden_size
     worst = 0.0
-    for N in sizes.ln_rows:
+    for N in (*sizes.ln_rows, sizes.ln_rows_big):
         for F_ in (3 * D, vcfg.intermediate_size):
             args = ln_inputs(gen, N, D, F_, device)
             got = ln_matmul_cuda(*args, eps=vcfg.layer_norm_eps)
@@ -688,18 +737,23 @@ def run_train(sizes: Sizes, device) -> dict:
     N = sizes.train_batch * L
     gen = torch.Generator().manual_seed(19)
     eps = vcfg.layer_norm_eps
-    ln = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0, bytes=0)
-    for F_ in (3 * D, Fm):
-        x, g, b, w, bias = ln_inputs(gen, N, D, F_, device)
-        g16, b16, bias16 = (t.to(torch.bfloat16) for t in (g, b, bias))
-        ln["ms"] += cuda_ms(lambda: fln.ln_matmul_cuda(x, g, b, w, bias, eps),
-                            sizes.reps)
-        ln["plain_ms"] += cuda_ms(
-            lambda: fln.ln_matmul_reference(x, g, b, w, bias, eps), 3)
-        ln["library_ms"] += cuda_ms(lambda: F.linear(
-            F.layer_norm(x, (D,), g16, b16, eps), w, bias16), sizes.reps)
-        ln["flops"] += 2 * N * D * F_
-        ln["bytes"] += N * D * 2 + 2 * D * 4 + F_ * D * 2 + F_ * 4 + N * F_ * 2
+    ln, ln_big = ({"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "host_us": 0.0, "flops": 0, "bytes": 0} for _ in range(2))
+    for n, r in ((N, ln), (sizes.ln_rows_big, ln_big)):
+        for F_ in (3 * D, Fm):
+            x, g, b, w, bias = ln_inputs(gen, n, D, F_, device)
+            g16, b16, bias16 = (t.to(torch.bfloat16) for t in (g, b, bias))
+            r["ms"] += cuda_ms(
+                lambda: fln.ln_matmul_cuda(x, g, b, w, bias, eps), sizes.reps)
+            r["plain_ms"] += cuda_ms(
+                lambda: fln.ln_matmul_reference(x, g, b, w, bias, eps), 3)
+            r["library_ms"] += cuda_ms(lambda: F.linear(
+                F.layer_norm(x, (D,), g16, b16, eps), w, bias16), sizes.reps)
+            r["host_us"] += host_us(
+                lambda: fln.ln_matmul_cuda(x, g, b, w, bias, eps), sizes.reps)
+            r["flops"] += 2 * n * D * F_
+            r["bytes"] += (n * D * 2 + 2 * D * 4 + F_ * D * 2 + F_ * 4
+                           + n * F_ * 2)
     q, k, v = qkv_views(gen, sizes.train_batch, L, D, H, device)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     att = dict(ms=cuda_ms(lambda: at.attention_cuda(q, k, v), sizes.reps),
@@ -711,16 +765,21 @@ def run_train(sizes: Sizes, device) -> dict:
     for name, r, shape in (
             ("ln_matmul", ln, f"N={N}, D={D}, F={3 * D} + F={Fm}, one "
                               "q|k|v and one fc1 call"),
+            ("ln_matmul", ln_big, f"N={sizes.ln_rows_big}, D={D}, "
+                                  f"F={3 * D} + F={Fm}, the B="
+                                  f"{sizes.train_batch_big} step's pair"),
             ("attention", att, f"B={sizes.train_batch}, L={L}, H={H}, "
                                f"hd={D // H}")):
         t_ops, t_bytes = r["flops"] / BF16_PEAK, r["bytes"] / HBM_RATE
         r["bound_ms"] = max(t_ops, t_bytes) * 1e3
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        host = (f"; host {r['host_us']:.1f} us per pair of calls"
+                if "host_us" in r else "")
         print(f"{name} ({shape}): kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
               f"{r['flops'] / 1e9:.2f} GFLOP, {r['bytes'] / 1e6:.1f} MB), "
               f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
-              f"ms")
+              f"ms; {r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s{host}")
     device_breakdown(f"train step (B={sizes.train_batch}, kernels)",
                      lambda: tr.step(batch),
                      step_s["kernels", sizes.train_batch], host_rows=10)
@@ -1210,6 +1269,8 @@ def run(sizes: Sizes, device) -> dict:
             lambda x, w, adapter_attn, adapter_mlp: layer_library(
                 x, w, adapter_attn, adapter_mlp, vcfg.num_heads,
                 vcfg.layer_norm_eps), lib_w, lib_a), sizes.reps) / n_l
+        layer_host_us = host_us(through_layers(fl.encoder_layer_cuda, ws,
+                                               ads, **kw), sizes.reps) / n_l
     flops, nbytes = layer_flops_bytes(B, L, vcfg.hidden_size,
                                       vcfg.intermediate_size,
                                       sizes.bottleneck, 2, ws[0], ads[0])
@@ -1240,7 +1301,8 @@ def run(sizes: Sizes, device) -> dict:
           f"{layer_ms:.4f} ms, bound {layer_bound:.4f} ms ({layer_by}: "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), plain "
           f"{layer_plain_ms:.4f} ms, library (F.linear + SDPA) "
-          f"{layer_lib_ms:.4f} ms; {flops / layer_ms / 1e9:.1f} TFLOP/s")
+          f"{layer_lib_ms:.4f} ms; {flops / layer_ms / 1e9:.1f} TFLOP/s; "
+          f"host {layer_host_us:.1f} us per call")
     print(f"subblock_mins (Q={B}, N={n_pad}, nbit={nbit}, packed, bf16): "
           f"kernel {mins_ms:.4f} ms, bound {mins_bound:.4f} ms ({mins_by}: "
           f"{mins_bytes / 1e6:.1f} MB, {mins_ops / 1e9:.1f} G int8 ops), "
@@ -1253,7 +1315,8 @@ def run(sizes: Sizes, device) -> dict:
           f"bytes as the packed layout)")
 
     with torch.inference_mode():
-        device_breakdown("encode", lambda: model(images), enc_s)
+        layer_split(device_breakdown("encode", lambda: model(images), enc_s),
+                    vcfg.num_layers)
         device_breakdown("serving", lambda: retrieve_topk(
             codes, packed.reshape(n_pad, nbit), k=k, exact=True,
             n_valid=N), srv_s)

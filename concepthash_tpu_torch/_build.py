@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so``, where the hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. The
+into ``_build/lib<name>-<hash>.so``, where the hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is rebuilt and an unchanged one is reused. The
 build happens at first use, never at import. ``build()`` starts one nvcc per
 source, all at once, and waits for them together.
 
@@ -39,9 +40,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name carries a digest of the
+    source, of every shared header ``csrc/*.cuh`` and of the flags, so an
+    edit to any of them selects a new library."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, float]:

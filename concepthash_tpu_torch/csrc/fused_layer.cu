@@ -23,155 +23,56 @@
 // Weights are in torch Linear layout, (out_features, in_features) row-major,
 // bf16; LayerNorm parameters, biases and the adapter scale are f32.
 //
-// Design: a fixed sequence of hand-written kernels behind one C entry
+// Design: a fixed sequence of launches behind one C entry
 // `encoder_layer_fwd`, all on the caller's stream:
-//   LN1 -> GEMM(qkv) -> attention -> GEMM(out-proj)
+//   LN1 statistics -> GEMM(qkv, LN1 in its prologue) -> attention
+//   -> GEMM(out-proj)
 //   [-> LN -> GEMM(down, GELU) -> GEMM(up, scale, += h_att)]
 //   -> residual + LN2 -> GEMM(fc1, act) -> GEMM(fc2, + x2 residual)
 //   [fc2 writes the f32 branch instead; then LN -> GEMM(down, GELU)
 //    -> GEMM(up, scale, + branch, + x2 residual)]
-// That is 8 launches per layer without adapters and 14 with both.
-// The GEMM is one kernel with a fused epilogue (bias, activation, scale,
-// f32 accumulate-in, bf16 residual, bf16 or f32 store): 64x64 output tiles,
-// four warps of 32x32 each, bf16 WMMA 16x16x16 fragments with f32
-// accumulators, K staged through shared memory 32 at a time. Attention runs
-// one block per (image, head) with q, k, v, and the L x L logits in shared
-// memory (L = 54 at ViT-B/32 with four concept tokens); L is not padded, so
-// no key mask is needed.
+// That is 7 launches per layer without adapters and 13 with both. Every
+// product runs on the Hopper GEMM core of gemm_sm90.cuh (TMA-fed mbarrier
+// ring, warp-specialised wgmma, persistent blocks, fused epilogue: bias,
+// activation, scale, f32 accumulate-in, bf16 residual, bf16 or f32 store);
+// LN1 is its LayerNorm prologue, so xn1 never reaches device memory. LN2
+// stays its own pass because it writes x2 too and normalises the unrounded
+// f32 x2; the adapters' LN normalises the f32 branch rounded to bf16
+// (LN_F32_AS_BF16), a pass of its own as well.
+//
+// Attention runs on the tensor cores: one block per (image, head) stages q,
+// k and v in shared memory (bf16, rows padded with zeros: q to 16, k and v
+// to 64); each warp takes 16 query rows at a time. S = Q K^T is mma.sync
+// m16n8k16 bf16 -> f32 over 64-key chunks, scaled by hd^-0.5 in f32 (the
+// reference scales f32(q) first: the same values at hd = 16 and 64, where
+// the scale is a power of two, within an f32 rounding otherwise); keys past
+// L are masked to -inf. The softmax of the whole row is f32, in registers,
+// with quad shuffles; the probabilities rounded to bf16 are the A operand
+// of P V straight from the registers (the m16n8 accumulator layout is the
+// m16k16 A layout). At L <= 64 one chunk holds the whole row; a longer row
+// takes three passes over its chunks (maximum, sum, then products), so the
+// rounding points stay those of the reference at every L.
 //
 // Bound on the H100: operations. One image at L = 54, D = 768, F = 3072,
 // 12 heads, with both adapters of width 384, is about 0.89 GFLOP per layer
 // (2*L*D*(3D + D + 2F) + 4*L*L*D + 8*L*D*A); at 989 TFLOP/s bf16 dense that
-// is 0.9 us per image per layer. The weights (about 14 MB in bf16) are read
-// once per 64-row tile of activations, from L2 after the first tile. This
-// first version uses mma.sync through WMMA, not wgmma or TMA, and does not
-// pipeline its shared-memory loads, so it stays well below the wgmma peak;
-// the intermediates between the kernels (qkv, h_att, the MLP hidden) go
-// through device memory. Both are work for a later change.
+// is 0.9 us per image per layer. What keeps the layer above it: the
+// intermediates between the launches (qkv, the f32 stream h_att / branch,
+// x2, the MLP hidden) go through device memory, about 0.25 GB per layer at
+// B = 256, read and written again by the f32 epilogues and the LayerNorm
+// passes; and the GEMM core's own limits (gemm_sm90.cuh), the LN1 prologue's
+// normalising above all.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "gemm_sm90.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int LDS = BK + 8;   // smem pitch of the A and W tiles, in bf16
-constexpr int LDC = BN + 4;   // smem pitch of the f32 output tile
-constexpr int GEMM_THREADS = 128;
-constexpr int GEMM_SMEM = (BM * LDC * 4 > (BM + BN) * LDS * 2)
-                              ? BM * LDC * 4 : (BM + BN) * LDS * 2;
-
-enum Act { ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU = 2 };
-
-__device__ __forceinline__ float apply_act(float v, int act) {
-  if (act == ACT_QUICK_GELU) return v * (1.0f / (1.0f + expf(-1.702f * v)));
-  if (act == ACT_GELU) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-  return v;
-}
-
-struct Epilogue {
-  const float* bias;     // (N,) or null
-  int act;               // Act
-  const float* scale;    // (1,) device scalar or null
-  const float* add_f32;  // (M, N) f32 added after the scale, or null
-  const bf16* resid;     // (M, N) bf16 added last, or null
-  float* out_f32;        // exactly one of out_f32 / out_bf16 is set
-  bf16* out_bf16;
-};
-
-// C[m, n] = sum_k A[m, k] * W[n, k], then the epilogue.
-// A: (M, K) bf16 row-major; W: (N, K) bf16 row-major. K % 8 == 0.
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                 int M, int N, int K, Epilogue ep) {
-  __shared__ __align__(128) unsigned char smem[GEMM_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Ws = As + BM * LDS;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int v = threadIdx.x; v < BM * BK / 8; v += GEMM_THREADS) {
-      const int r = v / (BK / 8);
-      const int c = (v % (BK / 8)) * 8;
-      uint4 a = make_uint4(0, 0, 0, 0);
-      uint4 w = make_uint4(0, 0, 0, 0);
-      if (k0 + c < K) {
-        if (m0 + r < M)
-          a = *reinterpret_cast<const uint4*>(A + (size_t)(m0 + r) * K + k0 + c);
-        if (n0 + r < N)
-          w = *reinterpret_cast<const uint4*>(W + (size_t)(n0 + r) * K + k0 + c);
-      }
-      *reinterpret_cast<uint4*>(As + r * LDS + c) = a;
-      *reinterpret_cast<uint4*>(Ws + r * LDS + c) = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Ws + (wn + j * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < BM * BN; e += GEMM_THREADS) {
-    const int r = e / BN;
-    const int c = e % BN;
-    const int gm = m0 + r;
-    const int gn = n0 + c;
-    if (gm >= M || gn >= N) continue;
-    float v = Cs[r * LDC + c];
-    if (ep.bias) v += ep.bias[gn];
-    v = apply_act(v, ep.act);
-    if (ep.scale) v *= ep.scale[0];
-    const size_t o = (size_t)gm * N + gn;
-    if (ep.add_f32) v = ep.add_f32[o] + v;
-    if (ep.resid) v = __bfloat162float(ep.resid[o]) + v;
-    if (ep.out_f32)
-      ep.out_f32[o] = v;
-    else
-      ep.out_bf16[o] = __float2bfloat16(v);
-  }
-}
+using gemm_sm90::ACT_GELU;
+using gemm_sm90::ACT_NONE;
+using gemm_sm90::Epilogue;
+using gemm_sm90::LnPrologue;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -185,14 +86,16 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // Input modes of the LayerNorm kernel.
 enum LnIn {
-  LN_BF16 = 0,       // x_bf16
   LN_F32_AS_BF16 = 1,  // x_f32 rounded to bf16 first (the adapters' input)
-  LN_RESIDUAL = 2    // f32(x_bf16) + x_f32 (x2 = x + h_att), unrounded
+  LN_RESIDUAL = 2      // f32(x_bf16) + x_f32 (x2 = x + h_att), unrounded
 };
 
 constexpr int LN_THREADS = 256;
 
-// One warp per row: out = bf16(LN(row)); with LN_RESIDUAL also x2_out = bf16(row).
+// One warp per row, the row held in registers: lane l keeps columns
+// [8(l + 32c), 8(l + 32c) + 8) for c < CH, so D <= 256 CH, read once.
+// out = bf16(LN(row)); with LN_RESIDUAL also x2_out = bf16(row). D % 8 == 0.
+template <int CH>
 __global__ void __launch_bounds__(LN_THREADS)
 layernorm_kernel(const bf16* __restrict__ xb, const float* __restrict__ xf,
                  int mode, const float* __restrict__ g,
@@ -202,110 +105,325 @@ layernorm_kernel(const bf16* __restrict__ xb, const float* __restrict__ xf,
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
   const size_t base = (size_t)row * D;
-  auto load = [&](int c) -> float {
-    if (mode == LN_BF16) return __bfloat162float(xb[base + c]);
-    if (mode == LN_F32_AS_BF16) return round_bf16(xf[base + c]);
-    return __bfloat162float(xb[base + c]) + xf[base + c];
-  };
+  float v[CH][8];
   float s = 0.0f;
-  for (int c = lane; c < D; c += 32) s += load(c);
+#pragma unroll
+  for (int ch = 0; ch < CH; ++ch) {
+    const int c = (lane + 32 * ch) * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[ch][e] = 0.0f;
+    if (c >= D) continue;
+    const float4 f0 = *reinterpret_cast<const float4*>(xf + base + c);
+    const float4 f1 = *reinterpret_cast<const float4*>(xf + base + c + 4);
+    const float f[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+    if (mode == LN_F32_AS_BF16) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[ch][e] = round_bf16(f[e]);
+    } else {
+      const uint4 h = *reinterpret_cast<const uint4*>(xb + base + c);
+      const uint32_t w[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[ch][2 * e] = gemm_sm90::bf16_lo(w[e]) + f[2 * e];
+        v[ch][2 * e + 1] = gemm_sm90::bf16_hi(w[e]) + f[2 * e + 1];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += v[ch][e];
+  }
   const float mu = warp_sum(s) / D;
   float q = 0.0f;
-  for (int c = lane; c < D; c += 32) {
-    const float d = load(c) - mu;
-    q += d * d;
+#pragma unroll
+  for (int ch = 0; ch < CH; ++ch) {
+    if ((lane + 32 * ch) * 8 >= D) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) q += (v[ch][e] - mu) * (v[ch][e] - mu);
   }
   const float rstd = rsqrtf(warp_sum(q) / D + eps);
-  for (int c = lane; c < D; c += 32) {
-    const float v = load(c);
-    out[base + c] = __float2bfloat16((v - mu) * rstd * g[c] + b[c]);
-    if (x2_out) x2_out[base + c] = __float2bfloat16(v);
+#pragma unroll
+  for (int ch = 0; ch < CH; ++ch) {
+    const int c = (lane + 32 * ch) * 8;
+    if (c >= D) continue;
+    const float4 g0 = *reinterpret_cast<const float4*>(g + c);
+    const float4 g1 = *reinterpret_cast<const float4*>(g + c + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + c);
+    const float4 b1 = *reinterpret_cast<const float4*>(b + c + 4);
+    const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    uint32_t o[4], x2[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[e] = gemm_sm90::pack_bf16(
+          (v[ch][2 * e] - mu) * rstd * gg[2 * e] + bb[2 * e],
+          (v[ch][2 * e + 1] - mu) * rstd * gg[2 * e + 1] + bb[2 * e + 1]);
+      x2[e] = gemm_sm90::pack_bf16(v[ch][2 * e], v[ch][2 * e + 1]);
+    }
+    *reinterpret_cast<uint4*>(out + base + c) = make_uint4(o[0], o[1], o[2], o[3]);
+    if (x2_out)
+      *reinterpret_cast<uint4*>(x2_out + base + c) =
+          make_uint4(x2[0], x2[1], x2[2], x2[3]);
   }
 }
 
-constexpr int ATTN_THREADS = 128;
+// ---------------------------------------------------------------------------
+// attention on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int ATT_MAX_WARPS = 8;
+constexpr int KCHUNK = 64;     // keys per score chunk: 8 n8 blocks
+
+__host__ __device__ inline int round_up(int a, int b) {
+  return (a + b - 1) / b * b;
+}
 
 __host__ __device__ inline size_t attention_smem_bytes(int L, int hd) {
-  // q (scaled) and k with a +1 pitch, v, and the L x (L+1) scores, all f32
-  return sizeof(float) * ((size_t)2 * L * (hd + 1) + (size_t)L * hd +
-                          (size_t)L * (L + 1));
+  // q rows padded to 16, k and v rows to 64, each row hd + 8 bf16 (a pitch
+  // of 16 bytes more than the row keeps ldmatrix free of bank conflicts)
+  return (size_t)(round_up(L, 16) + 2 * round_up(L, KCHUNK)) * (hd + 8) *
+         sizeof(bf16);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Scores of the warp's 16 query rows against keys [64c, 64c + 64): s[nb][e]
+// is row lane/4 (+8 for e >= 2), key 64c + 8nb + 2(lane%4) + (e & 1); scaled,
+// keys past L at -inf.
+template <int HD>
+__device__ __forceinline__ void scores(float (&s)[8][4],
+                                       const uint32_t (&qa)[HD / 16][4],
+                                       uint32_t ks, int c, int L, float scale,
+                                       int lane) {
+  constexpr int P = (HD + 8) * 2;   // row pitch in bytes
+  const int mi = lane / 8;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      // matrices: keys +0..7 / +8..15 (mi >> 1), d +0 / +8 (mi & 1)
+      uint32_t b[4];
+      const int key = c * KCHUNK + np * 16 + (mi >> 1) * 8 + lane % 8;
+      ldmatrix_x4(b, ks + key * P + (kk * 16 + (mi & 1) * 8) * 2);
+      mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = c * KCHUNK + nb * 8 + 2 * (lane % 4) + (e & 1);
+      s[nb][e] = key < L ? s[nb][e] * scale : -INFINITY;
+    }
+}
+
+// o += bf16(exp(s - m) / sum) @ v over keys [64c, 64c + 64).
+template <int HD>
+__device__ __forceinline__ void probs_times_v(float (&o)[HD / 8][4],
+                                              const float (&s)[8][4],
+                                              const float (&m)[2],
+                                              const float (&inv)[2],
+                                              uint32_t vs, int c, int lane) {
+  constexpr int P = (HD + 8) * 2;
+  const int mi = lane / 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // the m16n8 score blocks 2j, 2j+1 are the m16k16 A fragment of keys
+    // 16j..16j+15: regs 0/1 rows lane/4 and +8 at keys +0..7, regs 2/3 at +8
+    uint32_t pa[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* sb = s[2 * j + h];
+      pa[2 * h] = gemm_sm90::pack_bf16(expf(sb[0] - m[0]) * inv[0],
+                                       expf(sb[1] - m[0]) * inv[0]);
+      pa[2 * h + 1] = gemm_sm90::pack_bf16(expf(sb[2] - m[1]) * inv[1],
+                                           expf(sb[3] - m[1]) * inv[1]);
+    }
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      // transposed matrices: keys +0..7 / +8..15 (mi & 1), d +0 / +8 (mi >> 1)
+      uint32_t b[4];
+      const int key = c * KCHUNK + j * 16 + (mi & 1) * 8 + lane % 8;
+      ldmatrix_x4_trans(b, vs + key * P + (dp * 16 + (mi >> 1) * 8) * 2);
+      mma_bf16(o[2 * dp], pa, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+    }
+  }
 }
 
 // One block per (image, head). qkv: (B*L, 3D) bf16 rows [q | k | v];
 // out: (B*L, D) bf16 with head h in columns [h*hd, (h+1)*hd).
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
-                 int D, int H, float scale) {
-  extern __shared__ float sm[];
-  const int hd = D / H;
+template <int HD>
+__global__ void __launch_bounds__(ATT_MAX_WARPS * 32)
+attention_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                     int L, int D, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char att_smem[];
+  constexpr int P = HD + 8;
+  const int Lq = round_up(L, 16);
+  const int Lk = round_up(L, KCHUNK);
+  bf16* qs = reinterpret_cast<bf16*>(att_smem);
+  bf16* ks = qs + Lq * P;
+  bf16* vs = ks + Lk * P;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  float* qs = sm;
-  float* ks = qs + L * (hd + 1);
-  float* vs = ks + L * (hd + 1);
-  float* ps = vs + L * hd;
   const size_t row0 = (size_t)b * L;
   const int ld = 3 * D;
 
-  for (int e = threadIdx.x; e < L * hd; e += ATTN_THREADS) {
-    const int i = e / hd;
-    const int d = e % hd;
-    const bf16* r = qkv + (row0 + i) * ld + h * hd + d;
-    qs[i * (hd + 1) + d] = __bfloat162float(r[0]) * scale;
-    ks[i * (hd + 1) + d] = __bfloat162float(r[D]);
-    vs[i * hd + d] = __bfloat162float(r[2 * D]);
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < L * L; e += ATTN_THREADS) {
-    const int i = e / L;
-    const int j = e % L;
-    const float* qi = qs + i * (hd + 1);
-    const float* kj = ks + j * (hd + 1);
-    float s = 0.0f;
-    for (int d = 0; d < hd; ++d) s += qi[d] * kj[d];
-    ps[i * (L + 1) + j] = s;
+  for (int e = threadIdx.x; e < Lk * (HD / 8); e += blockDim.x) {
+    const int i = e / (HD / 8);
+    const int c = (e % (HD / 8)) * 8;
+    uint4 q = make_uint4(0, 0, 0, 0), k = q, v = q;
+    if (i < L) {
+      const bf16* r = qkv + (row0 + i) * ld + h * HD + c;
+      q = *reinterpret_cast<const uint4*>(r);
+      k = *reinterpret_cast<const uint4*>(r + D);
+      v = *reinterpret_cast<const uint4*>(r + 2 * D);
+    }
+    if (i < Lq) *reinterpret_cast<uint4*>(qs + i * P + c) = q;
+    *reinterpret_cast<uint4*>(ks + i * P + c) = k;
+    *reinterpret_cast<uint4*>(vs + i * P + c) = v;
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int i = warp; i < L; i += ATTN_THREADS / 32) {
-    float* p = ps + i * (L + 1);
-    float m = -INFINITY;
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, p[j]);
+  const int mi = lane / 8;
+  const uint32_t qs_a = gemm_sm90::smem_u32(qs);
+  const uint32_t ks_a = gemm_sm90::smem_u32(ks);
+  const uint32_t vs_a = gemm_sm90::smem_u32(vs);
+  const int nchunks = Lk / KCHUNK;
+  for (int q0 = warp * 16; q0 < Lq; q0 += (blockDim.x / 32) * 16) {
+    // Q fragments: matrices rows +0..7 / +8..15 (mi & 1), d +0 / +8 (mi >> 1)
+    uint32_t qa[HD / 16][4];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float s = 0.0f;
-    for (int j = lane; j < L; j += 32) {
-      const float ex = expf(p[j] - m);
-      p[j] = ex;
-      s += ex;
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldmatrix_x4(qa[kk], qs_a + ((q0 + (mi & 1) * 8 + lane % 8) * P +
+                                  kk * 16 + (mi >> 1) * 8) * 2);
+    float o[HD / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
+    float s[8][4];
+    float m[2] = {-INFINITY, -INFINITY};
+    float sum[2] = {0.0f, 0.0f};
+    // maximum of each row
+    for (int c = 0; c < nchunks; ++c) {
+      scores<HD>(s, qa, ks_a, c, L, scale, lane);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        m[0] = fmaxf(m[0], fmaxf(s[nb][0], s[nb][1]));
+        m[1] = fmaxf(m[1], fmaxf(s[nb][2], s[nb][3]));
+      }
     }
-    s = warp_sum(s);
-    for (int j = lane; j < L; j += 32) p[j] = round_bf16(p[j] / s);
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < L * hd; e += ATTN_THREADS) {
-    const int i = e / hd;
-    const int d = e % hd;
-    const float* p = ps + i * (L + 1);
-    float s = 0.0f;
-    for (int j = 0; j < L; ++j) s += p[j] * vs[j * hd + d];
-    out[(row0 + i) * D + h * hd + d] = __float2bfloat16(s);
+    m[0] = quad_max(m[0]);
+    m[1] = quad_max(m[1]);
+    // sum of exp(s - m); a one-chunk row keeps its scores from above
+    for (int c = 0; c < nchunks; ++c) {
+      if (nchunks > 1) scores<HD>(s, qa, ks_a, c, L, scale, lane);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        sum[0] += expf(s[nb][0] - m[0]) + expf(s[nb][1] - m[0]);
+        sum[1] += expf(s[nb][2] - m[1]) + expf(s[nb][3] - m[1]);
+      }
+    }
+    const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+    for (int c = 0; c < nchunks; ++c) {
+      if (nchunks > 1) scores<HD>(s, qa, ks_a, c, L, scale, lane);
+      probs_times_v<HD>(o, s, m, inv, vs_a, c, lane);
+    }
+    const int r = q0 + lane / 4;
+#pragma unroll
+    for (int nb = 0; nb < HD / 8; ++nb) {
+      const int d = h * HD + nb * 8 + 2 * (lane % 4);
+      if (r < L)
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r) * D + d) =
+            __floats2bfloat162_rn(o[nb][0], o[nb][1]);
+      if (r + 8 < L)
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r + 8) * D + d) =
+            __floats2bfloat162_rn(o[nb][2], o[nb][3]);
+    }
   }
 }
+
+template <int HD>
+cudaError_t attention_launch(cudaStream_t st, const bf16* qkv, bf16* out,
+                             int B, int L, int D, int H) {
+  const size_t smem = attention_smem_bytes(L, HD);
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const int warps = round_up(L, 16) / 16;
+  const int threads = 32 * (warps < ATT_MAX_WARPS ? warps : ATT_MAX_WARPS);
+  attention_mma_kernel<HD><<<B * H, threads, smem, st>>>(
+      qkv, out, L, D, H, 1.0f / sqrtf((float)HD));
+  return cudaGetLastError();
+}
+
+cudaError_t attention(cudaStream_t st, const bf16* qkv, bf16* out, int B,
+                      int L, int D, int H) {
+  switch (D / H) {
+    case 16: return attention_launch<16>(st, qkv, out, B, L, D, H);
+    case 32: return attention_launch<32>(st, qkv, out, B, L, D, H);
+    case 64: return attention_launch<64>(st, qkv, out, B, L, D, H);
+    case 128: return attention_launch<128>(st, qkv, out, B, L, D, H);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the layer
+// ---------------------------------------------------------------------------
 
 size_t align256(size_t n) { return (n + 255) & ~(size_t)255; }
 
 struct Workspace {
-  bf16* xn;    // (M, D)   LN outputs
-  bf16* qkv;   // (M, 3D)
-  bf16* o;     // (M, D)   attention output
-  float* acc;  // (M, D)   h_att, then the MLP branch
-  bf16* x2;    // (M, D)
-  bf16* hid;   // (M, max(F, A))
+  float* stats;  // (M, 2)   LN1 (mu, rstd)
+  bf16* xn;      // (M, D)   LN outputs
+  bf16* qkv;     // (M, 3D)
+  bf16* o;       // (M, D)   attention output
+  float* acc;    // (M, D)   h_att, then the MLP branch
+  bf16* x2;      // (M, D)
+  bf16* hid;     // (M, max(F, A))
   size_t bytes;
 };
 
@@ -317,6 +435,7 @@ Workspace carve(unsigned char* base, size_t M, size_t D, size_t F, size_t A) {
     off += align256(n);
     return p;
   };
+  w.stats = reinterpret_cast<float*>(take(M * 2 * 4));
   w.xn = reinterpret_cast<bf16*>(take(M * D * 2));
   w.qkv = reinterpret_cast<bf16*>(take(M * 3 * D * 2));
   w.o = reinterpret_cast<bf16*>(take(M * D * 2));
@@ -327,30 +446,45 @@ Workspace carve(unsigned char* base, size_t M, size_t D, size_t F, size_t A) {
   return w;
 }
 
-cudaError_t gemm(cudaStream_t st, const bf16* A, const bf16* W, int M, int N,
-                 int K, const float* bias, int act, const float* scale,
-                 const float* add_f32, const bf16* resid, float* out_f32,
-                 bf16* out_bf16) {
+int gemm(cudaStream_t st, const bf16* A, const bf16* W, int M, int N, int K,
+         const float* bias, int act, const float* scale, const float* add_f32,
+         const bf16* resid, float* out_f32, bf16* out_bf16) {
   Epilogue ep{bias, act, scale, add_f32, resid, out_f32, out_bf16};
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_bf16_kernel<<<grid, GEMM_THREADS, 0, st>>>(A, W, M, N, K, ep);
-  return cudaGetLastError();
+  return gemm_sm90::gemm(st, A, W, M, N, K, ep);
 }
 
-cudaError_t layernorm(cudaStream_t st, const bf16* xb, const float* xf,
-                      int mode, const float* g, const float* b, float eps,
-                      int M, int D, bf16* out, bf16* x2_out) {
+template <int CH>
+int layernorm_launch(cudaStream_t st, const bf16* xb, const float* xf,
+                     int mode, const float* g, const float* b, float eps,
+                     int M, int D, bf16* out, bf16* x2_out) {
   const int rows_per_block = LN_THREADS / 32;
-  layernorm_kernel<<<(M + rows_per_block - 1) / rows_per_block, LN_THREADS, 0,
-                     st>>>(xb, xf, mode, g, b, eps, M, D, out, x2_out);
-  return cudaGetLastError();
+  layernorm_kernel<CH><<<(M + rows_per_block - 1) / rows_per_block,
+                         LN_THREADS, 0, st>>>(xb, xf, mode, g, b, eps, M, D,
+                                              out, x2_out);
+  return (int)cudaGetLastError();
+}
+
+int layernorm(cudaStream_t st, const bf16* xb, const float* xf, int mode,
+              const float* g, const float* b, float eps, int M, int D,
+              bf16* out, bf16* x2_out) {
+  switch ((D + 255) / 256) {
+    case 1: return layernorm_launch<1>(st, xb, xf, mode, g, b, eps, M, D, out, x2_out);
+    case 2: return layernorm_launch<2>(st, xb, xf, mode, g, b, eps, M, D, out, x2_out);
+    case 3: return layernorm_launch<3>(st, xb, xf, mode, g, b, eps, M, D, out, x2_out);
+    case 4: return layernorm_launch<4>(st, xb, xf, mode, g, b, eps, M, D, out, x2_out);
+    case 5: return layernorm_launch<5>(st, xb, xf, mode, g, b, eps, M, D, out, x2_out);
+    case 6: return layernorm_launch<6>(st, xb, xf, mode, g, b, eps, M, D, out, x2_out);
+    case 7: return layernorm_launch<7>(st, xb, xf, mode, g, b, eps, M, D, out, x2_out);
+    case 8: return layernorm_launch<8>(st, xb, xf, mode, g, b, eps, M, D, out, x2_out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Adapter on the f32 stream `acc` (rounded to bf16 at its input), added in
 // place: acc += adapter(bf16(acc)); with resid/out_bf16 set the sum is
 // instead written as bf16(resid + acc + adapter(...)).
-cudaError_t adapter(cudaStream_t st, const Workspace& w, const void* const* p,
-                    int M, int D, int A, const bf16* resid, bf16* out_bf16) {
+int adapter(cudaStream_t st, const Workspace& w, const void* const* p, int M,
+            int D, int A, const bf16* resid, bf16* out_bf16) {
   const float* ln_g = static_cast<const float*>(p[0]);
   const float* ln_b = static_cast<const float*>(p[1]);
   const bf16* wd = static_cast<const bf16*>(p[2]);
@@ -358,17 +492,17 @@ cudaError_t adapter(cudaStream_t st, const Workspace& w, const void* const* p,
   const bf16* wu = static_cast<const bf16*>(p[4]);
   const float* bu = static_cast<const float*>(p[5]);
   const float* sc = static_cast<const float*>(p[6]);
-  cudaError_t e = layernorm(st, nullptr, w.acc, LN_F32_AS_BF16, ln_g, ln_b,
-                            1e-5f, M, D, w.xn, nullptr);
-  if (e != cudaSuccess) return e;
-  e = gemm(st, w.xn, wd, M, A, D, bd, ACT_GELU, nullptr, nullptr, nullptr,
-           nullptr, w.hid);
-  if (e != cudaSuccess) return e;
+  if (int e = layernorm(st, nullptr, w.acc, LN_F32_AS_BF16, ln_g, ln_b, 1e-5f,
+                        M, D, w.xn, nullptr))
+    return e;
+  if (int e = gemm(st, w.xn, wd, M, A, D, bd, ACT_GELU, nullptr, nullptr,
+                   nullptr, nullptr, w.hid))
+    return e;
   if (out_bf16)
     return gemm(st, w.hid, wu, M, D, A, bu, ACT_NONE, sc, w.acc, resid,
                 nullptr, out_bf16);
-  return gemm(st, w.hid, wu, M, D, A, bu, ACT_NONE, sc, w.acc, nullptr,
-              w.acc, nullptr);
+  return gemm(st, w.hid, wu, M, D, A, bu, ACT_NONE, sc, w.acc, nullptr, w.acc,
+              nullptr);
 }
 
 }  // namespace
@@ -389,11 +523,12 @@ size_t encoder_layer_attention_smem_bytes(int L, int hd) {
 }
 
 const char* encoder_layer_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return gemm_sm90::error_string(code);
 }
 
 // x, out: (B, L, D) bf16. act: 1 quick_gelu, 2 gelu. a1, a2: adapter
-// bottleneck widths, 0 for no adapter. Returns a cudaError_t.
+// bottleneck widths, 0 for no adapter. D / H in {16, 32, 64, 128}. Returns
+// 0, a cudaError_t, or a tensor-map encode failure.
 int encoder_layer_fwd(const void* x, void* out, int B, int L, int D, int H,
                       int F, int act, float eps, const void* const* p, int a1,
                       int a2, void* workspace, void* stream) {
@@ -404,25 +539,18 @@ int encoder_layer_fwd(const void* x, void* out, int B, int L, int D, int H,
   const bf16* xb = static_cast<const bf16*>(x);
   auto f32 = [&](int i) { return static_cast<const float*>(p[i]); };
   auto b16 = [&](int i) { return static_cast<const bf16*>(p[i]); };
-  cudaError_t e;
-#define CK(call)                       \
-  do {                                 \
-    e = (call);                        \
-    if (e != cudaSuccess) return (int)e; \
+#define CK(call)            \
+  do {                      \
+    const int e_ = (call);  \
+    if (e_) return e_;      \
   } while (0)
 
-  CK(layernorm(st, xb, nullptr, LN_BF16, f32(0), f32(1), eps, M, D, w.xn,
-               nullptr));
-  CK(gemm(st, w.xn, b16(2), M, 3 * D, D, f32(3), ACT_NONE, nullptr, nullptr,
-          nullptr, nullptr, w.qkv));
-  const int hd = D / H;
-  const size_t smem = attention_smem_bytes(L, hd);
-  CK(cudaFuncSetAttribute(attention_kernel,
-                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                          (int)smem));
-  attention_kernel<<<B * H, ATTN_THREADS, smem, st>>>(w.qkv, w.o, L, D, H,
-                                                       1.0f / sqrtf((float)hd));
-  CK(cudaGetLastError());
+  CK(gemm_sm90::row_stats(st, xb, M, D, eps, w.stats));
+  const LnPrologue ln1{w.stats, f32(0), f32(1)};
+  const Epilogue qkv_ep{f32(3), ACT_NONE, nullptr, nullptr,
+                        nullptr, nullptr,  w.qkv};
+  CK(gemm_sm90::gemm(st, xb, b16(2), M, 3 * D, D, qkv_ep, &ln1));
+  CK(attention(st, w.qkv, w.o, B, L, D, H));
   CK(gemm(st, w.o, b16(4), M, D, D, f32(5), ACT_NONE, nullptr, nullptr,
           nullptr, w.acc, nullptr));
   if (a1) CK(adapter(st, w, p + 12, M, D, a1, nullptr, nullptr));

@@ -26,6 +26,8 @@ from concepthash_tpu_torch import _build
 _ACTS = {"quick_gelu": 1, "gelu": 2}
 _N_PTRS = 26
 _MAX_SMEM = 232448   # a block's shared memory on the H100, in bytes
+_HEAD_DIMS = (16, 32, 64, 128)
+_MAX_WIDTH = 2048    # D: a LayerNorm row is held in one warp's registers
 
 
 class LayerWeights(NamedTuple):
@@ -188,8 +190,8 @@ def encoder_layer_cuda(x: torch.Tensor, weights: LayerWeights, *,
     """Launch the layer kernel on x's stream. x: (B, L, D) bf16 on a CUDA
     device; weights and adapters as ``LayerWeights.cast(torch.bfloat16)``
     gives them. Raises on anything the kernel does not take, and if the
-    build or the launch fails. ``encoder_layer_cuda.launches`` counts the
-    launches."""
+    build, a tensor-map encoding or a launch fails.
+    ``encoder_layer_cuda.launches`` counts the calls of the C entry."""
     if x.device.type != "cuda":
         raise ValueError(f"encoder_layer_cuda needs a CUDA tensor, got {x.device}")
     if act not in _ACTS:
@@ -199,6 +201,12 @@ def encoder_layer_cuda(x: torch.Tensor, weights: LayerWeights, *,
     if D % num_heads or D % 8 or F_ % 8:
         raise ValueError(f"D={D} must divide by num_heads={num_heads} and 8, "
                          f"F={F_} by 8")
+    if D > _MAX_WIDTH:
+        raise ValueError(f"D={D} is wider than the kernel's LayerNorm rows "
+                         f"({_MAX_WIDTH}, held in registers)")
+    if D // num_heads not in _HEAD_DIMS:
+        raise ValueError(f"head width {D // num_heads} must be one of "
+                         f"{_HEAD_DIMS} (the attention's mma tiles)")
     dev = x.device
     bf = torch.bfloat16
     f32 = torch.float32

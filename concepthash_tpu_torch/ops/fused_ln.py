@@ -50,7 +50,7 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.ln_matmul_fwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                      ctypes.c_float, vp]
+                                      ctypes.c_float, vp, vp]
         lib.ln_matmul_fwd.restype = ci
         lib.ln_matmul_error_string.argtypes = [ci]
         lib.ln_matmul_error_string.restype = ctypes.c_char_p
@@ -63,8 +63,9 @@ def ln_matmul_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float = 1e-5) -> torch.Tensor:
     """Launch the kernel on x2's stream. x2: (N, D) bf16 contiguous on a CUDA
     device, D % 8 == 0; gamma, beta: (D,) f32; w: (F, D) bf16; bias: (F,)
-    f32. Raises on anything the kernel does not take, and if the build or
-    the launch fails. ``ln_matmul_cuda.launches`` counts the launches."""
+    f32. Raises on anything the kernel does not take, and if the build, the
+    tensor-map encoding or the launch fails. ``ln_matmul_cuda.launches``
+    counts the launches (one C entry: the row statistics and the GEMM)."""
     if x2.device.type != "cuda":
         raise ValueError(f"ln_matmul_cuda needs a CUDA tensor, got {x2.device}")
     if x2.dim() != 2:
@@ -84,10 +85,11 @@ def ln_matmul_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if N == 0 or F_ == 0:
         return out
     lib = _lib()
+    stats = torch.empty((N, 2), dtype=f32, device=dev)   # (mu, rstd) per row
     code = lib.ln_matmul_fwd(
         _build.ptr(x2), _build.ptr(gamma), _build.ptr(beta), _build.ptr(w),
         _build.ptr(bias), _build.ptr(out), N, D, F_, float(eps),
-        _build.stream_ptr(dev))
+        _build.ptr(stats), _build.stream_ptr(dev))
     _build.check(code, lib.ln_matmul_error_string, "ln_matmul_fwd")
     ln_matmul_cuda.launches += 1
     return out

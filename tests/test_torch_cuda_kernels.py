@@ -78,6 +78,58 @@ def test_layer_kernel_matches_plain(np_rng, cuda_device, adapters, act):
                                atol=0.05)
 
 
+def _wide_weights(rng, cls, shapes, device):
+    """cls(**random tensors) at a real width: matrices with std
+    1/sqrt(fan_in) in bf16, LayerNorm scales near 1, small vectors f32."""
+    t = {}
+    for k, s in shapes.items():
+        v = rng.standard_normal(s).astype(np.float32)
+        if len(s) == 2:
+            v = v / np.sqrt(s[1])
+        elif k.endswith("scale") and k != "scale":
+            v = 1.0 + 0.1 * v
+        elif k != "scale":
+            v = 0.02 * v
+        else:
+            v = np.ones(s, np.float32)
+        t[k] = torch.tensor(v).to(device)
+    return cls(**t).cast(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,length", [(5, 54), (3, 197)])
+@pytest.mark.parametrize("adapters", ["none", "both"])
+def test_layer_kernel_matches_plain_at_vit_width(np_rng, cuda_device, batch,
+                                                 length, adapters):
+    """The layer kernel at ViT width (D=768, F=3072, 12 heads, adapters of
+    384) against its plain version: B*L not a multiple of the GEMM's
+    128-row tile (5 x 54 = 270), and ViT-B/16's length 197, whose attention
+    rows span four 64-key chunks. Same tolerance as the small shapes."""
+    Dw, Fw, Hw, Aw = 768, 3072, 12, 384
+    w = _wide_weights(np_rng, tfl.LayerWeights, dict(
+        ln1_scale=(Dw,), ln1_bias=(Dw,), w_qkv=(3 * Dw, Dw),
+        b_qkv=(3 * Dw,), w_out=(Dw, Dw), b_out=(Dw,), ln2_scale=(Dw,),
+        ln2_bias=(Dw,), w_fc1=(Fw, Dw), b_fc1=(Fw,), w_fc2=(Dw, Fw),
+        b_fc2=(Dw,)), cuda_device)
+    ads = [None, None]
+    if adapters == "both":
+        ads = [_wide_weights(np_rng, tfl.AdapterWeights, dict(
+            ln_scale=(Dw,), ln_bias=(Dw,), w_down=(Aw, Dw), b_down=(Aw,),
+            w_up=(Dw, Aw), b_up=(Dw,), scale=(1,)), cuda_device)
+            for _ in range(2)]
+    x = torch.tensor(np_rng.standard_normal((batch, length, Dw)).astype(
+        np.float32), device=cuda_device).to(torch.bfloat16)
+    kw = dict(num_heads=Hw, adapter_attn=ads[0], adapter_mlp=ads[1])
+    before = tfl.encoder_layer_cuda.launches
+    got = tfl.encoder_layer(x, w, **kw)
+    torch.cuda.synchronize()
+    assert tfl.encoder_layer_cuda.launches == before + 1
+    want = tfl.layer_reference(x, w, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.02,
+                               atol=0.05)
+
+
 @pytest.mark.cuda
 def test_layer_kernel_rejects_bad_inputs(np_rng, cuda_device):
     w = _layer(np_rng, cuda_device)
@@ -247,9 +299,14 @@ def _ln_inputs(rng, N, D, F_, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,D,F_", [(1, 8, 8), (37, 64, 200), (41 * 3, 64, 192),
-                                    (1000, 768, 2304), (1728, 768, 3072)])
+                                    (130, 72, 136), (33, 64, 13),
+                                    (1000, 768, 2304), (1728, 768, 3072),
+                                    (13824, 768, 3072)])
 def test_ln_matmul_kernel_matches_plain(np_rng, cuda_device, N, D, F_):
-    """bf16 kernel vs the plain version, any N (tails of the 64-row tile):
+    """bf16 kernel vs the plain version, any N (tails of the row tile), a K
+    (= D) that is not a multiple of the 64-wide K step (8, 72), an odd
+    output width (13: the epilogue's element-wise path), and the B=256 train
+    step's N = 13,824:
     |d| <= 0.02 + 0.02|ref| (both round x_hat*gamma+beta and the output to
     bf16 at the same points; f32 sums in another order and fused multiply-adds
     can move a value to the neighbouring bf16 number)."""

@@ -244,7 +244,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     # the 10^8-code phase's hierarchical selection, at a tiny size
     monkeypatch.setattr(tts, "_INNER_DIRECT_MAX", 64)
     sizes = cs.Sizes(vision=VISION, head=dict(HEAD, text_projection_dims=(32,)),
-                     bottleneck=BOTTLENECK, layer_batch=2, mins_queries=16,
+                     bottleneck=BOTTLENECK, layer_batch=2,
+                     layer_batch_big=3, ln_rows_big=3 * 21, mins_queries=16,
                      mins_codes=70_001, images=6, image_side=40,
                      gallery=70_016, k=10, reps=1, ln_rows=(4 * 21, 50),
                      attn_batch=2, attn_lengths=(21, 40), train_batch=4,
@@ -255,6 +256,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "\nplanted rows found at distance 0: 6/6" in out
     assert f"encoder_layer {VISION['num_layers']} " in out
+    assert out.count("layer kernel vs plain") == 3
+    assert "layer kernel vs plain, B=3 " in out
+    assert "kernel 1 split (per layer" in out
+    assert out.count("ln_matmul kernel vs plain") == 6
     n = VISION["num_layers"]
     assert f"{[(0, 0, 2 * n, n, 0)] * 5}" in out
     assert "train (xla, B=8)" in out and "train step (B=4, kernels)" in out
