@@ -52,10 +52,12 @@ check; it imports nothing of JAX or of the JAX package. Phases:
 8. train timings: img/s at batch 32 and 256 with the kernels and with the
    'xla' configuration, kernels 5 and 6 beside bound, plain version and
    yardstick (kernel 6 also at N = 13,824, and the host microseconds per
-   call), and one traced train step;
-9. the bit-plane mins kernel against its plain version, exactly: 1024
-   queries over 1,000,003 codes at nbit 64 and 32, bf16 and f32, S=128,
-   ``n_rows`` masking the byte-pad rows while the pack-pad slots stay in;
+   call; kernel 5 also at B = 256 beside SDPA), and one traced train step;
+9. the bit-plane mins kernel against its plain version, exactly, in the
+   serving layout (the (Q, m_pad) mins with their pad columns at nbit + 1
+   and the superblock mins): 1024 queries over 1,000,003 codes at nbit 64
+   and 32, bf16 and f32, S=128, ``n_rows`` masking the byte-pad rows while
+   the pack-pad slots stay in;
 10. the bit-plane serving slice, counted: a gallery of 10^8 seeded 64-bit
    codes born bit-plane (6,250,000 random byte rows, 800 MB) with phase 4's
    256 codes planted by unpacking, editing and repacking their byte rows,
@@ -762,6 +764,16 @@ def run_train(sizes: Sizes, device) -> dict:
                    qt, kt, vt), sizes.reps),
                flops=4 * sizes.train_batch * H * L * L * (D // H),
                bytes=4 * sizes.train_batch * L * D * 2)
+    # the large-batch step's attention, beside SDPA (printed only)
+    q, k, v = qkv_views(gen, sizes.train_batch_big, L, D, H, device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    big_ms = cuda_ms(lambda: at.attention_cuda(q, k, v), sizes.reps)
+    big_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                      sizes.reps)
+    print(f"attention (B={sizes.train_batch_big}, L={L}, H={H}, "
+          f"hd={D // H}): kernel {big_ms:.4f} ms, library (SDPA) "
+          f"{big_lib:.4f} ms")
+    del q, k, v, qt, kt, vt
     for name, r, shape in (
             ("ln_matmul", ln, f"N={N}, D={D}, F={3 * D} + F={Fm}, one "
                               "q|k|v and one fc1 call"),
@@ -792,8 +804,10 @@ def run_train(sizes: Sizes, device) -> dict:
 # ---------------------------------------------------------------------------
 
 def check_bitplane_mins(sizes: Sizes, device) -> float:
-    """Phase 9: the kernel against its plain version, exactly, with n_rows
-    masking the byte-pad rows while the pack-pad slots stay in."""
+    """Phase 9: the kernel against its plain version, exactly, in the
+    serving layout ((Q, m_pad) mins and (Q, m_pad / 64) superblock mins,
+    the pad columns at nbit + 1), with n_rows masking the byte-pad rows
+    while the pack-pad slots stay in."""
     from concepthash_tpu_torch.ops import topk_select as ts
 
     gen = torch.Generator(device=device).manual_seed(23)
@@ -807,18 +821,24 @@ def check_bitplane_mins(sizes: Sizes, device) -> float:
                            dtype=torch.int8) * 2 - 1
         bp, n_pad = ts.pack_bitplane_serving(db)
         n_rows = -(-N // P)
-        got = ts.subblock_min_dists_bitplane(q, bp, subblock=S, out_dtype=dt,
-                                             n_rows=n_rows)
-        torch.cuda.synchronize()
         m = -(-n_pad // S)
-        want = ts._bitplane_mins_reference(ts.strict_signs(q), bp, n_rows, S,
-                                           m, dt)
-        err = (got.float() - want.float()).abs().max().item()
+        qi = ts.strict_signs(q)
+        got, got_sb = ts.subblock_mins_bitplane_cuda(qi, bp, n_rows, S, m, dt,
+                                                     superblocks=True)
+        torch.cuda.synchronize()
+        want, want_sb = ts._bitplane_mins_reference(qi, bp, n_rows, S, m, dt,
+                                                    superblocks=True)
+        same = got.shape == want.shape and got_sb.shape == want_sb.shape
+        err = max((got.float() - want.float()).abs().max().item(),
+                  (got_sb.float() - want_sb.float()).abs().max().item()) \
+            if same else float("inf")
+        pads = bool((got[:, m:] == nbit + 1).all())
         print(f"bitplane mins kernel vs plain, Q={Q} N={N} (stored {n_pad}, "
               f"{n_rows} of {bp.shape[0] * 8} packed rows valid) nbit={nbit} "
-              f"S={S} {str(dt).split('.')[-1]}: shape {tuple(got.shape)}, "
-              f"max |d| {err}")
-        if got.shape != want.shape or err != 0:
+              f"S={S} {str(dt).split('.')[-1]}: mins {tuple(got.shape)} and "
+              f"superblock mins {tuple(got_sb.shape)}, max |d| {err}; pad "
+              f"columns at nbit + 1: {pads}")
+        if err != 0 or not pads:
             fail(f"bit-plane mins kernel differs from its plain version "
                  f"(nbit={nbit}, {dt})")
         worst = max(worst, err)
@@ -985,7 +1005,8 @@ def run_bitplane(sizes: Sizes, device, codes, nbit: int) -> dict:
 
     with torch.inference_mode():
         big_ms = cuda_ms(lambda: ts.subblock_mins_bitplane_cuda(
-            qi, bp, n_rows, S, m, torch.bfloat16), max(3, sizes.reps // 2))
+            qi, bp, n_rows, S, m, torch.bfloat16, superblocks=True),
+            max(3, sizes.reps // 2))
         big_plain_ms = cuda_ms(in_blocks(
             lambda blk, n: ts._bitplane_mins_reference(
                 qi, blk, n // P, S, -(-n // S), torch.bfloat16)), 2)
@@ -1009,8 +1030,8 @@ def run_bitplane(sizes: Sizes, device, codes, nbit: int) -> dict:
     m20 = -(-n20 // s20)
     with torch.inference_mode():
         ms = cuda_ms(lambda: ts.subblock_mins_bitplane_cuda(
-            qi, bp20, bp20.shape[0] * 8, s20, m20, torch.bfloat16),
-            sizes.reps)
+            qi, bp20, bp20.shape[0] * 8, s20, m20, torch.bfloat16,
+            superblocks=True), sizes.reps)
         plain_ms = cuda_ms(lambda: ts._bitplane_mins_reference(
             qi, bp20, bp20.shape[0] * 8, s20, m20, torch.bfloat16), 3)
         lib_ms = cuda_ms(lambda: (0.5 * (nbit - torch._int_mm(

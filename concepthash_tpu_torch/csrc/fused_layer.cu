@@ -40,7 +40,8 @@
 // f32 x2; the adapters' LN normalises the f32 branch rounded to bf16
 // (LN_F32_AS_BF16), a pass of its own as well.
 //
-// Attention runs on the tensor cores: one block per (image, head) stages q,
+// Attention runs on the tensor cores (attention_sm90.cuh, shared with the
+// attention kernel of attention.cu): one block per (image, head) stages q,
 // k and v in shared memory (bf16, rows padded with zeros: q to 16, k and v
 // to 64); each warp takes 16 query rows at a time. S = Q K^T is mma.sync
 // m16n8k16 bf16 -> f32 over 64-key chunks, scaled by hd^-0.5 in f32 (the
@@ -63,6 +64,7 @@
 // passes; and the GEMM core's own limits (gemm_sm90.cuh), the LN1 prologue's
 // normalising above all.
 
+#include "attention_sm90.cuh"
 #include "gemm_sm90.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -169,233 +171,42 @@ layernorm_kernel(const bf16* __restrict__ xb, const float* __restrict__ xf,
 // attention on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int ATT_MAX_WARPS = 8;
-constexpr int KCHUNK = 64;     // keys per score chunk: 8 n8 blocks
-
-__host__ __device__ inline int round_up(int a, int b) {
-  return (a + b - 1) / b * b;
-}
-
-__host__ __device__ inline size_t attention_smem_bytes(int L, int hd) {
-  // q rows padded to 16, k and v rows to 64, each row hd + 8 bf16 (a pitch
-  // of 16 bytes more than the row keeps ldmatrix free of bank conflicts)
-  return (size_t)(round_up(L, 16) + 2 * round_up(L, KCHUNK)) * (hd + 8) *
-         sizeof(bf16);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Scores of the warp's 16 query rows against keys [64c, 64c + 64): s[nb][e]
-// is row lane/4 (+8 for e >= 2), key 64c + 8nb + 2(lane%4) + (e & 1); scaled,
-// keys past L at -inf.
+// One block per (image, head) on the shared tensor-core attention of
+// attention_sm90.cuh, probabilities rounded to bf16 as the reference rounds
+// them. qkv: (B*L, 3D) bf16 rows [q | k | v]; out: (B*L, D) bf16 with head h
+// in columns [h*hd, (h+1)*hd).
 template <int HD>
-__device__ __forceinline__ void scores(float (&s)[8][4],
-                                       const uint32_t (&qa)[HD / 16][4],
-                                       uint32_t ks, int c, int L, float scale,
-                                       int lane) {
-  constexpr int P = (HD + 8) * 2;   // row pitch in bytes
-  const int mi = lane / 8;
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      // matrices: keys +0..7 / +8..15 (mi >> 1), d +0 / +8 (mi & 1)
-      uint32_t b[4];
-      const int key = c * KCHUNK + np * 16 + (mi >> 1) * 8 + lane % 8;
-      ldmatrix_x4(b, ks + key * P + (kk * 16 + (mi & 1) * 8) * 2);
-      mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = c * KCHUNK + nb * 8 + 2 * (lane % 4) + (e & 1);
-      s[nb][e] = key < L ? s[nb][e] * scale : -INFINITY;
-    }
-}
-
-// o += bf16(exp(s - m) / sum) @ v over keys [64c, 64c + 64).
-template <int HD>
-__device__ __forceinline__ void probs_times_v(float (&o)[HD / 8][4],
-                                              const float (&s)[8][4],
-                                              const float (&m)[2],
-                                              const float (&inv)[2],
-                                              uint32_t vs, int c, int lane) {
-  constexpr int P = (HD + 8) * 2;
-  const int mi = lane / 8;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    // the m16n8 score blocks 2j, 2j+1 are the m16k16 A fragment of keys
-    // 16j..16j+15: regs 0/1 rows lane/4 and +8 at keys +0..7, regs 2/3 at +8
-    uint32_t pa[4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* sb = s[2 * j + h];
-      pa[2 * h] = gemm_sm90::pack_bf16(expf(sb[0] - m[0]) * inv[0],
-                                       expf(sb[1] - m[0]) * inv[0]);
-      pa[2 * h + 1] = gemm_sm90::pack_bf16(expf(sb[2] - m[1]) * inv[1],
-                                           expf(sb[3] - m[1]) * inv[1]);
-    }
-#pragma unroll
-    for (int dp = 0; dp < HD / 16; ++dp) {
-      // transposed matrices: keys +0..7 / +8..15 (mi & 1), d +0 / +8 (mi >> 1)
-      uint32_t b[4];
-      const int key = c * KCHUNK + j * 16 + (mi & 1) * 8 + lane % 8;
-      ldmatrix_x4_trans(b, vs + key * P + (dp * 16 + (mi >> 1) * 8) * 2);
-      mma_bf16(o[2 * dp], pa, b[0], b[1]);
-      mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-// One block per (image, head). qkv: (B*L, 3D) bf16 rows [q | k | v];
-// out: (B*L, D) bf16 with head h in columns [h*hd, (h+1)*hd).
-template <int HD>
-__global__ void __launch_bounds__(ATT_MAX_WARPS * 32)
+__global__ void __launch_bounds__(attention_sm90::MAX_WARPS * 32)
 attention_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                      int L, int D, int H, float scale) {
   extern __shared__ __align__(16) unsigned char att_smem[];
-  constexpr int P = HD + 8;
-  const int Lq = round_up(L, 16);
-  const int Lk = round_up(L, KCHUNK);
-  bf16* qs = reinterpret_cast<bf16*>(att_smem);
-  bf16* ks = qs + Lq * P;
-  bf16* vs = ks + Lk * P;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const size_t row0 = (size_t)b * L;
   const int ld = 3 * D;
-
-  for (int e = threadIdx.x; e < Lk * (HD / 8); e += blockDim.x) {
-    const int i = e / (HD / 8);
-    const int c = (e % (HD / 8)) * 8;
-    uint4 q = make_uint4(0, 0, 0, 0), k = q, v = q;
-    if (i < L) {
-      const bf16* r = qkv + (row0 + i) * ld + h * HD + c;
-      q = *reinterpret_cast<const uint4*>(r);
-      k = *reinterpret_cast<const uint4*>(r + D);
-      v = *reinterpret_cast<const uint4*>(r + 2 * D);
-    }
-    if (i < Lq) *reinterpret_cast<uint4*>(qs + i * P + c) = q;
-    *reinterpret_cast<uint4*>(ks + i * P + c) = k;
-    *reinterpret_cast<uint4*>(vs + i * P + c) = v;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int mi = lane / 8;
-  const uint32_t qs_a = gemm_sm90::smem_u32(qs);
-  const uint32_t ks_a = gemm_sm90::smem_u32(ks);
-  const uint32_t vs_a = gemm_sm90::smem_u32(vs);
-  const int nchunks = Lk / KCHUNK;
-  for (int q0 = warp * 16; q0 < Lq; q0 += (blockDim.x / 32) * 16) {
-    // Q fragments: matrices rows +0..7 / +8..15 (mi & 1), d +0 / +8 (mi >> 1)
-    uint32_t qa[HD / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      ldmatrix_x4(qa[kk], qs_a + ((q0 + (mi & 1) * 8 + lane % 8) * P +
-                                  kk * 16 + (mi >> 1) * 8) * 2);
-    float o[HD / 8][4];
-#pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[nb][e] = 0.0f;
-    float s[8][4];
-    float m[2] = {-INFINITY, -INFINITY};
-    float sum[2] = {0.0f, 0.0f};
-    // maximum of each row
-    for (int c = 0; c < nchunks; ++c) {
-      scores<HD>(s, qa, ks_a, c, L, scale, lane);
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-        m[0] = fmaxf(m[0], fmaxf(s[nb][0], s[nb][1]));
-        m[1] = fmaxf(m[1], fmaxf(s[nb][2], s[nb][3]));
-      }
-    }
-    m[0] = quad_max(m[0]);
-    m[1] = quad_max(m[1]);
-    // sum of exp(s - m); a one-chunk row keeps its scores from above
-    for (int c = 0; c < nchunks; ++c) {
-      if (nchunks > 1) scores<HD>(s, qa, ks_a, c, L, scale, lane);
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-        sum[0] += expf(s[nb][0] - m[0]) + expf(s[nb][1] - m[0]);
-        sum[1] += expf(s[nb][2] - m[1]) + expf(s[nb][3] - m[1]);
-      }
-    }
-    const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
-    for (int c = 0; c < nchunks; ++c) {
-      if (nchunks > 1) scores<HD>(s, qa, ks_a, c, L, scale, lane);
-      probs_times_v<HD>(o, s, m, inv, vs_a, c, lane);
-    }
-    const int r = q0 + lane / 4;
-#pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb) {
-      const int d = h * HD + nb * 8 + 2 * (lane % 4);
-      if (r < L)
-        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r) * D + d) =
-            __floats2bfloat162_rn(o[nb][0], o[nb][1]);
-      if (r + 8 < L)
-        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r + 8) * D + d) =
-            __floats2bfloat162_rn(o[nb][2], o[nb][3]);
-    }
-  }
+  attention_sm90::attend<HD, false>(
+      att_smem, L, scale,
+      [&](int i, const bf16*& q, const bf16*& k, const bf16*& v) {
+        q = qkv + (row0 + i) * ld + h * HD;
+        k = q + D;
+        v = q + 2 * D;
+      },
+      [&](int r, int d, float x0, float x1) {
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r) * D + h * HD + d) =
+            __floats2bfloat162_rn(x0, x1);
+      });
 }
 
 template <int HD>
 cudaError_t attention_launch(cudaStream_t st, const bf16* qkv, bf16* out,
                              int B, int L, int D, int H) {
-  const size_t smem = attention_smem_bytes(L, HD);
+  const size_t smem = attention_sm90::smem_bytes(L, HD);
   cudaError_t e = cudaFuncSetAttribute(
       attention_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const int warps = round_up(L, 16) / 16;
-  const int threads = 32 * (warps < ATT_MAX_WARPS ? warps : ATT_MAX_WARPS);
-  attention_mma_kernel<HD><<<B * H, threads, smem, st>>>(
-      qkv, out, L, D, H, 1.0f / sqrtf((float)HD));
+  attention_mma_kernel<HD><<<B * H, attention_sm90::block_threads(L), smem,
+                             st>>>(qkv, out, L, D, H, 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
 
@@ -519,7 +330,7 @@ size_t encoder_layer_workspace_bytes(int M, int D, int F, int A) {
 }
 
 size_t encoder_layer_attention_smem_bytes(int L, int hd) {
-  return attention_smem_bytes(L, hd);
+  return attention_sm90::smem_bytes(L, hd);
 }
 
 const char* encoder_layer_error_string(int code) {

@@ -53,18 +53,31 @@ def _lib():
     return lib
 
 
-def attention_cuda(q: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on q's stream. q, k, v: (B, L, H, hd) bf16 on one
-    CUDA device, each with unit stride along hd (any batch, token and head
-    strides). Returns (B, L, H, hd) bf16 contiguous. Raises on anything the
-    kernel does not take, and if the build or the launch fails.
-    ``attention_cuda.launches`` counts the launches."""
-    if q.device.type != "cuda":
-        raise ValueError(f"attention_cuda needs CUDA tensors, got {q.device}")
+_HEAD_WIDTHS = (16, 32, 64, 128)
+
+
+def _smem_bytes(L: int, hd: int) -> int:
+    """Shared memory of one block of the kernel (``smem_bytes`` of
+    csrc/attention_sm90.cuh): q rows padded to 16, k and v rows to 64, each
+    row hd + 8 bf16."""
+    return (-(-L // 16) * 16 + 2 * (-(-L // 64) * 64)) * (hd + 8) * 2
+
+
+def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> tuple:
+    """The input checks of ``attention_cuda``, on any device: q, k, v are
+    (B, L, H, hd) bf16 on one device, hd in {16, 32, 64, 128}, unit stride
+    along hd, batch, token and head strides multiples of 8 elements and
+    16-byte aligned bases (the kernel stages rows with 16-byte loads), and
+    L small enough that a block's shared memory fits the H100's 227 KB
+    (L <= 512 at hd 64, 256 at hd 128). Returns (B, L, H, hd); raises
+    TypeError or ValueError on anything the kernel does not take."""
     if q.dim() != 4:
         raise ValueError(f"q must be (B, L, H, hd), got {tuple(q.shape)}")
     B, L, H, hd = q.shape
+    if hd not in _HEAD_WIDTHS:
+        raise ValueError(f"the attention kernel takes head widths "
+                         f"{_HEAD_WIDTHS}, got {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q is on {q.device}")
@@ -75,14 +88,32 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor,
                              f"{tuple(t.shape)}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have unit stride along hd")
+        if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{name} needs batch, token and head strides "
+                             f"that are multiples of 8 elements and a "
+                             f"16-byte aligned start, got strides "
+                             f"{t.stride()}")
+    smem = _smem_bytes(L, hd)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"sequence length {L} at head width {hd} needs {smem}"
+                         f" bytes of shared memory, more than {_MAX_SMEM}")
+    return B, L, H, hd
+
+
+def attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on q's stream. q, k, v: (B, L, H, hd) bf16 on one
+    CUDA device, as ``check_kernel_inputs`` takes them. Returns
+    (B, L, H, hd) bf16 contiguous. Raises on anything the kernel does not
+    take, and if the build or the launch fails.
+    ``attention_cuda.launches`` counts the launches."""
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_cuda needs CUDA tensors, got {q.device}")
+    B, L, H, hd = check_kernel_inputs(q, k, v)
     out = torch.empty((B, L, H, hd), dtype=torch.bfloat16, device=q.device)
     if out.numel() == 0:
         return out
     lib = _lib()
-    smem = lib.attention_smem_bytes(L, hd)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"sequence length {L} at head width {hd} needs {smem}"
-                         f" bytes of shared memory, more than {_MAX_SMEM}")
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
                                         for s in t.stride()[:3]))
     code = lib.attention_fwd(

@@ -15,6 +15,10 @@ Counterpart of concepthash_tpu/ops/topk_select.py (the Pallas
   last subblock (ROADMAP Queue 3);
 - the bit-plane rescore runs on int32 words of four lanes rather than eight
   {0, 1} planes and a slot-sum product;
+- the bit-plane mins come out query-major, (Q, m_pad) with m_pad a multiple
+  of the superblock's 64 subblocks, with their superblock mins beside them,
+  the layout the selection reads; the reference's (m, Q) is a transposed
+  view of it (``subblock_min_dists_bitplane``);
 - every ``lax.top_k`` of the reference is a stable ascending sort here, so
   ties resolve to the lower position first on every device, as ``lax.top_k``
   resolves them (``torch.topk`` makes no such promise on CUDA);
@@ -40,6 +44,10 @@ _INNER_DIRECT_MAX = 32768
 _PACK_CHUNK_CODES = 1 << 20
 
 _KERNEL_NBITS = (16, 32, 64, 128)
+
+# subblocks per superblock of the bit-plane selection: the bit-plane mins
+# kernel pads its columns to a multiple of it and reduces each run of it
+_SUB2 = 64
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -421,14 +429,20 @@ def unpack_bitplane(bp: torch.Tensor) -> torch.Tensor:
 
 
 def _bitplane_mins_reference(qi: torch.Tensor, bp: torch.Tensor, n_rows: int,
-                             subblock: int, m: int,
-                             out_dtype=torch.float32) -> torch.Tensor:
-    """Plain version of the bit-plane mins kernel: unpack the planes, keep
-    the first ``n_rows`` packed rows, and take the int8 layout's mins;
-    codes past them read nbit + 1."""
-    nbit = qi.shape[1]
+                             subblock: int, m: int, out_dtype=torch.float32,
+                             superblocks: bool = False):
+    """Plain version of the bit-plane mins kernel, in its layout: unpack the
+    planes, keep the first ``n_rows`` packed rows, and take the int8
+    layout's mins; codes past them, and the pad columns, read nbit + 1.
+    Returns (mins (Q, m_pad), superblock mins (Q, m_pad / 64) or None),
+    m_pad = m rounded up to a multiple of 64."""
+    Q, nbit = qi.shape
     rows_db = unpack_bitplane(bp).reshape(-1, nbit)[:n_rows * (128 // nbit)]
-    return _mins_reference(qi, rows_db, subblock, m, out_dtype)
+    m_pad = _cdiv(m, _SUB2) * _SUB2
+    mins = _mins_reference(qi, rows_db, subblock, m_pad,
+                           out_dtype).t().contiguous()
+    msb = mins.reshape(Q, -1, _SUB2).amin(dim=-1) if superblocks else None
+    return mins, msb
 
 
 def _bitplane_lib():
@@ -436,7 +450,7 @@ def _bitplane_lib():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.bitplane_mins_fwd.argtypes = [vp, vp, cll, cll, ci, ci, ci, cll,
-                                          ci, vp, vp]
+                                          ci, vp, vp, vp]
         lib.bitplane_mins_fwd.restype = ci
         lib.bitplane_mins_error_string.argtypes = [ci]
         lib.bitplane_mins_error_string.restype = ctypes.c_char_p
@@ -446,10 +460,14 @@ def _bitplane_lib():
 
 def subblock_mins_bitplane_cuda(qi: torch.Tensor, bp: torch.Tensor,
                                 n_rows: int, subblock: int, m: int,
-                                out_dtype=torch.float32) -> torch.Tensor:
+                                out_dtype=torch.float32,
+                                superblocks: bool = False):
     """Launch the bit-plane mins kernel. qi: (Q, nbit) strict +-1 int8; bp:
     (G, 128) uint8 bit-planes, of which the first ``n_rows`` packed rows
-    count. Returns (m, Q) in ``out_dtype`` (bf16 or f32).
+    count. Returns (mins (Q, m_pad), superblock mins (Q, m_pad / 64) or
+    None) in ``out_dtype`` (bf16 or f32), m_pad = m rounded up to a
+    multiple of 64, the pad columns at nbit + 1; the superblock mins are
+    written when ``superblocks`` asks for them.
     ``subblock_mins_bitplane_cuda.launches`` counts the launches."""
     Q, nbit = qi.shape
     if qi.device.type != "cuda" or bp.device != qi.device:
@@ -475,15 +493,19 @@ def subblock_mins_bitplane_cuda(qi: torch.Tensor, bp: torch.Tensor,
     if m < _cdiv(G * 8 * P, subblock):
         raise ValueError(f"m={m} rows cannot hold {G * 8 * P} codes in "
                          f"subblocks of {subblock}")
-    out = torch.empty((m, Q), dtype=out_dtype, device=qi.device)
+    m_pad = _cdiv(m, _SUB2) * _SUB2
+    out = torch.empty((Q, m_pad), dtype=out_dtype, device=qi.device)
+    msb = (torch.empty((Q, m_pad // _SUB2), dtype=out_dtype, device=qi.device)
+           if superblocks else None)
     lib = _bitplane_lib()
     code = lib.bitplane_mins_fwd(
         _build.ptr(qi), _build.ptr(bp), G, n_rows, Q, nbit, subblock, m,
         int(out_dtype == torch.bfloat16), _build.ptr(out),
+        _build.ptr(msb) if superblocks else None,
         _build.stream_ptr(qi.device))
     _build.check(code, lib.bitplane_mins_error_string, "bitplane_mins_fwd")
     subblock_mins_bitplane_cuda.launches += 1
-    return out
+    return out, msb
 
 
 subblock_mins_bitplane_cuda.launches = 0
@@ -503,10 +525,13 @@ def _bitplane_slots(nbit: int, subblock: int, unpack: str) -> int:
     return P
 
 
-def _mins_bitplane(qi, bp, n_rows: int, subblock: int, m: int, out_dtype):
+def _mins_bitplane(qi, bp, n_rows: int, subblock: int, m: int, out_dtype,
+                   superblocks: bool = False):
     if bp.device.type == "cpu":
-        return _bitplane_mins_reference(qi, bp, n_rows, subblock, m, out_dtype)
-    return subblock_mins_bitplane_cuda(qi, bp, n_rows, subblock, m, out_dtype)
+        return _bitplane_mins_reference(qi, bp, n_rows, subblock, m, out_dtype,
+                                        superblocks)
+    return subblock_mins_bitplane_cuda(qi, bp, n_rows, subblock, m, out_dtype,
+                                       superblocks)
 
 
 def subblock_min_dists_bitplane(q_signs: torch.Tensor, bp: torch.Tensor,
@@ -516,7 +541,8 @@ def subblock_min_dists_bitplane(q_signs: torch.Tensor, bp: torch.Tensor,
                                 unpack: str = "i8_stack") -> torch.Tensor:
     """Per-subblock min Hamming distances over a bit-plane gallery:
     (Q, nbit) x (G, 128) uint8 (``pack_bitplane_serving``) ->
-    (ceil(G * 8 * P / S), Q), bf16 exact for nbit <= 128. Needs
+    (ceil(G * 8 * P / S), Q), bf16 exact for nbit <= 128: the reference's
+    layout, as a transposed view of the kernel's (Q, m_pad). Needs
     ``subblock % (8 * P) == 0``, so a byte row never straddles two
     subblocks. ``n_rows``: the valid packed rows (default: all stored);
     codes of later rows read nbit + 1. ``unpack``: see ``_bitplane_slots``."""
@@ -525,8 +551,9 @@ def subblock_min_dists_bitplane(q_signs: torch.Tensor, bp: torch.Tensor,
     if n_rows is None:
         n_rows = G * 8
     m = _cdiv(G * 8 * P, subblock)
-    return _mins_bitplane(strict_signs(q_signs), bp, int(n_rows), subblock, m,
-                          out_dtype)
+    mins, _ = _mins_bitplane(strict_signs(q_signs), bp, int(n_rows), subblock,
+                             m, out_dtype)
+    return mins[:, :m].t()
 
 
 def _bitplane_rescore(gath: torch.Tensor, qb: torch.Tensor,
@@ -594,16 +621,13 @@ def exact_topk_bitplane(q_signs: torch.Tensor, bp: torch.Tensor, k: int,
     nr = G * 8
     if isinstance(n_valid, int):
         nr = min(nr, _cdiv(n_valid, P))
-    mins_t = _mins_bitplane(qi, bp, nr, subblock, m_real, mdt)      # (m, Q)
-    sub2 = 64
-    msb = None
-    if large_m:
-        pad2 = (-mins_t.shape[0]) % sub2
-        if pad2:
-            mins_t = torch.cat(
-                [mins_t, mins_t.new_full((pad2, Q), float(nbit + 1))])
-        msb = mins_t.reshape(-1, sub2, Q).amin(dim=1).t().contiguous()
-    mins = mins_t.t().contiguous()                                  # (Q, m)
+    # (Q, m_pad) with the pad columns at nbit + 1, and the superblock mins,
+    # as the selection reads them
+    mins, msb = _mins_bitplane(qi, bp, nr, subblock, m_real, mdt,
+                               superblocks=large_m)
+    sub2 = _SUB2
+    if not large_m:
+        mins = mins[:, :m_real]
 
     # the query's byte for lane l: 0xFF iff its bit l % nbit is set (a byte
     # holds that lane of 8 codes, one per plane)

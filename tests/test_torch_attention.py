@@ -93,3 +93,51 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     q = torch.zeros(1, 4, 2, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         tat.attention_cuda(q, q, q)
+
+
+def _bf16_views(B, L, H, hd):
+    qkv = torch.zeros(B, L, 3 * H * hd, dtype=torch.bfloat16)
+    return [t.reshape(B, L, H, hd) for t in qkv.split(H * hd, dim=-1)]
+
+
+@pytest.mark.parametrize("B,L,H,hd", [(32, 54, 12, 64), (2, 197, 12, 64),
+                                      (3, 41, 4, 32), (2, 16, 4, 128),
+                                      (1, 512, 2, 64), (1, 256, 2, 128)])
+def test_kernel_input_checks_take_kernel_shapes(B, L, H, hd):
+    """The wrapper's checks, run here without a card, pass strided views of
+    one q|k|v tensor at every head width the kernel takes, up to the
+    longest L its shared memory holds."""
+    assert tat.check_kernel_inputs(*_bf16_views(B, L, H, hd)) == (B, L, H, hd)
+
+
+@pytest.mark.parametrize("case", ["hd8", "hd48", "hd256", "long64", "long128",
+                                  "f32", "shape", "hd_stride", "odd_stride",
+                                  "rank"])
+def test_kernel_input_checks_refuse_what_the_kernel_cannot_take(case):
+    """Head widths outside {16, 32, 64, 128}, rows that do not fit a block's
+    shared memory (L = 513 at hd 64, 257 at hd 128), another dtype,
+    mismatched shapes, a non-unit hd stride, strides that break the 16-byte
+    row loads, and a tensor that is not 4-D raise before any launch."""
+    err = ValueError
+    if case.startswith("hd") and case != "hd_stride":
+        args = _bf16_views(2, 16, 2, int(case[2:]))
+    elif case == "long64":
+        args = _bf16_views(1, 513, 2, 64)
+    elif case == "long128":
+        args = _bf16_views(1, 257, 2, 128)
+    elif case == "f32":
+        q, k, v = _bf16_views(2, 16, 2, 16)
+        args, err = (q.float(), k, v), TypeError
+    elif case == "shape":
+        q, k, v = _bf16_views(2, 16, 2, 16)
+        args = (q, k[:, :8], v)
+    elif case == "hd_stride":
+        args = [t.transpose(-1, -2) for t in _bf16_views(2, 16, 16, 16)]
+    elif case == "odd_stride":
+        x = torch.zeros(2, 16, 2, 20, dtype=torch.bfloat16)[..., :16]
+        args = (x, x, x)
+    else:
+        q = torch.zeros(2, 16, 32, dtype=torch.bfloat16)
+        args = (q, q, q)
+    with pytest.raises(err):
+        tat.check_kernel_inputs(*args)

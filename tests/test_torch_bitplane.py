@@ -217,3 +217,43 @@ def test_bitplane_ragged_last_subblock_scores_its_own_rows(rng):
                                         n_valid=N)
     assert not (np.take_along_axis(dist, np.asarray(ji), 1)
                 == np.asarray(jd)).all()
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nbit", [16, 32, 64, 128])
+def test_bitplane_mins_serving_layout_matches_jax(rng, nbit, out_dtype):
+    """The plain version's (Q, m_pad) mins and (Q, m_pad / 64) superblock
+    mins, the layout the kernel writes, against the Pallas kernel's (m, Q)
+    mins in interpret mode, transposed, padded with nbit + 1 to a multiple
+    of 64 and min-reduced here: m = 70 (not a multiple of 64) subblocks of
+    S = 8P codes, n_rows masking the tail of the stored rows."""
+    P, Q = 128 // nbit, 12
+    S = 8 * P
+    G = 70                                         # one byte row per subblock
+    q = _signs(rng, Q, nbit)
+    q[0, :3] = 0.0
+    bp, _ = tts.pack_bitplane_serving(torch.tensor(_signs(rng, G * 8 * P,
+                                                          nbit)), nbit=nbit)
+    assert bp.shape[0] == G
+    n_rows = G * 8 - 21              # empties two subblocks, cuts a third
+    m = G
+    jdt, tdt = getattr(jnp, out_dtype), getattr(torch, out_dtype)
+    jm = jts.subblock_min_dists_bitplane(
+        jnp.asarray(q), jnp.asarray(bp.numpy()), subblock=S, block_g=8,
+        interpret=True, out_dtype=jdt, n_rows=n_rows)
+    jm = np.asarray(jm.astype(jnp.float32))[:m].T              # (Q, m)
+    m_pad = -(-m // 64) * 64
+    want = np.full((Q, m_pad), nbit + 1, np.float32)
+    want[:, :m] = jm
+    want_sb = want.reshape(Q, -1, 64).min(axis=-1)
+    mins, msb = tts._bitplane_mins_reference(
+        tts.strict_signs(torch.tensor(q)), bp, n_rows, S, m, tdt,
+        superblocks=True)
+    assert mins.shape == (Q, m_pad) and msb.shape == (Q, m_pad // 64)
+    assert mins.dtype == msb.dtype == tdt
+    np.testing.assert_array_equal(mins.float().numpy(), want)
+    np.testing.assert_array_equal(msb.float().numpy(), want_sb)
+    assert (mins[:, -2 - (m_pad - m):].float() == nbit + 1).all()
+    alone, none = tts._bitplane_mins_reference(
+        tts.strict_signs(torch.tensor(q)), bp, n_rows, S, m, tdt)
+    assert none is None and torch.equal(alone, mins)

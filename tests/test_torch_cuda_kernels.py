@@ -192,9 +192,11 @@ def test_packed_mins_and_minspass_match_cpu(cuda_device):
 @pytest.mark.parametrize("nbit,G", [(16, 301), (32, 1003), (64, 6251),
                                     (128, 517)])
 def test_bitplane_mins_kernel_matches_plain(cuda_device, nbit, G):
-    """The bit-plane kernel equals its plain version element for element:
-    random byte rows, n_rows cutting into the last subblocks, two rows of
-    m past the stored codes, at S = 8P and at a larger subblock."""
+    """The bit-plane kernel equals its plain version element for element, in
+    the serving layout: (Q, m_pad) mins and (Q, m_pad / 64) superblock mins,
+    random byte rows, n_rows cutting into the last subblocks, m two past
+    the stored codes' subblocks and the pad columns up to m_pad at
+    nbit + 1, at S = 8P and at a larger subblock, both dtypes."""
     P = 128 // nbit
     g = torch.Generator(device=cuda_device).manual_seed(nbit)
     bp = torch.randint(0, 256, (G, 128), generator=g, device=cuda_device,
@@ -202,16 +204,24 @@ def test_bitplane_mins_kernel_matches_plain(cuda_device, nbit, G):
     qi = tts.strict_signs(torch.randint(0, 2, (300, nbit), generator=g,
                                         device=cuda_device))
     for S in (8 * P, 128):
-        m = -(-G * 8 * P // S) + 2
+        m_real = -(-G * 8 * P // S)
+        m = m_real + 2
         for n_rows in (G * 8, G * 8 - 13):
             for dt in (torch.bfloat16, torch.float32):
                 before = tts.subblock_mins_bitplane_cuda.launches
-                got = tts.subblock_mins_bitplane_cuda(qi, bp, n_rows, S, m, dt)
+                got, got_sb = tts.subblock_mins_bitplane_cuda(
+                    qi, bp, n_rows, S, m, dt, superblocks=True)
                 torch.cuda.synchronize()
                 assert tts.subblock_mins_bitplane_cuda.launches == before + 1
-                want = tts._bitplane_mins_reference(qi, bp, n_rows, S, m, dt)
+                want, want_sb = tts._bitplane_mins_reference(
+                    qi, bp, n_rows, S, m, dt, superblocks=True)
+                assert got.shape == (300, -(-m // 64) * 64)
                 torch.testing.assert_close(got, want, atol=0, rtol=0)
-                assert (got[-2:] == nbit + 1).all()
+                torch.testing.assert_close(got_sb, want_sb, atol=0, rtol=0)
+                assert (got[:, m_real:] == nbit + 1).all()
+                alone, none = tts.subblock_mins_bitplane_cuda(qi, bp, n_rows,
+                                                              S, m, dt)
+                assert none is None and torch.equal(alone, got)
 
 
 @pytest.mark.cuda
@@ -355,11 +365,14 @@ def _qkv(rng, B, L, H, hd, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,H,hd", [(2, 16, 4, 16), (3, 41, 4, 16),
-                                      (32, 54, 12, 64), (4, 197, 12, 64)])
+                                      (32, 54, 12, 64), (4, 197, 12, 64),
+                                      (2, 197, 12, 64), (3, 41, 4, 32),
+                                      (2, 16, 4, 128)])
 def test_attention_kernel_matches_plain(np_rng, cuda_device, B, L, H, hd):
-    """bf16 kernel vs the plain version, q|k|v read in place from one
-    (B, L, 3D) tensor: |d| <= 0.01 + 0.01|ref| (f32 throughout, one bf16
-    rounding at the output; f32 sums in another order)."""
+    """bf16 kernel vs the plain version at every head width it takes, q|k|v
+    read in place from one (B, L, 3D) tensor: |d| <= 0.01 + 0.01|ref| (the
+    probabilities kept at f32 precision as P_hi + P_lo, one bf16 rounding
+    at the output; f32 sums in another order)."""
     q, k, v = _qkv(np_rng, B, L, H, hd, cuda_device)
     assert not q.is_contiguous()
     before = tat.attention_cuda.launches
@@ -398,3 +411,10 @@ def test_attention_kernel_rejects_bad_inputs(np_rng, cuda_device):
     with pytest.raises(ValueError):
         tat.attention_cuda(q.transpose(-1, -2), k.transpose(-1, -2),
                            v.transpose(-1, -2))
+    with pytest.raises(ValueError, match="head widths"):
+        tat.attention_cuda(*_qkv(np_rng, 2, 16, 8, 8, cuda_device))
+    with pytest.raises(ValueError, match="shared memory"):
+        tat.attention_cuda(*_qkv(np_rng, 1, 257, 2, 128, cuda_device))
+    lib = tat._lib()
+    for L, hd in ((54, 64), (197, 64), (512, 64), (256, 128), (41, 32)):
+        assert lib.attention_smem_bytes(L, hd) == tat._smem_bytes(L, hd)

@@ -213,10 +213,11 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
         attention.launches += 1
         return tat.attention_reference(q, k, v)
 
-    def bp_mins(qi, bp, n_rows, subblock, m, out_dtype=torch.float32):
+    def bp_mins(qi, bp, n_rows, subblock, m, out_dtype=torch.float32,
+                superblocks=False):
         bp_mins.launches += 1
         return tts._bitplane_mins_reference(qi, bp, n_rows, subblock, m,
-                                            out_dtype)
+                                            out_dtype, superblocks)
 
     layer.launches = mins.launches = bp_mins.launches = 0
     ln_matmul.launches = attention.launches = 0
