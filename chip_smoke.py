@@ -14,24 +14,37 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    (B=8, L=54, D=768, F=3072, 12 heads, quick_gelu, bf16), with both
    adapters (bottleneck 384) and without, and at the timed batch B=256
    (M = 13,824 rows) with both;
-3. the subblock-min kernel against its plain version, exactly: 1024 queries
-   over 1,000,003 codes, nbit 64 packed and plain, nbit 32 packed;
+3. the subblock-min kernel against its plain version, exactly, in the
+   serving layout (the (Q, m_pad) mins with their pad columns at nbit + 1
+   and the superblock mins): 1024 queries over 1,000,003 codes, S=64, nbit
+   64 packed (bf16 and f32) and plain, nbit 32 and 16 packed, nbit 128
+   plain; the plain layout also through ``subblock_min_dists``, the
+   reference's (m, Q) view;
 4. the serving slice, counted: the canonical ConceptHash (ViT-B/32, adapters
    384, 4 concepts, 64 bits, 200 classes, random weights from seed 0, bf16)
    encodes 256 seeded uint8 images; their codes are planted at known rows of a
    1,048,576-entry seeded +-1 gallery, packed with ``pack_serving_gallery``
    and ``pack_bits_serving``, and served by ``retrieve_topk(exact=True)`` and
-   ``retrieve_topk_streaming(exact=True)`` at k=100. Checked: each planted
-   row comes back at distance 0; the distances equal those of a plain
-   full-matrix top-k on the card; the codes agree in sign with a plain
-   encode (every layer through the kernel's plain version) on >= 99% of
-   bits; each kernel was launched (12 layer launches per encode);
-5. timings on the card: encode img/s, serving queries/s, each kernel's
-   time beside its bound, its plain version and a PyTorch yardstick, the
-   host microseconds to issue one layer call, and one traced encode and one
-   traced serving call (torch.profiler): device time by kernel, the
-   device's busy share, and kernel 1's device time split into its GEMMs,
-   its attention and its LayerNorm passes;
+   ``retrieve_topk_streaming(exact=True)`` with the bit-pack given, over the
+   packed layout (kernel 2's route) and over the plain (N, 64) one (kernel
+   3's), at k=100. Checked: each
+   planted row comes back at distance 0; the distances equal those of a
+   plain full-matrix top-k on the card; the codes agree in sign with a
+   plain encode (every layer through the kernel's plain version) on >= 99%
+   of bits; each kernel was launched (12 layer launches per encode); then
+   the same weights at compute dtype float32 (the flagship config's) encode
+   the 256 images on the card (the discrete path: the layer kernel takes
+   bf16 only) and on the CPU, and their codes agree in sign on >= 99% of
+   bits with each other and with the bf16 codes;
+5. timings on the card: encode img/s, int8 serving queries/s through
+   ``retrieve_topk`` (which packs the gallery on every call) and through
+   ``retrieve_topk_streaming`` over the gallery packed once, each kernel's
+   time beside its bound, its plain version and a PyTorch yardstick
+   (kernel 2 also beside kernel 4 at the same N and S), the host
+   microseconds to issue one layer call, and one traced encode and two
+   traced serving calls (torch.profiler): device time by kernel and by
+   operator with shapes, the device's busy share, and kernel 1's device
+   time split into its GEMMs, its attention and its LayerNorm passes;
 6. the LayerNorm -> matmul kernel against its plain version at N = 1,728
    (32 images x 54 tokens), N = 1,000 (a tail) and N = 13,824 (the B=256
    train step), D = 768, F = 2,304 (q|k|v) and 3,072 (fc1), bf16; the
@@ -405,40 +418,59 @@ def layer_flops_bytes(B, L, D, F_, A, n_adapters, w, adapters):
 # kernel 2: the subblock mins
 # ---------------------------------------------------------------------------
 
-def check_mins(sizes: Sizes, device) -> float:
+def check_mins(sizes: Sizes, device) -> tuple:
+    """Phase 3: the kernel against its plain version, exactly, in the
+    serving layout ((Q, m_pad) mins and (Q, m_pad / 64) superblock mins, the
+    pad columns at nbit + 1), over the packed and the plain layout; the
+    plain layout also through ``subblock_min_dists`` (the reference's (m, Q)
+    as a view). Returns the worst error of each layout."""
     from concepthash_tpu_torch.ops import topk_select as ts
 
     gen = torch.Generator(device=device).manual_seed(5)
     Q, N, S = sizes.mins_queries, sizes.mins_codes, 64
-    worst = 0.0
+    worst = {"packed": 0.0, "plain": 0.0}
     for nbit, layout, dt in ((64, "packed", torch.bfloat16),
                              (64, "packed", torch.float32),
                              (64, "plain", torch.bfloat16),
-                             (32, "packed", torch.bfloat16)):
+                             (32, "packed", torch.bfloat16),
+                             (16, "packed", torch.bfloat16),
+                             (128, "plain", torch.bfloat16)):
         q = torch.randint(-1, 2, (Q, nbit), generator=gen, device=device)
         db = torch.randint(0, 2, (N, nbit), generator=gen, device=device,
                            dtype=torch.int8) * 2 - 1
         if layout == "packed":
             gal, n_codes = ts.pack_serving_gallery(db)
-            got = ts.subblock_min_dists_packed(q, gal, subblock=S,
-                                               out_dtype=dt)
         else:
             gal, n_codes = db, N
-            got = ts.subblock_min_dists(q, gal, subblock=S, out_dtype=dt)
-        torch.cuda.synchronize()
+        qi = ts.strict_signs(q)
         m = -(-n_codes // S)
-        want = ts._mins_reference(ts.strict_signs(q),
-                                  gal.reshape(n_codes, nbit), S, m, dt)
-        err = (got.float() - want.float()).abs().max().item()
+        got, got_sb = ts.subblock_mins_cuda(qi, gal, n_codes, S, m, dt,
+                                            superblocks=True)
+        torch.cuda.synchronize()
+        want, want_sb = ts._mins_reference_serving(
+            qi, gal.reshape(n_codes, nbit), S, m, dt, superblocks=True)
+        same = got.shape == want.shape and got_sb.shape == want_sb.shape
+        err = max((got.float() - want.float()).abs().max().item(),
+                  (got_sb.float() - want_sb.float()).abs().max().item()) \
+            if same else float("inf")
+        pads = bool((got[:, m:] == nbit + 1).all())
+        if layout == "plain":
+            view = ts.subblock_min_dists(q, gal, subblock=S, out_dtype=dt)
+            torch.cuda.synchronize()
+            err = max(err, (view.float() - want[:, :m].t().float()).abs()
+                      .max().item() if view.shape == (m, Q) else float("inf"))
+            del view
         print(f"mins kernel vs plain, Q={Q} N={n_codes} nbit={nbit} "
-              f"{layout} {str(dt).split('.')[-1]}: shape "
-              f"{tuple(got.shape)}, max |d| {err}")
-        if got.shape != want.shape or err != 0:
+              f"{layout} S={S} {str(dt).split('.')[-1]}: mins "
+              f"{tuple(got.shape)} and superblock mins "
+              f"{tuple(got_sb.shape)}, max |d| {err}; pad columns at "
+              f"nbit + 1: {pads}")
+        if err != 0 or not pads:
             fail(f"mins kernel differs from its plain version "
                  f"(nbit={nbit}, {layout}, {dt})")
-        worst = max(worst, err)
-        del gal, db, got, want
-    return worst
+        worst[layout] = max(worst[layout], err)
+        del gal, db, got, want, got_sb, want_sb
+    return worst["packed"], worst["plain"]
 
 
 # ---------------------------------------------------------------------------
@@ -460,7 +492,7 @@ class plain_layers:
         self.clip.encoder_layer = self.saved
 
 
-def build_model(sizes: Sizes, device):
+def build_model(sizes: Sizes, device, dtype=torch.bfloat16):
     from concepthash_tpu_torch.models.clip import (AdapterConfig,
                                                    ClipVisionConfig)
     from concepthash_tpu_torch.models.concepthash import (ConceptHash,
@@ -470,7 +502,7 @@ def build_model(sizes: Sizes, device):
     vcfg = ClipVisionConfig(**sizes.vision)
     model = ConceptHash(vcfg, ConceptHashConfig(**sizes.head),
                         AdapterConfig(bottleneck_dim=sizes.bottleneck),
-                        dtype=torch.bfloat16, device=device, generator=gen)
+                        dtype=dtype, device=device, generator=gen)
     # the adapters' up-projections start at zero; seeded values make both
     # adapters change the codes, so the check covers them
     with torch.no_grad():
@@ -479,6 +511,38 @@ def build_model(sizes: Sizes, device):
                 ad.up.weight.copy_(0.02 * torch.randn(
                     ad.up.weight.shape, generator=gen))
     return model.eval(), vcfg
+
+
+def check_f32_encode(sizes: Sizes, images, codes_bf16, device) -> None:
+    """The same weights at compute dtype float32 encode ``images`` on the
+    card (the discrete path: the layer kernel takes bf16 only) and on the
+    CPU; the codes are finite, of the bf16 codes' shape, and agree in sign
+    on >= 99% of bits with the CPU's and with the bf16 codes."""
+    model, _ = build_model(sizes, device, torch.float32)
+    with torch.inference_mode():
+        sec = host_s(lambda: model(images), 1)
+        codes = model(images)["codes"]
+    del model
+    cpu_model, _ = build_model(sizes, torch.device("cpu"), torch.float32)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        codes_cpu = cpu_model(images.cpu())["codes"]
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    vs_cpu = ((codes.cpu() > 0) == (codes_cpu > 0)).float().mean().item()
+    vs_bf16 = ((codes > 0) == (codes_bf16 > 0)).float().mean().item()
+    B = images.shape[0]
+    print(f"f32 encode ({B} images, compute dtype float32, the discrete "
+          f"path): {B / sec:.1f} img/s on the card ({sec * 1e3:.2f} ms), "
+          f"{cpu_s:.1f} s on the CPU; sign agreement with the CPU's codes "
+          f"{vs_cpu:.6f} (max |d| "
+          f"{(codes.cpu() - codes_cpu).abs().max().item():.4g}), with the "
+          f"bf16 codes {vs_bf16:.6f}")
+    if (codes.shape != codes_bf16.shape or not torch.isfinite(codes).all()
+            or min(vs_cpu, vs_bf16) < MIN_SIGN_AGREEMENT):
+        fail(f"f32 encode: codes {tuple(codes.shape)} not finite, or sign "
+             f"agreement {vs_cpu:.4f} (CPU) / {vs_bf16:.4f} (bf16) < "
+             f"{MIN_SIGN_AGREEMENT}")
 
 
 def _wrappers():
@@ -497,10 +561,16 @@ def _wrappers():
 def count_reset():
     for w in _wrappers():
         w.launches = 0
+    _wrappers()[1].plain_launches = 0
 
 
 def counts() -> tuple:
-    return tuple(w.launches for w in _wrappers())
+    """Launches per kernel entry: encoder_layer, subblock_mins over the
+    packed layout (kernel 2) and over the plain one (kernel 3), ln_matmul,
+    attention, bitplane_mins."""
+    layer, mins, ln, att, bp = _wrappers()
+    return (layer.launches, mins.launches - mins.plain_launches,
+            mins.plain_launches, ln.launches, att.launches, bp.launches)
 
 
 # ---------------------------------------------------------------------------
@@ -670,10 +740,10 @@ def run_train(sizes: Sizes, device) -> dict:
     launches = counts()
     print(f"train steps (B={sizes.train_batch}): loss "
           + ", ".join(f"{x:.5f}" for x in losses))
-    print(f"train launches per step (encoder_layer, subblock_mins, "
-          f"ln_matmul, attention, bitplane_mins): {per_step}; expected "
-          f"(0, 0, {2 * n_lay}, {n_lay}, 0)")
-    if any(s != (0, 0, 2 * n_lay, n_lay, 0) for s in per_step):
+    print(f"train launches per step (encoder_layer, subblock_mins packed, "
+          f"plain, ln_matmul, attention, bitplane_mins): {per_step}; "
+          f"expected (0, 0, 0, {2 * n_lay}, {n_lay}, 0)")
+    if any(s != (0, 0, 0, 2 * n_lay, n_lay, 0) for s in per_step):
         fail("a kernel of the train path was not launched as expected")
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         fail("train loss not finite, or not lower at the last step")
@@ -795,7 +865,7 @@ def run_train(sizes: Sizes, device) -> dict:
     device_breakdown(f"train step (B={sizes.train_batch}, kernels)",
                      lambda: tr.step(batch),
                      step_s["kernels", sizes.train_batch], host_rows=10)
-    ln["launches"], att["launches"] = launches[2], launches[3]
+    ln["launches"], att["launches"] = launches[3], launches[4]
     return {"ln_matmul": ln, "attention": att}
 
 
@@ -933,7 +1003,7 @@ def run_bitplane(sizes: Sizes, device, codes, nbit: int) -> dict:
         d, idx, valid = ts.exact_topk_bitplane(codes, bp, k, subblock=S,
                                                n_valid=N)
     torch.cuda.synchronize()
-    n_bp = counts()[4]
+    n_bp = counts()[5]
     m = -(-N // S)
     print(f"bit-plane serving: {B} queries over {N} codes ({G} byte rows, "
           f"{G * 128 / 1e6:.0f} MB), S={S}, m={m}; launches: bitplane_mins "
@@ -1178,7 +1248,7 @@ def run(sizes: Sizes, device) -> dict:
     model, vcfg = build_model(sizes, device)
     nbit, k = model.cfg.nbit, sizes.k
     layer_err = check_layer(sizes, vcfg, device)
-    mins_err = check_mins(sizes, device)
+    mins_err, mins_plain_err = check_mins(sizes, device)
     ln_err = check_ln_matmul(sizes, vcfg, device)
     attn_err = check_attention(sizes, vcfg, device)
 
@@ -1201,17 +1271,21 @@ def run(sizes: Sizes, device) -> dict:
         codes = out["codes"]
         gallery[planted] = ts.strict_signs(codes)
         packed, n_pad = ts.pack_serving_gallery(gallery)
+        flat = packed.reshape(n_pad, nbit)
         bits = ts.pack_bits_serving(packed, nbit)
-        d, idx = retrieve_topk(codes, packed.reshape(n_pad, nbit), k=k,
-                               exact=True, n_valid=N)
+        d, idx = retrieve_topk(codes, flat, k=k, exact=True, n_valid=N)
         d_s, i_s = retrieve_topk_streaming(codes, packed, k=k,
                                            db_block=n_pad, exact=True,
                                            n_valid=N, db_bits=bits)
+        d_p, i_p = retrieve_topk_streaming(codes, flat, k=k,
+                                           db_block=n_pad, exact=True,
+                                           n_valid=N, db_bits=bits)
     torch.cuda.synchronize()
-    n_layer, n_mins = counts()[:2]
+    n_layer, n_mins, n_mins_plain = counts()[:3]
     print(f"main path launches: encoder_layer {n_layer} (12 per encode "
-          f"expected: {vcfg.num_layers}), subblock_mins {n_mins}")
-    if n_layer != vcfg.num_layers or n_mins < 1:
+          f"expected: {vcfg.num_layers}), subblock_mins {n_mins} over the "
+          f"packed layout and {n_mins_plain} over the plain one")
+    if n_layer != vcfg.num_layers or n_mins < 1 or n_mins_plain < 1:
         fail("a kernel of the main path was not launched as expected")
 
     # ---- what came out ----
@@ -1231,9 +1305,9 @@ def run(sizes: Sizes, device) -> dict:
     with torch.inference_mode():
         dist = sign_distances(codes, gallery)
         pd, _ = exact_topk_blocked(dist, k)
-        same_d = torch.equal(d, pd) and torch.equal(d_s, pd)
-        consistent = (torch.equal(dist.gather(1, idx), d)
-                      and torch.equal(dist.gather(1, i_s), d_s))
+        same_d = all(torch.equal(x, pd) for x in (d, d_s, d_p))
+        consistent = all(torch.equal(dist.gather(1, i), x)
+                         for i, x in ((idx, d), (i_s, d_s), (i_p, d_p)))
         with plain_layers():
             codes_plain = model(images)["codes"]
     agree = ((codes > 0) == (codes_plain > 0)).float().mean().item()
@@ -1246,17 +1320,28 @@ def run(sizes: Sizes, device) -> dict:
     if agree < MIN_SIGN_AGREEMENT:
         fail(f"codes agree in sign on {agree:.4f} < {MIN_SIGN_AGREEMENT}")
     del dist, pd, codes_plain
+    check_f32_encode(sizes, images, codes, device)
 
     # ---- timings on the card ----
+    def serve():
+        return retrieve_topk(codes, flat, k=k, exact=True, n_valid=N)
+
+    def serve_packed_once():
+        return retrieve_topk_streaming(codes, packed, k=k, db_block=n_pad,
+                                       exact=True, n_valid=N, db_bits=bits)
+
     with torch.inference_mode():
         enc_s = host_s(lambda: model(images), 3)
-        srv_s = host_s(lambda: retrieve_topk(
-            codes, packed.reshape(n_pad, nbit), k=k, exact=True,
-            n_valid=N), 5)
+        srv_s = host_s(serve, 5)
+        once_s = host_s(serve_packed_once, 5)
     print(f"encode: {B / enc_s:.1f} img/s ({B} images, bf16, "
           f"{enc_s * 1e3:.2f} ms per batch)")
     print(f"serving: {B / srv_s:.1f} queries/s (retrieve_topk exact, "
-          f"k={k}, {B} queries over {N} codes, {srv_s * 1e3:.2f} ms)")
+          f"k={k}, {B} queries over {N} codes, {srv_s * 1e3:.2f} ms; it "
+          f"packs the gallery on every call)")
+    print(f"serving, gallery packed once: {B / once_s:.1f} queries/s "
+          f"(retrieve_topk_streaming exact with db_bits, k={k}, "
+          f"{once_s * 1e3:.2f} ms)")
 
     layers = model.backbone.layers
     L = images.shape[1] // vcfg.patch_size
@@ -1301,17 +1386,26 @@ def run(sizes: Sizes, device) -> dict:
 
     qi = ts.strict_signs(codes)
     m = -(-n_pad // 64)
-    flat = packed.reshape(n_pad, nbit)
+    bp_gallery, _ = ts.pack_bitplane_serving(flat)
     with torch.inference_mode():
+        # as exact_topk_minspass calls it at this m (the direct selection,
+        # no superblock mins)
         mins_ms = cuda_ms(lambda: ts.subblock_mins_cuda(
             qi, packed, n_pad, 64, m, torch.bfloat16), sizes.reps)
-        mins_plain_ms = cuda_ms(lambda: ts._mins_reference(
+        mins_sb_ms = cuda_ms(lambda: ts.subblock_mins_cuda(
+            qi, packed, n_pad, 64, m, torch.bfloat16, superblocks=True),
+            sizes.reps)
+        mins_plain_ms = cuda_ms(lambda: ts._mins_reference_serving(
             qi, flat, 64, m, torch.bfloat16), 3)
         mins_lib_ms = cuda_ms(lambda: (0.5 * (nbit - torch._int_mm(
             flat, qi.t()).view(m, 64, B).amax(dim=1))).to(torch.bfloat16),
             sizes.reps)
         plain_layout_ms = cuda_ms(lambda: ts.subblock_min_dists(
             qi, flat, 64, torch.bfloat16), sizes.reps)
+        bp_same_ms = cuda_ms(lambda: ts.subblock_mins_bitplane_cuda(
+            qi, bp_gallery, bp_gallery.shape[0] * 8, 64, m, torch.bfloat16),
+            sizes.reps)
+    del bp_gallery
     mins_bytes = n_pad * nbit + B * nbit + m * B * 2
     mins_ops = 2 * B * n_pad * nbit
     mins_bound = max(mins_bytes / HBM_RATE, mins_ops / INT8_PEAK) * 1e3
@@ -1324,11 +1418,13 @@ def run(sizes: Sizes, device) -> dict:
           f"{layer_plain_ms:.4f} ms, library (F.linear + SDPA) "
           f"{layer_lib_ms:.4f} ms; {flops / layer_ms / 1e9:.1f} TFLOP/s; "
           f"host {layer_host_us:.1f} us per call")
-    print(f"subblock_mins (Q={B}, N={n_pad}, nbit={nbit}, packed, bf16): "
-          f"kernel {mins_ms:.4f} ms, bound {mins_bound:.4f} ms ({mins_by}: "
+    print(f"subblock_mins (Q={B}, N={n_pad}, nbit={nbit}, S=64, packed, "
+          f"bf16): kernel {mins_ms:.4f} ms ({mins_sb_ms:.4f} with the "
+          f"superblock mins), bound {mins_bound:.4f} ms ({mins_by}: "
           f"{mins_bytes / 1e6:.1f} MB, {mins_ops / 1e9:.1f} G int8 ops), "
           f"plain {mins_plain_ms:.4f} ms, library (torch._int_mm + amax) "
-          f"{mins_lib_ms:.4f} ms")
+          f"{mins_lib_ms:.4f} ms; kernel 4 (bitplane_mins) over the same "
+          f"codes as bit-planes {bp_same_ms:.4f} ms")
     print(f"subblock_mins, plain (N, {nbit}) layout (Q={B}, N={n_pad}, "
           f"bf16, through subblock_min_dists): kernel {plain_layout_ms:.4f} "
           f"ms, bound {mins_bound:.4f} ms ({mins_by}), plain "
@@ -1338,9 +1434,10 @@ def run(sizes: Sizes, device) -> dict:
     with torch.inference_mode():
         layer_split(device_breakdown("encode", lambda: model(images), enc_s),
                     vcfg.num_layers)
-        device_breakdown("serving", lambda: retrieve_topk(
-            codes, packed.reshape(n_pad, nbit), k=k, exact=True,
-            n_valid=N), srv_s)
+        device_breakdown("serving (retrieve_topk)", serve, srv_s, op_rows=10)
+        device_breakdown("serving, gallery packed once "
+                         "(retrieve_topk_streaming)", serve_packed_once,
+                         once_s, op_rows=10)
     nclass = model.cfg.nclass
     del images, raw, model
     torch.cuda.empty_cache()
@@ -1363,6 +1460,13 @@ def run(sizes: Sizes, device) -> dict:
          "launches": n_mins, "max_abs_err": mins_err, "ms": mins_ms,
          "plain_ms": mins_plain_ms, "bound_ms": mins_bound,
          "bound_by": mins_by, "library_ms": mins_lib_ms},
+        {"name": "subblock_mins_plain_layout", "route": "cuda",
+         "source": "concepthash_tpu_torch/csrc/topk_select.cu",
+         "replaces": "concepthash_tpu/ops/topk_select.py:210",
+         "launches": n_mins_plain, "max_abs_err": mins_plain_err,
+         "ms": plain_layout_ms, "plain_ms": mins_plain_ms,
+         "bound_ms": mins_bound, "bound_by": mins_by,
+         "library_ms": mins_lib_ms},
         *({"name": name, "route": "cuda",
            "source": f"concepthash_tpu_torch/csrc/{src}.cu",
            "replaces": replaces, "launches": tr[name]["launches"],

@@ -49,6 +49,8 @@
 // are done, the next chunk (its planes loaded a chunk ahead) is unpacked
 // into the other buffer. At the end each warp writes 16 queries' 64 mins as
 // contiguous rows of (Q, m_pad) and their minimum into the superblock mins.
+// The wgmma, maxima and output helpers are shared with kernels 2 and 3
+// (csrc/topk_select.cu) through csrc/mins_sm90.cuh.
 //
 // Bound on the H100: operations. For Q = 256 queries over N = 10^8 codes of
 // 64 bits the 2*Q*N*nbit int8 operations take 1.66 ms at 1,979 TOP/s (800 MB
@@ -56,18 +58,14 @@
 // per 4 code bits, shared by the 256 queries; the maxima one three-way max
 // per two products of a query and a code.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mins_sm90.cuh"
 
 namespace {
 
+using namespace mins_sm90;
+
 constexpr int THREADS = 512;      // four warpgroups
 constexpr int QT = 256;           // queries per block: one m64 tile each
-constexpr int NT = 128;           // codes per wgmma tile
-constexpr int SUB2 = 64;          // subblocks per block (a superblock)
-constexpr int MPITCH = SUB2 + 1;  // row pitch of the shared mins table
-constexpr int SENT = -(1 << 20);  // "no valid code" in that table
 
 template <int NBIT>
 struct Geom {
@@ -83,71 +81,6 @@ struct Geom {
   static constexpr int T_OFF = 2 * BUF;
   static constexpr int SMEM = T_OFF + QT * MPITCH * 4 + QT * 4 + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of (row, 16-byte column chunk) in a K-major tile of KP-byte
-// rows under the wgmma swizzle of that width (32, 64 or 128 bytes): the
-// chunk index XOR bits 7.. of the offset. Tiles start on 1024 bytes.
-template <int KP>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  const int off = row * KP + chunk * 16;
-  return off ^ (((off >> 7) & (KP / 16 - 1)) << 4);
-}
-
-// Shared-memory matrix descriptor of such a tile: 8-row groups 8 * KP bytes
-// apart (SBO), swizzle mode 1 / 2 / 3 for 128 / 64 / 32 bytes. A k32 step
-// inside a row adds 32 bytes (2 in 16-byte units) to the address.
-template <int KP>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t mode = KP == 128 ? 1 : KP == 64 ? 2 : 3;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)((8 * KP) >> 4) << 32) | (mode << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator accesses across a wgmma fence
-// or wait.
-__device__ __forceinline__ void fence_regs(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// d (+)= a (64 x 32, registers: warp w of the warpgroup holds rows 16w ..,
-// as mma.sync m16n8k32's A) * b (128 codes x 32, K-major, shared memory),
-// s8 in, s32 accumulate; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
 
 // The byte rows of the chunk at code c0 (a multiple of 8P): RAW 16-byte
 // pieces per thread, piece u = byte row u / 8, lanes 16 (u % 8) .. + 15;
@@ -192,122 +125,6 @@ __device__ __forceinline__ void unpack(const uint4 (&raw)[Geom<NBIT>::RAW],
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void put(float* p, int v) { *p = (float)v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, int v) {
-  *p = __float2bfloat16((float)v);
-}
-
-// Fold the maxima m0, m1 of a thread's two query rows (row, row + 8) over
-// subblock sb into the table: reduced over the quad, then kept by its first
-// lane. Each (row, subblock) cell has one owner quad, so no atomics.
-__device__ __forceinline__ void fold(int* smins, int row, int sb, int m0,
-                                     int m1, int lane) {
-  m0 = max(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-  m0 = max(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-  m1 = max(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-  m1 = max(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-  if (lane % 4 == 0) {
-    int* c0 = smins + row * MPITCH + sb;
-    int* c1 = smins + (row + 8) * MPITCH + sb;
-    *c0 = max(*c0, m0);
-    *c1 = max(*c1, m1);
-  }
-}
-
-// The least of 32 values as a tree of three-way maxima (depth 4, so the
-// steps overlap instead of waiting on one running maximum).
-__device__ __forceinline__ int max32(const int (&x)[32]) {
-  int a[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    a[k] = __vimax3_s32(x[4 * k], x[4 * k + 1], max(x[4 * k + 2], x[4 * k + 3]));
-  return __vimax3_s32(__vimax3_s32(a[0], a[1], a[2]),
-                      __vimax3_s32(a[3], a[4], a[5]), max(a[6], a[7]));
-}
-
-// The maxima over the codes of one 64 x 128 accumulator of a thread's two
-// query rows: reg 4j + 2h + e is row + 8h, code 8j + 2(lane % 4) + e of the
-// tile; codes at or past `valid` are skipped.
-__device__ __forceinline__ void tile_max(const int (&d)[64], int valid,
-                                        int lane, int& m0, int& m1) {
-  int x0[32], x1[32];
-  if (valid >= NT) {
-#pragma unroll
-    for (int j = 0; j < NT / 8; ++j) {
-      x0[2 * j] = d[4 * j];
-      x0[2 * j + 1] = d[4 * j + 1];
-      x1[2 * j] = d[4 * j + 2];
-      x1[2 * j + 1] = d[4 * j + 3];
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < NT / 8; ++j) {
-      const int c = 8 * j + 2 * (lane % 4);
-      x0[2 * j] = c < valid ? d[4 * j] : SENT;
-      x0[2 * j + 1] = c + 1 < valid ? d[4 * j + 1] : SENT;
-      x1[2 * j] = c < valid ? d[4 * j + 2] : SENT;
-      x1[2 * j + 1] = c + 1 < valid ? d[4 * j + 3] : SENT;
-    }
-  }
-  m0 = max32(x0);
-  m1 = max32(x1);
-}
-
-// The same for a subblock S that is not a multiple of the tile: the tile's
-// 8-code groups are folded subblock by subblock (cs: the tile's first code,
-// counted from the block's first; 8 divides S).
-__device__ __forceinline__ void tile_fold_any(const int (&d)[64], int* smins,
-                                              int row, int cs, int S,
-                                              int valid, int lane) {
-  int sb = cs / S;
-  int left = (S - cs % S) / 8;   // 8-code groups left in sb
-  int m0 = SENT, m1 = SENT;
-#pragma unroll
-  for (int j = 0; j < NT / 8; ++j) {
-    if (left == 0) {
-      fold(smins, row, sb, m0, m1, lane);
-      ++sb;
-      left = S / 8;
-      m0 = m1 = SENT;
-    }
-    --left;
-    const int c = 8 * j + 2 * (lane % 4);
-    m0 = __vimax3_s32(m0, c < valid ? d[4 * j] : SENT,
-                      c + 1 < valid ? d[4 * j + 1] : SENT);
-    m1 = __vimax3_s32(m1, c < valid ? d[4 * j + 2] : SENT,
-                      c + 1 < valid ? d[4 * j + 3] : SENT);
-  }
-  fold(smins, row, sb, m0, m1, lane);
-}
-
-// The block's 64 subblocks for its queries: distance pos(q) - max <b, q>,
-// nbit + 1 where no valid code was seen or past m; one warp per query row,
-// two subblocks per lane, then the row's minimum.
-template <typename T>
-__device__ __forceinline__ void write_mins(const int* smins, const int* pos,
-                                           int nbit, int qt0, int Q,
-                                           long long sbb, long long m,
-                                           long long m_pad, T* out, T* msb) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < QT && qt0 + r < Q; r += THREADS / 32) {
-    const size_t q = (size_t)(qt0 + r);
-    int best = nbit + 1;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = lane + 32 * h;
-      const long long sb = sbb * SUB2 + i;
-      const int v = smins[r * MPITCH + i];
-      const int d = (sb < m && v > SENT) ? pos[r] - v : nbit + 1;
-      best = min(best, d);
-      put(out + q * m_pad + sb, d);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      best = min(best, __shfl_xor_sync(0xffffffffu, best, o));
-    if (msb && lane == 0) put(msb + q * (m_pad / SUB2) + sbb, best);
-  }
-}
-
 // FAST: S is a multiple of the 128-code tile, so a tile lies in one
 // subblock; otherwise a tile's maxima are folded group by group.
 template <int NBIT, bool FAST, typename T>
@@ -320,8 +137,7 @@ bitplane_mins_kernel(const int8_t* __restrict__ q,
   using Gm = Geom<NBIT>;
   constexpr int NTL = Gm::CC / NT;            // tiles per chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  unsigned char* smem = smem_1k(smem_raw);
   unsigned char* bufs = smem;                 // 2 x CC x KP int8 {0, 1}
   int* smins = reinterpret_cast<int*>(smem + Gm::T_OFF);  // QT x MPITCH
   int* pos = smins + QT * MPITCH;             // QT
@@ -335,19 +151,8 @@ bitplane_mins_kernel(const int8_t* __restrict__ q,
   const int row0 = wg * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
 
   for (int i = threadIdx.x; i < QT * MPITCH; i += THREADS) smins[i] = SENT;
-  // A fragments of the warp's 16 queries, k32 step s: a0 row lane/4, a1
-  // row +8, bytes 4 (lane % 4) ..; a2, a3 the same 16 bytes further
   uint32_t a[Gm::KS][4];
-#pragma unroll
-  for (int s = 0; s < Gm::KS; ++s)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = qt0 + row0 + (e & 1) * 8;
-      const int k = s * 32 + (e >> 1) * 16 + (lane % 4) * 4;
-      a[s][e] = (r < Q && k < NBIT) ? *reinterpret_cast<const uint32_t*>(
-                                          q + (size_t)r * NBIT + k)
-                                    : 0u;
-    }
+  load_a<NBIT>(a, q, Q, qt0 + row0, lane);
   if (threadIdx.x < QT) {
     // +1 bytes are 0x01, -1 bytes 0xFF: a word holds 4 - popc(w & 0x80808080)
     int n = 0;
@@ -393,20 +198,20 @@ bitplane_mins_kernel(const int8_t* __restrict__ q,
     if constexpr (FAST) {
       // a tile lies in one subblock: its maxima wait in registers until the
       // chunk's products are done, then are folded
-      int mx[NTL][2];
+      int mx[NTL][1][2];
 #pragma unroll
       for (int nt = 0; nt < NTL; ++nt) {
         if (nt < ntiles) {
           multiply(acc, nt);
           wgmma_wait<0>();
           fence_regs(acc);
-          tile_max(acc, nvc - nt * NT, lane, mx[nt][0], mx[nt][1]);
+          tile_max<1>(acc, nvc - nt * NT, lane, mx[nt]);
         }
       }
 #pragma unroll
       for (int nt = 0; nt < NTL; ++nt)
         if (nt < ntiles)
-          fold(smins, row0, (cs0 + nt * NT) / S, mx[nt][0], mx[nt][1], lane);
+          fold(smins, row0, (cs0 + nt * NT) / S, mx[nt][0][0], mx[nt][0][1]);
     } else {
       for (int nt = 0; nt < ntiles; ++nt) {
         multiply(acc, nt);
@@ -422,7 +227,10 @@ bitplane_mins_kernel(const int8_t* __restrict__ q,
     load_raw<NBIT>(raw, bp, G, c0 + 2 * Gm::CC);
     __syncthreads();
   }
-  write_mins<T>(smins, pos, NBIT, qt0, Q, sbb, m, m_pad, out, msb);
+  // distance pos(q) - max <b, q>
+  write_mins<QT, THREADS / 32, false>(
+      smins, [pos](int r, int v) { return pos[r] - v; }, NBIT,
+      threadIdx.x / 32, lane, qt0, Q, sbb, m, m_pad, out, msb);
 }
 
 template <int NBIT, typename T>

@@ -8,13 +8,18 @@ the reference. ``EncoderLayer`` dispatches as the reference does:
 - the whole-layer kernel (``ops.fused_layer.encoder_layer``: the CUDA kernel
   on the card, its plain version on the CPU) for inference forwards under
   ``fused_ln='auto'`` (the port's counterpart of the reference's "auto on
-  TPU"), and under 'pallas_layer', whenever the adapters take a LayerNorm on
-  their input and no attention probabilities are asked for;
+  TPU"; on the card only at bfloat16, the one dtype the kernel takes), and
+  under 'pallas_layer', whenever the adapters take a LayerNorm on their
+  input and no attention probabilities are asked for (``whole_layer_route``);
 - otherwise the discrete path (training forwards, attention maps): separate
   LayerNorm, attention, MLP and adapter modules, where ``fused_ln='pallas'``
   runs LN1 -> q|k|v and LN2 -> fc1 through ``ops.fused_ln.ln_matmul`` and
   ``attention_impl='pallas'`` runs attention through
   ``ops.attention.fused_attention`` (CUDA kernels on the card).
+
+The CUDA kernels take bfloat16 only: on the card the explicit kernel
+settings at another compute dtype raise when the model is built
+(``check_kernel_dtype``).
 """
 
 from __future__ import annotations
@@ -61,6 +66,50 @@ class ClipVisionConfig:
     @property
     def seq_len(self) -> int:
         return self.num_patches + 1
+
+
+# the settings that ask for the CUDA kernels by name
+_KERNEL_FUSED_LN = ("pallas", "pallas_mlp", "pallas_layer")
+
+
+def whole_layer_route(fused_ln: str, train: bool, fusable: bool,
+                      dtype: torch.dtype, device_type: str) -> bool:
+    """Whether an encoder layer's forward takes the whole-layer function
+    (``ops.fused_layer.encoder_layer``) rather than the discrete path.
+    'pallas_layer' asks for it (in training that raises: its backward is not
+    ported). 'auto' takes it for inference forwards: on the card at bfloat16
+    only, the one dtype its kernel takes, and the discrete path computes the
+    same layer at any other; on the CPU its plain version at any dtype, as
+    the tests hold it against the reference. A layer whose adapters take no
+    LayerNorm on their input (``fusable`` False) never takes it."""
+    if not fusable:
+        return False
+    if fused_ln == "pallas_layer":
+        return True
+    if fused_ln != "auto" or train:
+        return False
+    return device_type != "cuda" or dtype == torch.bfloat16
+
+
+def check_kernel_dtype(cfg: "ClipVisionConfig", dtype: torch.dtype,
+                       device_type: str) -> None:
+    """Raise for a setting that asks for the CUDA kernels by name
+    (``fused_ln`` 'pallas', 'pallas_mlp' or 'pallas_layer', or
+    ``attention_impl='pallas'``) at a compute dtype other than bfloat16 on
+    the card: the kernels take bfloat16 only. On the CPU every setting runs
+    the kernels' plain versions, at any dtype."""
+    if device_type != "cuda" or dtype == torch.bfloat16:
+        return
+    asked = []
+    if cfg.fused_ln in _KERNEL_FUSED_LN:
+        asked.append(f"fused_ln={cfg.fused_ln!r}")
+    if cfg.attention_impl == "pallas":
+        asked.append("attention_impl='pallas'")
+    if asked:
+        raise ValueError(
+            f"{' and '.join(asked)} runs the port's CUDA kernels, which take "
+            f"bfloat16 only, but the compute dtype is {dtype} on cuda: build "
+            f"the model with dtype=torch.bfloat16, or use 'auto' or 'xla'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,11 +259,9 @@ class EncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, output_attentions: bool = False,
                 train: bool = False):
-        # the whole-layer kernel takes inference forwards under 'auto' (the
-        # reference's "auto on TPU"): it has no backward here yet
-        whole = self.fused_ln == "pallas_layer" or (
-            self.fused_ln == "auto" and not train)
-        if whole and self.fusable and not output_attentions:
+        whole = whole_layer_route(self.fused_ln, train, self.fusable,
+                                  self.dtype, x.device.type)
+        if whole and not output_attentions:
             if train:
                 raise NotImplementedError(
                     "fused_ln='pallas_layer' in training needs the backward "

@@ -32,7 +32,8 @@ from torch import nn
 from concepthash_tpu_torch import resolve_device
 from concepthash_tpu_torch.models.clip import (AdapterConfig,
                                                ClipVisionConfig,
-                                               ClipVisionTower)
+                                               ClipVisionTower,
+                                               check_kernel_dtype)
 from concepthash_tpu_torch.models.layers import (MLP, CodeBatchNorm, CosSim,
                                                  dense, dropout, layer_norm,
                                                  linear, normal_)
@@ -150,6 +151,7 @@ class ConceptHash(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
+        check_kernel_dtype(vision_cfg, dtype, dev.type)
         missing = _unported(cfg)
         if token_embeds is not None:
             missing = "token_embeds (FILIP token-level logits)"

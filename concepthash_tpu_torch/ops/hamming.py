@@ -17,22 +17,21 @@ def pack_bits(codes: torch.Tensor, threshold: float = 0.0) -> torch.Tensor:
     """Pack real-valued codes (..., nbit) into words (..., ceil(nbit/32)),
     int32 holding the uint32 pattern. Bit j of word w is set iff
     ``codes[..., 32*w + j] > threshold`` (0 counts as negative, the
-    reference's torch.sign convention)."""
+    reference's torch.sign convention). Packs a byte at a time in uint8 and
+    int32, so its largest temporary holds one byte per code bit."""
     nbit = codes.shape[-1]
     nwords = -(-nbit // 32)
-    bits = (codes > threshold).to(torch.int64)
+    bits = (codes > threshold).to(torch.uint8)
     pad = nwords * 32 - nbit
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
-    bits = bits.reshape(*bits.shape[:-1], nwords, 32)
-    shifts = torch.arange(32, dtype=torch.int64, device=codes.device)
-    words = (bits << shifts).sum(dim=-1)
-    return _as_int32(words)
-
-
-def _as_int32(words: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 with the same low 32 bits."""
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                           device=codes.device)
+    b = (bits.reshape(*bits.shape[:-1], nwords, 4, 8) * weights).sum(
+        dim=-1, dtype=torch.int32).unbind(-1)          # 4 x (..., nwords)
+    low = b[0] | (b[1] << 8) | (b[2] << 16) | ((b[3] & 0x7F) << 24)
+    # bit 31 is the int32 word's sign bit: the uint32 pattern, kept in int32
+    return low | ((b[3] >> 7) * -2 ** 31)
 
 
 def popcount32(words: torch.Tensor) -> torch.Tensor:

@@ -7,18 +7,18 @@ Counterpart of concepthash_tpu/ops/topk_select.py (the Pallas
 ``_mins_kernel_packed``, ``_mins_kernel`` and ``_mins_kernel_bitplane``,
 ``exact_topk_minspass`` and ``exact_topk_bitplane``). Differences by design:
 
-- the mins array has ``m = ceil(N / subblock)`` rows; the reference pads it
-  to its TPU row-block, and those pad rows read nbit + 1 exactly as the
-  tail rows here do;
+- the mins come out query-major, (Q, m_pad) with m_pad = ceil(N / subblock)
+  rounded up to a multiple of the superblock's 64 subblocks, with their
+  superblock mins beside them, the layout the selection reads; the
+  reference's (m, Q) is a transposed view of it (``subblock_min_dists``,
+  ``subblock_min_dists_packed``, ``subblock_min_dists_bitplane``), with
+  ``m = ceil(N / subblock)`` rows where the reference pads to its TPU
+  row-block (those pad rows read nbit + 1 exactly as the tail rows here do);
 - the bit-plane rescore gathers each selected subblock's own byte rows; the
   reference clamps the last one's start to G - gps, which misreads a ragged
   last subblock (ROADMAP Queue 3);
 - the bit-plane rescore runs on int32 words of four lanes rather than eight
   {0, 1} planes and a slot-sum product;
-- the bit-plane mins come out query-major, (Q, m_pad) with m_pad a multiple
-  of the superblock's 64 subblocks, with their superblock mins beside them,
-  the layout the selection reads; the reference's (m, Q) is a transposed
-  view of it (``subblock_min_dists_bitplane``);
 - every ``lax.top_k`` of the reference is a stable ascending sort here, so
   ties resolve to the lower position first on every device, as ``lax.top_k``
   resolves them (``torch.topk`` makes no such promise on CUDA);
@@ -40,13 +40,13 @@ from concepthash_tpu_torch.ops.hamming import pack_bits, popcount32
 # it the superblock hierarchy (tests monkeypatch this to force that branch)
 _INNER_DIRECT_MAX = 32768
 
-# codes bit-packed per step of pack_bits_serving (bounds its int64 temporary)
+# codes bit-packed per step of pack_bits_serving (bounds its temporaries)
 _PACK_CHUNK_CODES = 1 << 20
 
 _KERNEL_NBITS = (16, 32, 64, 128)
 
-# subblocks per superblock of the bit-plane selection: the bit-plane mins
-# kernel pads its columns to a multiple of it and reduces each run of it
+# subblocks per superblock of the selection: the mins kernels pad their
+# columns to a multiple of it and reduce each run of it
 _SUB2 = 64
 
 
@@ -98,12 +98,27 @@ def _mins_reference(qi: torch.Tensor, db_i8: torch.Tensor, subblock: int,
     return (0.5 * (nbit - gmax).float()).to(out_dtype)
 
 
+def _mins_reference_serving(qi: torch.Tensor, db_i8: torch.Tensor,
+                            subblock: int, m: int, out_dtype=torch.float32,
+                            superblocks: bool = False):
+    """Plain version of the mins kernels in their serving layout: qi (Q,
+    nbit) and db_i8 (N, nbit) int8 -> (mins (Q, m_pad), superblock mins
+    (Q, m_pad / 64) or None), m_pad = m rounded up to a multiple of 64;
+    codes past N, and the pad columns, read nbit + 1."""
+    Q = qi.shape[0]
+    m_pad = _cdiv(m, _SUB2) * _SUB2
+    mins = _mins_reference(qi, db_i8, subblock, m_pad,
+                           out_dtype).t().contiguous()
+    msb = mins.reshape(Q, -1, _SUB2).amin(dim=-1) if superblocks else None
+    return mins, msb
+
+
 def _lib():
     lib = _build.load("topk_select")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.subblock_mins_fwd.argtypes = [vp, vp, cll, ci, ci, ci, cll, ci,
-                                          vp, vp]
+                                          vp, vp, vp]
         lib.subblock_mins_fwd.restype = ci
         lib.subblock_mins_error_string.argtypes = [ci]
         lib.subblock_mins_error_string.restype = ctypes.c_char_p
@@ -112,12 +127,18 @@ def _lib():
 
 
 def subblock_mins_cuda(qi: torch.Tensor, db: torch.Tensor, n_codes: int,
-                       subblock: int, m: int,
-                       out_dtype=torch.float32) -> torch.Tensor:
+                       subblock: int, m: int, out_dtype=torch.float32,
+                       superblocks: bool = False):
     """Launch the mins kernel. qi: (Q, nbit) strict +-1 int8; db: int8
     gallery holding ``n_codes`` codes of nbit bytes, row-major (plain or
-    128-lane packed). Returns (m, Q) in ``out_dtype`` (bf16 or f32).
-    ``subblock_mins_cuda.launches`` counts the launches."""
+    128-lane packed). Returns (mins (Q, m_pad), superblock mins (Q, m_pad /
+    64) or None) in ``out_dtype`` (bf16 or f32), m_pad = m rounded up to a
+    multiple of 64, the pad columns at nbit + 1; the superblock mins are
+    written when ``superblocks`` asks for them. ``subblock`` must be a
+    multiple of 8. ``subblock_mins_cuda.launches`` counts the launches,
+    ``.plain_launches`` those over a gallery in the plain (N, nbit) layout
+    (the route of the reference's ``_mins_kernel``; the others came in the
+    128-lane packed layout of ``_mins_kernel_packed``)."""
     Q, nbit = qi.shape
     if qi.device.type != "cuda" or db.device != qi.device:
         raise ValueError(f"subblock_mins_cuda needs q and gallery on one CUDA "
@@ -126,9 +147,12 @@ def subblock_mins_cuda(qi: torch.Tensor, db: torch.Tensor, n_codes: int,
         raise TypeError("q and gallery must be int8")
     if nbit not in _KERNEL_NBITS:
         raise ValueError(f"the mins kernel takes nbit in {_KERNEL_NBITS}, got {nbit}")
-    if db.numel() != n_codes * nbit:
+    if subblock <= 0 or subblock % 8:
+        raise ValueError(f"the mins kernel takes subblocks that are multiples "
+                         f"of 8, got {subblock}")
+    if db.numel() != n_codes * nbit or not 0 < n_codes < 2 ** 31:
         raise ValueError(f"gallery holds {db.numel()} bytes, expected "
-                         f"{n_codes} codes x {nbit}")
+                         f"{n_codes} codes x {nbit} (0 < codes < 2^31)")
     for name, t in (("q", qi), ("gallery", db)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -137,26 +161,37 @@ def subblock_mins_cuda(qi: torch.Tensor, db: torch.Tensor, n_codes: int,
     if m < _cdiv(n_codes, subblock):
         raise ValueError(f"m={m} rows cannot hold {n_codes} codes in "
                          f"subblocks of {subblock}")
-    out = torch.empty((m, Q), dtype=out_dtype, device=qi.device)
+    m_pad = _cdiv(m, _SUB2) * _SUB2
+    out = torch.empty((Q, m_pad), dtype=out_dtype, device=qi.device)
+    msb = (torch.empty((Q, m_pad // _SUB2), dtype=out_dtype, device=qi.device)
+           if superblocks else None)
     lib = _lib()
     code = lib.subblock_mins_fwd(
         _build.ptr(qi), _build.ptr(db), n_codes, Q, nbit, subblock, m,
         int(out_dtype == torch.bfloat16), _build.ptr(out),
+        _build.ptr(msb) if superblocks else None,
         _build.stream_ptr(qi.device))
     _build.check(code, lib.subblock_mins_error_string, "subblock_mins_fwd")
     subblock_mins_cuda.launches += 1
-    return out
+    if db.shape[-1] == nbit:
+        subblock_mins_cuda.plain_launches += 1
+    return out, msb
 
 
 subblock_mins_cuda.launches = 0
+subblock_mins_cuda.plain_launches = 0
 
 
-def _mins(qi, db, n_codes: int, nbit: int, subblock: int, out_dtype):
+def _mins(qi, db, n_codes: int, nbit: int, subblock: int, out_dtype,
+          superblocks: bool = False):
+    """(mins (Q, m_pad), superblock mins or None) of ``n_codes`` codes in db
+    (either layout): the kernel on CUDA, its plain version on the CPU."""
     m = _cdiv(n_codes, subblock)
     if db.device.type == "cpu":
-        return _mins_reference(qi, db.reshape(n_codes, nbit), subblock, m,
-                               out_dtype)
-    return subblock_mins_cuda(qi, db, n_codes, subblock, m, out_dtype)
+        return _mins_reference_serving(qi, db.reshape(n_codes, nbit),
+                                       subblock, m, out_dtype, superblocks)
+    return subblock_mins_cuda(qi, db, n_codes, subblock, m, out_dtype,
+                              superblocks)
 
 
 def subblock_min_dists_packed(q_signs: torch.Tensor, db_packed: torch.Tensor,
@@ -164,27 +199,33 @@ def subblock_min_dists_packed(q_signs: torch.Tensor, db_packed: torch.Tensor,
                               out_dtype=torch.float32) -> torch.Tensor:
     """Per-subblock min Hamming distances over the packed gallery:
     (Q, nbit) x (Np, 128) int8 (P = 128 // nbit codes per row, from
-    ``pack_serving_gallery``) -> (ceil(Np * P / S), Q). bf16 is exact for
-    nbit <= 128."""
+    ``pack_serving_gallery``) -> (ceil(Np * P / S), Q), the reference's
+    layout, as a transposed view of the kernel's (Q, m_pad). bf16 is exact
+    for nbit <= 128."""
     Q, nbit = q_signs.shape
     if 128 % nbit:
         raise ValueError(f"nbit must divide 128, got {nbit}")
     P = 128 // nbit
     if subblock % P:
         raise ValueError(f"subblock {subblock} must be a multiple of P={P}")
-    return _mins(strict_signs(q_signs), db_packed, db_packed.shape[0] * P,
-                 nbit, subblock, out_dtype)
+    n_codes = db_packed.shape[0] * P
+    mins, _ = _mins(strict_signs(q_signs), db_packed, n_codes, nbit,
+                    subblock, out_dtype)
+    return mins[:, :_cdiv(n_codes, subblock)].t()
 
 
 def subblock_min_dists(q_signs: torch.Tensor, db_i8: torch.Tensor,
                        subblock: int = 64,
                        out_dtype=torch.float32) -> torch.Tensor:
     """Per-subblock min Hamming distances, (Q, nbit) x (N, nbit) int8 +-1
-    -> (ceil(N / S), Q), transposed (subblock-major). Entries past N count
-    as distance nbit + 1."""
+    -> (ceil(N / S), Q), transposed (subblock-major): the reference's
+    layout, as a transposed view of the kernel's (Q, m_pad). Entries past N
+    count as distance nbit + 1."""
     Q, nbit = q_signs.shape
-    return _mins(strict_signs(q_signs), db_i8, db_i8.shape[0], nbit,
-                 subblock, out_dtype)
+    N = db_i8.shape[0]
+    mins, _ = _mins(strict_signs(q_signs), db_i8, N, nbit, subblock,
+                    out_dtype)
+    return mins[:, :_cdiv(N, subblock)].t()
 
 
 def _approx_smallest_rows(x: torch.Tensor, kk: int, sub2: int = 64,
@@ -308,22 +349,19 @@ def exact_topk_minspass(q_signs: torch.Tensor, db_i8: torch.Tensor, k: int,
         d, idx = smallest(dist, k)
         return d, idx, True
 
+    if packed and subblock % P:
+        raise ValueError(f"subblock {subblock} must be a multiple of P={P}")
     large_m = m_real > _INNER_DIRECT_MAX
     if large_m and db_bits is None and nbit % 32 == 0:
         db_bits = pack_bits_serving(db_i8, nbit, subblock=subblock)
-    # bf16 mins are exact for nbit <= 128 (half-integers up to 129)
+    # bf16 mins are exact for nbit <= 128 (integers up to 129)
     mdt = torch.bfloat16 if nbit <= 128 else torch.float32
-    mins_fn = subblock_min_dists_packed if packed else subblock_min_dists
-    mins_t = mins_fn(qi, db_i8, subblock=subblock, out_dtype=mdt)  # (m, Q)
-    sub2 = 64
-    msb = None
-    if large_m:
-        pad2 = (-mins_t.shape[0]) % sub2
-        if pad2:
-            mins_t = torch.cat(
-                [mins_t, mins_t.new_full((pad2, Q), float(nbit + 1))])
-        msb = mins_t.reshape(-1, sub2, Q).amin(dim=1).t().contiguous()
-    mins = mins_t.t().contiguous()                                  # (Q, m)
+    # (Q, m_pad) with the pad columns at nbit + 1, and the superblock mins,
+    # as the selection reads them
+    mins, msb = _mins(qi, db_i8, N, nbit, subblock, mdt, superblocks=large_m)
+    sub2 = _SUB2
+    if not large_m:
+        mins = mins[:, :m_real]
 
     if db_bits is not None:
         L = nbit // 32
@@ -436,13 +474,10 @@ def _bitplane_mins_reference(qi: torch.Tensor, bp: torch.Tensor, n_rows: int,
     layout's mins; codes past them, and the pad columns, read nbit + 1.
     Returns (mins (Q, m_pad), superblock mins (Q, m_pad / 64) or None),
     m_pad = m rounded up to a multiple of 64."""
-    Q, nbit = qi.shape
+    nbit = qi.shape[1]
     rows_db = unpack_bitplane(bp).reshape(-1, nbit)[:n_rows * (128 // nbit)]
-    m_pad = _cdiv(m, _SUB2) * _SUB2
-    mins = _mins_reference(qi, rows_db, subblock, m_pad,
-                           out_dtype).t().contiguous()
-    msb = mins.reshape(Q, -1, _SUB2).amin(dim=-1) if superblocks else None
-    return mins, msb
+    return _mins_reference_serving(qi, rows_db, subblock, m, out_dtype,
+                                   superblocks)
 
 
 def _bitplane_lib():

@@ -145,19 +145,99 @@ def test_layer_kernel_rejects_bad_inputs(np_rng, cuda_device):
 @pytest.mark.parametrize("nbit,N", [(16, 5003), (32, 70_001), (64, 100_003),
                                     (128, 4097)])
 def test_mins_kernel_matches_plain(cuda_device, nbit, N):
-    """The CUDA kernel equals its plain version element for element, over a
-    ragged N and two rows past the last real subblock."""
+    """The CUDA kernel equals its plain version element for element, in the
+    serving layout ((Q, m_pad) mins, the pad columns up to m_pad at
+    nbit + 1, and the (Q, m_pad / 64) superblock mins): a ragged N, m two
+    past the last real subblock, the packed and the plain layout, 1, 100
+    and 1,024 queries, S = 8, 64, 128 and 256, both dtypes."""
     g = torch.Generator(device=cuda_device).manual_seed(nbit)
-    q = torch.randint(0, 2, (300, nbit), generator=g, device=cuda_device)
-    db = torch.randint(0, 2, (N, nbit), generator=g, device=cuda_device)
-    qi, dbi = tts.strict_signs(q), tts.strict_signs(db)
-    for S in (64, 8):
-        m = -(-N // S) + 2
-        for dt in (torch.bfloat16, torch.float32):
-            got = tts.subblock_mins_cuda(qi, dbi, N, S, m, dt)
-            want = tts._mins_reference(qi, dbi, S, m, dt)
-            torch.testing.assert_close(got, want, atol=0, rtol=0)
-            assert (got[-2:] == nbit + 1).all()
+    db = tts.strict_signs(torch.randint(0, 2, (N, nbit), generator=g,
+                                        device=cuda_device))
+    packed, n_pad = tts.pack_serving_gallery(db)
+    for Q in (1, 100, 1024):
+        qi = tts.strict_signs(torch.randint(0, 2, (Q, nbit), generator=g,
+                                            device=cuda_device))
+        for gal, n_codes in ((db, N), (packed, n_pad)):
+            for S in (8, 64, 128, 256):
+                m_real = -(-n_codes // S)
+                m = m_real + 2
+                for dt in (torch.bfloat16, torch.float32):
+                    before = tts.subblock_mins_cuda.launches
+                    got, got_sb = tts.subblock_mins_cuda(
+                        qi, gal, n_codes, S, m, dt, superblocks=True)
+                    torch.cuda.synchronize()
+                    assert tts.subblock_mins_cuda.launches == before + 1
+                    want, want_sb = tts._mins_reference_serving(
+                        qi, gal.reshape(n_codes, nbit), S, m, dt,
+                        superblocks=True)
+                    assert got.shape == (Q, -(-m // 64) * 64)
+                    torch.testing.assert_close(got, want, atol=0, rtol=0)
+                    torch.testing.assert_close(got_sb, want_sb, atol=0,
+                                               rtol=0)
+                    assert (got[:, m_real:] == nbit + 1).all()
+                    alone, none = tts.subblock_mins_cuda(qi, gal, n_codes, S,
+                                                         m, dt)
+                    assert none is None and torch.equal(alone, got)
+
+
+@pytest.mark.cuda
+def test_mins_kernel_counts_its_layouts(cuda_device):
+    """``.plain_launches`` counts the launches over the plain (N, nbit)
+    layout, and the reference's (m, Q) views read the kernel's output."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    db = tts.strict_signs(torch.randint(0, 2, (4096, 64), generator=g,
+                                        device=cuda_device))
+    q = torch.randint(0, 2, (10, 64), generator=g, device=cuda_device)
+    packed, _ = tts.pack_serving_gallery(db)
+    n, p = tts.subblock_mins_cuda.launches, tts.subblock_mins_cuda.plain_launches
+    a = tts.subblock_min_dists(q, db)
+    b = tts.subblock_min_dists_packed(q, packed)
+    assert tts.subblock_mins_cuda.launches == n + 2
+    assert tts.subblock_mins_cuda.plain_launches == p + 1
+    assert a.shape == b.shape == (64, 10) and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mins_kernel_rejects_bad_inputs(cuda_device):
+    qi = torch.ones((4, 64), dtype=torch.int8, device=cuda_device)
+    db = torch.ones((1024, 64), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):                          # S % 8
+        tts.subblock_mins_cuda(qi, db, 1024, 12, 86)
+    with pytest.raises(ValueError):                          # nbit
+        tts.subblock_mins_cuda(qi[:, :24].contiguous(),
+                               db[:, :24].contiguous(), 1024, 64, 16)
+    with pytest.raises(TypeError):
+        tts.subblock_mins_cuda(qi.float(), db, 1024, 64, 16)
+    with pytest.raises(TypeError):
+        tts.subblock_mins_cuda(qi, db, 1024, 64, 16, torch.float16)
+    with pytest.raises(ValueError):                          # m too small
+        tts.subblock_mins_cuda(qi, db, 1024, 64, 15)
+    with pytest.raises(ValueError):                          # byte count
+        tts.subblock_mins_cuda(qi, db, 1000, 64, 16)
+    with pytest.raises(ValueError):                          # not aligned
+        tts.subblock_mins_cuda(qi, db.view(-1)[8:8 + 1023 * 64].view(
+            1023, 64), 1023, 64, 16)
+    with pytest.raises(ValueError):                          # device
+        tts.subblock_mins_cuda(qi.cpu(), db, 1024, 64, 16)
+
+
+@pytest.mark.cuda
+def test_minspass_hierarchical_on_card_matches_cpu(cuda_device, monkeypatch):
+    """The hierarchical selection reads the kernel's superblock mins: the
+    card's exact_topk_minspass equals the CPU's on both layouts."""
+    monkeypatch.setattr(tts, "_INNER_DIRECT_MAX", 64)
+    rng = np.random.default_rng(9)
+    nbit, N, Q = 64, 70_000, 50
+    db = np.where(rng.random((N, nbit)) < 0.5, -1, 1).astype(np.int8)
+    q = np.where(rng.random((Q, nbit)) < 0.5, -1, 1).astype(np.float32)
+    for gal in (torch.tensor(db), tts.pack_serving_gallery(
+            torch.tensor(db))[0]):
+        want = tts.exact_topk_minspass(torch.tensor(q), gal, 20, cap=64)
+        got = tts.exact_topk_minspass(torch.tensor(q, device=cuda_device),
+                                      gal.to(cuda_device), 20, cap=64)
+        torch.testing.assert_close(got[0].cpu(), want[0], atol=0, rtol=0)
+        torch.testing.assert_close(got[1].cpu(), want[1], atol=0, rtol=0)
+        assert got[2] == want[2]
 
 
 @pytest.mark.cuda
@@ -418,3 +498,70 @@ def test_attention_kernel_rejects_bad_inputs(np_rng, cuda_device):
     lib = tat._lib()
     for L, hd in ((54, 64), (197, 64), (512, 64), (256, 128), (41, 32)):
         assert lib.attention_smem_bytes(L, hd) == tat._smem_bytes(L, hd)
+
+
+# ---------------------------------------------------------------------------
+# the model at compute dtype float32 on the card
+# ---------------------------------------------------------------------------
+
+_F32_VISION = dict(hidden_size=128, intermediate_size=256, num_layers=2,
+                   num_heads=4, image_size=64, patch_size=16, projection_dim=64)
+_F32_HEAD = dict(nbit=64, nclass=10, ncontext=4, center_dim=32,
+                 text_projection_dims=(32,))
+
+
+def _concepthash(dtype, device, **vision):
+    """The canonical model's layout at a small width, random weights from
+    seed 0 (the adapters' up-projections too, so they carry signal)."""
+    from concepthash_tpu_torch.models.clip import (AdapterConfig,
+                                                   ClipVisionConfig)
+    from concepthash_tpu_torch.models.concepthash import (ConceptHash,
+                                                          ConceptHashConfig)
+
+    g = torch.Generator().manual_seed(0)
+    model = ConceptHash(ClipVisionConfig(**_F32_VISION, **vision),
+                        ConceptHashConfig(**_F32_HEAD),
+                        AdapterConfig(bottleneck_dim=32), dtype=dtype,
+                        device=device, generator=g)
+    with torch.no_grad():
+        for layer in model.backbone.layers:
+            for ad in (layer.adapter_attn, layer.adapter_mlp):
+                ad.up.weight.copy_(0.02 * torch.randn(ad.up.weight.shape,
+                                                      generator=g))
+    return model.eval()
+
+
+@pytest.mark.cuda
+def test_concepthash_f32_encodes_on_card(cuda_device):
+    """ConceptHash at compute dtype float32 (the flagship config's) encodes
+    on the card through the discrete path (the layer kernel takes bf16
+    only): its codes agree in sign on >= 99% of bits with the same weights'
+    f32 encode on the CPU and with a bf16 encode on the card, whose layers
+    run the kernel."""
+    images = torch.randn(64, 64, 64, 3, generator=torch.Generator()
+                         .manual_seed(1))
+    launches = tfl.encoder_layer_cuda.launches
+    with torch.no_grad():
+        f32 = _concepthash(torch.float32, cuda_device)(
+            images.to(cuda_device))["codes"]
+        assert tfl.encoder_layer_cuda.launches == launches
+        cpu = _concepthash(torch.float32, "cpu")(images)["codes"]
+        bf16 = _concepthash(torch.bfloat16, cuda_device)(
+            images.to(cuda_device))["codes"]
+    assert tfl.encoder_layer_cuda.launches == launches + 2
+    assert f32.shape == (64, 64) and torch.isfinite(f32).all()
+    assert ((f32.cpu() > 0) == (cpu > 0)).float().mean() >= 0.99
+    assert ((f32 > 0) == (bf16 > 0)).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vision", [dict(fused_ln="pallas"),
+                                    dict(fused_ln="pallas_mlp"),
+                                    dict(fused_ln="pallas_layer"),
+                                    dict(attention_impl="pallas")])
+def test_kernel_settings_at_f32_raise_on_card(cuda_device, vision):
+    """The settings that name the kernels raise at float32 on the card when
+    the model is built, and build at bf16."""
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        _concepthash(torch.float32, cuda_device, **vision)
+    assert _concepthash(torch.bfloat16, cuda_device, **vision) is not None

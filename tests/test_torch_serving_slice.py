@@ -178,8 +178,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     """chip_smoke.py's phases, serving and training, at a tiny size on the
     CPU, with each kernel wrapper replaced by its plain version (counting
     its calls) and the CUDA timers by host ones: every check passes, the
-    train path launches 2 LN -> matmul and 1 attention per layer and step,
-    and the kernels' JSON line has every key the card run prints."""
+    serving path reaches the mins through both gallery layouts, the train
+    path launches 2 LN -> matmul and 1 attention per layer and step, and
+    the kernels' JSON line has every key the card run prints, for all six
+    TPU kernels."""
     import importlib.util
     import json
     import time
@@ -200,10 +202,13 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
         layer.launches += 1
         return fl.layer_reference(x, w, **kw)
 
-    def mins(qi, db, n_codes, subblock, m, out_dtype=torch.float32):
+    def mins(qi, db, n_codes, subblock, m, out_dtype=torch.float32,
+             superblocks=False):
         mins.launches += 1
-        return tts._mins_reference(qi, db.reshape(n_codes, -1), subblock, m,
-                                   out_dtype)
+        mins.plain_launches += db.shape[-1] == qi.shape[1]
+        return tts._mins_reference_serving(qi, db.reshape(n_codes, -1),
+                                           subblock, m, out_dtype,
+                                           superblocks)
 
     def ln_matmul(x2, gamma, beta, w, bias, eps=1e-5):
         ln_matmul.launches += 1
@@ -219,7 +224,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
         return tts._bitplane_mins_reference(qi, bp, n_rows, subblock, m,
                                             out_dtype, superblocks)
 
-    layer.launches = mins.launches = bp_mins.launches = 0
+    layer.launches = mins.launches = mins.plain_launches = 0
+    bp_mins.launches = 0
     ln_matmul.launches = attention.launches = 0
 
     def host_ms(fn, reps):
@@ -233,8 +239,9 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(fl, "encoder_layer_cuda", layer)
     monkeypatch.setattr(clip, "encoder_layer", layer)
     monkeypatch.setattr(tts, "subblock_mins_cuda", mins)
-    monkeypatch.setattr(tts, "_mins", lambda qi, db, n, nbit, s, dt: mins(
-        qi, db, n, s, -(-n // s), dt))
+    monkeypatch.setattr(tts, "_mins", lambda qi, db, n, nbit, s, dt,
+                        superblocks=False: mins(qi, db, n, s, -(-n // s), dt,
+                                                superblocks))
     # the autograd forwards call the (swapped) wrappers whatever the device
     monkeypatch.setattr(tln, "ln_matmul_cuda", ln_matmul)
     monkeypatch.setattr(tln, "_forward", lambda *a: tln.ln_matmul_cuda(*a))
@@ -262,7 +269,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert "kernel 1 split (per layer" in out
     assert out.count("ln_matmul kernel vs plain") == 6
     n = VISION["num_layers"]
-    assert f"{[(0, 0, 2 * n, n, 0)] * 5}" in out
+    assert f"{[(0, 0, 0, 2 * n, n, 0)] * 5}" in out
+    assert out.count("\nmins kernel vs plain, Q=16 ") == 6
+    assert "f32 encode (6 images" in out
+    assert "serving, gallery packed once" in out
     assert "train (xla, B=8)" in out and "train step (B=4, kernels)" in out
     assert out.count("bitplane mins kernel vs plain") == 4
     assert "bit-plane serving: planted rows found at distance 0: 6/6" in out
@@ -276,12 +286,16 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
-    assert [k["name"] for k in kernels] == ["encoder_layer", "subblock_mins",
-                                            "ln_matmul", "attention",
-                                            "bitplane_mins"]
-    assert [k["launches"] for k in kernels[2:4]] == [5 * 2 * n, 5 * n]
-    assert kernels[4]["replaces"] == "concepthash_tpu/ops/topk_select.py:765"
-    assert kernels[4]["max_abs_err"] == 0
+    assert [k["name"] for k in kernels] == [
+        "encoder_layer", "subblock_mins", "subblock_mins_plain_layout",
+        "ln_matmul", "attention", "bitplane_mins"]
+    assert [k["launches"] for k in kernels[3:5]] == [5 * 2 * n, 5 * n]
+    assert [k["replaces"] for k in kernels[1:3]] == [
+        "concepthash_tpu/ops/topk_select.py:86",
+        "concepthash_tpu/ops/topk_select.py:210"]
+    assert kernels[5]["replaces"] == "concepthash_tpu/ops/topk_select.py:765"
+    assert kernels[1]["max_abs_err"] == kernels[2]["max_abs_err"] == 0
+    assert kernels[5]["max_abs_err"] == 0
     for k in kernels:
         assert set(k) == keys and k["launches"] > 0
         assert (ROOT / k["source"]).exists()

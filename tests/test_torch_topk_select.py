@@ -65,6 +65,50 @@ def test_subblock_mins_match_pallas(rng, nbit, layout, out_dtype):
     assert (want[m:] == nbit + 1).all()
 
 
+@pytest.mark.parametrize("subblock", [64, 128])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("layout", ["packed", "plain"])
+@pytest.mark.parametrize("nbit", [16, 32, 64, 128])
+def test_serving_mins_match_pallas(rng, nbit, layout, out_dtype, subblock):
+    """The plain version's (Q, m_pad) mins and (Q, m_pad / 64) superblock
+    mins, the layout the kernel writes, against the Pallas kernel's (m, Q)
+    mins in interpret mode, transposed, padded with nbit + 1 to a multiple
+    of 64 and min-reduced here: a ragged N over m = 70 subblocks (not a
+    multiple of 64), exactly."""
+    S, Q, m = subblock, 12, 70
+    N = (m - 1) * S + 37                       # ragged to S and to P
+    P = 128 // nbit
+    q = _signs(rng, Q, nbit)
+    q[0, :3] = 0.0                             # exact zeros count as -1
+    db = _signs(rng, N, nbit)
+    jdt, tdt = getattr(jnp, out_dtype), getattr(torch, out_dtype)
+    if layout == "packed":
+        jp, _ = jts.pack_serving_gallery(jnp.asarray(db))
+        gal, n_codes = tts.pack_serving_gallery(torch.tensor(db))
+        jm = jts.subblock_min_dists_packed(
+            jnp.asarray(q), jp, subblock=S, block_rows2=4 * S // P,
+            interpret=True, out_dtype=jdt)
+    else:
+        gal, n_codes = torch.tensor(db.astype(np.int8)), N
+        jm = jts.subblock_min_dists(jnp.asarray(q), jnp.asarray(
+            db.astype(np.int8)), subblock=S, block_rows=4 * S,
+            interpret=True, out_dtype=jdt)
+    assert -(-n_codes // S) == m
+    jm = np.asarray(jm.astype(jnp.float32))[:m].T              # (Q, m)
+    want = np.full((Q, 128), nbit + 1, np.float32)
+    want[:, :m] = jm
+    want_sb = want.reshape(Q, -1, 64).min(axis=-1)
+    mins, msb = tts._mins(tts.strict_signs(torch.tensor(q)), gal, n_codes,
+                          nbit, S, tdt, superblocks=True)
+    assert mins.shape == (Q, 128) and msb.shape == (Q, 2)
+    assert mins.dtype == msb.dtype == tdt
+    np.testing.assert_array_equal(mins.float().numpy(), want)
+    np.testing.assert_array_equal(msb.float().numpy(), want_sb)
+    alone, none = tts._mins(tts.strict_signs(torch.tensor(q)), gal, n_codes,
+                            nbit, S, tdt)
+    assert none is None and torch.equal(alone, mins)
+
+
 def test_mins_reference_tail_rows(rng):
     """The plain version's rows past N read nbit + 1, as the reference's."""
     nbit, S, Q, N = 32, 8, 4, 20
