@@ -12,7 +12,8 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    ``concepthash_tpu_torch/csrc`` (one nvcc each, started together);
 2. the encoder-layer kernel against its plain version at ViT-B/32 width
    (B=8, L=54, D=768, F=3072, 12 heads, quick_gelu, bf16), with both
-   adapters (bottleneck 384) and without, and at the timed batch B=256
+   adapters (bottleneck 384) and without, at the flagship's eval batch
+   B=32 and its database tail B=16 with both, and at the timed batch B=256
    (M = 13,824 rows) with both;
 3. the subblock-min kernel against its plain version, exactly, in the
    serving layout (the (Q, m_pad) mins with their pad columns at nbit + 1
@@ -94,7 +95,24 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    ``calculate_pr_curve`` on the card, over the 256 encoded codes as
    queries and 4,096 seeded labelled codes as database, equal to the same
    calls on the CPU within 1e-5; then both timed on the card at the size
-   of a CUB-200 eval (5,794 queries, 5,994 database codes, seeded).
+   of a CUB-200 eval (5,794 queries, 5,994 database codes, seeded);
+13. the CLIP text tower at ViT-B/32's text geometry (random weights from a
+   seed, 200 seeded prompts of 77 ids, an eos in each) at float32 on the
+   card against the same tower on the CPU, within ``TEXT_ATOL``; the same
+   run with TF32 matmuls is printed beside it, the slip the limit must
+   catch;
+14. ``main_gpu``'s flagship run in-process (dataset=cub200
+   model=concepthash compute_dtype=bfloat16, 2 epochs, an evaluation after
+   each) on a synthetic set of 200 classes (2 train + 1 test images a
+   class, 256^2) written by the port's maker, with the launch counts from
+   zero. Checked: the run directory, two finite train records with ``lr``
+   equal to ``current_lr``, two test records, the (200, 512)
+   offline-fallback codebook and its warning, kernel 1 at 12 launches an
+   eval batch and no other kernel, the eval codes of the test and database
+   splits against an encode through the kernel's plain version (>= 99%
+   sign agreement), and ``models/last.pt`` reloaded into a fresh
+   experiment encoding the test split to the same codes bit for bit; then
+   timings, an epoch's parts and a traced train epoch.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -141,6 +159,11 @@ MIN_UPDATE_COSINE = 0.99
 # BatchNorm to hash_pe): adam turns their rounding noise into updates that
 # no two runs share, so their cosines are printed, not held.
 NULL_GRADIENT = ("hash_attention.sa.key.bias", "hash_pe")
+# the CLIP text tower at float32 on the card vs the CPU (TF32 off): f32
+# sums in another order through 12 layers, on values of order 1. Set
+# between the two readings on an H100 (PERF.md §6): 7.03e-06 at
+# float32, 3.64e-03 with TF32 matmuls, the slip this limit must catch.
+TEXT_ATOL = 1e-4
 TRAIN_VISION = dict(attention_impl="pallas", fused_ln="pallas")
 XLA_VISION = dict(attention_impl="xla", fused_ln="xla")
 
@@ -153,6 +176,7 @@ class Sizes:
     bottleneck: int = 384
     layer_batch: int = 8           # images in the layer check
     layer_batch_big: int = 256     # and the timed batch (M = 13,824)
+    layer_batches_eval: tuple = (32, 16)   # the flagship's eval batch, tail
     mins_queries: int = 1024
     mins_codes: int = 1_000_003
     images: int = 256
@@ -173,6 +197,12 @@ class Sizes:
     walk_codes: int = 1 << 22          # codes per block of the plain walk
     scoring_db: int = 4096             # labelled database codes, phase 12
     scoring_split: tuple = (5794, 5994)  # CUB-200 test x train: timed only
+    text: dict = dataclasses.field(default_factory=dict)   # CLIP B/32 text
+    prompts: int = 200                 # one per CUB-200 class, phase 13
+    flagship_classes: int = 200        # CUB-200's count, phase 14
+    flagship_per_class: tuple = (2, 1)  # train, test images a class
+    flagship_image: int = 256          # written at dataset.resize square
+    flagship_args: tuple = ()          # overrides after the flagship's own
 
 
 def fail(msg: str) -> None:
@@ -353,6 +383,7 @@ def check_layer(sizes: Sizes, vcfg, device) -> float:
     worst = 0.0
     for batch, with_adapters in ((sizes.layer_batch, True),
                                  (sizes.layer_batch, False),
+                                 *((b, True) for b in sizes.layer_batches_eval),
                                  (sizes.layer_batch_big, True)):
         w, a1, a2 = random_layer(gen, D, F_, sizes.bottleneck, with_adapters,
                                  device)
@@ -1224,6 +1255,234 @@ def run_scoring(sizes: Sizes, codes, nclass: int, device) -> None:
             fail(f"scoring at the split size, {name}: a value outside [0, 1]")
 
 
+# ---------------------------------------------------------------------------
+# the CLIP text tower and the flagship run
+# ---------------------------------------------------------------------------
+
+def run_text_tower(sizes: Sizes, device) -> None:
+    """Phase 13: the CLIP text tower (random weights from seed 0) on
+    ``sizes.prompts`` seeded prompts of the full context, an eos in each, at
+    float32 on the card against the same tower on the CPU."""
+    from concepthash_tpu_torch.models.clip import (ClipTextConfig,
+                                                   ClipTextTower)
+
+    cfg = ClipTextConfig(**sizes.text)
+    tower = ClipTextTower(cfg, device=device,
+                          generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(41)
+    n, L = sizes.prompts, cfg.max_position_embeddings
+    ids = torch.randint(0, cfg.eos_token_id, (n, L), generator=gen)
+    eos = torch.randint(1, L, (n,), generator=gen)
+    ids[torch.arange(n), eos] = cfg.eos_token_id
+    with torch.inference_mode():
+        sec = host_s(lambda: tower(input_ids=ids.to(device)), 3)
+        got = tower(input_ids=ids.to(device))
+        # the slip TEXT_ATOL must catch: the same products in TF32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_tf32 = tower(input_ids=ids.to(device))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        cpu = tower.to("cpu")
+        t0 = time.perf_counter()
+        want = cpu(input_ids=ids)
+        cpu_s = time.perf_counter() - t0
+    errs = {k: (got[k].cpu() - want[k]).abs().max().item()
+            for k in ("pooled", "text_embeds")}
+    errs_tf32 = {k: (got_tf32[k].cpu() - want[k]).abs().max().item()
+                 for k in errs}
+    print(f"text tower ({cfg.num_layers} layers, width {cfg.hidden_size}, "
+          f"{cfg.num_heads} heads, {n} prompts x {L} ids, float32): "
+          f"{sec * 1e3:.2f} ms on the card ({n / sec:.1f} prompts/s), "
+          f"{cpu_s:.2f} s on the CPU; card vs CPU max |d| pooled "
+          f"{errs['pooled']:.3g}, text_embeds {errs['text_embeds']:.3g} "
+          f"(tolerance {TEXT_ATOL}); with TF32 matmuls pooled "
+          f"{errs_tf32['pooled']:.3g}, text_embeds "
+          f"{errs_tf32['text_embeds']:.3g}")
+    if got["text_embeds"].shape != (n, cfg.projection_dim) or \
+            not all(torch.isfinite(got[k]).all() for k in errs):
+        fail("text tower: outputs not finite of the expected shape")
+    if max(errs.values()) > TEXT_ATOL:
+        fail(f"text tower: card and CPU differ by {errs}")
+
+
+def run_flagship(sizes: Sizes, device) -> None:
+    """Phase 14: main_gpu's flagship run (dataset=cub200 model=concepthash
+    compute_dtype=bfloat16, 2 epochs, an evaluation after each) on a
+    synthetic set of ``sizes.flagship_classes`` classes written by the
+    port's maker, with the launch counts from zero; then the checks, a
+    reload of models/last.pt, and the timings."""
+    import os
+    import tempfile
+
+    import main_gpu
+    from concepthash_tpu_torch.data.preprocess import preprocess_batch
+    from concepthash_tpu_torch.data.synthetic import make_synthetic_dataset
+    from concepthash_tpu_torch.train.optim import current_lr
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        n_train, n_test = sizes.flagship_per_class
+        t0 = time.perf_counter()
+        make_synthetic_dataset(os.path.join(tmp, "synth"),
+                               nclass=sizes.flagship_classes,
+                               per_class_train=n_train,
+                               per_class_test=n_test,
+                               image_size=sizes.flagship_image, seed=0)
+        write_s = time.perf_counter() - t0
+        logdir = os.path.join(tmp, "run")
+
+        def argv(*extra):
+            args = ["dataset=cub200", "model=concepthash", f"data_dir={tmp}",
+                    "dataset.data_folder=synth", "compute_dtype=bfloat16",
+                    "epochs=2", "eval_interval=1", *extra,
+                    *sizes.flagship_args]
+            return (args if device.type == "cuda"
+                    else ["--device", str(device), *args])
+
+        exp = main_gpu.build_experiment(argv(f"logdir={logdir}"))
+        torch.cuda.synchronize()
+
+        # ---- the main path, with the launch counts from zero ----
+        count_reset()
+        t0 = time.perf_counter()
+        best = exp.main()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+
+        # ---- what came out ----
+        with open(os.path.join(logdir, "train_history.json")) as f:
+            train = json.load(f)
+        with open(os.path.join(logdir, "test_history.json")) as f:
+            test = json.load(f)
+        with open(os.path.join(logdir, "log.txt")) as f:
+            log = f.read()
+        files = ["config.yaml", "log.txt", "train_history.json",
+                 "test_history.json", "models/best.pt", "models/last.pt",
+                 "outputs/test_best.pt", "outputs/db_best.pt"]
+        if exp.config.get("wandb"):
+            files.append("events.jsonl")
+        missing = [f for f in files
+                   if not os.path.exists(os.path.join(logdir, f))]
+        loaders = exp.loaders
+        steps = len(loaders["train"])
+        batch = int(exp.config["batch_size"])
+        eval_batches = len(loaders["test"]) + len(loaders["db"])
+        n_layers = exp.model.vision_cfg.num_layers
+        want = (2 * n_layers * eval_batches, 0, 0, 0, 0, 0)
+        lrs = [current_lr(exp.config["optim"], exp.config["scheduler"], 2,
+                          steps, steps * (ep + 1)) for ep in range(2)]
+        print(f"flagship run: {len(exp.datasets['train'])} train, "
+              f"{len(exp.datasets['test'])} test, {len(exp.datasets['db'])} "
+              f"database images of {sizes.flagship_image}^2 "
+              f"({exp.config['dataset']['nclass']} classes, written in "
+              f"{write_s:.1f} s); {steps} steps of {batch} an epoch; "
+              f"codebook {tuple(exp.codebook.shape)}; best mAP {best}")
+        print("flagship train records: " + "; ".join(
+            f"ep {r['ep']} loss {r['loss']:.5f} lr {r['lr']:.6g} "
+            f"{r['time']:.2f} s" for r in train))
+        print("flagship test records: " + "; ".join(
+            f"ep {r['ep']} mAP {r['mAP']:.6f} recalls "
+            f"{[round(x, 4) for x in r['recalls']]} precisions "
+            f"{[round(x, 4) for x in r['precisions']]}" for r in test))
+        print(f"flagship launches (encoder_layer, subblock_mins packed, "
+              f"plain, ln_matmul, attention, bitplane_mins): {launches}; "
+              f"expected {want} ({n_layers} layers x {eval_batches} eval "
+              f"batches x 2 evaluations)")
+        if missing:
+            fail(f"flagship run directory lacks {missing}")
+        if len(train) != 2 or not all(math.isfinite(r["loss"])
+                                      for r in train):
+            fail("flagship: not two train records with a finite loss")
+        if [r["lr"] for r in train] != lrs:
+            fail(f"flagship lr {[r['lr'] for r in train]} != current_lr "
+                 f"{lrs}")
+        if len(test) != 2 or not all(
+                0.0 <= r["mAP"] <= 1.0 and len(r["recalls"]) == 3
+                and len(r["precisions"]) == 3 for r in test):
+            fail("flagship: not two test records with mAP in [0, 1] and "
+                 "the recalls and precisions")
+        cb_shape = (exp.config["model"]["nclass"],
+                    exp.model.vision_cfg.projection_dim)
+        if exp.codebook.shape != cb_shape or "offline fallback" not in log \
+                or "pseudo-embeddings" not in log:
+            fail(f"flagship: the codebook is not the offline fallback's "
+                 f"{cb_shape}, or its warning is not in log.txt")
+        if launches != want:
+            fail("flagship: kernel 1 not launched 12 times an eval batch, "
+                 "or another kernel launched")
+
+        # ---- models/last.pt reloads to the same codes ----
+        codes = exp.encode_split("test")[0]["codes"]
+        fresh = main_gpu.build_experiment(argv(
+            f"logdir={logdir}_reload",
+            f"finetune_path={logdir}/models/last.pt"))
+        same = torch.equal(fresh.encode_split("test")[0]["codes"], codes)
+        print(f"flagship: models/last.pt reloaded encodes the test split to "
+              f"the same codes, bit for bit: {same}")
+        if not same:
+            fail("flagship: the reloaded model's codes differ")
+        del fresh
+
+        # ---- the eval codes against the kernel's plain version ----
+        kernel_codes = {"test": codes,
+                        "db": exp.encode_split("db")[0]["codes"]}
+        with plain_layers():
+            plain = {k: exp.encode_split(k)[0]["codes"] for k in kernel_codes}
+        agree = {k: ((kernel_codes[k] > 0) == (plain[k] > 0)).float().mean()
+                 .item() for k in plain}
+        print(f"flagship eval codes vs an encode through the layer's plain "
+              f"version: sign agreement test {agree['test']:.6f}, database "
+              f"{agree['db']:.6f} (batches of {batch} and the tails of "
+              f"{len(exp.datasets['test']) % batch} and "
+              f"{len(exp.datasets['db']) % batch})")
+        if min(agree.values()) < MIN_SIGN_AGREEMENT:
+            fail(f"flagship: eval codes agree in sign with the plain "
+                 f"encode on {agree} < {MIN_SIGN_AGREEMENT}")
+
+        # ---- timings (host clock, synchronized) ----
+        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
+        enc_s = host_s(lambda: (exp.encode_split("test"),
+                                exp.encode_split("db")), 1)
+        epoch_s = train[1]["time"]
+        print(f"flagship: train {steps * batch / epoch_s:.1f} img/s in epoch "
+              f"2 ({epoch_s:.2f} s, data, augmentation and copies included); "
+              f"eval encode {n_eval / enc_s:.1f} img/s ({n_eval} images, "
+              f"{enc_s:.2f} s); the run {run_s:.1f} s")
+        # where an epoch's time goes: the loader alone (decode, stack), the
+        # on-card preprocessing of one batch, the bare train and eval steps
+        loader_s = {k: host_s(lambda: sum(1 for _ in exp.loaders[k]), 1)
+                    for k in ("train", "test", "db")}
+        raw = next(iter(exp.loaders["train"]))
+        images = exp._on_device(raw["image"])
+        labels = exp._on_device(raw["label"])
+        pre_s = host_s(lambda: preprocess_batch(
+            images, exp.aug_generator, crop=exp.crop, norm=exp.norm,
+            train=True, augment=exp.augment,
+            op_generator=exp.op_generator), 5)
+        x = preprocess_batch(images, crop=exp.crop, norm=exp.norm)
+        step_s = host_s(lambda: exp.train_step({"image": x, "label": labels}),
+                        5)
+        eval_s = host_s(lambda: exp.eval_step({"image": x, "label": labels}),
+                        5)
+        print(f"flagship epoch parts (host clock, batch {batch}): loader "
+              f"alone {loader_s['train']:.2f} s a train epoch ("
+              f"{steps * batch / loader_s['train']:.1f} img/s), "
+              f"{loader_s['test'] + loader_s['db']:.2f} s over test + db ("
+              f"{n_eval / (loader_s['test'] + loader_s['db']):.1f} img/s); "
+              f"crop + flip + TrivialAugment + normalize {pre_s * 1e3:.2f} "
+              f"ms a batch; train step {step_s * 1e3:.2f} ms; eval step "
+              f"{eval_s * 1e3:.2f} ms")
+        t0 = time.perf_counter()
+        device_breakdown("flagship train epoch",
+                         lambda: exp.train_one_epoch(2), epoch_s, rows=8)
+        print(f"flagship: traced epoch took {time.perf_counter() - t0:.1f} s")
+        for loader in exp.loaders.values():
+            loader.close()
+    print(f"flagship phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def _flatten(x):
     if isinstance(x, (list, tuple)):
         return [y for item in x for y in _flatten(item)]
@@ -1447,6 +1706,10 @@ def run(sizes: Sizes, device) -> dict:
     bp = run_bitplane(sizes, device, codes, nbit)
     run_approx(sizes, codes, gallery, packed, bits, n_pad)
     run_scoring(sizes, codes, nclass, device)
+    del gallery, packed, bits
+    torch.cuda.empty_cache()
+    run_text_tower(sizes, device)
+    run_flagship(sizes, device)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",
          "source": "concepthash_tpu_torch/csrc/fused_layer.cu",

@@ -1,19 +1,22 @@
-"""The ``concepthash`` method from config dicts (counterpart of the
-concepthash entry of concepthash_tpu/methods.py): the model factory, the
-loss and, wired as the reference's experiment loop wires them, the optimizer,
-the LR schedule and the train step.
+"""The method registry from config dicts (counterpart of
+concepthash_tpu/methods.py), for ``concepthash``: the ``Method`` record (the
+model factory, the loss, the codebook it needs), the codebook stage, and,
+wired as the reference's experiment loop wires them, the optimizer, the LR
+schedule and the train step (``build_training``).
 
 The config dicts are main.py's: ``model``, ``backbone``, ``criterion``,
 ``optim``, ``scheduler``, ``epochs``, ``backbone_lr_scale``,
-``compute_dtype``. The class centers come in as an array (the
-language-guided codebook needs the CLIP text tower, which is not ported).
+``compute_dtype``. Every other method of the reference raises
+``NotImplementedError`` from ``get_method``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from concepthash_tpu_torch import resolve_device
@@ -52,7 +55,8 @@ def _build_concepthash(config, codebook, *, device=None,
         vcfg = dataclasses.replace(vcfg, **vision)
     acfg = adapter_config_from_model_cfg(m)
     if m.get("token_embeds_array") is not None:
-        raise NotImplementedError("FILIP token embeddings are not ported yet")
+        raise NotImplementedError("FILIP token embeddings are not ported yet "
+                                  "(ROADMAP Queue 1 item 7)")
     ccfg = ConceptHashConfig(
         nbit=int(m["nbit"]),
         nclass=int(m["nclass"]),
@@ -115,6 +119,62 @@ def _needs_attentions(config) -> bool:
 
 
 @dataclasses.dataclass
+class Method:
+    name: str
+    build_model: Callable  # (config, codebook, **kw) -> nn.Module
+    build_loss: Callable   # (config, codebook) -> loss(outputs, batch)
+    codebook: Optional[str] = None     # None | 'signed' | 'continuous'
+    needs_attentions: Callable = lambda cfg: False
+
+
+_METHODS = {"concepthash": Method("concepthash", _build_concepthash,
+                                  _lgh_build_loss, codebook="continuous",
+                                  needs_attentions=_needs_attentions)}
+
+
+def get_method(name: str) -> Method:
+    if name not in _METHODS:
+        raise NotImplementedError(
+            f"method {name!r} is not ported yet (ROADMAP Queue 1 item 10); "
+            f"ported: {sorted(_METHODS)}")
+    return _METHODS[name]
+
+
+def list_methods() -> list:
+    return sorted(_METHODS)
+
+
+def prepare_codebook(method: Method, config, logdir: str | None = None,
+                     text_embedder=None) -> Optional[np.ndarray]:
+    """Run (or load) the codebook stage if the method needs one, from the
+    model config's ``fixed_center`` spec (or the criterion's / model's
+    ``codebook``), cached at ``<logdir>/outputs/codebook.pt`` unless a
+    ``text_embedder`` stands in for the text stage."""
+    if method.codebook is None:
+        return None
+    m = config["model"]
+    spec = dict(m.get("fixed_center")
+                or (config.get("criterion", {}) or {}).get("codebook")
+                or m.get("codebook") or {})
+    spec.pop("_target_", None)
+    spec.setdefault("codebook_method", "N")
+    spec.setdefault("nclass", int(m["nclass"]))
+    spec.setdefault("nbit", int(m["nbit"]))
+    spec.setdefault("seed", int(config.get("seed", 42)))
+    if method.codebook == "continuous":
+        spec.setdefault("quantized", False)
+    if text_embedder is not None:
+        spec["text_embedder"] = text_embedder
+
+    from concepthash_tpu_torch.train import codebook as CB
+
+    if logdir and "text_embedder" not in spec:
+        return CB.load_or_create_codebook(
+            os.path.join(logdir, "outputs", "codebook.pt"), **spec)
+    return CB.get_codebook(**spec)
+
+
+@dataclasses.dataclass
 class Training:
     """What one ConceptHash training run steps: ``step(batch) -> metrics``
     updates ``model``, ``optimizer`` and ``scheduler`` in place."""
@@ -129,21 +189,23 @@ class Training:
 
 def build_training(config: dict, codebook, steps_per_epoch: int, *,
                    device=None, vision: Optional[dict] = None) -> Training:
-    """The concepthash train step from main.py's config dicts: model (seeded
-    from ``config['seed']``; load other weights into ``Training.model`` in
-    place), LGH loss, optimizer and schedule with the backbone policy, and a
-    dropout generator on the model's device seeded from the same seed."""
+    """The train step of ``config['model']['name']`` from main.py's config
+    dicts: model (seeded from ``config['seed']``; load other weights into
+    ``Training.model`` in place), loss, optimizer and schedule with the
+    backbone policy, and a dropout generator on the model's device seeded
+    from the same seed."""
     dev = resolve_device(device)
+    method = get_method(config["model"]["name"])
     seed = int(config.get("seed", 42))
-    model = _build_concepthash(config, codebook, device=dev, vision=vision,
+    model = method.build_model(config, codebook, device=dev, vision=vision,
                                generator=torch.Generator().manual_seed(seed))
-    loss_fn = _lgh_build_loss(config, codebook)
+    loss_fn = method.build_loss(config, codebook)
     optimizer, scheduler = build_optimizer(
         config.get("optim", {}) or {}, config.get("scheduler", {}) or {},
         int(config.get("epochs", 100)), steps_per_epoch, model,
         backbone_lr_scale=float(config.get("backbone_lr_scale", 1.0)))
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     step = make_train_step(model, loss_fn, optimizer, scheduler,
-                           output_attentions=_needs_attentions(config),
+                           output_attentions=method.needs_attentions(config),
                            generator=generator)
     return Training(model, optimizer, scheduler, loss_fn, generator, step)

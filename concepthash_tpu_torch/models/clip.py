@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from concepthash_tpu_torch import resolve_device
 from concepthash_tpu_torch.models.layers import (dense, layer_norm, linear,
                                                  normal_)
 from concepthash_tpu_torch.ops.attention import attention
@@ -410,3 +411,120 @@ class ClipVisionTower(nn.Module):
         if output_attentions:
             out["attentions"] = tuple(attns)
         return out
+
+
+# ---------------------------------------------------------------------------
+# the CLIP text tower (the language-guided codebook)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ClipTextConfig:
+    hidden_size: int = 512
+    intermediate_size: int = 2048
+    num_layers: int = 12
+    num_heads: int = 8
+    max_position_embeddings: int = 77
+    vocab_size: int = 49408
+    projection_dim: int = 512
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    eos_token_id: int = 49407
+
+
+class _CausalEncoderLayer(nn.Module):
+    """Pre-LN causal transformer block with separate q, k, v projections;
+    masked logits take float32's most negative value and the softmax runs
+    in float32."""
+
+    def __init__(self, dim: int, num_heads: int, intermediate_size: int,
+                 eps: float, act: str, dtype=torch.float32, generator=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.act = act
+        self.dtype = dtype
+        self.layer_norm1 = nn.LayerNorm(dim, eps=eps)
+        self.q_proj = linear(dim, dim, generator=generator)
+        self.k_proj = linear(dim, dim, generator=generator)
+        self.v_proj = linear(dim, dim, generator=generator)
+        self.out_proj = linear(dim, dim, generator=generator)
+        self.layer_norm2 = nn.LayerNorm(dim, eps=eps)
+        self.fc1 = linear(dim, intermediate_size, generator=generator)
+        self.fc2 = linear(intermediate_size, dim, generator=generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        B, L, D = x.shape
+        H, dt = self.num_heads, self.dtype
+        hd = D // H
+        h = layer_norm(self.layer_norm1, x, dt)
+        q, k, v = (dense(p, h, dt).reshape(B, L, H, hd)
+                   for p in (self.q_proj, self.k_proj, self.v_proj))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k).float()
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1).to(dt)
+        h = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, D)
+        x = x + dense(self.out_proj, h, dt)
+        h = dense(self.fc1, layer_norm(self.layer_norm2, x, dt), dt)
+        return x + dense(self.fc2, activation(self.act, h), dt)
+
+
+class ClipTextTower(nn.Module):
+    """CLIP text transformer. ``forward(input_ids=...)`` pools the hidden
+    state at each row's first eos token (position 0 in a row without one);
+    ``forward(inputs_embeds=...)`` takes embeddings as token embeddings
+    (through ``embeds_adapter`` when their width ``embeds_dim`` differs from
+    the tower's), keeps the position embedding and the causal mask, and
+    pools the last position. Returns last_hidden_state, pooled (before the
+    projection) and text_embeds.
+
+    Parameters are float32 on ``device`` (CUDA unless asked otherwise);
+    ``dtype`` is the compute dtype. Initial values come from ``generator``
+    (a CPU ``torch.Generator``)."""
+
+    def __init__(self, cfg: ClipTextConfig, *,
+                 embeds_dim: Optional[int] = None, dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = dtype
+        D = cfg.hidden_size
+        self.token_embedding = nn.Parameter(
+            normal_(torch.empty(cfg.vocab_size, D), 0.02, generator))
+        self.position_embedding = nn.Parameter(
+            normal_(torch.empty(cfg.max_position_embeddings, D), 0.02,
+                    generator))
+        self.embeds_adapter = (linear(embeds_dim, D, generator=generator)
+                               if embeds_dim not in (None, D) else None)
+        self.layers = nn.ModuleList(
+            _CausalEncoderLayer(D, cfg.num_heads, cfg.intermediate_size,
+                                cfg.layer_norm_eps, cfg.hidden_act, dtype,
+                                generator)
+            for _ in range(cfg.num_layers))
+        self.final_layer_norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
+        self.text_projection = linear(D, cfg.projection_dim, bias=False,
+                                      generator=generator)
+        self.to(dev)
+
+    def forward(self, input_ids: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None) -> dict:
+        c, dt = self.cfg, self.dtype
+        if inputs_embeds is not None:
+            B, L = inputs_embeds.shape[:2]
+            emb = (dense(self.embeds_adapter, inputs_embeds, dt)
+                   if self.embeds_adapter is not None
+                   else inputs_embeds.to(dt))
+        else:
+            B, L = input_ids.shape
+            emb = self.token_embedding[input_ids].to(dt)
+        x = emb + self.position_embedding[:L].to(dt)[None]
+        mask = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+        for layer in self.layers:
+            x = layer(x, mask)
+        x = layer_norm(self.final_layer_norm, x, dt)
+        if input_ids is not None:
+            eos = (input_ids == c.eos_token_id).to(torch.int32).argmax(dim=-1)
+        else:
+            eos = torch.full((B,), L - 1, dtype=torch.long, device=x.device)
+        pooled = x[torch.arange(B, device=x.device), eos]
+        return {"last_hidden_state": x, "pooled": pooled,
+                "text_embeds": dense(self.text_projection, pooled, dt)}

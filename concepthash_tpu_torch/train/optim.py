@@ -2,9 +2,11 @@
 (counterpart of concepthash_tpu/train/optim.py).
 
 The schedules are epoch-granular: the LR changes once per epoch. They are a
-multiplier of the base LR, applied through ``torch.optim.lr_scheduler.LambdaLR``
-stepped once per optimizer step, so update k uses ``mult(k //
-steps_per_epoch)`` as the reference's optax schedule does.
+multiplier of the base LR in the arithmetic of the epoch they are given:
+double for training, float32 for the logged ``current_lr``, as the
+reference's optax schedule computes it. Training applies them through
+``torch.optim.lr_scheduler.LambdaLR`` stepped once per optimizer step, so
+update k uses ``mult(k // steps_per_epoch)`` as the reference does.
 
 The optimizers follow the reference's update rules: adam couples weight decay
 into the gradient (``torch.optim.Adam``'s ``weight_decay`` is
@@ -23,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -37,7 +40,10 @@ def cosine_decay_linear_warmup(epochs: int,
         if ep < warmup_epochs:
             return min((ep + 1.0) / max(warmup_epochs, 1), 1.0)
         span = max(epochs - warmup_epochs, 1)
-        return 0.5 * (1.0 + math.cos(math.pi * (ep - warmup_epochs) / span))
+        arg = np.pi * (ep - warmup_epochs) / span
+        # the cosine rounded once to arg's type (XLA's float32 cosine is
+        # within an ulp of that)
+        return 0.5 * (1.0 + type(arg)(math.cos(arg)))
 
     return mult
 
@@ -48,7 +54,8 @@ def step_decay(step_size: int, gamma: float = 0.1) -> Callable:
 
 def milestones_decay(milestones: list, gamma: float = 0.1) -> Callable:
     ms = sorted(int(m) for m in milestones)
-    return lambda ep: gamma ** sum(ep >= m for m in ms)
+    # the count in ep's own type: a float32 ep gives float32 arithmetic
+    return lambda ep: gamma ** type(ep)(sum(bool(ep >= m) for m in ms))
 
 
 def no_decay() -> Callable:
@@ -145,3 +152,14 @@ def build_optimizer(optim_cfg: dict, scheduler_cfg: dict | None, epochs: int,
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda step: mult(step // spe))
     return optimizer, scheduler
+
+
+def current_lr(optim_cfg: dict, scheduler_cfg: dict | None, epochs: int,
+               steps_per_epoch: int, step: int) -> float:
+    """The base group's learning rate at optimizer step ``step``, for the
+    logs, in float32 as the reference's optax schedule computes it (so the
+    two histories carry the same numbers)."""
+    mult = epoch_multiplier(scheduler_cfg, epochs)(
+        np.float32(step // max(steps_per_epoch, 1)))
+    return float(np.float32(float(optim_cfg.get("lr", 1e-4)))
+                 * np.float32(mult))

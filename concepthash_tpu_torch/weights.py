@@ -15,6 +15,9 @@ function:
 - ``hash_bn/bn/{scale,bias}`` and ``batch_stats/hash_bn/bn/{mean,var}``
   become the code batch-norm's weight, bias and running statistics;
 - ``constants/center`` becomes the ``center`` buffer.
+
+``text_from_flax(params)`` does the same for the CLIP text tower
+(``models.clip.ClipTextTower``), whose q, k and v projections stay separate.
 """
 
 from __future__ import annotations
@@ -130,4 +133,24 @@ def from_flax(variables: dict) -> dict:
             sd["concept_ce.centroids"] = _t(ce["centroids"])
         else:
             _dense(sd, "concept_ce", ce)
+    return sd
+
+
+def text_from_flax(params: dict) -> dict:
+    """State dict of the port's ClipTextTower from the reference's
+    ClipTextTower ``params`` (numpy leaves)."""
+    sd: dict = {"token_embedding": _t(params["token_embedding"]["embedding"]),
+                "position_embedding": _t(params["position_embedding"])}
+    if "embeds_adapter" in params:
+        _dense(sd, "embeds_adapter", params["embeds_adapter"])
+    layers = sorted((k for k in params if re.fullmatch(r"layers_\d+", k)),
+                    key=lambda k: int(k.split("_")[1]))
+    for k in layers:
+        p, prefix = params[k], f"layers.{k.split('_')[1]}"
+        for name in ("layer_norm1", "layer_norm2"):
+            _ln(sd, f"{prefix}.{name}", p[name])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2"):
+            _dense(sd, f"{prefix}.{name}", p[name])
+    _ln(sd, "final_layer_norm", params["final_layer_norm"])
+    _dense(sd, "text_projection", params["text_projection"])
     return sd

@@ -1,0 +1,201 @@
+"""The port's experiment loop and CLI (``main_gpu.py``) against the JAX
+package's on the CPU, on a 3-class synthetic set with the ``tiny_test``
+backbone, 16 bits, batch 8, float32:
+
+(a) the reference trains two epochs; the port, given its
+    ``models/last.msgpack`` as ``finetune_path``, evaluates to the same test
+    and database codes (within 1e-4) and the same mAP, recalls and
+    precisions (within 1e-6);
+(b) ``main_gpu.py --device cpu`` trains two epochs and writes the
+    reference's run directory with ``.pt`` files; its history records carry
+    the reference's keys and its ``lr`` values equal the reference's;
+(c) without ``--device`` and without CUDA it raises;
+(d) ``models/last.pt`` reloads to the same codes, bit for bit;
+(e) each option that is not ported raises ``NotImplementedError``.
+"""
+
+import json
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from concepthash_tpu.config import loader as jloader
+from concepthash_tpu.data.synthetic import make_synthetic_dataset
+from concepthash_tpu.experiments.hashing import (RetrievalExperiment as
+                                                 JExperiment)
+from concepthash_tpu_torch.train.optim import current_lr
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+import main_gpu  # noqa: E402
+
+CODES_ATOL = 1e-4
+SCORE_ATOL = 1e-6
+
+
+def _args(wd, logdir, *extra):
+    return ["dataset=synthetic", "model=concepthash", "backbone=tiny_test",
+            "model.nbit=16", "model.text_projection_dims=[32]",
+            "batch_size=8", "epochs=2", "eval_interval=1", f"data_dir={wd}",
+            f"logdir={logdir}", "seed=7", "wandb=true", *extra]
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    wd = tmp_path_factory.mktemp("torch_e2e")
+    make_synthetic_dataset(str(wd / "data" / "synthetic"), nclass=3,
+                           per_class_train=8, per_class_test=4, image_size=64)
+    return str(wd)
+
+
+@pytest.fixture(scope="module")
+def reference(workdir):
+    """The JAX package's run, built once: the experiment after main()."""
+    logdir = os.path.join(workdir, "ref")
+    cfg = jloader.load_config(str(ROOT / "configs"), "train",
+                              _args(workdir, logdir))
+    exp = JExperiment(cfg)
+    exp.main()
+    return exp, logdir
+
+
+@pytest.fixture(scope="module")
+def port_run(workdir):
+    """The port's run through main_gpu on the CPU: the experiment after
+    main(), and its logdir."""
+    logdir = os.path.join(workdir, "port")
+    exp = main_gpu.build_experiment(["--device", "cpu",
+                                     *_args(workdir, logdir)])
+    best = exp.main()
+    assert best is not None and 0.0 <= best <= 1.0
+    return exp, logdir
+
+
+def _history(logdir, name):
+    with open(os.path.join(logdir, f"{name}_history.json")) as f:
+        return json.load(f)
+
+
+def test_port_evaluates_the_reference_weights_alike(reference, workdir):
+    jexp, ref_logdir = reference
+    want, (jtc, jtl, jdc, jdl) = jexp.evaluation(1)
+    logdir = os.path.join(workdir, "finetuned")
+    exp = main_gpu.build_experiment([
+        "--device", "cpu", *_args(workdir, logdir),
+        f"finetune_path={ref_logdir}/models/last.msgpack"])
+    got, (tc, tl, dc, dl) = exp.evaluation(1)
+    np.testing.assert_array_equal(tl, jtl)
+    np.testing.assert_array_equal(dl, jdl)
+    for codes, jcodes in ((tc, jtc), (dc, jdc)):
+        assert codes["codes"].shape == jcodes["codes"].shape
+        np.testing.assert_allclose(codes["codes"].numpy(), jcodes["codes"],
+                                   atol=CODES_ATOL, rtol=0)
+    assert set(got) == set(want)
+    for key in ("mAP", "recalls", "precisions"):
+        np.testing.assert_allclose(got[key], want[key], atol=SCORE_ATOL,
+                                   rtol=0, err_msg=key)
+    # a run directory loads as well as its checkpoint file
+    exp.finetune_init(ref_logdir)
+
+
+def test_main_gpu_writes_the_reference_run_directory(port_run, reference):
+    _, logdir = port_run
+    _, ref_logdir = reference
+    for f in ("config.yaml", "log.txt", "train_history.json",
+              "test_history.json", "events.jsonl", "models/best.pt",
+              "models/last.pt", "outputs/test_best.pt", "outputs/db_best.pt"):
+        assert os.path.exists(os.path.join(logdir, f)), f
+    for name in ("train", "test"):
+        got, want = _history(logdir, name), _history(ref_logdir, name)
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert set(g) == set(w), name
+    train = _history(logdir, "train")
+    assert [r["lr"] for r in train] == \
+        [r["lr"] for r in _history(ref_logdir, "train")]
+    for r in train:
+        assert np.isfinite(r["loss"])
+    for r in _history(logdir, "test"):
+        assert 0.0 <= r["mAP"] <= 1.0 and len(r["recalls"]) == 3
+    with open(os.path.join(logdir, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    assert any("train/loss" in e for e in events)
+    assert any("test/mAP" in e for e in events)
+    with open(os.path.join(logdir, "log.txt")) as f:
+        assert "offline fallback" in f.read()
+
+
+def test_main_gpu_config_is_the_references(port_run, reference):
+    """--device stays out of config.yaml: the two saved configs differ only
+    in their logdir."""
+    from concepthash_tpu_torch.config.loader import load_saved_config
+
+    got = load_saved_config(os.path.join(port_run[1], "config.yaml"))
+    want = load_saved_config(os.path.join(reference[1], "config.yaml"))
+    assert {k: v for k, v in got.items() if k != "logdir"} == \
+        {k: v for k, v in want.items() if k != "logdir"}
+
+
+def test_current_lr_matches_reference():
+    """Within an ulp of float32 (XLA's float32 cosine is not always the
+    correctly rounded one); the warm-up and step laws exactly."""
+    from concepthash_tpu.train.optim import current_lr as jlr
+
+    for sched in ({"name": "csw", "warmup_epochs": 10},
+                  {"name": "csw", "warmup_epochs": 1},
+                  {"name": "step", "step_size": 3, "gamma": 0.5},
+                  {"name": "milestones", "milestones": [2, 5], "gamma": 0.3},
+                  {"name": "no_decay"}):
+        for step in range(0, 400, 9):
+            args = ({"lr": 1e-3}, sched, 30, 12, step)
+            want, got = jlr(*args), current_lr(*args)
+            if sched["name"] == "csw" and step // 12 >= \
+                    sched["warmup_epochs"]:
+                assert got == pytest.approx(want, rel=2.5e-7, abs=0)
+            else:
+                assert got == want, (sched, step)
+
+
+def test_cuda_is_the_default(monkeypatch, workdir):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    logdir = os.path.join(workdir, "no_cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main_gpu.main(_args(workdir, logdir))
+    assert not os.path.exists(logdir)
+
+
+def test_last_checkpoint_reloads_to_the_same_codes(port_run, workdir):
+    exp, logdir = port_run
+    codes = exp.encode_split("test")[0]["codes"]
+    fresh = main_gpu.build_experiment([
+        "--device", "cpu", *_args(workdir, os.path.join(workdir, "reload")),
+        f"finetune_path={logdir}/models/last.pt"])
+    assert torch.equal(fresh.encode_split("test")[0]["codes"], codes)
+    fresh.load_model_state(os.path.join(logdir, "models", "last.pt"))
+    assert torch.equal(fresh.encode_split("test")[0]["codes"], codes)
+    best = torch.load(os.path.join(logdir, "outputs", "test_best.pt"))
+    assert best["codes"].shape == codes.shape
+
+
+@pytest.mark.parametrize("extra", [
+    ["model=orthohash_adapter"], ["model=itq"], ["model=adsh"],
+    ["model=odc"], ["model=ssdh"], ["model=concepthash_filip"],
+    ["exp=general"], ["exp=validation"], ["train_chunk=2"],
+    ["resume_logdir=/nowhere"], ["save_training_state=true"],
+    ["native_decode=true"], ["+profile.enabled=true"], ["+debug.nans=true"],
+])
+def test_unported_options_raise(workdir, extra):
+    logdir = os.path.join(workdir, "unported")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main_gpu.main(["--device", "cpu", *_args(workdir, logdir), *extra])
+
+
+def test_help(capsys):
+    with pytest.raises(SystemExit) as e:
+        main_gpu.main(["--help"])
+    assert e.value.code == 0
+    assert "methods: concepthash" in capsys.readouterr().out

@@ -139,7 +139,11 @@ def test_port_imports_nothing_of_jax():
         "ops.fused_layer", "ops.hamming", "ops.topk_select", "ops.retrieval",
         "ops.fused_ln", "ops.attention", "models.layers", "models.clip",
         "models.concepthash", "models.backbone_factory", "losses.common",
-        "losses.concepthash", "train.optim", "train.state", "methods")]
+        "losses.concepthash", "train.optim", "train.state", "methods",
+        "config.loader", "data.manifest", "data.synthetic", "data.augment",
+        "data.pipeline", "train.codebook", "utils.meters", "utils.logger",
+        "utils.machine_stats", "utils.io", "utils.diagnostics",
+        "experiments.hashing")] + ["main_gpu"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'concepthash_tpu'))\nprint(bad)\n")
@@ -253,18 +257,30 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(tts, "_INNER_DIRECT_MAX", 64)
     sizes = cs.Sizes(vision=VISION, head=dict(HEAD, text_projection_dims=(32,)),
                      bottleneck=BOTTLENECK, layer_batch=2,
-                     layer_batch_big=3, ln_rows_big=3 * 21, mins_queries=16,
+                     layer_batch_big=3, layer_batches_eval=(4, 1),
+                     ln_rows_big=3 * 21, mins_queries=16,
                      mins_codes=70_001, images=6, image_side=40,
                      gallery=70_016, k=10, reps=1, ln_rows=(4 * 21, 50),
                      attn_batch=2, attn_lengths=(21, 40), train_batch=4,
                      train_batch_big=8, bitplane_codes=1 << 17,
                      walk_codes=1 << 15, scoring_db=300,
-                     scoring_split=(40, 300))
+                     scoring_split=(40, 300),
+                     text=dict(hidden_size=32, intermediate_size=64,
+                               num_layers=2, num_heads=4,
+                               max_position_embeddings=12, vocab_size=50,
+                               projection_dim=16, eos_token_id=49),
+                     prompts=6, flagship_classes=3,
+                     flagship_per_class=(4, 2), flagship_image=64,
+                     flagship_args=("backbone=tiny_test", "model.nbit=16",
+                                    "model.text_projection_dims=[32]",
+                                    "batch_size=4", "dataset.nclass=3",
+                                    "dataset.resize=64", "dataset.crop=48"))
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
     assert "\nplanted rows found at distance 0: 6/6" in out
     assert f"encoder_layer {VISION['num_layers']} " in out
-    assert out.count("layer kernel vs plain") == 3
+    assert out.count("layer kernel vs plain") == 5
+    assert "layer kernel vs plain, B=1 " in out
     assert "layer kernel vs plain, B=3 " in out
     assert "kernel 1 split (per layer" in out
     assert out.count("ln_matmul kernel vs plain") == 6
@@ -283,6 +299,16 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
             "walk's subblock mins: max |d| 0.0") in out
     assert out.count("scoring ") == 5
     assert out.count("scoring at the CUB-200 split size") == 2
+    assert "text tower (2 layers, width 32, 4 heads, 6 prompts x 12 ids" in out
+    assert "flagship run: 12 train, 6 test, 12 database images" in out
+    assert "3 steps of 4 an epoch; codebook (3, 32)" in out
+    # 2 layers x (2 test + 3 database batches) x 2 evaluations
+    assert "flagship launches (encoder_layer, subblock_mins packed, plain, " \
+        "ln_matmul, attention, bitplane_mins): (20, 0, 0, 0, 0, 0)" in out
+    assert "the same codes, bit for bit: True" in out
+    assert ("plain version: sign agreement test 1.000000, database "
+            "1.000000 (batches of 4 and the tails of 2 and 0)") in out
+    assert "flagship train epoch: device busy" in out
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
