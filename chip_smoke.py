@@ -103,16 +103,42 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    catch;
 14. ``main_gpu``'s flagship run in-process (dataset=cub200
    model=concepthash compute_dtype=bfloat16, 2 epochs, an evaluation after
-   each) on a synthetic set of 200 classes (2 train + 1 test images a
-   class, 256^2) written by the port's maker, with the launch counts from
-   zero. Checked: the run directory, two finite train records with ``lr``
+   each, ``train_chunk=1``: one step a dispatch) on a synthetic set of 200
+   classes (2 train + 1 test images a class, 256^2) written by the port's
+   maker, with the launch counts from zero. Checked: the run directory, two finite train records with ``lr``
    equal to ``current_lr``, two test records, the (200, 512)
    offline-fallback codebook and its warning, kernel 1 at 12 launches an
    eval batch and no other kernel, the eval codes of the test and database
    splits against an encode through the kernel's plain version (>= 99%
    sign agreement), and ``models/last.pt`` reloaded into a fresh
    experiment encoding the test split to the same codes bit for bit; then
-   timings, an epoch's parts and a traced train epoch.
+   timings, an epoch's parts and a traced train epoch;
+15. several steps per dispatch (CUDA graphs) at ViT-B/32 full width and
+   depth: (a) 2 x 8 train steps at B=32 (dropout 0) through
+   ``make_multi_train_step`` (a warm-up chunk, then a replay) against 16
+   eager steps from the same state and optimizer, per-step losses and the
+   parameters bit for bit (the gap to the ``train_chunk=1`` optimizer
+   printed), the per-step ``lr`` equal to ``current_lr``; again with
+   ``attention_impl="pallas"``, ``fused_ln="pallas"``, kernels 5 and 6
+   counted per replay, and again with sgd (momentum, weight decay); with
+   dropout 0.1, three chunks on the same batches:
+   the generator advances, the loss is finite and falls, an eager twin
+   printed beside it; (b) the multi eval step's codes at B=32 equal the
+   eager eval step's bit for bit, kernel 1 at 96 launches a replay; (c) the
+   flagship run at ``train_chunk=auto`` (8) with ``save_training_state``
+   on 200 classes x 4 train images (25 steps an epoch: 3 chunks of 8 and a
+   single step), counted: kernel 1 at 12 launches an eval batch, replays
+   included; ``exp=validation use_last=true`` reproduces the run's last
+   mAP within 1e-6, ``exp=extract`` writes the run's best test codes bit
+   for bit, a run stopped after epoch 1 and resumed reaches the epoch-2
+   train loss and the last parameters bit for bit; train img/s beside a
+   ``train_chunk=1`` run on the same set, and with the device's busy share
+   beside phase 14's; (d) random vision and text towers written as a local Hugging
+   Face CLIP checkpoint (``config.json``, ``pytorch_model.bin``, a synthetic
+   ``vocab.json`` and ``merges.txt``): the flagship built with
+   ``backbone.name=<dir>`` holds the written vision tower bit for bit and
+   encodes 256 images to the source model's codes, and its codebook comes
+   from the real text stage on the card, within ``TEXT_ATOL`` of the CPU's.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -128,6 +154,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -164,8 +191,13 @@ NULL_GRADIENT = ("hash_attention.sa.key.bias", "hash_pe")
 # between the two readings on an H100 (PERF.md §6): 7.03e-06 at
 # float32, 3.64e-03 with TF32 matmuls, the slip this limit must catch.
 TEXT_ATOL = 1e-4
+# the eval-only run against the run's own last evaluation
+REPLAY_MAP_ATOL = 1e-6
 TRAIN_VISION = dict(attention_impl="pallas", fused_ln="pallas")
 XLA_VISION = dict(attention_impl="xla", fused_ln="xla")
+# configs/optim/sgd.yaml with nesterov: phase 15 graphs sgd's step too
+SGD_OPTIM = {"name": "sgd", "lr": 0.001, "momentum": 0.9,
+             "weight_decay": 0.0005, "nesterov": True}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +235,10 @@ class Sizes:
     flagship_per_class: tuple = (2, 1)  # train, test images a class
     flagship_image: int = 256          # written at dataset.resize square
     flagship_args: tuple = ()          # overrides after the flagship's own
+    graph_chunk: int = 8               # train_chunk 'auto' on the card
+    graph_per_class: tuple = (4, 1)    # phase 15: 25 steps of 32 an epoch
+    hf_text: dict = dataclasses.field(default_factory=dict)  # CLIP B/32 text
+    pretrained_images: int = 256
 
 
 def fail(msg: str) -> None:
@@ -1333,9 +1369,10 @@ def run_flagship(sizes: Sizes, device) -> None:
         logdir = os.path.join(tmp, "run")
 
         def argv(*extra):
+            # one step a dispatch (phase 15 runs several)
             args = ["dataset=cub200", "model=concepthash", f"data_dir={tmp}",
                     "dataset.data_folder=synth", "compute_dtype=bfloat16",
-                    "epochs=2", "eval_interval=1", *extra,
+                    "epochs=2", "eval_interval=1", "train_chunk=1", *extra,
                     *sizes.flagship_args]
             return (args if device.type == "cuda"
                     else ["--device", str(device), *args])
@@ -1475,12 +1512,592 @@ def run_flagship(sizes: Sizes, device) -> None:
               f"ms a batch; train step {step_s * 1e3:.2f} ms; eval step "
               f"{eval_s * 1e3:.2f} ms")
         t0 = time.perf_counter()
-        device_breakdown("flagship train epoch",
-                         lambda: exp.train_one_epoch(2), epoch_s, rows=8)
+        kernels = device_breakdown("flagship train epoch",
+                                   lambda: exp.train_one_epoch(2), epoch_s,
+                                   rows=8)
         print(f"flagship: traced epoch took {time.perf_counter() - t0:.1f} s")
         for loader in exp.loaders.values():
             loader.close()
     print(f"flagship phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"train_img_s": steps * batch / epoch_s, "epoch_s": epoch_s,
+            "busy": busy_share(kernels, epoch_s), "steps": steps}
+
+
+def busy_share(kernels, wall_s: float) -> float:
+    """The device's busy share in a traced run (``device_breakdown``'s
+    kernels) over ``wall_s``."""
+    return sum(us for _, us, _ in kernels) / 1e6 / wall_s
+
+
+# ---------------------------------------------------------------------------
+# phase 15: several steps per dispatch, resume, eval-only, local weights
+# ---------------------------------------------------------------------------
+
+def stacked_batches(sizes: Sizes, vcfg, nclass: int, chunks: int, device,
+                    seed: int, side: int = 0):
+    """``chunks`` chunks of ``sizes.graph_chunk`` seeded batches of
+    ``sizes.train_batch`` center-cropped, normalized images and one-hot
+    labels: (the batches, the chunks stacked (K, B, ...))."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    K, B = sizes.graph_chunk, sizes.train_batch
+    batches = []
+    for _ in range(chunks * K):
+        raw = torch.randint(0, 256, (B, side or sizes.image_side,
+                                     side or sizes.image_side, 3),
+                            generator=gen, device=device, dtype=torch.uint8)
+        y = torch.randint(0, nclass, (B,), generator=gen, device=device)
+        batches.append({"image": normalize(center_crop(raw, vcfg.image_size),
+                                           3),
+                        "label": F.one_hot(y, nclass).float()})
+    stacked = [{k: torch.stack([b[k] for b in batches[c * K:(c + 1) * K]])
+                for k in ("image", "label")} for c in range(chunks)]
+    return batches, stacked
+
+
+def graph_vs_eager_train(sizes: Sizes, device, vision,
+                         optim: dict | None = None) -> tuple:
+    """Phase 15 (a): copies of one model and optimizer state (the canonical
+    config at B=32, dropout 0); 2K steps through ``make_multi_train_step``
+    (a warm-up chunk, then a graph replay) and 2K eager steps of
+    ``make_train_step`` on the same batches, held per step: the eager copy
+    with the graph's optimizer (capturable, float32 rates), which is what a
+    run's single steps use beside its chunks. A third copy keeps the
+    optimizer of ``train_chunk=1`` (float rates): printed, since one bf16
+    rounding apart the two drift apart over the steps. Returns the graph's
+    training and runner. ``optim`` replaces the config's adam."""
+    from concepthash_tpu_torch.methods import build_training
+    from concepthash_tpu_torch.train.optim import current_lr, make_capturable
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    cfg = train_config(sizes)
+    cfg["model"]["upt_config"]["dropout"] = 0.0
+    if optim:
+        cfg["optim"] = dict(optim)
+    nclass = cfg["model"]["nclass"]
+    centers = torch.randn(nclass, sizes.head.get("center_dim", 512),
+                          generator=torch.Generator().manual_seed(0))
+    copies = [build_training(cfg, centers, sizes.steps_per_epoch,
+                             device=device, vision=vision) for _ in range(3)]
+    graph, eager, plain = copies
+    for tr in (eager, plain):
+        tr.model.load_state_dict(graph.model.state_dict())
+    if device.type == "cuda":
+        make_capturable(eager.optimizer)
+    vcfg = graph.model.vision_cfg
+    batches, stacked = stacked_batches(sizes, vcfg, nclass, 2, device, 23)
+    multi = make_multi_train_step(graph.model, graph.loss_fn, graph.optimizer,
+                                  graph.scheduler, generator=graph.generator)
+    torch.cuda.synchronize()
+    count_reset()
+    g_loss, lrs = [], []
+    for chunk in stacked:
+        g_loss += multi(chunk)["loss"].tolist()
+        lrs += multi.last_lrs.tolist()
+    torch.cuda.synchronize()
+    launches = counts()
+    e_loss = [float(eager.step(b)["loss"]) for b in batches]
+    p_loss = [float(plain.step(b)["loss"]) for b in batches]
+    want_lr = [current_lr(cfg["optim"], cfg["scheduler"], cfg["epochs"],
+                          sizes.steps_per_epoch, s)
+               for s in range(len(batches))]
+    # the card's runner reads float32 learning rates; the CPU's loop the
+    # schedule's doubles
+    lr_ok = (lrs == want_lr if device.type == "cuda" else
+             all(abs(a - b) <= 2 ** -23 * b for a, b in zip(lrs, want_lr)))
+    rel = max(abs(g - e) / abs(e) for g, e in zip(g_loss, e_loss))
+    rel_plain = max(abs(g - e) / abs(e) for g, e in zip(g_loss, p_loss))
+    gp, ep = graph.model.state_dict(), eager.model.state_dict()
+    d_param = max((gp[k].float() - ep[k].float()).abs().max().item()
+                  for k in gp)
+    same = g_loss == e_loss and d_param == 0.0
+    name = ("pallas" if vision else "auto") + (
+        f", {cfg['optim']['name']}" if optim else "")
+    n_lay = vcfg.num_layers
+    K = sizes.graph_chunk
+    print(f"graph vs eager train ({name}, K={K}, B={sizes.train_batch}, 2 "
+          f"chunks: a warm-up, then a replay): losses graph "
+          + ", ".join(f"{x:.5f}" for x in g_loss[K:]) + " / eager "
+          + ", ".join(f"{x:.5f}" for x in e_loss[K:])
+          + f" (replayed chunk); max rel |d| {rel:.3g}, parameters max |d| "
+          f"{d_param:.3g}: bit for bit {same} (required); against the "
+          f"train_chunk=1 optimizer max rel |d| "
+          f"{rel_plain:.3g}; per-step lr equals current_lr: {lr_ok} "
+          f"({lrs[0]:.6g} .. {lrs[-1]:.6g}); replays "
+          f"{getattr(multi, 'replays', 0)}, launches per replay "
+          f"{getattr(multi, 'launches_per_replay', None)}, counted "
+          f"{launches}")
+    if not all(math.isfinite(x) for x in g_loss) or not same:
+        fail(f"graphed train steps ({name}) differ from eager ones: losses "
+             f"rel {rel}, parameters {d_param}")
+    if not lr_ok:
+        fail(f"graphed steps' lr {lrs} != current_lr {want_lr}")
+    if vision:
+        want = (0, 0, 0, 2 * K * 2 * n_lay, 2 * K * n_lay, 0)
+        if launches != want:
+            fail(f"kernels 5 and 6 in the graph: launches {launches} != "
+                 f"{want}")
+        if device.type == "cuda" and multi.launches_per_replay != {
+                "ln_matmul_cuda": K * 2 * n_lay, "attention_cuda": K * n_lay}:
+            fail(f"launches per replay {multi.launches_per_replay}")
+    del eager, plain
+    return graph, multi
+
+
+def graph_dropout(sizes: Sizes, device) -> None:
+    """Phase 15 (a), dropout 0.1: three chunks on the same batches (a
+    warm-up, two replays); the dropout generator advances every chunk and
+    the loss stays finite and falls. An eager twin from the same generator
+    seed (and the same capturable optimizer) is printed beside it: equal
+    losses mean each replay drew the masks that eager steps draw."""
+    from concepthash_tpu_torch.methods import build_training
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    cfg = train_config(sizes)
+    nclass = cfg["model"]["nclass"]
+    centers = torch.randn(nclass, sizes.head.get("center_dim", 512),
+                          generator=torch.Generator().manual_seed(0))
+    from concepthash_tpu_torch.train.optim import make_capturable
+
+    tr = build_training(cfg, centers, sizes.steps_per_epoch, device=device)
+    twin = build_training(cfg, centers, sizes.steps_per_epoch, device=device)
+    twin.model.load_state_dict(tr.model.state_dict())
+    if device.type == "cuda":
+        make_capturable(twin.optimizer)
+    batches, stacked = stacked_batches(sizes, tr.model.vision_cfg, nclass, 1,
+                                       device, 29)
+    multi = make_multi_train_step(tr.model, tr.loss_fn, tr.optimizer,
+                                  tr.scheduler, generator=tr.generator)
+    states = [tr.generator.get_state()]
+    means, losses = [], []
+    for _ in range(3):
+        loss = multi(stacked[0])["loss"]
+        states.append(tr.generator.get_state())
+        losses += loss.tolist()
+        means.append(loss.mean().item())
+    twin_loss = [float(twin.step(b)["loss"]) for _ in range(3)
+                 for b in batches]
+    advanced = all(not torch.equal(a, b) for a, b in zip(states, states[1:]))
+    rel = max(abs(g - e) / abs(e) for g, e in zip(losses, twin_loss))
+    print(f"graph train, dropout 0.1 (3 chunks of {sizes.graph_chunk} on the "
+          f"same batches): mean loss per chunk "
+          + ", ".join(f"{x:.5f}" for x in means)
+          + f"; the dropout generator advanced every chunk: {advanced}; "
+          f"against an eager twin from the same seed: max rel |d| {rel:.3g}")
+    if not advanced:
+        fail("the dropout generator did not advance over a replay")
+    if not all(math.isfinite(x) for x in losses) or means[-1] >= means[0]:
+        fail(f"graph train with dropout: loss {means} not finite or not "
+             "falling")
+
+
+def graph_vs_eager_eval(sizes: Sizes, device, tr) -> None:
+    """Phase 15 (b): the multi eval step's codes (kernel 1 inside the graph
+    at B=32) against the eager eval step's, bit for bit."""
+    from concepthash_tpu_torch.train.state import (make_eval_step,
+                                                   make_multi_eval_step)
+
+    model = tr.model
+    nclass = model.cfg.nclass
+    batches, stacked = stacked_batches(sizes, model.vision_cfg, nclass, 1,
+                                       device, 31, sizes.flagship_image)
+    multi = make_multi_eval_step(model, tr.loss_fn)
+    multi(stacked[0])                       # the warm-up
+    torch.cuda.synchronize()
+    count_reset()
+    codes, metrics = multi(stacked[0])      # capture, then a replay
+    torch.cuda.synchronize()
+    launches = counts()[0]
+    step = make_eval_step(model, tr.loss_fn)
+    eager = [step(b) for b in batches]
+    same = all(torch.equal(codes["codes"][k], c["codes"])
+               for k, (c, _) in enumerate(eager))
+    same_loss = all(torch.equal(metrics["loss"][k], m["loss"])
+                    for k, (_, m) in enumerate(eager))
+    n_lay, K = model.vision_cfg.num_layers, sizes.graph_chunk
+    per_replay = getattr(multi, "launches_per_replay", {}).get(
+        "encoder_layer_cuda")
+    print(f"graph vs eager eval (K={K}, B={sizes.train_batch}): codes equal "
+          f"bit for bit: {same}, losses: {same_loss}; kernel 1 launches per "
+          f"replay {per_replay} (expected {K * n_lay}), counted {launches}")
+    if not (same and same_loss) or launches != K * n_lay:
+        fail("multi eval step: codes differ from the eager eval step's, or "
+             "kernel 1 not launched 12 times a batch")
+    if device.type == "cuda" and per_replay != K * n_lay:
+        fail(f"kernel 1 launches per replay {per_replay} != {K * n_lay}")
+
+
+def synthetic_bpe(prompts, vocab_size: int, n_merges: int = 300):
+    """A CLIP-style vocabulary and merges learned from ``prompts``: the 256
+    byte symbols and their word ends, then greedy merges, with
+    ``<|startoftext|>`` and ``<|endoftext|>`` at the last two ids."""
+    from concepthash_tpu_torch.models.tokenizer import (bytes_to_unicode,
+                                                        normalize,
+                                                        pre_tokenize)
+
+    base = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(base + [c + "</w>" for c in base])}
+    words = []
+    for p in prompts:
+        for piece in pre_tokenize(normalize(p)):
+            sym = [bytes_to_unicode()[b] for b in piece.encode()]
+            words.append(sym[:-1] + [sym[-1] + "</w>"])
+    merges = []
+    while len(merges) < n_merges and len(vocab) < vocab_size - 2:
+        pairs = {}
+        for w in words:
+            for pair in zip(w, w[1:]):
+                pairs[pair] = pairs.get(pair, 0) + 1
+        if not pairs:
+            break
+        a, b = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        out = []
+        for w in words:
+            m, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    m.append(a + b)
+                    i += 2
+                else:
+                    m.append(w[i])
+                    i += 1
+            out.append(m)
+        words = out
+    vocab["<|startoftext|>"] = vocab_size - 2
+    vocab["<|endoftext|>"] = vocab_size - 1
+    return vocab, merges
+
+
+def write_hf_clip(path: str, vision, text, prompts) -> None:
+    """A CLIP checkpoint in Hugging Face's layout from the port's towers:
+    ``config.json``, ``pytorch_model.bin`` (HF key names: OIHW patch
+    convolution, separate q, k, v, ``pre_layrnorm``), and a synthetic
+    ``vocab.json`` and ``merges.txt``."""
+    import os
+
+    vc, tc = vision.cfg, text.cfg
+    if vc.projection_dim != tc.projection_dim:
+        raise ValueError("a CLIPModel projects both towers to one width")
+    sd = {}
+    v, p = vision.state_dict(), "vision_model"
+    sd[f"{p}.embeddings.patch_embedding.weight"] = \
+        v["patch_embedding.weight"].permute(3, 2, 0, 1)
+    sd[f"{p}.embeddings.class_embedding"] = v["class_embedding"]
+    sd[f"{p}.embeddings.position_embedding.weight"] = v["position_embedding"]
+    for src, dst in (("pre_layernorm", "pre_layrnorm"),
+                     ("post_layernorm", "post_layernorm")):
+        for kind in ("weight", "bias"):
+            sd[f"{p}.{dst}.{kind}"] = v[f"{src}.{kind}"]
+    for i in range(vc.num_layers):
+        s, d = f"layers.{i}", f"{p}.encoder.layers.{i}"
+        for kind in ("weight", "bias"):
+            for n in ("layer_norm1", "layer_norm2"):
+                sd[f"{d}.{n}.{kind}"] = v[f"{s}.{n}.{kind}"]
+            q, k, vv = v[f"{s}.self_attn.qkv_proj.{kind}"].chunk(3)
+            for n, t in (("q_proj", q), ("k_proj", k), ("v_proj", vv)):
+                sd[f"{d}.self_attn.{n}.{kind}"] = t
+            sd[f"{d}.self_attn.out_proj.{kind}"] = \
+                v[f"{s}.self_attn.out_proj.{kind}"]
+            for n in ("fc1", "fc2"):
+                sd[f"{d}.mlp.{n}.{kind}"] = v[f"{s}.{n}.{kind}"]
+    sd["visual_projection.weight"] = v["visual_projection.weight"]
+    t, p = text.state_dict(), "text_model"
+    sd[f"{p}.embeddings.token_embedding.weight"] = t["token_embedding"]
+    sd[f"{p}.embeddings.position_embedding.weight"] = t["position_embedding"]
+    for kind in ("weight", "bias"):
+        sd[f"{p}.final_layer_norm.{kind}"] = t[f"final_layer_norm.{kind}"]
+    for i in range(tc.num_layers):
+        s, d = f"layers.{i}", f"{p}.encoder.layers.{i}"
+        for kind in ("weight", "bias"):
+            for n in ("layer_norm1", "layer_norm2"):
+                sd[f"{d}.{n}.{kind}"] = t[f"{s}.{n}.{kind}"]
+            for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                sd[f"{d}.self_attn.{n}.{kind}"] = t[f"{s}.{n}.{kind}"]
+            for n in ("fc1", "fc2"):
+                sd[f"{d}.mlp.{n}.{kind}"] = t[f"{s}.{n}.{kind}"]
+    sd["text_projection.weight"] = t["text_projection.weight"]
+    sd["logit_scale"] = torch.tensor(2.6592)
+    os.makedirs(path, exist_ok=True)
+    torch.save({k: x.detach().cpu().contiguous().clone()
+                for k, x in sd.items()},
+               os.path.join(path, "pytorch_model.bin"))
+    config = {
+        "architectures": ["CLIPModel"], "projection_dim": vc.projection_dim,
+        "vision_config": {
+            "hidden_size": vc.hidden_size,
+            "intermediate_size": vc.intermediate_size,
+            "num_hidden_layers": vc.num_layers,
+            "num_attention_heads": vc.num_heads,
+            "image_size": vc.image_size, "patch_size": vc.patch_size,
+            "hidden_act": vc.hidden_act, "layer_norm_eps": vc.layer_norm_eps},
+        "text_config": {
+            "hidden_size": tc.hidden_size,
+            "intermediate_size": tc.intermediate_size,
+            "num_hidden_layers": tc.num_layers,
+            "num_attention_heads": tc.num_heads,
+            "max_position_embeddings": tc.max_position_embeddings,
+            "vocab_size": tc.vocab_size, "hidden_act": tc.hidden_act,
+            "layer_norm_eps": tc.layer_norm_eps,
+            "eos_token_id": tc.eos_token_id},
+    }
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    vocab, merges = synthetic_bpe(prompts, tc.vocab_size)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def run_pretrained(sizes: Sizes, device, tmp: str, argv) -> None:
+    """Phase 15 (d): random towers (seeds 5 and 6) written as a local HF
+    CLIP checkpoint; the flagship built with ``backbone.name=<dir>``."""
+    import os
+
+    import main_gpu
+    from concepthash_tpu_torch.data.manifest import read_class_names
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.methods import build_training
+    from concepthash_tpu_torch.models.clip import (ClipTextConfig,
+                                                   ClipTextTower,
+                                                   ClipVisionTower)
+    from concepthash_tpu_torch.train import codebook as tcb
+
+    probe = main_gpu.build_experiment(argv(os.path.join(tmp, "probe"),
+                                           "epochs=1"))
+    vcfg = probe.model.vision_cfg
+    prefix = probe.config["model"]["fixed_center"].get("prompt_prefix",
+                                                       "a photo of a ")
+    for loader in probe.loaders.values():
+        loader.close()
+    del probe
+    names = read_class_names(os.path.join(tmp, "synth"))
+    prompts = [f"{prefix}{n}" for n in names]
+    tcfg = ClipTextConfig(**sizes.hf_text)
+    vision = ClipVisionTower(vcfg, None,
+                             generator=torch.Generator().manual_seed(5))
+    text = ClipTextTower(tcfg, device="cpu",
+                         generator=torch.Generator().manual_seed(6))
+    hf_dir = os.path.join(tmp, "clip-local")
+    write_hf_clip(hf_dir, vision, text, prompts)
+    del text
+
+    logdir = os.path.join(tmp, "pretrained")
+    t0 = time.perf_counter()
+    exp = main_gpu.build_experiment(argv(logdir, "epochs=1",
+                                         f"backbone.name={hf_dir}",
+                                         "backbone.pretrained=true"))
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(logdir, "log.txt")) as f:
+        log = f.read()
+    own = exp.model.backbone.state_dict()
+    src = vision.state_dict()
+    same_tower = all(torch.equal(own[k].cpu(), v) for k, v in src.items())
+    # the source model: a fresh build of the same config (its head and
+    # adapters), with the written tower loaded directly
+    source = build_training(exp.config, exp.codebook, exp.steps_per_epoch,
+                            device=device).model
+    source.backbone.load_state_dict(src, strict=False)
+    gen = torch.Generator(device=device).manual_seed(37)
+    side = sizes.flagship_image
+    raw = torch.randint(0, 256, (sizes.pretrained_images, side, side, 3),
+                        generator=gen,
+                        device=device, dtype=torch.uint8)
+    images = normalize(center_crop(raw, vcfg.image_size), 3)
+    with torch.inference_mode():
+        codes = exp.model(images)["codes"]
+        want = source(images)["codes"]
+    same_codes = torch.equal(codes, want)
+    cpu_cb = tcb.embed_class_names(names, hf_dir, prompt_prefix=prefix,
+                                   device="cpu")
+    err = float(np.abs(np.asarray(exp.codebook) - cpu_cb).max())
+    text_stage = ("offline fallback" not in log and
+                  f"CLIP text tower of {hf_dir}" in log)
+    print(f"pretrained from a local directory ({len(src)} vision tensors, "
+          f"text {tcfg.num_layers} layers x {tcfg.hidden_size}, vocab "
+          f"{tcfg.vocab_size}; built in {build_s:.1f} s): vision tower "
+          f"equal to the written one bit for bit: {same_tower}; "
+          f"{sizes.pretrained_images} images encode to the source model's "
+          f"codes bit for bit: {same_codes}; the codebook "
+          f"{tuple(np.shape(exp.codebook))} from the real text stage on "
+          f"{device.type}: {text_stage}, max |d| against the CPU's "
+          f"{err:.3g} (tolerance {TEXT_ATOL})")
+    for loader in exp.loaders.values():
+        loader.close()
+    if not (same_tower and same_codes):
+        fail("the local checkpoint's vision tower was not loaded as written")
+    if not text_stage or err > TEXT_ATOL:
+        fail("the codebook did not take the local text stage, or differs "
+             f"from the CPU's by {err}")
+
+
+def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
+    """Phase 15: several steps per dispatch (CUDA graphs) against eager
+    steps, train and eval; the chunked flagship run with its eval-only
+    modes and a resume; a local pretrained checkpoint."""
+    import os
+    import tempfile
+
+    import main_gpu
+    from concepthash_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t_phase = time.perf_counter()
+    graph_vs_eager_train(sizes, device, None)
+    tr, _ = graph_vs_eager_train(sizes, device, TRAIN_VISION)
+    del tr
+    graph_vs_eager_train(sizes, device, None, SGD_OPTIM)
+    graph_dropout(sizes, device)
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        n_train, n_test = sizes.graph_per_class
+        make_synthetic_dataset(os.path.join(tmp, "synth"),
+                               nclass=sizes.flagship_classes,
+                               per_class_train=n_train,
+                               per_class_test=n_test,
+                               image_size=sizes.flagship_image, seed=0)
+
+        def argv(logdir, *extra):
+            args = ["dataset=cub200", "model=concepthash", f"data_dir={tmp}",
+                    "dataset.data_folder=synth", "compute_dtype=bfloat16",
+                    "epochs=2", "eval_interval=1",
+                    # auto is 8 on the card; the CPU rehearsal chunks too
+                    "train_chunk=" + ("auto" if device.type == "cuda"
+                                      else str(sizes.graph_chunk)),
+                    "save_training_state=true", f"logdir={logdir}",
+                    *sizes.flagship_args, *extra]
+            return (args if device.type == "cuda"
+                    else ["--device", str(device), *args])
+
+        def eval_argv(*extra):
+            args = [f"data_dir={tmp}", *extra]
+            return (args if device.type == "cuda"
+                    else ["--device", str(device), *args])
+
+        run = os.path.join(tmp, "run")
+        exp = main_gpu.build_experiment(argv(run))
+        graph_vs_eager_eval(sizes, device, exp.training)
+        # the main path of the phase, with the launch counts from zero
+        torch.cuda.synchronize()
+        count_reset()
+        t0 = time.perf_counter()
+        exp.main()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        with open(os.path.join(run, "train_history.json")) as f:
+            train = json.load(f)
+        with open(os.path.join(run, "test_history.json")) as f:
+            test = json.load(f)
+        steps = len(exp.loaders["train"])
+        batch = int(exp.config["batch_size"])
+        K = exp.train_chunk
+        n_layers = exp.model.vision_cfg.num_layers
+        eval_batches = len(exp.loaders["test"]) + len(exp.loaders["db"])
+        want = (2 * n_layers * eval_batches, 0, 0, 0, 0, 0)
+        runner = exp.train_multi_step
+        print(f"chunked flagship run (train_chunk {K}): "
+              f"{len(exp.datasets['train'])} train images, {steps} steps of "
+              f"{batch} an epoch ({steps // K} chunks of {K} and "
+              f"{steps % K} single steps); train records "
+              + "; ".join(f"ep {r['ep']} loss {r['loss']:.5f} lr "
+                          f"{r['lr']:.6g} {r['time']:.2f} s" for r in train)
+              + "; test mAP " + ", ".join(f"{r['mAP']:.6f}" for r in test)
+              + f"; graph replays {getattr(runner, 'replays', 0)} train, "
+              f"{getattr(exp.eval_multi_step, 'replays', 0)} eval; launches "
+              f"{launches}, expected {want}; the run {run_s:.1f} s")
+        if K != sizes.graph_chunk:
+            fail(f"train_chunk auto resolved to {K}")
+        if len(train) != 2 or len(test) != 2 or not all(
+                math.isfinite(r["loss"]) for r in train):
+            fail("chunked flagship: not two finite train records and two "
+                 "test records")
+        if launches != want:
+            fail("chunked flagship: kernel 1 not launched 12 times an eval "
+                 "batch, or another kernel launched")
+        if device.type == "cuda" and runner.replays != 2 * (steps // K) - 1:
+            fail(f"chunked flagship: {runner.replays} train replays, "
+                 f"expected {2 * (steps // K) - 1}")
+
+        # ---- the eval-only modes on the run directory ----
+        ev = main_gpu.build_experiment(eval_argv(
+            "exp=validation", f"logdir={run}", "use_last=true"))
+        got = ev.main()
+        d_map = abs(got["mAP"] - test[-1]["mAP"])
+        ex = main_gpu.build_experiment(eval_argv("exp=extract",
+                                                 f"logdir={run}"))
+        ex.main()
+        out = torch.load(os.path.join(ex.eval_logdir, "outputs.pt"))
+        best = torch.load(os.path.join(run, "outputs", "test_best.pt"))
+        same = torch.equal(out["test"]["codes"], best["codes"])
+        print(f"exp=validation use_last=true: mAP {got['mAP']:.6f} against "
+              f"the run's last {test[-1]['mAP']:.6f} (|d| {d_map:.3g}, "
+              f"tolerance {REPLAY_MAP_ATOL}); exp=extract writes the run's "
+              f"best test codes {tuple(out['test']['codes'].shape)} bit for "
+              f"bit: {same}")
+        if d_map > REPLAY_MAP_ATOL or not same:
+            fail("the eval-only modes do not reproduce the run")
+
+        # ---- a run stopped after epoch 1, resumed ----
+        first = main_gpu.build_experiment(argv(os.path.join(tmp, "first")))
+        first.epochs = 1
+        first.main()
+        resumed = main_gpu.build_experiment(argv(
+            os.path.join(tmp, "resumed"),
+            f"resume_logdir={os.path.join(tmp, 'first')}"))
+        resumed.main()
+        with open(os.path.join(tmp, "resumed", "train_history.json")) as f:
+            res_train = json.load(f)
+        rel = abs(res_train[-1]["loss"] - train[-1]["loss"]) / abs(
+            train[-1]["loss"])
+        whole_sd = torch.load(os.path.join(run, "models", "last.pt"))["model"]
+        res_sd = torch.load(os.path.join(tmp, "resumed", "models",
+                                         "last.pt"))["model"]
+        d_param = max((whole_sd[k].float() - res_sd[k].float()).abs().max()
+                      .item() for k in whole_sd)
+        same = res_train[-1]["loss"] == train[-1]["loss"] and d_param == 0
+        print(f"resumed after epoch 1: epoch-2 train loss "
+              f"{res_train[-1]['loss']:.6f} against the uninterrupted "
+              f"{train[-1]['loss']:.6f} (rel {rel:.3g}), last parameters max "
+              f"|d| {d_param:.3g}: bit for bit {same} (required); records "
+              f"{len(res_train)}")
+        if len(res_train) != 2 or not same:
+            fail("the resumed run does not reach the uninterrupted one bit "
+                 "for bit")
+        del first, resumed, ev, ex
+
+        # ---- one step a dispatch on the same set, for the timing ----
+        one = main_gpu.build_experiment(argv(os.path.join(tmp, "one"),
+                                             "train_chunk=1"))
+        one.train_one_epoch(0)
+        one_s = one.train_one_epoch(1)["time"]
+        for loader in one.loaders.values():
+            loader.close()
+        del one
+
+        # ---- timings beside phase 14's one step a dispatch ----
+        epoch_s = train[1]["time"]
+        kernels = device_breakdown("chunked flagship train epoch",
+                                   lambda: exp.train_one_epoch(2), epoch_s,
+                                   rows=8)
+        img_s = steps * batch / epoch_s
+        print(f"flagship train img/s in epoch 2: {img_s:.1f} at train_chunk "
+              f"{K} against {steps * batch / one_s:.1f} at train_chunk 1 on "
+              f"the same {steps} steps, and {flagship['train_img_s']:.1f} at "
+              f"train_chunk 1 ({flagship['steps']} steps, phase 14); device "
+              f"busy {100 * busy_share(kernels, epoch_s):.1f}% against "
+              f"{100 * flagship['busy']:.1f}%; "
+              f"{card_line() if device.type == 'cuda' else 'the CPU'}")
+        for loader in exp.loaders.values():
+            loader.close()
+        del exp
+        print(f"phase 15 (c): {time.perf_counter() - t_c:.1f} s")
+
+        run_pretrained(sizes, device, tmp, argv)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
 
 
 def _flatten(x):
@@ -1709,7 +2326,8 @@ def run(sizes: Sizes, device) -> dict:
     del gallery, packed, bits
     torch.cuda.empty_cache()
     run_text_tower(sizes, device)
-    run_flagship(sizes, device)
+    flagship = run_flagship(sizes, device)
+    run_graphs(sizes, device, flagship)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",
          "source": "concepthash_tpu_torch/csrc/fused_layer.cu",

@@ -74,9 +74,7 @@ template <int HD, bool SPLIT_P>
 cudaError_t launch(View q, View k, View v, bf16* out, int B, int L, int H,
                    float scale, cudaStream_t st) {
   const size_t smem = attention_sm90::smem_bytes(L, HD);
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<HD, SPLIT_P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = ensure_smem_limit(attention_kernel<HD, SPLIT_P>, (int)smem);
   if (e != cudaSuccess) return e;
   attention_kernel<HD, SPLIT_P>
       <<<B * H, attention_sm90::block_threads(L), smem, st>>>(q, k, v, out, L,

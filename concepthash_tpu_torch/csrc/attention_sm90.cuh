@@ -37,6 +37,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace attention_sm90 {
 
 typedef __nv_bfloat16 bf16;

@@ -240,8 +240,7 @@ cudaError_t launch(const int8_t* q, const uint8_t* bp, long long G,
   constexpr int smem = Geom<NBIT>::SMEM;
   auto kernel = S % NT == 0 ? bitplane_mins_kernel<NBIT, true, T>
                             : bitplane_mins_kernel<NBIT, false, T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = ensure_smem_limit(kernel, smem);
   if (e != cudaSuccess) return e;
   const long long m_pad = (m + SUB2 - 1) / SUB2 * SUB2;
   const int n_qt = (Q + QT - 1) / QT;

@@ -201,9 +201,7 @@ template <int HD>
 cudaError_t attention_launch(cudaStream_t st, const bf16* qkv, bf16* out,
                              int B, int L, int D, int H) {
   const size_t smem = attention_sm90::smem_bytes(L, HD);
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t e = ensure_smem_limit(attention_mma_kernel<HD>, (int)smem);
   if (e != cudaSuccess) return e;
   attention_mma_kernel<HD><<<B * H, attention_sm90::block_threads(L), smem,
                              st>>>(qkv, out, L, D, H, 1.0f / sqrtf((float)HD));

@@ -73,6 +73,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace gemm_sm90 {
 
 typedef __nv_bfloat16 bf16;
@@ -793,9 +795,7 @@ inline int launch(cudaStream_t st, const bf16* A, const bf16* W, int M, int N,
   if (int e = encode_map(&ta, A, K, M, BM)) return e;
   if (int e = encode_map(&tw, W, K, N, BN)) return e;
   const int smem = smem_bytes<BM, BN>();
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel<BM, BN, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t e = ensure_smem_limit(gemm_kernel<BM, BN, LN>, smem);
   if (e != cudaSuccess) return (int)e;
   const long long tiles = tile_count(M, N, BM, BN);
   const int grid = (int)(tiles < sms ? tiles : sms);

@@ -331,9 +331,8 @@ int launch(const int8_t* q, const int8_t* db, long long N, int Q, int S,
   CUtensorMap tm;
   if (int e = encode_gallery<NBIT>(&tm, db, N)) return e;
   constexpr int smem = Geom<NBIT>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      subblock_mins_kernel<NBIT, SPT, ONCE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = ensure_smem_limit(subblock_mins_kernel<NBIT, SPT, ONCE>,
+                                    smem);
   if (e != cudaSuccess) return (int)e;
   int sms;
   if (int err = gemm_sm90::num_sms(&sms)) return err;

@@ -1,32 +1,45 @@
-"""The train + retrieve experiment (counterpart of the ``sgd`` regime of
-concepthash_tpu/experiments/hashing.py ``RetrievalExperiment``).
+"""The experiments: train + retrieve, train-only and eval-only (counterpart
+of the ``sgd`` regime of concepthash_tpu/experiments/hashing.py
+``RetrievalExperiment``, ``GeneralExperiment`` and ``RetrievalEvaluation``).
 
 One run: the codebook stage, the model and its train step
-(``methods.build_training``), then epochs of training with a retrieval
-evaluation every ``eval_interval`` epochs and at the last, tracking the best
-mAP. Each batch crosses host -> device as uint8 from pinned memory and is
-preprocessed and augmented on the device (``data/preprocess.py``); eval
-encodes every batch, the padded tail at its valid rows, and scores with
-``ops.retrieval.calculate_mAP`` on the device.
+(``methods.build_training``), the pretrained vision weights when the
+backbone asks for them and they are on the disk, then epochs of training
+with an evaluation every ``eval_interval`` epochs and at the last, tracking
+the best metric (``RetrievalExperiment``: the highest mAP;
+``GeneralExperiment``: the lowest test loss). Each batch crosses host ->
+device as uint8 from pinned memory and is preprocessed and augmented on the
+device (``data/preprocess.py``). With ``train_chunk`` K > 1 (``auto``: 8 on
+CUDA, 1 on the CPU) full batches go K at a time through
+``make_multi_train_step`` and ``make_multi_eval_step`` (one CUDA graph
+replay a chunk on the card), staged in double-buffered pinned host memory;
+a tail shorter than K, and the padded last eval batch (at its valid rows),
+take the single step. Eval scores with ``ops.retrieval.calculate_mAP`` on
+the device.
 
 The run directory is the reference's, with ``.pt`` files in place of its
 ``.msgpack``: ``config.yaml``, ``log.txt``, ``train_history.json``,
 ``test_history.json``, ``events.jsonl`` (when ``wandb: true``),
 ``models/{best,last}.pt`` (the model's state dict and the epoch),
+``optims/{best,last}.pt`` with ``save_training_state`` (``TrainState``:
+optimizer, schedule, step, generators, the loader's epoch),
 ``outputs/{test,db}_best.pt`` (codes and labels) and, when the text stage
-ran, ``outputs/codebook.pt``. ``finetune_path`` takes a port checkpoint, or
-a JAX package checkpoint or run directory (read with
+ran, ``outputs/codebook.pt``. ``resume_logdir`` continues a run from its
+``models/last.pt`` (strictly: a changed shape raises) and
+``optims/last.pt``; ``finetune_path`` takes a port checkpoint, or a JAX
+package checkpoint or run directory (read with
 ``utils.io.load_jax_checkpoint`` and carried across by
-``weights.from_flax``).
+``weights.from_flax``), leniently. ``RetrievalEvaluation`` scores a run's
+``models/{best,last}.pt`` (or its JAX ``.msgpack``) into ``eval_logdir``.
 
 Not ported, and raising ``NotImplementedError``: the other regimes and
-methods (``methods.get_method``), FILIP, ``train_chunk > 1``,
-``resume_logdir`` and ``save_training_state``, ``native_decode``, and the
+methods (``methods.get_method``), FILIP, ``native_decode``, and the
 ``profile`` and ``debug`` diagnostics.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
@@ -40,15 +53,21 @@ from concepthash_tpu_torch.config.loader import save_config
 from concepthash_tpu_torch.data.manifest import HashingDataset
 from concepthash_tpu_torch.data.pipeline import Loader, seeding
 from concepthash_tpu_torch.data.preprocess import preprocess_batch
-from concepthash_tpu_torch.methods import (build_training, get_method,
-                                           prepare_codebook)
-from concepthash_tpu_torch.ops.retrieval import calculate_mAP
+from concepthash_tpu_torch.methods import (build_model, get_method,
+                                           prepare_codebook, training_for)
+from concepthash_tpu_torch.models.backbone_factory import \
+    maybe_load_pretrained_vision
+from concepthash_tpu_torch.ops.retrieval import (calculate_mAP,
+                                                 calculate_pr_curve)
 from concepthash_tpu_torch.train.optim import current_lr
-from concepthash_tpu_torch.train.state import make_eval_step
+from concepthash_tpu_torch.train.state import (create_train_state,
+                                               make_eval_step,
+                                               make_multi_eval_step,
+                                               make_multi_train_step)
 from concepthash_tpu_torch.utils import io
 from concepthash_tpu_torch.utils.diagnostics import guarded_training
 from concepthash_tpu_torch.utils.logger import (HistoryWriter, Tracker,
-                                                setup_logging)
+                                                _to_jsonable, setup_logging)
 from concepthash_tpu_torch.utils.machine_stats import print_stats
 from concepthash_tpu_torch.utils.meters import MeterBank
 
@@ -80,9 +99,6 @@ def offline_text_embedder(class_names, dim: int = 512):
 def _unported_options(config: dict):
     reasons = {
         "filip": "FILIP (ROADMAP Queue 1 item 7)",
-        "resume_logdir": "resume_logdir (ROADMAP Queue 1 item 4)",
-        "save_training_state": "save_training_state, which only resume "
-                               "reads (ROADMAP Queue 1 item 4)",
         "native_decode": "native_decode (ROADMAP Queue 1 item 3)",
         "profile": "the profile key (StepProfiler, ROADMAP Queue 1 item 10)",
         "debug": "the debug key (ROADMAP Queue 1 item 10)",
@@ -90,36 +106,61 @@ def _unported_options(config: dict):
     for key, what in reasons.items():
         if (config.get("model", {}) if key == "filip" else config).get(key):
             raise NotImplementedError(f"{what} is not ported yet")
-    chunk = config.get("train_chunk", "auto")
-    if chunk not in ("auto", None) and int(chunk) > 1:
-        raise NotImplementedError(
-            f"train_chunk={chunk}: several steps per dispatch "
-            "(make_multi_train_step) are not ported yet (ROADMAP Queue 1 "
-            "item 6)")
+
+
+def resolve_train_chunk(chunk, device: torch.device) -> int:
+    """Steps per dispatch: ``auto`` (or null) is 8 on CUDA, where the step
+    is host-bound as the reference's TPU relay was, and 1 on the CPU."""
+    if chunk in ("auto", None):
+        return 8 if device.type == "cuda" else 1
+    return max(1, int(chunk))
+
+
+def _check_shapes(own: dict, sd: dict, path: str) -> None:
+    """The strict restore's shape check (the reference's ``_restore_like``):
+    a tensor whose shape differs from the model's raises."""
+    for k, v in sd.items():
+        if k in own and tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(
+                f"strict resume: {path}'s {k} has shape {tuple(v.shape)}, "
+                f"the model's is {tuple(own[k].shape)}. The architecture "
+                "changed since this checkpoint was written — use "
+                "finetune_path (lenient restore) instead of resume for "
+                "architecture changes.")
 
 
 class RetrievalExperiment:
     """Train + periodic retrieval eval, on ``device`` (CUDA unless the caller
-    asks for another)."""
+    asks for another). With ``eval_logdir`` the experiment only evaluates
+    (``RetrievalEvaluation``): it logs there, builds the model and its eval
+    steps and no training objects, and loads no pretrained weights (the
+    run's checkpoint replaces them)."""
 
     eval_metric = "mAP"
     higher_is_better = True
 
-    def __init__(self, config: dict, device=None):
+    def __init__(self, config: dict, device=None, *,
+                 eval_logdir: str | None = None):
         self.device = resolve_device(device)
         self.config = config
         _unported_options(config)
         self.method = get_method(config["model"]["name"])
         self.logdir = config["logdir"]
-        os.makedirs(self.logdir, exist_ok=True)
+        trains = eval_logdir is None
+        log_dir = self.logdir if trains else eval_logdir
+        os.makedirs(log_dir, exist_ok=True)
         io.init_save_queue()
-        setup_logging(os.path.join(self.logdir, "log.txt"))
+        setup_logging(os.path.join(log_dir, "log.txt"))
         seeding(int(config.get("seed", 42)))
         print_stats(self.device)
-        save_config(config, os.path.join(self.logdir, "config.yaml"))
+        if trains:
+            save_config(config, os.path.join(self.logdir, "config.yaml"))
 
         self._load_data()
-        self._build_method()
+        self._build_model(pretrained=trains)
+        if not trains:
+            return
+        self._build_training()
         self.tracker = Tracker(config.get("wandb", False), self.logdir)
         self.train_history = HistoryWriter(self.logdir, "train",
                                            tracker=self.tracker)
@@ -127,7 +168,9 @@ class RetrievalExperiment:
                                           tracker=self.tracker)
         self.best_metric = None
         self.start_epoch = 0
-        if config.get("finetune_path"):
+        if config.get("resume_logdir"):
+            self.resume_training(config["resume_logdir"])
+        elif config.get("finetune_path"):
             self.finetune_init(config["finetune_path"])
 
     # ------------------------------------------------------------------ data
@@ -174,11 +217,55 @@ class RetrievalExperiment:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
+    def _stack_chunk(self, items: list) -> dict:
+        """Stack K batches' images and labels into (K, ...) host buffers,
+        reused across chunks: two per key, alternating, pinned on CUDA.
+        Fenced: before a buffer is refilled, the copy made from it two
+        chunks ago (an event ``_place_chunk`` recorded) must be done; at
+        steady state it is, and the wait is free."""
+        if not hasattr(self, "_chunk_bufs"):
+            self._chunk_bufs, self._chunk_events = {}, {}
+            self._chunk_flip = 0
+        self._chunk_flip ^= 1
+        event = self._chunk_events.pop(self._chunk_flip, None)
+        if event is not None:
+            event.synchronize()
+        out = {}
+        for k in ("image", "label"):
+            arrs = [np.asarray(b[k]) for b in items]
+            key = (k, len(arrs), arrs[0].shape, arrs[0].dtype.str,
+                   self._chunk_flip)
+            buf = self._chunk_bufs.get(key)
+            if buf is None:
+                buf = torch.from_numpy(np.empty((len(arrs),) + arrs[0].shape,
+                                                arrs[0].dtype))
+                if self.device.type == "cuda":
+                    buf = buf.pin_memory()
+                self._chunk_bufs[key] = buf
+            np.stack(arrs, out=buf.numpy())
+            out[k] = buf
+        return out
+
+    def _place_chunk(self, host: dict) -> dict:
+        """A stacked chunk on the device, copied without waiting; records
+        the fence ``_stack_chunk`` waits on before refilling its buffers."""
+        placed = {k: v.to(self.device, non_blocking=True)
+                  for k, v in host.items()}
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            self._chunk_events[self._chunk_flip] = event
+        return placed
+
     # ---------------------------------------------------------------- method
-    def _build_method(self):
+    def _build_model(self, pretrained: bool = True):
+        """The codebook, the model, its loss and the eval steps (one and
+        ``train_chunk`` at a time); with ``pretrained``, the backbone's
+        pretrained vision weights laid over the init."""
         cfg = self.config
         try:
-            self.codebook = prepare_codebook(self.method, cfg, self.logdir)
+            self.codebook = prepare_codebook(self.method, cfg, self.logdir,
+                                             device=self.device)
         except Exception as e:
             logging.warning("codebook stage failed (%s); offline fallback", e)
             from concepthash_tpu_torch.data.manifest import read_class_names
@@ -196,32 +283,63 @@ class RetrievalExperiment:
             self.codebook = prepare_codebook(
                 self.method, cfg, self.logdir,
                 text_embedder=lambda n: offline_text_embedder(n, dim=dim))
-        if (cfg.get("backbone", {}) or {}).get("pretrained", False):
-            logging.warning("pretrained weights unavailable (the port loads "
-                            "no pretrained weights, ROADMAP Queue 1 item 8); "
-                            "using random init")
 
+        self.model, self.loss_fn = build_model(cfg, self.codebook,
+                                               device=self.device)
+        if pretrained:      # the overlay after init, before any step
+            maybe_load_pretrained_vision(cfg.get("backbone", {}) or {},
+                                         self.model)
+        self.eval_step = make_eval_step(self.model, self.loss_fn)
+        self.train_chunk = resolve_train_chunk(cfg.get("train_chunk", "auto"),
+                                               self.device)
+        self.eval_multi_step = (make_multi_eval_step(self.model, self.loss_fn)
+                                if self.train_chunk > 1 else None)
+        logging.info("train_chunk %d (%s)", self.train_chunk,
+                     cfg.get("train_chunk", "auto"))
+
+    def _build_training(self):
+        """The optimizer, schedule and train steps (one and ``train_chunk``
+        at a time) over the built model, and the train state."""
+        cfg = self.config
         self.epochs = int(cfg.get("epochs", 100))
         self.steps_per_epoch = max(len(self.loaders["train"]), 1)
-        self.training = build_training(cfg, self.codebook,
-                                       self.steps_per_epoch,
-                                       device=self.device)
-        self.model = self.training.model
-        self.train_step = self.training.step
-        self.eval_step = make_eval_step(self.model, self.training.loss_fn)
+        self.training = tr = training_for(cfg, self.model, self.loss_fn,
+                                          self.steps_per_epoch)
+        self.train_step = tr.step
         seed = int(cfg.get("seed", 42))
         # augmentation draws: crops, flips and magnitudes on the device,
         # TrivialAugment's op indices on the host
         self.aug_generator = torch.Generator(device=self.device).manual_seed(
             seed + 2)
         self.op_generator = torch.Generator().manual_seed(seed + 3)
+        self.state = create_train_state(
+            self.model, tr.optimizer, tr.scheduler,
+            {"dropout": tr.generator, "augment": self.aug_generator,
+             "op": self.op_generator}, loader=self.loaders["train"])
+        self.train_multi_step = (make_multi_train_step(
+            self.model, tr.loss_fn, tr.optimizer, tr.scheduler,
+            output_attentions=self.method.needs_attentions(cfg),
+            generator=tr.generator) if self.train_chunk > 1 else None)
 
     # ------------------------------------------------------------------ train
     def train_one_epoch(self, ep: int) -> dict:
         meters = MeterBank()
         t0 = time.time()
-        for batch in self.loaders["train"]:
-            n = batch.pop("n_valid")
+        pending: list = []          # (batch, n_valid) awaiting a chunk
+
+        def run_chunk():
+            placed = self._place_chunk(self._stack_chunk(
+                [b for b, _ in pending]))
+            images = torch.stack([preprocess_batch(
+                x, self.aug_generator, crop=self.crop, norm=self.norm,
+                train=True, augment=self.augment,
+                op_generator=self.op_generator) for x in placed["image"]])
+            metrics = self.train_multi_step({"image": images,
+                                             "label": placed["label"]})
+            meters.update_device(metrics, [n for _, n in pending])
+            pending.clear()
+
+        def run_single(batch, n):
             images = preprocess_batch(
                 self._on_device(batch["image"]), self.aug_generator,
                 crop=self.crop, norm=self.norm, train=True,
@@ -229,25 +347,58 @@ class RetrievalExperiment:
             metrics = self.train_step(
                 {"image": images, "label": self._on_device(batch["label"])})
             meters.update_device(metrics, n)
+
+        for batch in self.loaders["train"]:
+            n = batch.pop("n_valid")
+            if self.train_multi_step is not None:
+                pending.append((batch, n))
+                if len(pending) == self.train_chunk:
+                    run_chunk()
+                continue
+            run_single(batch, n)
+        for batch, n in pending:    # a tail shorter than the chunk
+            run_single(batch, n)
+        pending.clear()
         res = meters.materialize()      # the epoch's one wait on the device
         res["time"] = time.time() - t0
         res["lr"] = current_lr(self.config.get("optim", {}) or {},
                                self.config.get("scheduler", {}) or {},
                                self.epochs, self.steps_per_epoch,
-                               self.training.scheduler.last_epoch)
+                               self.state.step)
         return res
 
     # ------------------------------------------------------------------- eval
     def encode_split(self, split: str):
         """Encode a split: ({codes_key: (N, nbit) device tensor}, labels
-        (N, C) numpy, {metric: mean}). The padded tail batch runs at its
-        valid rows only, so padding never enters the codes or the
-        meters."""
+        (N, C) numpy, {metric: mean}). Full batches go ``train_chunk`` at a
+        time through the multi eval step; the rest, and the padded tail
+        batch at its valid rows only (so padding never enters the codes or
+        the meters), through the single eval step."""
         all_codes: dict[str, list] = {}
         labels = []
         meters = MeterBank()
-        for batch in self.loaders[split]:
-            n = batch.pop("n_valid")
+        bs = int(self.config.get("batch_size", 64))
+        pending: list = []
+
+        def flush_chunk():
+            placed = self._place_chunk(self._stack_chunk(
+                [b for b, _ in pending]))
+            K, B = placed["image"].shape[:2]
+            images = preprocess_batch(placed["image"].flatten(0, 1),
+                                      crop=self.crop, norm=self.norm,
+                                      train=False).unflatten(0, (K, B))
+            codes, metrics = self.eval_multi_step(
+                {"image": images, "label": placed["label"]})
+            ns = [n for _, n in pending]
+            if metrics:
+                meters.update_device(metrics, ns)
+            for k, v in codes.items():
+                all_codes.setdefault(k, []).extend(v[i, :n]
+                                                   for i, n in enumerate(ns))
+            labels.extend(b["label"][:n] for b, n in pending)
+            pending.clear()
+
+        def run_single(batch, n):
             images = preprocess_batch(self._on_device(batch["image"][:n]),
                                       crop=self.crop, norm=self.norm,
                                       train=False)
@@ -259,6 +410,20 @@ class RetrievalExperiment:
             for k, v in codes.items():
                 all_codes.setdefault(k, []).append(v)
             labels.append(batch["label"][:n])
+
+        for batch in self.loaders[split]:
+            n = batch.pop("n_valid")
+            if self.eval_multi_step is not None and n == bs:
+                pending.append((batch, n))
+                if len(pending) == self.train_chunk:
+                    flush_chunk()
+                continue
+            for b2, n2 in pending:
+                run_single(b2, n2)
+            pending.clear()
+            run_single(batch, n)
+        for b2, n2 in pending:
+            run_single(b2, n2)
         return ({k: torch.cat(v) for k, v in all_codes.items()},
                 np.concatenate(labels), meters.materialize())
 
@@ -289,6 +454,9 @@ class RetrievalExperiment:
     def save_model(self, name: str, ep: int):
         io.fast_save(self.model_state_blob(ep),
                      os.path.join(self.logdir, "models", f"{name}.pt"))
+        if self.config.get("save_training_state", False):
+            io.fast_save({**self.state.state_dict(), "epoch": ep},
+                         os.path.join(self.logdir, "optims", f"{name}.pt"))
 
     def _state_dict_from(self, path: str) -> tuple[dict, int]:
         """(state dict, epoch) of a port checkpoint (.pt) or a JAX package
@@ -305,9 +473,11 @@ class RetrievalExperiment:
         return blob["model"], int(blob.get("epoch", 0))
 
     def load_model_state(self, path: str) -> int:
-        """Load a checkpoint strictly (every tensor, every shape); returns
-        its epoch."""
+        """Load a checkpoint strictly (every tensor, every shape: a shape
+        that differs raises and names ``finetune_path``); returns its
+        epoch."""
         sd, ep = self._state_dict_from(path)
+        _check_shapes(self.model.state_dict(), sd, path)
         self.model.load_state_dict(sd, strict=True)
         return ep
 
@@ -334,6 +504,34 @@ class RetrievalExperiment:
         logging.info("finetune: loaded %d tensors from %s (%d kept fresh "
                      "init); optimizer state starts fresh", len(keep), path,
                      len(own) - len(keep))
+
+    def resume_training(self, resume_logdir: str):
+        """Continue the run in ``resume_logdir`` after its last epoch: the
+        model from ``models/last.pt`` (strictly), the train state from
+        ``optims/last.pt`` when the run saved it, the histories, the start
+        epoch and the best metric so far."""
+        last = os.path.join(resume_logdir, "models", "last.pt")
+        if not os.path.exists(last):
+            logging.warning("resume requested but %s missing", last)
+            return
+        ep = self.load_model_state(last)
+        opt = os.path.join(resume_logdir, "optims", "last.pt")
+        if os.path.exists(opt):
+            self.state.load_state_dict(io.load_checkpoint(opt))
+        for h in (self.train_history, self.test_history):
+            src = os.path.join(resume_logdir, os.path.basename(h.path))
+            if os.path.exists(src):
+                with open(src) as f:
+                    h.history = json.load(f)
+        self.start_epoch = ep + 1
+        ms = [r.get(self.eval_metric) for r in self.test_history.history
+              if r.get(self.eval_metric) is not None]
+        # the lowest for a lower-is-better metric (GeneralExperiment's
+        # test_loss), or a resumed run would take its worst as the best
+        self.best_metric = ((max(ms) if self.higher_is_better else min(ms))
+                            if ms else None)
+        logging.info("resumed from %s at epoch %d", resume_logdir,
+                     self.start_epoch)
 
     # ------------------------------------------------------------------- main
     def main(self):
@@ -366,7 +564,9 @@ class RetrievalExperiment:
                 if save_interval and (ep + 1) % save_interval == 0:
                     self.save_model(f"ep{ep + 1}", ep)
                 if guard.should_stop:  # preemption: checkpointed; stop clean
-                    logging.warning("stopping at epoch %d (preemption)", ep)
+                    logging.warning("stopping at epoch %d (preemption); "
+                                    "resume with resume_logdir=%s", ep,
+                                    self.logdir)
                     break
         io.join_save_queue()
         for loader in self.loaders.values():
@@ -380,3 +580,117 @@ class RetrievalExperiment:
                      os.path.join(self.logdir, "outputs", "test_best.pt"))
         io.fast_save({"codes": db_codes["codes"], "labels": db_labels},
                      os.path.join(self.logdir, "outputs", "db_best.pt"))
+
+
+class GeneralExperiment(RetrievalExperiment):
+    """Train with a test-loss evaluation and no retrieval: the best run has
+    the lowest test loss."""
+
+    eval_metric = "test_loss"
+    higher_is_better = False
+
+    def evaluation(self, ep: int):
+        _, _, test_meters = self.encode_split("test")
+        res = {"ep": ep, **{f"test_{k}": v for k, v in test_meters.items()}}
+        res["test_loss"] = res.get("test_loss", test_meters.get("loss", 0.0))
+        return res, None
+
+    def _dump_codes(self, dumps):
+        pass
+
+
+class RetrievalEvaluation:
+    """Eval-only: load a run's checkpoint, encode, score — with sub-code
+    slicing, zero-mean, the ternary threshold, the test split as database,
+    PR curves and code export — into ``eval_logdir`` (``history.json``,
+    ``outputs.pt``, ``log.txt``)."""
+
+    def __init__(self, config: dict, device=None):
+        self.config = config
+        self.eval_logdir = config.get(
+            "eval_logdir", os.path.join(config["logdir"], "evaluations"))
+        self.exp = exp = RetrievalExperiment(config, device,
+                                             eval_logdir=self.eval_logdir)
+        name = "last" if config.get("use_last") else "best"
+        for ext in (".pt", ".msgpack"):
+            path = os.path.join(exp.logdir, "models", name + ext)
+            if os.path.exists(path):
+                exp.load_model_state(path)
+                logging.info("evaluating %s", path)
+                break
+        else:
+            logging.warning("checkpoint %s missing — evaluating current init",
+                            os.path.join(exp.logdir, "models", name + ".pt"))
+            maybe_load_pretrained_vision(config.get("backbone", {}) or {},
+                                         exp.model)
+
+    def main(self) -> dict:
+        cfg = self.config
+        exp = self.exp
+        test_codes, test_labels, test_meters = exp.encode_split("test")
+        res = {f"test_{k}": v for k, v in test_meters.items()}
+
+        if cfg.get("exp") == "extract" or cfg.get("save_code"):
+            io.fast_save({"test": {**test_codes, "labels": test_labels}},
+                         os.path.join(self.eval_logdir, "outputs.pt"))
+        if cfg.get("exp") == "extract":
+            return self._finish(res, write=False)
+
+        if cfg.get("test_as_database"):
+            db_codes, db_labels = test_codes, test_labels
+            drop_first = True
+        else:
+            db_codes, db_labels, _ = exp.encode_split("db")
+            drop_first = False
+
+        for key in test_codes:
+            postfix = "" if key == "codes" else "_" + key.split("_", 1)[0]
+            tc, dc = test_codes[key], db_codes[key]
+            if cfg.get("sub_code_eval"):
+                s = cfg.get("sub_code_eval_setting", {}) or {}
+                if int(s.get("rand_bits", 0)):
+                    rng = np.random.default_rng(int(cfg.get("seed", 42)))
+                    bits = rng.permutation(tc.shape[1])[:int(s["rand_bits"])]
+                else:
+                    end = int(s.get("end_bit", -1))
+                    if end < 0:
+                        end = tc.shape[1]
+                    bits = np.arange(int(s.get("start_bit", 0)), end)
+                bits = torch.as_tensor(bits, device=tc.device)
+                tc, dc = tc[:, bits], dc[:, bits]
+            common = dict(dist_metric=cfg.get("dist_metric", "hamming"),
+                          threshold=float(cfg.get("ternary_threshold", 0) or 0),
+                          remove_first_retrieved=drop_first,
+                          device=exp.device)
+            # cutoff precedence: an explicit top-level R wins, else the
+            # dataset group's R
+            R_cfg = cfg.get("R", -1)
+            if R_cfg in (-1, None) and isinstance(cfg.get("dataset"), dict):
+                R_cfg = cfg["dataset"].get("R", -1)
+            if cfg.get("compute_mAP", True):
+                mAPs, recalls, precisions = calculate_mAP(
+                    dc, db_labels, tc, test_labels, R=R_cfg,
+                    PRs=tuple(cfg.get("PRs", (1, 5, 10))),
+                    zero_mean=bool(cfg.get("zero_mean_eval", False)),
+                    **common)
+                res["mAP" + postfix] = mAPs
+                res["recalls" + postfix] = recalls
+                res["precisions" + postfix] = precisions
+                logging.info("%s: mAP@%s = %s", key, R_cfg, mAPs)
+            else:
+                recalls, precisions, Rs = calculate_pr_curve(
+                    dc, db_labels, tc, test_labels, **common)
+                res["recalls" + postfix] = recalls
+                res["precisions" + postfix] = precisions
+                res["Rs" + postfix] = Rs
+        return self._finish(res, write=True)
+
+    def _finish(self, res: dict, write: bool) -> dict:
+        if write:
+            with open(os.path.join(self.eval_logdir, "history.json"),
+                      "w") as f:
+                json.dump(_to_jsonable(res), f, indent=2)
+        io.join_save_queue()
+        for loader in self.exp.loaders.values():
+            loader.close()
+        return res

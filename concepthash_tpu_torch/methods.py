@@ -2,7 +2,8 @@
 concepthash_tpu/methods.py), for ``concepthash``: the ``Method`` record (the
 model factory, the loss, the codebook it needs), the codebook stage, and,
 wired as the reference's experiment loop wires them, the optimizer, the LR
-schedule and the train step (``build_training``).
+schedule and the train step (``build_model``, ``training_for`` and the two
+in one, ``build_training``).
 
 The config dicts are main.py's: ``model``, ``backbone``, ``criterion``,
 ``optim``, ``scheduler``, ``epochs``, ``backbone_lr_scale``,
@@ -145,11 +146,12 @@ def list_methods() -> list:
 
 
 def prepare_codebook(method: Method, config, logdir: str | None = None,
-                     text_embedder=None) -> Optional[np.ndarray]:
+                     text_embedder=None, device=None) -> Optional[np.ndarray]:
     """Run (or load) the codebook stage if the method needs one, from the
     model config's ``fixed_center`` spec (or the criterion's / model's
     ``codebook``), cached at ``<logdir>/outputs/codebook.pt`` unless a
-    ``text_embedder`` stands in for the text stage."""
+    ``text_embedder`` stands in for the text stage, which otherwise runs
+    the local CLIP text tower on ``device``."""
     if method.codebook is None:
         return None
     m = config["model"]
@@ -165,6 +167,8 @@ def prepare_codebook(method: Method, config, logdir: str | None = None,
         spec.setdefault("quantized", False)
     if text_embedder is not None:
         spec["text_embedder"] = text_embedder
+    else:
+        spec["device"] = device
 
     from concepthash_tpu_torch.train import codebook as CB
 
@@ -187,25 +191,42 @@ class Training:
     step: Callable
 
 
-def build_training(config: dict, codebook, steps_per_epoch: int, *,
-                   device=None, vision: Optional[dict] = None) -> Training:
-    """The train step of ``config['model']['name']`` from main.py's config
-    dicts: model (seeded from ``config['seed']``; load other weights into
-    ``Training.model`` in place), loss, optimizer and schedule with the
-    backbone policy, and a dropout generator on the model's device seeded
-    from the same seed."""
+def build_model(config: dict, codebook, *, device=None,
+                vision: Optional[dict] = None) -> tuple:
+    """(model, loss) of ``config['model']['name']`` from main.py's config
+    dicts: the model seeded from ``config['seed']`` (load other weights into
+    it in place) and ``loss(outputs, batch) -> (total, parts)``."""
     dev = resolve_device(device)
     method = get_method(config["model"]["name"])
     seed = int(config.get("seed", 42))
     model = method.build_model(config, codebook, device=dev, vision=vision,
                                generator=torch.Generator().manual_seed(seed))
-    loss_fn = method.build_loss(config, codebook)
+    return model, method.build_loss(config, codebook)
+
+
+def training_for(config: dict, model: ConceptHash, loss_fn: Callable,
+                 steps_per_epoch: int) -> Training:
+    """The train step over a built ``model``: optimizer and schedule with
+    the backbone policy, and a dropout generator on the model's device
+    seeded from ``config['seed']`` + 1."""
+    method = get_method(config["model"]["name"])
+    dev = next(model.parameters()).device
     optimizer, scheduler = build_optimizer(
         config.get("optim", {}) or {}, config.get("scheduler", {}) or {},
         int(config.get("epochs", 100)), steps_per_epoch, model,
         backbone_lr_scale=float(config.get("backbone_lr_scale", 1.0)))
-    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    generator = torch.Generator(device=dev).manual_seed(
+        int(config.get("seed", 42)) + 1)
     step = make_train_step(model, loss_fn, optimizer, scheduler,
                            output_attentions=method.needs_attentions(config),
                            generator=generator)
     return Training(model, optimizer, scheduler, loss_fn, generator, step)
+
+
+def build_training(config: dict, codebook, steps_per_epoch: int, *,
+                   device=None, vision: Optional[dict] = None) -> Training:
+    """``build_model`` and ``training_for`` in one: the train step of
+    ``config['model']['name']`` from main.py's config dicts."""
+    model, loss_fn = build_model(config, codebook, device=device,
+                                 vision=vision)
+    return training_for(config, model, loss_fn, steps_per_epoch)

@@ -4,9 +4,13 @@ concepthash_tpu/models/backbone_factory.py).
 
 Known CLIP geometries are tabled so configs work offline (random init,
 tests); explicit keys in the backbone group override the table.
+``maybe_load_pretrained_vision`` lays a local CLIP checkpoint's vision
+weights over the built tower when the group asks for them.
 """
 
 from __future__ import annotations
+
+import logging
 
 from concepthash_tpu_torch.models.clip import AdapterConfig, ClipVisionConfig
 
@@ -23,7 +27,8 @@ def vision_config_from_backbone_cfg(backbone_cfg: dict) -> ClipVisionConfig:
     """ClipVisionConfig of a backbone group. ``remat`` (rematerialized
     encoder layers) is not ported and raises."""
     if backbone_cfg.get("remat", False):
-        raise NotImplementedError("backbone.remat is not ported yet")
+        raise NotImplementedError("backbone.remat is not ported yet "
+                                  "(ROADMAP Queue 1 item 6)")
     name = backbone_cfg.get("name", "openai/clip-vit-base-patch32")
     if name in _CLIP_GEOMETRIES:
         h, mlp, layers, heads, patch, img, proj = _CLIP_GEOMETRIES[name]
@@ -55,3 +60,27 @@ def adapter_config_from_model_cfg(model_cfg: dict) -> AdapterConfig | None:
         after_mlp=bool(model_cfg.get("adapter_mlp_2", True)),
         attention_qkvo=bool(model_cfg.get("attention_adapter", False)),
     )
+
+
+def maybe_load_pretrained_vision(backbone_cfg: dict, model) -> bool:
+    """With ``pretrained: true``, load the vision weights of the checkpoint
+    ``backbone_cfg['name']`` (a local directory or a Hugging Face cache
+    entry; nothing is downloaded) into ``model.backbone`` in place, the
+    adapters keeping their init; a checkpoint that is not there, or whose
+    shapes differ, logs a warning and keeps the init, as the reference
+    does. Returns whether weights were loaded."""
+    if not backbone_cfg.get("pretrained", False):
+        return False
+    name = backbone_cfg.get("name")
+    try:
+        from concepthash_tpu_torch.models.clip_loader import \
+            load_vision_weights
+
+        n = load_vision_weights(model.backbone, name)
+    except Exception as e:  # not on this disk, or another geometry
+        logging.warning("pretrained weights unavailable (%s); using random "
+                        "init", e)
+        return False
+    logging.info("loaded pretrained CLIP vision weights from %s (%d "
+                 "tensors)", name, n)
+    return True

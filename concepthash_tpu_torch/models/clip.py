@@ -229,7 +229,8 @@ class EncoderLayer(nn.Module):
         super().__init__()
         if adapters is not None and adapters.attention_qkvo:
             raise NotImplementedError(
-                "per-projection (q/k/v/out) adapters are not ported yet")
+                "per-projection (q/k/v/out) adapters are not ported yet "
+                "(ROADMAP Queue 1 item 7)")
         self.num_heads = num_heads
         self.eps = eps
         self.act = act
@@ -266,7 +267,8 @@ class EncoderLayer(nn.Module):
             if train:
                 raise NotImplementedError(
                     "fused_ln='pallas_layer' in training needs the backward "
-                    "of the whole-layer kernel, which is not ported yet")
+                    "of the whole-layer kernel, which is not ported yet "
+                    "(ROADMAP Queue 2 item 4)")
             out = encoder_layer(
                 x, self.layer_weights(self.dtype), num_heads=self.num_heads,
                 eps=self.eps, act=self.act,

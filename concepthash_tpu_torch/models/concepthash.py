@@ -156,7 +156,8 @@ class ConceptHash(nn.Module):
         if token_embeds is not None:
             missing = "token_embeds (FILIP token-level logits)"
         if missing:
-            raise NotImplementedError(f"{missing} is not ported yet")
+            raise NotImplementedError(f"{missing} is not ported yet "
+                                      "(ROADMAP Queue 1 item 7)")
         self.vision_cfg = vision_cfg
         self.cfg = cfg
         self.dtype = dtype

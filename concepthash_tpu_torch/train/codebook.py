@@ -8,11 +8,14 @@ with ``quantized=False`` (ConceptHash's continuous centers); file, a matrix
 from ``path``. The linear algebra is numpy with the reference's sign
 conventions, so the same inputs and seed give the same codebook.
 
-The text stage takes its tower and tokenizer from the caller: the port loads
-no pretrained CLIP weights and imports no ``transformers``, so without them
-``embed_class_names`` raises, as the reference does offline, and the
-experiment takes its offline fallback. Not ported: the autoencoder
-binarizers (``ae*``) and the FILIP token embeddings.
+The text stage runs the CLIP text tower and tokenizer of ``model_id`` from
+the local disk (``models.clip_loader.load_text_tower``,
+``models.tokenizer.CLIPTokenizer``; a directory, or the Hugging Face cache)
+on ``device``, or the tower and tokenizer the caller gives; where neither
+is there, ``embed_class_names`` raises, as the reference does offline, and
+the experiment takes its offline fallback. Nothing is downloaded. Not
+ported: the autoencoder binarizers (``ae*``) and the FILIP token
+embeddings.
 """
 
 from __future__ import annotations
@@ -129,23 +132,32 @@ def embed_class_names(class_names: list,
                       model_id: str = "openai/clip-vit-base-patch32",
                       prompt_prefix: str = "a photo of a ",
                       prompt_postfix: str = "", batch_size: int = 100,
-                      text_tower=None, tokenizer=None) -> np.ndarray:
+                      text_tower=None, tokenizer=None,
+                      device=None) -> np.ndarray:
     """CLIP-text pooled embeddings of "<prefix><class name><postfix>"
     prompts, (nclass, width) float32: the pre-projection pooled output.
 
     ``text_tower`` is a ``models.clip.ClipTextTower``; ``tokenizer`` is
     called as a Hugging Face tokenizer is (``tokenizer(prompts, padding=True,
     truncation=True, max_length=77, return_tensors='np')['input_ids']``).
-    Raises without them: the port loads no pretrained CLIP text weights."""
+    Either one not given is read from ``model_id`` on the local disk (the
+    tower onto ``device``, CUDA unless asked otherwise); raises ``OSError``
+    when it is not there."""
     if prompt_prefix and not prompt_prefix.endswith(" "):
         prompt_prefix += " "
     prompts = [f"{prompt_prefix}{name}{prompt_postfix}" for name in class_names]
     logging.info("codebook prompts: e.g. %r", prompts[0])
-    if text_tower is None or tokenizer is None:
-        raise OSError(
-            f"no CLIP text tower and tokenizer for {model_id!r}: the port "
-            "does not load pretrained weights (ROADMAP Queue 1 item 8); pass "
-            "text_tower and tokenizer")
+    if tokenizer is None:
+        from concepthash_tpu_torch.models.tokenizer import CLIPTokenizer
+        from concepthash_tpu_torch.utils.hf_local import resolve_local
+
+        tokenizer = CLIPTokenizer.from_dir(resolve_local(model_id))
+    if text_tower is None:
+        from concepthash_tpu_torch.models.clip_loader import load_text_tower
+
+        text_tower = load_text_tower(model_id, device=device)
+        logging.info("codebook: CLIP text tower of %s on %s", model_id,
+                     next(text_tower.parameters()).device)
     ids = tokenizer(prompts, padding=True, truncation=True, max_length=77,
                     return_tensors="np")["input_ids"].astype(np.int64)
     dev = next(text_tower.parameters()).device
@@ -210,12 +222,13 @@ def get_codebook(codebook_method: str, nclass: int, nbit: int, seed: int = 42,
                  binary_method: str = "pca", quantized: bool = True,
                  prompt_prefix: str = "a photo of a ",
                  prompt_postfix: str = "", text_embedder=None,
-                 path: str | None = None, **_ignored) -> np.ndarray:
+                 path: str | None = None, device=None,
+                 **_ignored) -> np.ndarray:
     """The codebook factory. 'L' with quantized=False returns the raw text
     embeddings (ConceptHash's centers); every other path returns a signed
     (nclass, nbit) +-1 matrix. ``text_embedder(class_names)`` replaces the
-    CLIP text stage. 'file' loads a (nclass, D) matrix from ``path``, signed
-    unless quantized=False."""
+    CLIP text stage, which otherwise runs on ``device``. 'file' loads a
+    (nclass, D) matrix from ``path``, signed unless quantized=False."""
     rng = np.random.default_rng(seed)
     if codebook_method == "file":
         cb = _load_codebook_file(path)
@@ -242,7 +255,8 @@ def get_codebook(codebook_method: str, nclass: int, nbit: int, seed: int = 42,
             embedding = np.asarray(text_embedder(class_names), np.float32)
         else:
             embedding = embed_class_names(class_names, model_id,
-                                          prompt_prefix, prompt_postfix)
+                                          prompt_prefix, prompt_postfix,
+                                          device=device)
         if not quantized:
             return embedding
         cb = binarize_embedding(embedding, nbit, binary_method, seed)

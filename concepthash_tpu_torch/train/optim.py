@@ -11,7 +11,10 @@ update k uses ``mult(k // steps_per_epoch)`` as the reference does.
 The optimizers follow the reference's update rules: adam couples weight decay
 into the gradient (``torch.optim.Adam``'s ``weight_decay`` is
 ``optax.add_decayed_weights`` followed by ``scale_by_adam``); adamw decouples
-it; sgd adds it to the gradient before momentum (optional nesterov).
+it; sgd adds it to the gradient before momentum (optional nesterov). All
+three can be made capturable (``make_capturable``) for several steps per CUDA
+graph; sgd does so through ``CapturableSGD``, whose step reads a tensor rate
+on the device.
 
 ``backbone_lr_scale`` is the reference's param-group policy: a parameter
 whose name starts with ``backbone.`` and contains no ``adapter`` is frozen
@@ -116,13 +119,80 @@ def _base_optimizer(optim_cfg: dict, groups: list,
         return torch.optim.AdamW(groups, lr=lr, betas=betas, eps=eps,
                                  weight_decay=wd)
     if name == "sgd":
-        return torch.optim.SGD(groups, lr=lr,
+        return CapturableSGD(groups, lr=lr,
                                momentum=float(optim_cfg.get("momentum", 0.0)),
                                nesterov=bool(optim_cfg.get("nesterov", False)),
                                weight_decay=wd)
     if name == "lars":
-        raise NotImplementedError("the lars optimizer is not ported yet")
+        raise NotImplementedError("the lars optimizer is not ported yet "
+                                  "(ROADMAP Queue 1 item 6)")
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+class CapturableSGD(torch.optim.SGD):
+    """``torch.optim.SGD`` whose step a CUDA graph can capture once
+    ``make_capturable`` has made its rates device tensors: the stock step
+    turns a tensor rate into a host number (``alpha=-lr``), which waits on
+    the card. The update is the stock one (weight decay into the gradient,
+    then momentum with dampening, optional nesterov, optional maximize),
+    applied as ``p -= lr * d``; with float rates the stock step runs."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if not torch.is_tensor(self.param_groups[0]["lr"]):
+            return super().step(closure)
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["maximize"]:
+                grads = torch._foreach_neg(grads)
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            momentum = group["momentum"]
+            if momentum:
+                bufs = []
+                for p, g in zip(params, grads):
+                    state = self.state[p]
+                    buf = state.get("momentum_buffer")
+                    if buf is None:
+                        buf = state["momentum_buffer"] = g.detach().clone()
+                    else:
+                        buf.mul_(momentum).add_(g,
+                                                alpha=1 - group["dampening"])
+                    bufs.append(buf)
+                grads = (torch._foreach_add(grads, bufs, alpha=momentum)
+                         if group["nesterov"] else bufs)
+            torch._foreach_sub_(params, torch._foreach_mul(grads,
+                                                           group["lr"]))
+        return loss
+
+
+class EpochLambdaLR(torch.optim.lr_scheduler.LambdaLR):
+    """``LambdaLR`` at ``mult(step // steps_per_epoch)`` that keeps the
+    epoch law for ``scheduled_lrs`` (and out of its state dict)."""
+
+    def __init__(self, optimizer, mult: Callable, steps_per_epoch: int):
+        self.epoch_multiplier = mult
+        self.steps_per_epoch = steps_per_epoch
+        super().__init__(optimizer,
+                         lambda step: mult(step // steps_per_epoch))
+
+    def state_dict(self) -> dict:
+        sd = super().state_dict()
+        sd.pop("epoch_multiplier", None)
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        mult = self.epoch_multiplier
+        super().load_state_dict(state_dict)
+        self.epoch_multiplier = mult
 
 
 def build_optimizer(optim_cfg: dict, scheduler_cfg: dict | None, epochs: int,
@@ -149,9 +219,67 @@ def build_optimizer(optim_cfg: dict, scheduler_cfg: dict | None, epochs: int,
     optimizer = _base_optimizer(optim_cfg, groups, base_lr)
     mult = epoch_multiplier(scheduler_cfg, epochs)
     spe = max(steps_per_epoch, 1)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda step: mult(step // spe))
-    return optimizer, scheduler
+    return optimizer, EpochLambdaLR(optimizer, mult, spe)
+
+
+def scheduled_lrs(scheduler, start: int, count: int) -> np.ndarray:
+    """(count, groups) float32: each group's learning rate at optimizer steps
+    ``start .. start + count - 1`` of a ``build_optimizer`` scheduler, in
+    ``current_lr``'s float32 arithmetic (its column 0 equals
+    ``current_lr`` at those steps)."""
+    mult = scheduler.epoch_multiplier
+    spe = scheduler.steps_per_epoch
+    m = np.array([np.float32(mult(np.float32(s // spe)))
+                  for s in range(start, start + count)], np.float32)
+    base = np.array(scheduler.base_lrs, np.float32)
+    return (m[:, None] * base[None, :]).astype(np.float32)
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> list:
+    """Turn an optimizer of ``build_optimizer`` (adam, adamw or sgd) into one
+    whose step a CUDA graph can capture: each group's ``lr`` a float32
+    tensor on its parameters' device (which ``LambdaLR`` fills in place);
+    adam and adamw also get ``capturable=True`` and their ``step`` counters
+    moved there (sgd keeps no counter). Returns the groups' ``lr`` tensors;
+    a caller that captures the step writes them before each step, since a
+    captured step reads the tensor, not a Python float. Idempotent."""
+    adam = isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
+    if not adam and not isinstance(optimizer, CapturableSGD):
+        raise NotImplementedError(
+            f"several steps per dispatch on the card take adam, adamw or "
+            f"sgd; {type(optimizer).__name__} has no capturable step here "
+            "(ROADMAP Queue 1 item 6)")
+    lrs = []
+    for group in optimizer.param_groups:
+        dev = group["params"][0].device
+        if not torch.is_tensor(group["lr"]):
+            group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32,
+                                       device=dev)
+        lrs.append(group["lr"])
+        if not adam:
+            continue
+        group["capturable"] = True
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st and st["step"].device != p.device:
+                st["step"] = st["step"].to(p.device, torch.float32)
+    return lrs
+
+
+def follow_schedule(optimizer: torch.optim.Optimizer, scheduler) -> None:
+    """Before a single step of a capturable optimizer: set its ``lr``
+    tensors to ``scheduled_lrs`` at the schedule's step, the float32 rates a
+    graphed chunk uses, so that single steps and graphed ones of one run
+    share their arithmetic. An optimizer with float rates is left to
+    ``LambdaLR``."""
+    if scheduler is None or not hasattr(scheduler, "epoch_multiplier"):
+        return
+    groups = optimizer.param_groups
+    if not torch.is_tensor(groups[0]["lr"]):
+        return
+    rates = scheduled_lrs(scheduler, int(scheduler.last_epoch), 1)[0]
+    for group, lr in zip(groups, rates):
+        group["lr"].fill_(float(lr))
 
 
 def current_lr(optim_cfg: dict, scheduler_cfg: dict | None, epochs: int,

@@ -1,19 +1,109 @@
-"""Train and eval steps (counterpart of concepthash_tpu/train/state.py).
+"""The train state, and the train and eval steps, one and several at a time
+(counterpart of concepthash_tpu/train/state.py).
 
 The reference steps an immutable pytree with pure jitted functions; here the
 state is the model (parameters, and the code BatchNorm's running statistics
-as buffers), the optimizer and its LR scheduler, all updated in place by one
-call of the step. Not ported: the reference's ``lax.scan`` chunking of
-several steps into one dispatch (``make_multi_train_step``) and the fused
-device augmentation (``preprocess_fn``): the steps take preprocessed images.
+as buffers), the optimizer and its LR scheduler, updated in place by the
+step, and the explicit generators the step and the data draw from
+(``TrainState`` gathers them for checkpoints and resume).
+
+``make_multi_train_step`` and ``make_multi_eval_step`` take K batches
+stacked (K, B, ...) and return metrics (and codes) stacked (K, ...), with
+the meaning of the reference's ``lax.scan``: K real optimizer steps in
+order, equal to K calls of the single step. On the CPU they are that loop;
+on the card, one CUDA graph replay per chunk (``train/graphs.py``).
+
+The steps take preprocessed images: the reference runs its device
+augmentation inside the step (``preprocess_fn``), the port runs it on the
+card before the step, outside the graph, since TrivialAugment's grouping by
+op gives shapes that depend on the draws.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
 from torch import nn
+
+from concepthash_tpu_torch.train.optim import follow_schedule
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training run steps, in one record: the model, its optimizer
+    and LR schedule, the step counter, and the explicit generators
+    (``generators``: dropout, the augmentation's draws on the card, the
+    op-index draws on the host), plus the train loader, whose shuffle order
+    is a function of its epoch. ``state_dict`` / ``load_state_dict`` carry
+    everything but the model's own weights (``model.state_dict()``), which
+    checkpoints keep apart, as the reference keeps ``params`` apart from
+    ``opt_state``."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: object
+    generators: dict
+    loader: object = None
+
+    @property
+    def step(self) -> int:
+        """Optimizer steps taken (the schedule's count)."""
+        return int(self.scheduler.last_epoch)
+
+    def state_dict(self) -> dict:
+        sd = {"optimizer": self.optimizer.state_dict(),
+              "scheduler": self.scheduler.state_dict(),
+              "step": self.step,
+              "generators": {k: g.get_state()
+                             for k, g in self.generators.items()}}
+        if self.loader is not None:
+            sd["loader_epoch"] = int(self.loader.epoch)
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore what ``state_dict`` wrote, keeping this optimizer's own
+        form: a capturable optimizer (``optim.make_capturable``) keeps its
+        device ``lr`` tensors and step counters on the device."""
+        own = [(g["lr"], g.get("capturable"))
+               for g in self.optimizer.param_groups]
+        # load_state_dict replaces the group dicts: the new ones take this
+        # optimizer's own lr tensors back (a graph and its runner hold them)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        for g, (lr, capturable) in zip(self.optimizer.param_groups, own):
+            loaded = g["lr"]
+            if torch.is_tensor(lr):
+                lr.fill_(float(loaded))
+                g["lr"] = lr
+            else:
+                g["lr"] = float(loaded)
+            if capturable is None:      # sgd: no flag, no step counter
+                continue
+            g["capturable"] = capturable
+            for p in g["params"]:
+                st = self.optimizer.state.get(p)
+                if st and "step" in st:
+                    st["step"] = st["step"].to(
+                        p.device if capturable else "cpu", torch.float32)
+        self.scheduler.load_state_dict(sd["scheduler"])
+        if int(self.scheduler.last_epoch) != int(sd["step"]):
+            raise ValueError(f"train state: schedule at step "
+                             f"{self.scheduler.last_epoch}, record says "
+                             f"{sd['step']}")
+        for k, state in sd["generators"].items():
+            self.generators[k].set_state(state)
+        if self.loader is not None and "loader_epoch" in sd:
+            self.loader.epoch = int(sd["loader_epoch"])
+
+
+def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                       scheduler, generators: dict,
+                       loader=None) -> TrainState:
+    """The record of one run's training state (the reference's
+    ``create_train_state``; here the parts already exist and are gathered,
+    not initialised)."""
+    return TrainState(model, optimizer, scheduler, dict(generators), loader)
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable,
@@ -25,7 +115,9 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     from ``generator``), the loss, the backward, the optimizer step and the
     schedule step, and returns the loss, its parts and the accuracies as
     detached 0-d tensors (reading them waits for the device). batch holds
-    image (B, H, W, C) normalized and label (B, C) one-hot f32."""
+    image (B, H, W, C) normalized and label (B, C) one-hot f32. A
+    capturable optimizer (``optim.make_capturable``) takes the float32
+    rates a graphed chunk takes (``optim.follow_schedule``)."""
 
     def step(batch: dict) -> dict:
         out = model(batch["image"], train=True,
@@ -33,6 +125,7 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         total, parts = loss_fn(out, batch)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        follow_schedule(optimizer, scheduler)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -62,6 +155,67 @@ def make_eval_step(model: nn.Module,
         return codes, metrics
 
     return step
+
+
+def _stacked(per_step: list) -> dict:
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
+def make_multi_train_step(model: nn.Module, loss_fn: Callable,
+                          optimizer: torch.optim.Optimizer, scheduler=None,
+                          output_attentions: bool = False,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Callable:
+    """K train steps per call: ``multi_step(batches) -> metrics``, batches a
+    dict of (K, B, ...) tensors, each metric stacked (K,). Equal to K calls
+    of ``make_train_step``'s step in order. On the CPU it is that loop; on
+    the card it is ``graphs.GraphedTrainSteps``: the first call runs its K
+    steps eagerly (the warm-up, whose steps are real), the second captures
+    the K steps into one CUDA graph, and every call from then on is one
+    replay. ``multi_step.last_lrs`` holds the (K,) learning rates of the
+    first parameter group that the last call's steps used."""
+    dev = next(model.parameters()).device
+    if dev.type == "cuda":
+        from concepthash_tpu_torch.train.graphs import GraphedTrainSteps
+
+        return GraphedTrainSteps(model, loss_fn, optimizer, scheduler,
+                                 output_attentions, generator)
+    step = make_train_step(model, loss_fn, optimizer, scheduler,
+                           output_attentions, generator)
+
+    def multi_step(batches: dict) -> dict:
+        per_step, lrs = [], []
+        for k in range(next(iter(batches.values())).shape[0]):
+            lrs.append(float(optimizer.param_groups[0]["lr"]))
+            per_step.append(step({n: v[k] for n, v in batches.items()}))
+        multi_step.last_lrs = torch.tensor(lrs, dtype=torch.float64)
+        return _stacked(per_step)
+
+    multi_step.last_lrs = None
+    return multi_step
+
+
+def make_multi_eval_step(model: nn.Module,
+                         loss_fn: Optional[Callable] = None) -> Callable:
+    """K eval batches per call: ``multi(batches) -> (codes, metrics)``,
+    batches (K, B, ...), codes (K, B, nbit) and metrics (K,). Equal to K
+    calls of ``make_eval_step``'s step. On the card, one CUDA graph replay
+    a call from the second call on (``graphs.GraphedEvalSteps``)."""
+    dev = next(model.parameters()).device
+    if dev.type == "cuda":
+        from concepthash_tpu_torch.train.graphs import GraphedEvalSteps
+
+        return GraphedEvalSteps(model, loss_fn)
+    step = make_eval_step(model, loss_fn)
+
+    def multi(batches: dict):
+        outs = [step({n: v[k] for n, v in batches.items()})
+                for k in range(next(iter(batches.values())).shape[0])]
+        codes = _stacked([c for c, _ in outs])
+        metrics = _stacked([m for _, m in outs]) if outs[0][1] else {}
+        return codes, metrics
+
+    return multi
 
 
 def accuracy_metrics(outputs: dict, onehot: torch.Tensor) -> dict:

@@ -41,7 +41,8 @@ class AverageMeter:
 class MeterBank:
     """A defaultdict of AverageMeters plus a device-friendly bulk update:
     ``update_device(metrics, n)`` buffers a dict of scalars (0-d tensors on
-    any device, or numbers); ``materialize()`` copies all buffered values to
+    any device, or numbers), or of (K,) stacks with ``n`` a list of K
+    counts; ``materialize()`` copies all buffered values to
     the host at once and returns ``{key: avg}``."""
 
     def __init__(self):
@@ -51,7 +52,14 @@ class MeterBank:
     def update(self, key: str, val, n: int = 1):
         self.meters[key].update(val, n)
 
-    def update_device(self, metrics: dict, n: int = 1):
+    def update_device(self, metrics: dict, n=1):
+        """Buffer one step's metrics, or a chunk's: with ``n`` a list of K
+        counts, each metric is stacked (K,) and row k counts ``n[k]``."""
+        if isinstance(n, (list, tuple)):
+            for k, nk in enumerate(n):
+                self._pending.append(({key: v[k] for key, v in
+                                       metrics.items()}, nk))
+            return
         self._pending.append((metrics, n))
 
     def materialize(self) -> dict:

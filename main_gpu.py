@@ -13,8 +13,21 @@ and ``a.b=value`` overrides, ``+a.b=value`` to add a key, ``--help``.
 ``--device DEVICE`` (default cuda) picks the device; it stays out of the
 composed config, so the run's config.yaml is the reference's.
 
-exp modes: 'hashing' (train + retrieve) runs; 'general', 'validation',
-'descriptor' and 'extract' are not ported yet and raise NotImplementedError.
+exp modes: 'hashing' (train + retrieve), 'general' (train; the best run has
+the lowest test loss), 'validation' / 'descriptor' / 'extract' (eval-only:
+they take the val config and reload the run's saved config.yaml with the
+eval keys laid over it; 'extract' writes the test codes only):
+
+    python3 main_gpu.py exp=validation logdir=runs/cub use_last=true
+    python3 main_gpu.py exp=extract logdir=runs/cub
+    python3 main_gpu.py dataset=cub200 model=concepthash \\
+        resume_logdir=runs/cub logdir=runs/cub_resumed
+
+``train_chunk`` (default auto: 8 on CUDA, 1 on the CPU) is the number of
+train and eval steps per dispatch; ``backbone.name`` may name a local CLIP
+checkpoint directory (or a model in the Hugging Face cache), whose weights
+``pretrained: true`` loads and whose text tower and tokenizer the
+codebook's text stage runs; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -24,6 +37,12 @@ import sys
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "configs")
+_EVAL_MODES = ("validation", "descriptor", "extract")
+# what an eval-only command line lays over the run's saved config
+_EVAL_KEYS = ("data_dir", "work_dir", "R", "PRs", "use_last", "compute_mAP",
+              "ternary_threshold", "dist_metric", "batch_size", "save_code",
+              "sub_code_eval", "sub_code_eval_setting", "zero_mean_eval",
+              "test_as_database", "eval_logdir", "logdir", "seed")
 
 
 def parse_argv(argv):
@@ -55,20 +74,41 @@ def build_experiment(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     config_name, overrides, device = parse_argv(argv)
 
-    from concepthash_tpu_torch.config.loader import load_config
+    from concepthash_tpu_torch.config.loader import (load_config,
+                                                     load_saved_config)
 
+    # "exp=validation" with the train config means the val config
+    exp_hint = next((o.split("=", 1)[1] for o in overrides
+                     if o.startswith("exp=")), None)
+    if exp_hint in _EVAL_MODES and config_name == "train":
+        config_name = "val"
     config = load_config(CONFIG_DIR, config_name, overrides)
     exp_mode = config.get("exp", "hashing")
-    if exp_mode in ("general", "validation", "descriptor", "extract"):
-        raise NotImplementedError(
-            f"exp={exp_mode} (GeneralExperiment / RetrievalEvaluation) is not "
-            "ported yet (ROADMAP Queue 1 item 4)")
-    if exp_mode != "hashing":
-        raise ValueError(f'unknown exp mode: "{exp_mode}"')
 
-    from concepthash_tpu_torch.experiments.hashing import RetrievalExperiment
+    saved_path = os.path.join(config.get("logdir") or "", "config.yaml")
+    if exp_mode == "validation" or (
+            exp_mode in _EVAL_MODES and "model" not in config
+            and os.path.exists(saved_path)):
+        # the run's saved config with the eval keys laid over it
+        saved = load_saved_config(saved_path)
+        for key in _EVAL_KEYS:
+            if key in config:
+                saved[key] = config[key]
+        if config.get("dataset"):
+            saved["dataset"] = config["dataset"]
+        saved["exp"] = exp_mode
+        config = saved
 
-    return RetrievalExperiment(config, device=device)
+    from concepthash_tpu_torch.experiments.hashing import (
+        GeneralExperiment, RetrievalEvaluation, RetrievalExperiment)
+
+    if exp_mode == "general":
+        return GeneralExperiment(config, device=device)
+    if exp_mode == "hashing":
+        return RetrievalExperiment(config, device=device)
+    if exp_mode in _EVAL_MODES:
+        return RetrievalEvaluation(config, device=device)
+    raise ValueError(f'unknown exp mode: "{exp_mode}"')
 
 
 def main(argv=None):

@@ -565,3 +565,189 @@ def test_kernel_settings_at_f32_raise_on_card(cuda_device, vision):
     with pytest.raises(ValueError, match="bfloat16 only"):
         _concepthash(torch.float32, cuda_device, **vision)
     assert _concepthash(torch.bfloat16, cuda_device, **vision) is not None
+
+
+def _tiny_training(vision, optim=None):
+    """The canonical ConceptHash at a tiny size in bf16, with the optimizer
+    a graphed run uses (capturable, float32 rates); ``optim`` replaces
+    adam."""
+    from concepthash_tpu_torch.methods import build_training
+    from concepthash_tpu_torch.train.optim import make_capturable
+
+    cfg = {
+        "model": {"name": "concepthash", "nbit": 16, "nclass": 10,
+                  "ncontext": 4, "has_adapter": True,
+                  "adapter_bottleneck_dim": 16,
+                  "upt_config": {"num_heads": 8, "dropout": 0.1},
+                  "text_projection_dims": [32]},
+        "backbone": {"name": "tiny", "hidden_size": 64,
+                     "intermediate_size": 128, "num_layers": 2,
+                     "num_heads": 4, "patch_size": 8, "image_size": 32,
+                     "projection_dim": 32},
+        "criterion": {"name": "lgh", "margin": 0.2, "scale": 8},
+        "optim": optim or {"name": "adam", "lr": 0.001,
+                           "weight_decay": 0.00001},
+        "scheduler": {"name": "csw", "warmup_epochs": 2},
+        "epochs": 10, "backbone_lr_scale": 0, "compute_dtype": "bfloat16",
+        "seed": 0,
+    }
+    centers = np.random.default_rng(1).standard_normal((10, 32)).astype(
+        np.float32)
+    tr = build_training(cfg, centers, 3, device="cuda", vision=vision)
+    make_capturable(tr.optimizer)
+    return tr
+
+
+# configs/optim/sgd.yaml, with and without nesterov
+_SGD = {"name": "sgd", "lr": 0.001, "momentum": 0.9, "weight_decay": 0.0005}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vision, optim", [
+    (None, None), (dict(attention_impl="pallas", fused_ln="pallas"), None),
+    (None, _SGD), (None, dict(_SGD, nesterov=True))])
+def test_graphed_train_steps_equal_eager_steps(cuda_device, vision, optim):
+    """Three chunks of K=2 steps (a warm-up, then replays; dropout on)
+    against six eager steps from the same state: losses, parameters, sgd's
+    momentum buffers and the dropout generator bit for bit; the kernels
+    counted per replay."""
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    graph = _tiny_training(vision, optim)
+    eager = _tiny_training(vision, optim)
+    eager.model.load_state_dict(graph.model.state_dict())
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    images = torch.randn(3, 2, 4, 32, 32, 3, generator=gen,
+                         device=cuda_device)
+    labels = torch.nn.functional.one_hot(
+        torch.randint(0, 10, (3, 2, 4), generator=gen, device=cuda_device),
+        10).float()
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    got = torch.cat([multi({"image": images[c], "label": labels[c]})["loss"]
+                     for c in range(3)])
+    want = torch.stack([eager.step({"image": images[c, k],
+                                    "label": labels[c, k]})["loss"]
+                        for c in range(3) for k in range(2)])
+    assert multi.replays == 2
+    assert torch.equal(got, want)
+    for (n, p), q in zip(graph.model.named_parameters(),
+                         eager.model.parameters()):
+        assert torch.equal(p, q), n
+        if optim and p.requires_grad:
+            assert torch.equal(graph.optimizer.state[p]["momentum_buffer"],
+                               eager.optimizer.state[q]["momentum_buffer"]), n
+    assert torch.equal(graph.generator.get_state(),
+                       eager.generator.get_state())
+    assert graph.scheduler.last_epoch == eager.scheduler.last_epoch == 6
+    if vision:
+        assert multi.launches_per_replay == {"ln_matmul_cuda": 2 * 2 * 2,
+                                             "attention_cuda": 2 * 2}
+
+
+@pytest.mark.cuda
+def test_graphed_eval_steps_equal_eager_steps(cuda_device):
+    from concepthash_tpu_torch.train.state import (make_eval_step,
+                                                   make_multi_eval_step)
+
+    tr = _tiny_training(None)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    images = torch.randn(2, 4, 32, 32, 3, generator=gen, device=cuda_device)
+    labels = torch.nn.functional.one_hot(
+        torch.randint(0, 10, (2, 4), generator=gen, device=cuda_device),
+        10).float()
+    multi = make_multi_eval_step(tr.model, tr.loss_fn)
+    batches = {"image": images, "label": labels}
+    multi(batches)
+    tfl.encoder_layer_cuda.launches = 0
+    codes, metrics = multi(batches)
+    assert tfl.encoder_layer_cuda.launches == 2 * 2
+    assert multi.launches_per_replay == {"encoder_layer_cuda": 2 * 2}
+    step = make_eval_step(tr.model, tr.loss_fn)
+    for k in range(2):
+        c, m = step({"image": images[k], "label": labels[k]})
+        assert torch.equal(codes["codes"][k], c["codes"])
+        assert torch.equal(metrics["loss"][k], m["loss"])
+
+
+def _card_run(tmp_path, name, *extra):
+    """main_gpu's argv for a 2-epoch run on the card: 3 classes x 12 train
+    images at batch 4 (9 steps an epoch: a chunk of 8 and a single step at
+    train_chunk auto), float32, ``save_training_state``."""
+    data = tmp_path / "data" / "synthetic"
+    if not data.exists():
+        from concepthash_tpu_torch.data.synthetic import \
+            make_synthetic_dataset
+
+        make_synthetic_dataset(str(data), nclass=3, per_class_train=12,
+                               per_class_test=2, image_size=64)
+    return ["dataset=synthetic", "model=concepthash", "backbone=tiny_test",
+            "model.nbit=16", "model.text_projection_dims=[32]",
+            "batch_size=4", "epochs=2", "eval_interval=1",
+            f"data_dir={tmp_path}", f"logdir={tmp_path / name}", "seed=5",
+            "save_training_state=true", *extra]
+
+
+def _main_gpu():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import main_gpu
+
+    return main_gpu
+
+
+@pytest.mark.cuda
+def test_sgd_run_at_auto_chunk_on_card(cuda_device, tmp_path):
+    """optim=sgd at the default train_chunk (auto: 8 on the card) trains
+    through a graph replay, and exp=validation on its run builds no
+    training objects and scores its last model to its last record."""
+    import json
+
+    main_gpu = _main_gpu()
+    exp = main_gpu.build_experiment(_card_run(tmp_path, "sgd", "optim=sgd"))
+    assert exp.train_chunk == 8
+    assert type(exp.training.optimizer).__name__ == "CapturableSGD"
+    exp.main()
+    assert exp.train_multi_step.replays == 1
+    with open(tmp_path / "sgd" / "train_history.json") as f:
+        train = json.load(f)
+    with open(tmp_path / "sgd" / "test_history.json") as f:
+        test = json.load(f)
+    assert len(train) == 2 and all(np.isfinite(r["loss"]) for r in train)
+    ev = main_gpu.build_experiment(["exp=validation",
+                                    f"logdir={tmp_path / 'sgd'}",
+                                    f"data_dir={tmp_path}", "use_last=true"])
+    assert not hasattr(ev.exp, "training")
+    assert ev.main()["mAP"] == pytest.approx(test[-1]["mAP"], abs=1e-6)
+
+
+@pytest.mark.cuda
+def test_graphed_run_resumes_bit_for_bit(cuda_device, tmp_path):
+    """A run at train_chunk auto stopped after epoch 1 and resumed (its
+    chunk warmed up again, then graphed) equals the uninterrupted run (whose
+    second epoch is a replay): train records and parameters bit for bit."""
+    import json
+
+    main_gpu = _main_gpu()
+    whole = main_gpu.build_experiment(_card_run(tmp_path, "whole"))
+    whole.main()
+    first = main_gpu.build_experiment(_card_run(tmp_path, "first"))
+    first.epochs = 1
+    first.main()
+    resumed = main_gpu.build_experiment(_card_run(
+        tmp_path, "resumed", f"resume_logdir={tmp_path / 'first'}"))
+    assert resumed.start_epoch == 1
+    resumed.main()
+    assert whole.train_multi_step.replays == 1
+    histories = []
+    for name in ("whole", "resumed"):
+        with open(tmp_path / name / "train_history.json") as f:
+            histories.append([{k: v for k, v in r.items() if k != "time"}
+                              for r in json.load(f)])
+    assert histories[0] == histories[1]
+    sw, sr = whole.model.state_dict(), resumed.model.state_dict()
+    for k in sw:
+        assert torch.equal(sw[k], sr[k]), k

@@ -11,7 +11,12 @@ backbone, 16 bits, batch 8, float32:
     the reference's keys and its ``lr`` values equal the reference's;
 (c) without ``--device`` and without CUDA it raises;
 (d) ``models/last.pt`` reloads to the same codes, bit for bit;
-(e) each option that is not ported raises ``NotImplementedError``.
+(e) each option that is not ported raises ``NotImplementedError``;
+(f) the eval-only modes: ``exp=validation`` and ``exp=extract`` on the
+    reference's run directory (its ``last.msgpack``) against the reference's
+    own eval-only runs (codes in sign on >= 99.9% of bits, mAP within 1e-3),
+    and on the port's run a list ``R``, sub-code eval with the test split as
+    database, and the PR curve.
 """
 
 import json
@@ -184,8 +189,8 @@ def test_last_checkpoint_reloads_to_the_same_codes(port_run, workdir):
 @pytest.mark.parametrize("extra", [
     ["model=orthohash_adapter"], ["model=itq"], ["model=adsh"],
     ["model=odc"], ["model=ssdh"], ["model=concepthash_filip"],
-    ["exp=general"], ["exp=validation"], ["train_chunk=2"],
-    ["resume_logdir=/nowhere"], ["save_training_state=true"],
+    ["+backbone.remat=true"], ["optim.name=lars"], ["model.add_bn=dbn"],
+    ["model.vpt_pe=true"], ["+model.self_attn_at_last=true"],
     ["native_decode=true"], ["+profile.enabled=true"], ["+debug.nans=true"],
 ])
 def test_unported_options_raise(workdir, extra):
@@ -199,3 +204,100 @@ def test_help(capsys):
         main_gpu.main(["--help"])
     assert e.value.code == 0
     assert "methods: concepthash" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the eval-only modes (exp=validation / extract), against the reference's
+# ---------------------------------------------------------------------------
+
+MIN_SIGN_AGREEMENT = 0.999
+MAP_ATOL = 1e-3
+
+
+def _eval_args(workdir, logdir, eval_dir, *extra):
+    return ["--device", "cpu", f"logdir={logdir}", f"data_dir={workdir}",
+            f"eval_logdir={eval_dir}", *extra]
+
+
+@pytest.fixture(scope="module")
+def reference_evals(reference, workdir):
+    """JAX ``main.py exp=validation`` and ``exp=extract`` on the
+    reference's run directory (its last checkpoint)."""
+    import main as jmain
+    from concepthash_tpu.utils.io import load_checkpoint
+
+    _, ref_logdir = reference
+    val = jmain.main(["exp=validation", f"logdir={ref_logdir}",
+                      f"data_dir={workdir}", "use_last=true",
+                      f"eval_logdir={os.path.join(workdir, 'jval')}"])
+    ext_dir = os.path.join(workdir, "jext")
+    jmain.main(["exp=extract", f"logdir={ref_logdir}", f"data_dir={workdir}",
+                "use_last=true", f"eval_logdir={ext_dir}"])
+    codes = load_checkpoint(os.path.join(ext_dir, "outputs.msgpack"))[
+        "test"]["codes"]
+    return val, np.asarray(codes)
+
+
+def test_eval_only_modes_on_the_reference_run(reference, reference_evals,
+                                              workdir):
+    """The port's exp=validation and exp=extract read the reference's
+    last.msgpack: codes agree in sign on >= 99.9% of bits with JAX
+    exp=extract's, the mAP within 1e-3 of JAX exp=validation's."""
+    _, ref_logdir = reference
+    val, jcodes = reference_evals
+    vdir = os.path.join(workdir, "tval")
+    res = main_gpu.build_experiment(_eval_args(
+        workdir, ref_logdir, vdir, "exp=validation", "use_last=true")).main()
+    assert abs(res["mAP"] - val["mAP"]) <= MAP_ATOL, (res["mAP"],
+                                                      val["mAP"])
+    with open(os.path.join(vdir, "history.json")) as f:
+        assert json.load(f)["mAP"] == pytest.approx(res["mAP"])
+    edir = os.path.join(workdir, "text")
+    ex = main_gpu.build_experiment(_eval_args(
+        workdir, ref_logdir, edir, "exp=extract", "use_last=true"))
+    ex.main()
+    assert not os.path.exists(os.path.join(edir, "history.json"))
+    codes = torch.load(os.path.join(edir, "outputs.pt"))["test"]["codes"]
+    assert codes.shape == jcodes.shape
+    agree = ((codes.numpy() > 0) == (jcodes > 0)).mean()
+    assert agree >= MIN_SIGN_AGREEMENT, agree
+
+
+def test_validation_list_R(port_run, workdir):
+    _, logdir = port_run
+    vdir = os.path.join(workdir, "tval_R")
+    res = main_gpu.build_experiment(_eval_args(
+        workdir, logdir, vdir, "exp=validation", "R=[1,5]")).main()
+    assert isinstance(res["mAP"], list) and len(res["mAP"]) == 2
+    assert all(0.0 <= m <= 1.0 for m in res["mAP"])
+    with open(os.path.join(vdir, "history.json")) as f:
+        assert len(json.load(f)["mAP"]) == 2
+
+
+def test_validation_sub_code_and_self_retrieval(port_run, workdir):
+    """Bits 0-8 of the test codes, the test split as its own database with
+    each query's first hit dropped: calculate_mAP's answer on those codes."""
+    from concepthash_tpu_torch.ops.retrieval import calculate_mAP
+
+    exp, logdir = port_run
+    res = main_gpu.build_experiment(_eval_args(
+        workdir, logdir, os.path.join(workdir, "tval_sub"),
+        "exp=validation", "sub_code_eval=true",
+        "sub_code_eval_setting.start_bit=0",
+        "sub_code_eval_setting.end_bit=8", "test_as_database=true")).main()
+    codes, labels, _ = exp.encode_split("test")
+    best = torch.load(os.path.join(logdir, "outputs", "test_best.pt"))
+    sub = best["codes"][:, :8]
+    want, _, _ = calculate_mAP(sub, labels, sub, labels, R=-1,
+                               remove_first_retrieved=True, device="cpu")
+    assert res["mAP"] == pytest.approx(want, abs=1e-9)
+    assert codes["codes"].shape[1] == 16
+
+
+def test_validation_pr_curve(port_run, workdir):
+    _, logdir = port_run
+    res = main_gpu.build_experiment(_eval_args(
+        workdir, logdir, os.path.join(workdir, "tval_pr"), "exp=validation",
+        "compute_mAP=false")).main()
+    assert "mAP" not in res
+    assert len(res["recalls"]) == len(res["precisions"]) == len(res["Rs"])

@@ -133,7 +133,7 @@ def test_retrieval_on_slice_codes_matches_jax(models):
 
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter that imports every port module has loaded no
-    jax, flax or concepthash_tpu module."""
+    jax, flax, transformers or concepthash_tpu module."""
     mods = [f"concepthash_tpu_torch.{m}" for m in (
         "_build", "weights", "data.preprocess", "ops.numerics",
         "ops.fused_layer", "ops.hamming", "ops.topk_select", "ops.retrieval",
@@ -143,10 +143,12 @@ def test_port_imports_nothing_of_jax():
         "config.loader", "data.manifest", "data.synthetic", "data.augment",
         "data.pipeline", "train.codebook", "utils.meters", "utils.logger",
         "utils.machine_stats", "utils.io", "utils.diagnostics",
-        "experiments.hashing")] + ["main_gpu"]
+        "experiments.hashing", "train.graphs", "utils.hf_local",
+        "models.clip_loader", "models.tokenizer")] + ["main_gpu"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'concepthash_tpu'))\nprint(bad)\n")
+            "('jax', 'jaxlib', 'flax', 'transformers', 'safetensors', "
+            "'concepthash_tpu'))\nprint(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout
@@ -183,9 +185,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     CPU, with each kernel wrapper replaced by its plain version (counting
     its calls) and the CUDA timers by host ones: every check passes, the
     serving path reaches the mins through both gallery layouts, the train
-    path launches 2 LN -> matmul and 1 attention per layer and step, and
-    the kernels' JSON line has every key the card run prints, for all six
-    TPU kernels."""
+    path launches 2 LN -> matmul and 1 attention per layer and step, phase
+    15 (several steps per call, the eval-only modes, resume, a local CLIP
+    checkpoint) passes its checks, and the kernels' JSON line has every key
+    the card run prints, for all six TPU kernels."""
     import importlib.util
     import json
     import time
@@ -274,7 +277,14 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
                      flagship_args=("backbone=tiny_test", "model.nbit=16",
                                     "model.text_projection_dims=[32]",
                                     "batch_size=4", "dataset.nclass=3",
-                                    "dataset.resize=64", "dataset.crop=48"))
+                                    "dataset.resize=64", "dataset.crop=48"),
+                     graph_chunk=2, graph_per_class=(4, 1),
+                     hf_text=dict(hidden_size=32, intermediate_size=64,
+                                  num_layers=2, num_heads=4,
+                                  max_position_embeddings=16,
+                                  vocab_size=600, projection_dim=32,
+                                  eos_token_id=599),
+                     pretrained_images=6)
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
     assert "\nplanted rows found at distance 0: 6/6" in out
@@ -309,6 +319,26 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert ("plain version: sign agreement test 1.000000, database "
             "1.000000 (batches of 4 and the tails of 2 and 0)") in out
     assert "flagship train epoch: device busy" in out
+    # phase 15: K=2 steps a chunk, a warm-up chunk and a replayed one
+    assert "graph vs eager train (auto, K=2, B=4" in out
+    assert "graph vs eager train (auto, sgd, K=2, B=4" in out
+    assert out.count("(replayed chunk); max rel |d| 0, parameters max |d| "
+                     "0: bit for bit True (required)") == 3
+    assert out.count("per-step lr equals current_lr: True") == 3
+    assert f"counted (0, 0, 0, {2 * 2 * 2 * n}, {2 * 2 * n}, 0)" in out
+    assert "the dropout generator advanced every chunk: True" in out
+    assert "codes equal bit for bit: True, losses: True" in out
+    assert ("chunked flagship run (train_chunk 2): 12 train images, 3 steps "
+            "of 4 an epoch (1 chunks of 2 and 1 single steps)") in out
+    assert "(|d| 0, tolerance 1e-06)" in out
+    assert "best test codes (3, 16) bit for bit: True" in out
+    assert ("(rel 0), last parameters max |d| 0: bit for bit True "
+            "(required); records 2") in out
+    assert "at train_chunk 1 on the same 3 steps" in out
+    assert ("vision tower equal to the written one bit for bit: True; 6 "
+            "images encode to the source model's codes bit for bit: True; "
+            "the codebook (3, 32) from the real text stage on cpu: True, "
+            "max |d| against the CPU's 0") in out
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]

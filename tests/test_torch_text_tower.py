@@ -106,8 +106,11 @@ def test_embed_class_names_matches_reference(towers):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
-def test_embed_class_names_raises_without_a_tower():
-    with pytest.raises(OSError, match="ROADMAP"):
+def test_embed_class_names_raises_without_a_tower(monkeypatch, tmp_path):
+    """No tower given and none on the local disk: OSError, and nothing is
+    fetched."""
+    monkeypatch.setenv("HF_HOME", str(tmp_path))
+    with pytest.raises(OSError, match="nothing is downloaded"):
         tcb.embed_class_names(["cat"])
 
 
