@@ -138,7 +138,29 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    ``vocab.json`` and ``merges.txt``): the flagship built with
    ``backbone.name=<dir>`` holds the written vision tower bit for bit and
    encodes 256 images to the source model's codes, and its codebook comes
-   from the real text stage on the card, within ``TEXT_ATOL`` of the CPU's.
+   from the real text stage on the card, within ``TEXT_ATOL`` of the CPU's;
+16. the other ConceptHash models and options at full width: (a) one model
+   per option (SelfAttentionAtLast as configs/model/concepthash_sa.yaml has
+   it, and with cross_attention, strong, differentiable and add_pe;
+   ``add_bn: dbn``; ``vpt_pe``; ``use_before_projection: false``; q/k/v/out
+   adapters; FILIP with seeded token embeddings), bf16 with seeded weights,
+   encodes 64 seeded images on the card, counted: codes agree in sign with
+   the same weights' f32 encode on the CPU on >= 99% of bits, kernel 1 at
+   12 launches an encode (none with q/k/v/out adapters); (b) five train
+   steps of SA + DBN, FILIP, vpt_pe with ``backbone.remat`` and q/k/v/out
+   adapters at ``attention_impl="pallas"``, ``fused_ln="pallas"``, counted
+   per step (kernels 5 and 6 at 12 and 24, q/k/v/out adapters 12 and 0,
+   remat twice that: the checkpointed forward runs again in the backward),
+   the loss finite and falling; a remat step against a stored-activation
+   step, and graphed chunks (K=8) of SA + DBN, FILIP and lars against eager
+   steps, bit for bit; (c) after phase 15, on its synthetic set:
+   ``main_gpu.py model=concepthash_sa`` and ``model=concepthash_filip``
+   (FILIP's class-text token embeddings from phase 15 (d)'s local
+   checkpoint, within ``TEXT_ATOL`` of the CPU's) at ``train_chunk=auto``,
+   2 epochs, counted (kernel 1 at 12 launches an eval batch), each with
+   ``exp=validation``, ``exp=extract`` and a resume checked as phase 15
+   (c) checks them, their epoch-2 train and eval img/s printed beside the
+   chunked flagship's.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -239,6 +261,8 @@ class Sizes:
     graph_per_class: tuple = (4, 1)    # phase 15: 25 steps of 32 an epoch
     hf_text: dict = dataclasses.field(default_factory=dict)  # CLIP B/32 text
     pretrained_images: int = 256
+    variant_images: int = 64           # phase 16 (a): each option's encode
+    filip_tokens: int = 8              # phase 16 (a), (b): seeded tokens
 
 
 def fail(msg: str) -> None:
@@ -1557,7 +1581,8 @@ def stacked_batches(sizes: Sizes, vcfg, nclass: int, chunks: int, device,
 
 
 def graph_vs_eager_train(sizes: Sizes, device, vision,
-                         optim: dict | None = None) -> tuple:
+                         optim: dict | None = None, over: dict | None = None,
+                         label: str = "", plain: bool = True) -> tuple:
     """Phase 15 (a): copies of one model and optimizer state (the canonical
     config at B=32, dropout 0); 2K steps through ``make_multi_train_step``
     (a warm-up chunk, then a graph replay) and 2K eager steps of
@@ -1566,12 +1591,15 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
     run's single steps use beside its chunks. A third copy keeps the
     optimizer of ``train_chunk=1`` (float rates): printed, since one bf16
     rounding apart the two drift apart over the steps. Returns the graph's
-    training and runner. ``optim`` replaces the config's adam."""
+    training and runner. ``optim`` replaces the config's adam; ``over``
+    updates config groups (phase 16's variants, named ``label``), which
+    leave the third copy out (``plain`` False); the state dicts compared
+    include the buffers (running statistics, FILIP's token embeddings)."""
     from concepthash_tpu_torch.methods import build_training
     from concepthash_tpu_torch.train.optim import current_lr, make_capturable
     from concepthash_tpu_torch.train.state import make_multi_train_step
 
-    cfg = train_config(sizes)
+    cfg = variant_config(sizes, **(over or {}))
     cfg["model"]["upt_config"]["dropout"] = 0.0
     if optim:
         cfg["optim"] = dict(optim)
@@ -1579,9 +1607,10 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
     centers = torch.randn(nclass, sizes.head.get("center_dim", 512),
                           generator=torch.Generator().manual_seed(0))
     copies = [build_training(cfg, centers, sizes.steps_per_epoch,
-                             device=device, vision=vision) for _ in range(3)]
-    graph, eager, plain = copies
-    for tr in (eager, plain):
+                             device=device, vision=vision)
+              for _ in range(3 if plain else 2)]
+    graph, eager = copies[:2]
+    for tr in copies[1:]:
         tr.model.load_state_dict(graph.model.state_dict())
     if device.type == "cuda":
         make_capturable(eager.optimizer)
@@ -1598,7 +1627,8 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
     torch.cuda.synchronize()
     launches = counts()
     e_loss = [float(eager.step(b)["loss"]) for b in batches]
-    p_loss = [float(plain.step(b)["loss"]) for b in batches]
+    p_loss = ([float(copies[2].step(b)["loss"]) for b in batches] if plain
+              else e_loss)
     want_lr = [current_lr(cfg["optim"], cfg["scheduler"], cfg["epochs"],
                           sizes.steps_per_epoch, s)
                for s in range(len(batches))]
@@ -1613,7 +1643,8 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
                   for k in gp)
     same = g_loss == e_loss and d_param == 0.0
     name = ("pallas" if vision else "auto") + (
-        f", {cfg['optim']['name']}" if optim else "")
+        f", {cfg['optim']['name']}" if optim else "") + (
+        f", {label}" if label else "")
     n_lay = vcfg.num_layers
     K = sizes.graph_chunk
     print(f"graph vs eager train ({name}, K={K}, B={sizes.train_batch}, 2 "
@@ -1621,9 +1652,10 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
           + ", ".join(f"{x:.5f}" for x in g_loss[K:]) + " / eager "
           + ", ".join(f"{x:.5f}" for x in e_loss[K:])
           + f" (replayed chunk); max rel |d| {rel:.3g}, parameters max |d| "
-          f"{d_param:.3g}: bit for bit {same} (required); against the "
-          f"train_chunk=1 optimizer max rel |d| "
-          f"{rel_plain:.3g}; per-step lr equals current_lr: {lr_ok} "
+          f"{d_param:.3g}: bit for bit {same} (required); "
+          + (f"against the train_chunk=1 optimizer max rel |d| "
+             f"{rel_plain:.3g}; " if plain else "")
+          + f"per-step lr equals current_lr: {lr_ok} "
           f"({lrs[0]:.6g} .. {lrs[-1]:.6g}); replays "
           f"{getattr(multi, 'replays', 0)}, launches per replay "
           f"{getattr(multi, 'launches_per_replay', None)}, counted "
@@ -1641,7 +1673,7 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
         if device.type == "cuda" and multi.launches_per_replay != {
                 "ln_matmul_cuda": K * 2 * n_lay, "attention_cuda": K * n_lay}:
             fail(f"launches per replay {multi.launches_per_replay}")
-    del eager, plain
+    del eager, copies
     return graph, multi
 
 
@@ -1852,9 +1884,10 @@ def write_hf_clip(path: str, vision, text, prompts) -> None:
         f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
 
 
-def run_pretrained(sizes: Sizes, device, tmp: str, argv) -> None:
+def run_pretrained(sizes: Sizes, device, tmp: str, argv) -> str:
     """Phase 15 (d): random towers (seeds 5 and 6) written as a local HF
-    CLIP checkpoint; the flagship built with ``backbone.name=<dir>``."""
+    CLIP checkpoint; the flagship built with ``backbone.name=<dir>``.
+    Returns the checkpoint's directory."""
     import os
 
     import main_gpu
@@ -1932,6 +1965,62 @@ def run_pretrained(sizes: Sizes, device, tmp: str, argv) -> None:
     if not text_stage or err > TEXT_ATOL:
         fail("the codebook did not take the local text stage, or differs "
              f"from the CPU's by {err}")
+    return hf_dir
+
+
+def eval_only_and_resume(label: str, tmp: str, run: str, train: list,
+                         test: list, argv, eval_argv, *extra) -> None:
+    """Phase 15 (c) and 16 (c): on a finished 2-epoch run directory,
+    ``exp=validation use_last=true`` reproduces the run's last mAP,
+    ``exp=extract`` writes its best test codes bit for bit, and a run
+    stopped after epoch 1 and resumed reaches the epoch-2 train loss and
+    the last parameters bit for bit."""
+    import os
+
+    import main_gpu
+
+    ev = main_gpu.build_experiment(eval_argv(
+        "exp=validation", f"logdir={run}", "use_last=true"))
+    got = ev.main()
+    d_map = abs(got["mAP"] - test[-1]["mAP"])
+    ex = main_gpu.build_experiment(eval_argv("exp=extract", f"logdir={run}"))
+    ex.main()
+    out = torch.load(os.path.join(ex.eval_logdir, "outputs.pt"))
+    best = torch.load(os.path.join(run, "outputs", "test_best.pt"))
+    same = torch.equal(out["test"]["codes"], best["codes"])
+    print(f"{label} exp=validation use_last=true: mAP {got['mAP']:.6f} "
+          f"against the run's last {test[-1]['mAP']:.6f} (|d| {d_map:.3g}, "
+          f"tolerance {REPLAY_MAP_ATOL}); exp=extract writes the run's "
+          f"best test codes {tuple(out['test']['codes'].shape)} bit for "
+          f"bit: {same}")
+    if d_map > REPLAY_MAP_ATOL or not same:
+        fail(f"{label}: the eval-only modes do not reproduce the run")
+
+    first_dir = os.path.join(tmp, os.path.basename(run) + "_first")
+    res_dir = os.path.join(tmp, os.path.basename(run) + "_resumed")
+    first = main_gpu.build_experiment(argv(first_dir, *extra))
+    first.epochs = 1
+    first.main()
+    resumed = main_gpu.build_experiment(argv(
+        res_dir, *extra, f"resume_logdir={first_dir}"))
+    resumed.main()
+    with open(os.path.join(res_dir, "train_history.json")) as f:
+        res_train = json.load(f)
+    rel = abs(res_train[-1]["loss"] - train[-1]["loss"]) / abs(
+        train[-1]["loss"])
+    whole_sd = torch.load(os.path.join(run, "models", "last.pt"))["model"]
+    res_sd = torch.load(os.path.join(res_dir, "models", "last.pt"))["model"]
+    d_param = max((whole_sd[k].float() - res_sd[k].float()).abs().max()
+                  .item() for k in whole_sd)
+    same = res_train[-1]["loss"] == train[-1]["loss"] and d_param == 0
+    print(f"{label} resumed after epoch 1: epoch-2 train loss "
+          f"{res_train[-1]['loss']:.6f} against the uninterrupted "
+          f"{train[-1]['loss']:.6f} (rel {rel:.3g}), last parameters max "
+          f"|d| {d_param:.3g}: bit for bit {same} (required); records "
+          f"{len(res_train)}")
+    if len(res_train) != 2 or not same:
+        fail(f"{label}: the resumed run does not reach the uninterrupted "
+             "one bit for bit")
 
 
 def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
@@ -2022,52 +2111,9 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
             fail(f"chunked flagship: {runner.replays} train replays, "
                  f"expected {2 * (steps // K) - 1}")
 
-        # ---- the eval-only modes on the run directory ----
-        ev = main_gpu.build_experiment(eval_argv(
-            "exp=validation", f"logdir={run}", "use_last=true"))
-        got = ev.main()
-        d_map = abs(got["mAP"] - test[-1]["mAP"])
-        ex = main_gpu.build_experiment(eval_argv("exp=extract",
-                                                 f"logdir={run}"))
-        ex.main()
-        out = torch.load(os.path.join(ex.eval_logdir, "outputs.pt"))
-        best = torch.load(os.path.join(run, "outputs", "test_best.pt"))
-        same = torch.equal(out["test"]["codes"], best["codes"])
-        print(f"exp=validation use_last=true: mAP {got['mAP']:.6f} against "
-              f"the run's last {test[-1]['mAP']:.6f} (|d| {d_map:.3g}, "
-              f"tolerance {REPLAY_MAP_ATOL}); exp=extract writes the run's "
-              f"best test codes {tuple(out['test']['codes'].shape)} bit for "
-              f"bit: {same}")
-        if d_map > REPLAY_MAP_ATOL or not same:
-            fail("the eval-only modes do not reproduce the run")
-
-        # ---- a run stopped after epoch 1, resumed ----
-        first = main_gpu.build_experiment(argv(os.path.join(tmp, "first")))
-        first.epochs = 1
-        first.main()
-        resumed = main_gpu.build_experiment(argv(
-            os.path.join(tmp, "resumed"),
-            f"resume_logdir={os.path.join(tmp, 'first')}"))
-        resumed.main()
-        with open(os.path.join(tmp, "resumed", "train_history.json")) as f:
-            res_train = json.load(f)
-        rel = abs(res_train[-1]["loss"] - train[-1]["loss"]) / abs(
-            train[-1]["loss"])
-        whole_sd = torch.load(os.path.join(run, "models", "last.pt"))["model"]
-        res_sd = torch.load(os.path.join(tmp, "resumed", "models",
-                                         "last.pt"))["model"]
-        d_param = max((whole_sd[k].float() - res_sd[k].float()).abs().max()
-                      .item() for k in whole_sd)
-        same = res_train[-1]["loss"] == train[-1]["loss"] and d_param == 0
-        print(f"resumed after epoch 1: epoch-2 train loss "
-              f"{res_train[-1]['loss']:.6f} against the uninterrupted "
-              f"{train[-1]['loss']:.6f} (rel {rel:.3g}), last parameters max "
-              f"|d| {d_param:.3g}: bit for bit {same} (required); records "
-              f"{len(res_train)}")
-        if len(res_train) != 2 or not same:
-            fail("the resumed run does not reach the uninterrupted one bit "
-                 "for bit")
-        del first, resumed, ev, ex
+        # ---- the eval-only modes and a resume on the run directory ----
+        eval_only_and_resume("flagship", tmp, run, train, test, argv,
+                             eval_argv)
 
         # ---- one step a dispatch on the same set, for the timing ----
         one = main_gpu.build_experiment(argv(os.path.join(tmp, "one"),
@@ -2084,6 +2130,12 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
                                    lambda: exp.train_one_epoch(2), epoch_s,
                                    rows=8)
         img_s = steps * batch / epoch_s
+        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
+        eval_s = host_s(lambda: (exp.encode_split("test"),
+                                 exp.encode_split("db")), 1)
+        chunked = {"train_img_s": img_s, "eval_img_s": n_eval / eval_s}
+        print(f"flagship eval encode at train_chunk {K}: "
+              f"{chunked['eval_img_s']:.1f} img/s ({n_eval} images)")
         print(f"flagship train img/s in epoch 2: {img_s:.1f} at train_chunk "
               f"{K} against {steps * batch / one_s:.1f} at train_chunk 1 on "
               f"the same {steps} steps, and {flagship['train_img_s']:.1f} at "
@@ -2096,8 +2148,337 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
         del exp
         print(f"phase 15 (c): {time.perf_counter() - t_c:.1f} s")
 
-        run_pretrained(sizes, device, tmp, argv)
-    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+        hf_dir = run_pretrained(sizes, device, tmp, argv)
+        print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+        run_variant_runs(sizes, device, tmp, argv, eval_argv, hf_dir,
+                         chunked)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the other ConceptHash models and options
+# ---------------------------------------------------------------------------
+
+# configs/model/concepthash_sa.yaml's SelfAttentionAtLast, and every other
+# option of it on
+SA_YAML = {"params": True, "mask_sigma": 0.5, "cross_attention": False,
+           "differentiable": False, "add_pe": False}
+SA_FULL = {"params": True, "strong": True, "mask_sigma": 0.5,
+           "cross_attention": True, "differentiable": True, "add_pe": True}
+LARS_OPTIM = {"name": "lars", "lr": 0.1, "momentum": 0.9,
+              "weight_decay": 0.0005}
+
+
+def variant_config(sizes: Sizes, model: dict | None = None,
+                   backbone: dict | None = None,
+                   loss_scales: dict | None = None) -> dict:
+    """``train_config`` with the groups updated by a variant's keys."""
+    cfg = train_config(sizes)
+    cfg["model"].update(model or {})
+    cfg["backbone"].update(backbone or {})
+    cfg["criterion"]["loss_scales"].update(loss_scales or {})
+    return cfg
+
+
+def filip_over(sizes: Sizes, seed: int = 43) -> dict:
+    """FILIP with seeded class-text token embeddings (nclass, T, 512) and
+    its loss on, as configs/model/concepthash_filip.yaml weighs it."""
+    nclass = sizes.head["nclass"]
+    proj = sizes.vision.get("projection_dim", 512)
+    te = torch.randn(nclass, sizes.filip_tokens, proj,
+                     generator=torch.Generator().manual_seed(seed)).numpy()
+    return dict(model={"filip": True, "token_embeds_array": te},
+                loss_scales={"filip_logits": 1})
+
+
+def seed_adapters(model, gen) -> None:
+    """Seeded values in every adapter's zero-init up-projection (the
+    branch adapters and the q/k/v/out ones), so each changes the codes."""
+    from concepthash_tpu_torch.models.clip import Adapter
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Adapter):
+                m.up.weight.copy_(0.02 * torch.randn(m.up.weight.shape,
+                                                     generator=gen))
+
+
+def variant_forwards(sizes: Sizes, device) -> None:
+    """Phase 16 (a): one model per option at full width, bf16, seeded
+    weights, encodes ``sizes.variant_images`` seeded images on the card
+    (the launch counts from zero) and its weights encode them at float32 on
+    the CPU: codes finite, of shape (B, nbit), agreeing in sign on >= 99%
+    of bits; kernel 1 at one launch a layer, none with q/k/v/out adapters
+    (their layers take the discrete path), no other kernel."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.methods import build_model
+
+    variants = {
+        "sa": dict(model={"self_attn_at_last": SA_YAML}),
+        "sa cross+strong+differentiable+add_pe": dict(
+            model={"self_attn_at_last": SA_FULL}),
+        "dbn": dict(model={"add_bn": "dbn"}),
+        "vpt_pe": dict(model={"vpt_pe": True}),
+        "use_before_projection=False": dict(
+            model={"use_before_projection": False}),
+        "qkvo": dict(model={"attention_adapter": True}),
+        "filip": filip_over(sizes),
+    }
+    nclass = sizes.head["nclass"]
+    centers = torch.randn(nclass, sizes.head.get("center_dim", 512),
+                          generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=device).manual_seed(41)
+    raw = torch.randint(0, 256, (sizes.variant_images, sizes.image_side,
+                                 sizes.image_side, 3), generator=gen,
+                        device=device, dtype=torch.uint8)
+    for name, over in variants.items():
+        t_var = time.perf_counter()
+        cfg = variant_config(sizes, **over)
+        model, _ = build_model(cfg, centers, device=device)
+        seed_adapters(model, torch.Generator().manual_seed(1))
+        model.eval()
+        vcfg = model.vision_cfg
+        images = normalize(center_crop(raw, vcfg.image_size), 3)
+        torch.cuda.synchronize()
+        count_reset()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = model(images)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = counts()
+        cpu, _ = build_model(dict(cfg, compute_dtype="float32"), centers,
+                             device=torch.device("cpu"))
+        cpu.load_state_dict(model.state_dict())
+        with torch.inference_mode():
+            want = cpu.eval()(images.cpu())
+        codes = out["codes"]
+        agree = ((codes.cpu() > 0) == (want["codes"] > 0)).float().mean() \
+            .item()
+        n_lay = 0 if name == "qkvo" else vcfg.num_layers
+        expect = (n_lay, 0, 0, 0, 0, 0)
+        finite = all(torch.isfinite(v).all() for k, v in out.items()
+                     if k.startswith(("codes", "logits")))
+        print(f"variant {name}: {sizes.variant_images} images encode in "
+              f"{card_s * 1e3:.1f} ms (first call); outputs "
+              f"{sorted(k for k in out if k.startswith('logits'))}; sign "
+              f"agreement with the CPU's f32 codes {agree:.6f} (max |d| "
+              f"{(codes.float().cpu() - want['codes']).abs().max():.4g}); "
+              f"launches {launches}, expected {expect}; "
+              f"{time.perf_counter() - t_var:.1f} s with the builds and the "
+              "CPU encode")
+        if (codes.shape != (sizes.variant_images, cfg["model"]["nbit"])
+                or not finite):
+            fail(f"variant {name}: outputs not finite or codes of shape "
+                 f"{tuple(codes.shape)}")
+        if agree < MIN_SIGN_AGREEMENT:
+            fail(f"variant {name}: codes agree in sign with the CPU's on "
+                 f"{agree:.4f} < {MIN_SIGN_AGREEMENT}")
+        if launches != expect:
+            fail(f"variant {name}: launches {launches} != {expect}")
+        del model, cpu, out, want
+    torch.cuda.empty_cache()
+
+
+def variant_steps(sizes: Sizes, device) -> None:
+    """Phase 16 (b): five train steps of each variant at the kernel
+    settings on one seeded batch (the same dropout masks each step),
+    counted per step: kernels 5 and 6 once and twice a layer (q/k/v/out
+    adapters: no kernel 6; remat recomputes each layer's forward in the
+    backward, so twice that); the loss finite and lower at step 5. Then a
+    remat step against a stored-activation step, and graphed chunks against
+    eager steps for SA + DBN, FILIP and lars, bit for bit."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.methods import build_training
+
+    nclass = sizes.head["nclass"]
+    centers = torch.randn(nclass, sizes.head.get("center_dim", 512),
+                          generator=torch.Generator().manual_seed(0))
+    dgen = torch.Generator(device=device).manual_seed(47)
+    side = sizes.image_side
+    raw = torch.randint(0, 256, (sizes.train_batch, side, side, 3),
+                        generator=dgen, device=device, dtype=torch.uint8)
+    y = torch.randint(0, nclass, (sizes.train_batch,), generator=dgen,
+                      device=device)
+    variants = {
+        "sa+dbn": dict(model={"self_attn_at_last": SA_YAML,
+                              "add_bn": "dbn"}),
+        "filip": filip_over(sizes),
+        "vpt_pe+remat": dict(model={"vpt_pe": True},
+                             backbone={"remat": True}),
+        "qkvo": dict(model={"attention_adapter": True}),
+    }
+    for name, over in variants.items():
+        cfg = variant_config(sizes, **over)
+        tr = build_training(cfg, centers, sizes.steps_per_epoch,
+                            device=device, vision=TRAIN_VISION)
+        n_lay = tr.model.vision_cfg.num_layers
+        batch = {"image": normalize(center_crop(
+            raw, tr.model.vision_cfg.image_size), 3),
+            "label": F.one_hot(y, nclass).float()}
+        runs = n_lay * (2 if over.get("backbone", {}).get("remat") else 1)
+        expect = (0, 0, 0, 0 if name == "qkvo" else 2 * runs, runs, 0)
+        torch.cuda.synchronize()
+        count_reset()
+        losses, per_step = [], []
+        for i in range(sizes.train_steps):
+            if i == 1:                  # the first step warms up
+                t0 = time.perf_counter()
+            before = counts()
+            tr.generator.manual_seed(1)
+            losses.append(float(tr.step(batch)["loss"]))
+            per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+        step_ms = (time.perf_counter() - t0) / (sizes.train_steps - 1) * 1e3
+        print(f"variant {name} train steps (B={sizes.train_batch}, kernels "
+              f"5 and 6): loss " + ", ".join(f"{x:.5f}" for x in losses)
+              + f"; launches per step {per_step[0]}, expected {expect}, all "
+              f"steps alike: {len(set(per_step)) == 1}; {step_ms:.1f} ms a "
+              "step after the first (host clock, synchronized by the loss "
+              "read, eager)")
+        if any(p != expect for p in per_step):
+            fail(f"variant {name}: launches per step {per_step} != "
+                 f"{expect}")
+        if not all(math.isfinite(x) for x in losses) or \
+                losses[-1] >= losses[0]:
+            fail(f"variant {name}: loss {losses} not finite or not falling")
+        del tr
+
+    # ---- a remat step against a stored-activation step ----
+    over = variants["vpt_pe+remat"]
+    got = []
+    for remat in (True, False):
+        cfg = variant_config(sizes, model=over["model"],
+                             backbone={"remat": remat})
+        tr = build_training(cfg, centers, sizes.steps_per_epoch,
+                            device=device, vision=TRAIN_VISION)
+        batch = {"image": normalize(center_crop(
+            raw, tr.model.vision_cfg.image_size), 3),
+            "label": F.one_hot(y, nclass).float()}
+        tr.generator.manual_seed(1)
+        loss = float(tr.step(batch)["loss"])
+        got.append((loss, {n: p.detach().clone()
+                           for n, p in tr.model.named_parameters()}))
+        del tr
+    (l1, p1), (l0, p0) = got
+    d = max((p1[n].float() - p0[n].float()).abs().max().item() for n in p1)
+    same = l1 == l0 and d == 0.0
+    print(f"remat step vs stored-activation step (vpt_pe, kernels 5 and 6): "
+          f"loss {l1:.6f} vs {l0:.6f}, parameters max |d| {d:.3g}: bit for "
+          f"bit {same} (required)")
+    if not same:
+        fail("a remat step differs from a stored-activation step")
+    torch.cuda.empty_cache()
+
+    # ---- graphed chunks against eager steps ----
+    graph_vs_eager_train(sizes, device, TRAIN_VISION,
+                         over=variants["sa+dbn"], label="sa+dbn", plain=False)
+    graph_vs_eager_train(sizes, device, TRAIN_VISION,
+                         over=variants["filip"], label="filip", plain=False)
+    graph_vs_eager_train(sizes, device, TRAIN_VISION, LARS_OPTIM,
+                         plain=False)
+    torch.cuda.empty_cache()
+
+
+def run_variant_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
+                     hf_dir: str, flagship: dict) -> None:
+    """Phase 16 (c): ``main_gpu.py model=concepthash_sa`` and
+    ``model=concepthash_filip`` on phase 15's synthetic set at
+    ``train_chunk`` auto, 2 epochs each, the launch counts from zero
+    (kernel 1 at one launch a layer and eval batch, replays included; no
+    other kernel); FILIP's class-text token embeddings from phase 15 (d)'s
+    local checkpoint, within ``TEXT_ATOL`` of the CPU's; the eval-only
+    modes and a resume; train and eval img/s beside phase 15's flagship."""
+    import os
+
+    import main_gpu
+    from concepthash_tpu_torch.data.manifest import read_class_names
+    from concepthash_tpu_torch.train.codebook import embed_class_name_tokens
+
+    t_phase = time.perf_counter()
+    rows = [("flagship (phase 15)", flagship["train_img_s"],
+             flagship["eval_img_s"])]
+    for model, extra in (("concepthash_sa", ()),
+                         ("concepthash_filip", (f"backbone.name={hf_dir}",))):
+        extra = (f"model={model}", *extra)
+        run = os.path.join(tmp, model)
+        exp = main_gpu.build_experiment(argv(run, *extra))
+        torch.cuda.synchronize()
+        count_reset()
+        t0 = time.perf_counter()
+        exp.main()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        with open(os.path.join(run, "train_history.json")) as f:
+            train = json.load(f)
+        with open(os.path.join(run, "test_history.json")) as f:
+            test = json.load(f)
+        with open(os.path.join(run, "log.txt")) as f:
+            log = f.read()
+        steps = len(exp.loaders["train"])
+        batch = int(exp.config["batch_size"])
+        K = exp.train_chunk
+        n_layers = exp.model.vision_cfg.num_layers
+        eval_batches = len(exp.loaders["test"]) + len(exp.loaders["db"])
+        want = (2 * n_layers * eval_batches, 0, 0, 0, 0, 0)
+        runner = exp.train_multi_step
+        print(f"{model} run (train_chunk {K}): {steps} steps of {batch} an "
+              f"epoch; train records "
+              + "; ".join(f"ep {r['ep']} loss {r['loss']:.5f} "
+                          f"{r['time']:.2f} s" for r in train)
+              + "; test mAP " + ", ".join(f"{r['mAP']:.6f}" for r in test)
+              + f"; graph replays {getattr(runner, 'replays', 0)} train; "
+              f"launches {launches}, expected {want}; the run {run_s:.1f} s")
+        if len(train) != 2 or len(test) != 2 or not all(
+                math.isfinite(r["loss"]) for r in train):
+            fail(f"{model}: not two finite train records and two test "
+                 "records")
+        if launches != want:
+            fail(f"{model}: kernel 1 not launched once a layer and eval "
+                 "batch, or another kernel launched")
+        if device.type == "cuda" and runner.replays != 2 * (steps // K) - 1:
+            fail(f"{model}: {runner.replays} train replays, expected "
+                 f"{2 * (steps // K) - 1}")
+        if model == "concepthash_sa":
+            if exp.model.self_attn_at_last is None:
+                fail("concepthash_sa built without SelfAttentionAtLast")
+        else:
+            names = read_class_names(os.path.join(tmp, "synth"))
+            cpu = embed_class_name_tokens(names, hf_dir, device="cpu")
+            got = exp.config["model"]["token_embeds_array"]
+            err = float(np.abs(got - cpu).max())
+            buf = exp.model.token_embeds
+            print(f"{model}: class-text token embeddings {got.shape} from "
+                  f"the local checkpoint's text stage on {device.type}, max "
+                  f"|d| against the CPU's {err:.3g} (tolerance {TEXT_ATOL}); "
+                  f"the model's buffer equal: "
+                  f"{torch.equal(buf.cpu(), torch.as_tensor(got))}")
+            if "pseudo-tokens" in log or err > TEXT_ATOL or \
+                    not torch.equal(buf.cpu(), torch.as_tensor(got)):
+                fail(f"{model}: the token embeddings did not come from the "
+                     f"local text stage, or differ from the CPU's by {err}")
+        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
+        eval_s = host_s(lambda: (exp.encode_split("test"),
+                                 exp.encode_split("db")), 1)
+        rows.append((model, steps * batch / train[1]["time"],
+                     n_eval / eval_s))
+        for loader in exp.loaders.values():
+            loader.close()
+        del exp
+        eval_only_and_resume(model, tmp, run, train, test, argv, eval_argv,
+                             *extra)
+    print("phase 16 (c) img/s, epoch-2 train and eval encode, train_chunk "
+          "auto: " + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}"
+                               for n, t, e in rows)
+          + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
+    print(f"phase 16 (c): {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_variants(sizes: Sizes, device) -> None:
+    """Phase 16 (a) and (b)."""
+    t0 = time.perf_counter()
+    variant_forwards(sizes, device)
+    variant_steps(sizes, device)
+    print(f"phase 16 (a), (b): {time.perf_counter() - t0:.1f} s")
 
 
 def _flatten(x):
@@ -2327,6 +2708,7 @@ def run(sizes: Sizes, device) -> dict:
     torch.cuda.empty_cache()
     run_text_tower(sizes, device)
     flagship = run_flagship(sizes, device)
+    run_variants(sizes, device)
     run_graphs(sizes, device, flagship)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",

@@ -32,9 +32,15 @@ package checkpoint or run directory (read with
 ``weights.from_flax``), leniently. ``RetrievalEvaluation`` scores a run's
 ``models/{best,last}.pt`` (or its JAX ``.msgpack``) into ``eval_logdir``.
 
+With ``model.filip`` the run first takes FILIP's class-text token
+embeddings from the local CLIP checkpoint's text stage, or, where it is not
+on the disk, the reference's deterministic pseudo-tokens (loudly logged);
+the model keeps them as its ``token_embeds`` buffer, which its checkpoints
+carry.
+
 Not ported, and raising ``NotImplementedError``: the other regimes and
-methods (``methods.get_method``), FILIP, ``native_decode``, and the
-``profile`` and ``debug`` diagnostics.
+methods (``methods.get_method``), ``native_decode``, and the ``profile``
+and ``debug`` diagnostics.
 """
 
 from __future__ import annotations
@@ -98,13 +104,12 @@ def offline_text_embedder(class_names, dim: int = 512):
 
 def _unported_options(config: dict):
     reasons = {
-        "filip": "FILIP (ROADMAP Queue 1 item 7)",
         "native_decode": "native_decode (ROADMAP Queue 1 item 3)",
         "profile": "the profile key (StepProfiler, ROADMAP Queue 1 item 10)",
         "debug": "the debug key (ROADMAP Queue 1 item 10)",
     }
     for key, what in reasons.items():
-        if (config.get("model", {}) if key == "filip" else config).get(key):
+        if config.get(key):
             raise NotImplementedError(f"{what} is not ported yet")
 
 
@@ -284,6 +289,8 @@ class RetrievalExperiment:
                 self.method, cfg, self.logdir,
                 text_embedder=lambda n: offline_text_embedder(n, dim=dim))
 
+        if cfg["model"].get("filip"):
+            self._prepare_filip_tokens()
         self.model, self.loss_fn = build_model(cfg, self.codebook,
                                                device=self.device)
         if pretrained:      # the overlay after init, before any step
@@ -296,6 +303,36 @@ class RetrievalExperiment:
                                 if self.train_chunk > 1 else None)
         logging.info("train_chunk %d (%s)", self.train_chunk,
                      cfg.get("train_chunk", "auto"))
+
+    def _prepare_filip_tokens(self):
+        """FILIP's token-level class-text embeddings (nclass, T, proj) into
+        ``config['model']['token_embeds_array']``: the text stage of the
+        backbone's local CLIP checkpoint, or, where it is not there, 8
+        deterministic pseudo-tokens a class (loudly logged), as the
+        reference falls back."""
+        from concepthash_tpu_torch.data.manifest import read_class_names
+        from concepthash_tpu_torch.models.backbone_factory import (
+            vision_config_from_backbone_cfg)
+        from concepthash_tpu_torch.train.codebook import \
+            embed_class_name_tokens
+
+        cfg = self.config
+        root = os.path.join(cfg.get("data_dir", "."),
+                            cfg["dataset"]["data_folder"])
+        names = read_class_names(root)
+        try:
+            te = embed_class_name_tokens(
+                names, (cfg.get("backbone", {}) or {}).get(
+                    "name", "openai/clip-vit-base-patch32"),
+                device=self.device)
+        except Exception as e:  # no local checkpoint: the fallback
+            logging.warning("FILIP token embeddings unavailable (%s); "
+                            "deterministic pseudo-tokens", e)
+            dim = vision_config_from_backbone_cfg(
+                cfg.get("backbone", {}) or {}).projection_dim
+            te = np.stack([_pseudo_embeddings([f"{n}#{t}" for t in range(8)],
+                                              dim=dim) for n in names])
+        cfg["model"]["token_embeds_array"] = te
 
     def _build_training(self):
         """The optimizer, schedule and train steps (one and ``train_chunk``

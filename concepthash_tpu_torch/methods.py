@@ -25,7 +25,8 @@ from concepthash_tpu_torch.losses.concepthash import lgh_loss
 from concepthash_tpu_torch.models.backbone_factory import (
     adapter_config_from_model_cfg, vision_config_from_backbone_cfg)
 from concepthash_tpu_torch.models.concepthash import (ConceptHash,
-                                                      ConceptHashConfig)
+                                                      ConceptHashConfig,
+                                                      SelfAttnLastConfig)
 from concepthash_tpu_torch.train.optim import build_optimizer
 from concepthash_tpu_torch.train.state import make_train_step
 
@@ -42,22 +43,36 @@ def _compute_dtype(config) -> torch.dtype:
     return table[name]
 
 
+def _self_attn_last_config(sa) -> Optional[SelfAttnLastConfig]:
+    """``model.self_attn_at_last`` as the reference reads it: a mapping of
+    the SelfAttnLastConfig fields (absent ones at their defaults), or
+    nothing. Anything else (e.g. a bare ``true``) raises."""
+    if not sa:
+        return None
+    fields = dataclasses.fields(SelfAttnLastConfig)
+    if not hasattr(sa, "get"):
+        raise ValueError(f"model.self_attn_at_last must be a mapping of "
+                         f"{[f.name for f in fields]}, got {sa!r}")
+    # each field in its default's type (bool, float), as the reference casts
+    return SelfAttnLastConfig(**{
+        f.name: type(f.default)(sa.get(f.name, f.default)) for f in fields})
+
+
 def _build_concepthash(config, codebook, *, device=None,
                        generator: Optional[torch.Generator] = None,
                        vision: Optional[dict] = None) -> ConceptHash:
     """ConceptHash from ``config``; ``codebook`` (nclass, center_dim) fixes
     the centers, None learns them. ``vision`` overrides fields of the
     backbone's ClipVisionConfig (e.g. ``attention_impl``, ``fused_ln``),
-    which the backbone group does not set."""
+    which the backbone group does not set. FILIP's class-text token
+    embeddings come in ``config['model']['token_embeds_array']`` (the
+    experiment's FILIP stage puts them there)."""
     m = config["model"]
     upt = m.get("upt_config", {}) or {}
     vcfg = vision_config_from_backbone_cfg(config.get("backbone", {}) or {})
     if vision:
         vcfg = dataclasses.replace(vcfg, **vision)
     acfg = adapter_config_from_model_cfg(m)
-    if m.get("token_embeds_array") is not None:
-        raise NotImplementedError("FILIP token embeddings are not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
     ccfg = ConceptHashConfig(
         nbit=int(m["nbit"]),
         nclass=int(m["nclass"]),
@@ -75,11 +90,14 @@ def _build_concepthash(config, codebook, *, device=None,
         learnable_center=codebook is None,
         center_dim=int(codebook.shape[1]) if codebook is not None else 512,
         text_projection_dims=tuple(m.get("text_projection_dims", (512,))),
-        self_attn_at_last=m.get("self_attn_at_last") or None,
+        self_attn_at_last=_self_attn_last_config(m.get("self_attn_at_last")),
     )
     fixed = (torch.as_tensor(codebook, dtype=torch.float32)
              if codebook is not None else None)
+    te = m.get("token_embeds_array")
     return ConceptHash(vcfg, ccfg, acfg, fixed_center=fixed,
+                       token_embeds=(torch.as_tensor(np.asarray(te))
+                                     if te is not None else None),
                        dtype=_compute_dtype(config), device=device,
                        generator=generator)
 

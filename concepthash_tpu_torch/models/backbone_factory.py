@@ -24,11 +24,8 @@ _CLIP_GEOMETRIES = {
 
 
 def vision_config_from_backbone_cfg(backbone_cfg: dict) -> ClipVisionConfig:
-    """ClipVisionConfig of a backbone group. ``remat`` (rematerialized
-    encoder layers) is not ported and raises."""
-    if backbone_cfg.get("remat", False):
-        raise NotImplementedError("backbone.remat is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
+    """ClipVisionConfig of a backbone group, ``remat`` (encoder layers
+    recomputed in the backward) included."""
     name = backbone_cfg.get("name", "openai/clip-vit-base-patch32")
     if name in _CLIP_GEOMETRIES:
         h, mlp, layers, heads, patch, img, proj = _CLIP_GEOMETRIES[name]
@@ -48,6 +45,7 @@ def vision_config_from_backbone_cfg(backbone_cfg: dict) -> ClipVisionConfig:
         patch_size=backbone_cfg.get("patch_size", patch),
         image_size=backbone_cfg.get("image_size", img),
         projection_dim=backbone_cfg.get("projection_dim", proj),
+        remat=bool(backbone_cfg.get("remat", False)),
     )
 
 

@@ -10,12 +10,19 @@ the reference. ``EncoderLayer`` dispatches as the reference does:
   ``fused_ln='auto'`` (the port's counterpart of the reference's "auto on
   TPU"; on the card only at bfloat16, the one dtype the kernel takes), and
   under 'pallas_layer', whenever the adapters take a LayerNorm on their
-  input and no attention probabilities are asked for (``whole_layer_route``);
-- otherwise the discrete path (training forwards, attention maps): separate
-  LayerNorm, attention, MLP and adapter modules, where ``fused_ln='pallas'``
-  runs LN1 -> q|k|v and LN2 -> fc1 through ``ops.fused_ln.ln_matmul`` and
+  input, are not per-projection (q/k/v/out) adapters, and no attention
+  probabilities are asked for (``whole_layer_route``);
+- otherwise the discrete path (training forwards, attention maps, q/k/v/out
+  adapters): separate LayerNorm, attention, MLP and adapter modules, where
+  ``fused_ln='pallas'`` runs LN1 -> q|k|v and LN2 -> fc1 through
+  ``ops.fused_ln.ln_matmul`` (not in a layer with q/k/v/out adapters, which
+  read the normalized input, as in the reference) and
   ``attention_impl='pallas'`` runs attention through
   ``ops.attention.fused_attention`` (CUDA kernels on the card).
+
+The tower also takes per-layer position prompts on its trailing tokens
+(``vpt_tokens``) and, with ``remat``, recomputes each layer's activations in
+the backward (``torch.utils.checkpoint``).
 
 The CUDA kernels take bfloat16 only: on the card the explicit kernel
 settings at another compute dtype raise when the model is built
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from concepthash_tpu_torch import resolve_device
 from concepthash_tpu_torch.models.layers import (dense, layer_norm, linear,
@@ -59,6 +67,7 @@ class ClipVisionConfig:
     attention_impl: str = "auto"  # 'auto' | 'pallas' | 'xla' (ops/attention.py)
     fused_ln: str = "auto"        # 'auto' | 'pallas' | 'pallas_mlp' | 'xla' |
                                   # 'pallas_layer' (ops/fused_ln.py)
+    remat: bool = False           # recompute encoder layers in the backward
 
     @property
     def num_patches(self) -> int:
@@ -82,7 +91,8 @@ def whole_layer_route(fused_ln: str, train: bool, fusable: bool,
     only, the one dtype its kernel takes, and the discrete path computes the
     same layer at any other; on the CPU its plain version at any dtype, as
     the tests hold it against the reference. A layer whose adapters take no
-    LayerNorm on their input (``fusable`` False) never takes it."""
+    LayerNorm on their input, or that carries q/k/v/out adapters
+    (``fusable`` False), never takes it."""
     if not fusable:
         return False
     if fused_ln == "pallas_layer":
@@ -116,7 +126,8 @@ def check_kernel_dtype(cfg: "ClipVisionConfig", dtype: torch.dtype,
 @dataclasses.dataclass(frozen=True)
 class AdapterConfig:
     """Bottleneck adapters added in parallel to the attention and MLP branch
-    outputs. Per-projection adapters (``attention_qkvo``) are not ported."""
+    outputs; ``attention_qkvo`` puts one on each of the q, k, v and out
+    projections' inputs instead (and none after attention or the MLP)."""
 
     bottleneck_dim: int = 384
     after_attention: bool = True
@@ -179,10 +190,13 @@ class MultiHeadAttention(nn.Module):
     kernel), 'xla' and 'auto' the einsum path, which attention maps always
     take. ``ln``: the preceding LayerNorm module; when given, x is not
     normalized yet and q|k|v come from one ``ln_matmul`` (the fused
-    LN -> matmul kernel)."""
+    LN -> matmul kernel). ``adapters`` (q/k/v/out adapters, an
+    ``AdapterConfig`` with ``attention_qkvo``): each projection's output
+    gains a parallel adapter of that projection's input."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
-                 generator=None, attention_impl: str = "auto"):
+                 generator=None, attention_impl: str = "auto",
+                 adapters: Optional["AdapterConfig"] = None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
@@ -192,6 +206,11 @@ class MultiHeadAttention(nn.Module):
             normal_(self.qkv_proj.weight, 1.0 / math.sqrt(dim), generator)
             self.qkv_proj.bias.zero_()
         self.out_proj = linear(dim, dim, generator=generator)
+        self.qkvo = adapters is not None
+        if self.qkvo:
+            for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                setattr(self, f"adapter_{name}",
+                        Adapter(adapters, dim, dtype, generator))
 
     def forward(self, x: torch.Tensor, output_attentions: bool = False,
                 ln: Optional[nn.LayerNorm] = None):
@@ -204,6 +223,10 @@ class MultiHeadAttention(nn.Module):
                             self.qkv_proj.bias, eps=ln.eps, impl="pallas")
         else:
             qkv = dense(self.qkv_proj, x, self.dtype)
+        if self.qkvo:
+            qkv = qkv + torch.cat([self.adapter_q_proj(x),
+                                   self.adapter_k_proj(x),
+                                   self.adapter_v_proj(x)], dim=-1)
         # views of qkv: the kernel reads them in place
         q, k, v = (t.reshape(B, L, H, hd) for t in qkv.split(D, -1))
         probs = None
@@ -213,8 +236,10 @@ class MultiHeadAttention(nn.Module):
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, D)
         else:
             out = attention(q, k, v, impl="pallas").reshape(B, L, D)
-        return (dense(self.out_proj, out, self.dtype),
-                probs if output_attentions else None)
+        h = dense(self.out_proj, out, self.dtype)
+        if self.qkvo:
+            h = h + self.adapter_out_proj(out)
+        return h, (probs if output_attentions else None)
 
 
 class EncoderLayer(nn.Module):
@@ -227,28 +252,27 @@ class EncoderLayer(nn.Module):
                  dtype=torch.float32, generator=None,
                  attention_impl: str = "auto", fused_ln: str = "auto"):
         super().__init__()
-        if adapters is not None and adapters.attention_qkvo:
-            raise NotImplementedError(
-                "per-projection (q/k/v/out) adapters are not ported yet "
-                "(ROADMAP Queue 1 item 7)")
         self.num_heads = num_heads
         self.eps = eps
         self.act = act
         self.dtype = dtype
         self.fused_ln = fused_ln
-        self.fusable = adapters is None or adapters.layernorm_in
+        # q/k/v/out adapters read the normalized input: no fusion there
+        self.qkvo = adapters is not None and adapters.attention_qkvo
+        self.fusable = adapters is None or (adapters.layernorm_in
+                                            and not self.qkvo)
         self.layer_norm1 = nn.LayerNorm(dim, eps=eps)
-        self.self_attn = MultiHeadAttention(dim, num_heads, dtype, generator,
-                                            attention_impl)
+        self.self_attn = MultiHeadAttention(
+            dim, num_heads, dtype, generator, attention_impl,
+            adapters if self.qkvo else None)
         self.layer_norm2 = nn.LayerNorm(dim, eps=eps)
         self.fc1 = linear(dim, intermediate_size, generator=generator)
         self.fc2 = linear(intermediate_size, dim, generator=generator)
-        self.adapter_attn = (
-            Adapter(adapters, dim, dtype, generator)
-            if adapters is not None and adapters.after_attention else None)
-        self.adapter_mlp = (
-            Adapter(adapters, dim, dtype, generator)
-            if adapters is not None and adapters.after_mlp else None)
+        branch = adapters is not None and not self.qkvo
+        self.adapter_attn = (Adapter(adapters, dim, dtype, generator)
+                             if branch and adapters.after_attention else None)
+        self.adapter_mlp = (Adapter(adapters, dim, dtype, generator)
+                            if branch and adapters.after_mlp else None)
 
     def layer_weights(self, dtype: torch.dtype) -> LayerWeights:
         a = self.self_attn
@@ -277,7 +301,7 @@ class EncoderLayer(nn.Module):
                 adapter_mlp=(self.adapter_mlp.weights(self.dtype)
                              if self.adapter_mlp is not None else None))
             return out, None
-        fused = resolve_fused_ln(self.fused_ln)
+        fused = resolve_fused_ln(self.fused_ln) and not self.qkvo
         if fused and self.fused_ln != "pallas_mlp":
             h, probs = self.self_attn(x, output_attentions,
                                       ln=self.layer_norm1)
@@ -348,14 +372,23 @@ class ClipVisionTower(nn.Module):
     """CLIP vision transformer over NHWC pixels, with extra (concept) tokens
     appended after the patch sequence. Returns a dict: last_hidden_state
     (B, L[+M], D), pooled (B, proj), cls_prenorm, cls_postnorm, and
-    attentions when asked."""
+    attentions when asked.
+
+    ``vpt_tokens`` T > 0: before every encoder layer, a learned position
+    prompt ``vpt_pe[i]`` (1, T, D) is added to the last T positions.
+    ``cfg.remat``: in a forward that records gradients and asks for no
+    attention maps, each encoder layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), its activations recomputed
+    in the backward; the layers draw no random numbers, so no generator
+    state is saved (a CUDA graph captures it as it is)."""
 
     def __init__(self, cfg: ClipVisionConfig,
                  adapters: Optional[AdapterConfig] = None,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, vpt_tokens: int = 0):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.vpt_tokens = vpt_tokens
         D = cfg.hidden_size
         self.patch_embedding = PatchEmbedding(D, cfg.patch_size, 3,
                                               cfg.patch_bias, dtype, generator)
@@ -370,6 +403,10 @@ class ClipVisionTower(nn.Module):
                          cfg.layer_norm_eps, cfg.hidden_act, adapters, dtype,
                          generator, cfg.attention_impl, cfg.fused_ln)
             for _ in range(cfg.num_layers))
+        self.vpt_pe = (nn.ParameterList(
+            nn.Parameter(normal_(torch.empty(1, vpt_tokens, D), 0.02,
+                                 generator))
+            for _ in range(cfg.num_layers)) if vpt_tokens else None)
         self.post_layernorm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
         self.visual_projection = linear(D, cfg.projection_dim, bias=False,
                                         generator=generator)
@@ -396,8 +433,19 @@ class ClipVisionTower(nn.Module):
         if self.pre_layernorm is not None:
             x = layer_norm(self.pre_layernorm, x, dt)
         attns = []
-        for layer in self.layers:
-            x, probs = layer(x, output_attentions, train)
+        remat = (c.remat and not output_attentions
+                 and torch.is_grad_enabled())
+        T = self.vpt_tokens
+        for i, layer in enumerate(self.layers):
+            if T:
+                x = torch.cat([x[:, :-T], x[:, -T:] + self.vpt_pe[i].to(dt)],
+                              dim=1)
+            if remat:
+                x, probs = checkpoint(layer, x, False, train,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
+            else:
+                x, probs = layer(x, output_attentions, train)
             if output_attentions:
                 attns.append(probs)
         cls_out = x[:, 0, :]

@@ -1,6 +1,7 @@
 """Shared model layers: cosine classifier, sign straight-through estimator,
-code batch-norm, flax-style dropout, small MLP (counterpart of
-concepthash_tpu/models/layers.py, the paths the canonical ConceptHash uses).
+code batch-norm and its decorrelated (whitening) form, flax-style dropout,
+small MLP (counterpart of concepthash_tpu/models/layers.py, the paths
+ConceptHash uses).
 
 Parameters are float32; ``dtype`` is the compute dtype, as in the reference.
 Initial values are drawn from a ``torch.Generator`` with the reference's
@@ -106,6 +107,57 @@ class CodeBatchNorm(nn.Module):
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         y = (xf - mean) * (torch.rsqrt(var + 1e-5) * self.weight) + self.bias
         return y.to(self.dtype)
+
+
+class DecorrelatedBN(nn.Module):
+    """Grouped decorrelated (whitening) batch norm over hash codes, the
+    ``add_bn: 'dbn'`` option: ``groups`` contiguous groups of
+    ``num_features // groups`` bits, each whitened by Sigma^{-1/2} from 5
+    Newton-Schulz iterations (IterNorm) in float32.
+
+    Training whitens with the batch's mean and covariance and updates the
+    running ``mean`` (G, d) and ``whiten`` (G, d, d) buffers as
+    ``r = 0.9 r + 0.1 batch_value``; eval uses them. There is no
+    initialising forward here, so the buffers hold their initial values
+    (zeros, identities) until the first training forward, as the reference's
+    init pass leaves them."""
+
+    MOMENTUM, ITERS, EPS = 0.9, 5, 1e-5
+
+    def __init__(self, num_features: int, groups: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.groups = groups
+        d = num_features // groups
+        self.register_buffer("mean", torch.zeros(groups, d))
+        self.register_buffer("whiten",
+                             torch.eye(d).expand(groups, d, d).clone())
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        B, nbit = x.shape
+        G = self.groups
+        xg = x.float().reshape(B, G, nbit // G)
+        if train:
+            d = xg.shape[-1]
+            eye = torch.eye(d, device=x.device)
+            mean = xg.mean(dim=0)                               # (G, d)
+            xc = xg - mean[None]
+            cov = torch.einsum("bgi,bgj->gij", xc, xc) / B + self.EPS * eye
+            tr = cov.diagonal(dim1=1, dim2=2).sum(-1)[:, None, None]
+            sigma_n = cov / tr
+            p = eye.expand(G, d, d)
+            for _ in range(self.ITERS):
+                p = 1.5 * p - 0.5 * (p @ p @ p @ sigma_n)
+            whiten = p / torch.sqrt(tr)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.whiten.copy_(m * self.whiten + (1 - m) * whiten)
+        else:
+            whiten = self.whiten
+            xc = xg - self.mean[None]
+        out = torch.einsum("bgi,gij->bgj", xc, whiten)
+        return out.reshape(B, nbit).to(self.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,

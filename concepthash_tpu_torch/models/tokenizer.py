@@ -11,7 +11,9 @@ blind), here by a scanner over ``unicodedata`` categories, since ``re`` has
 no ``\\p{..}``. Each piece's UTF-8 bytes map to the byte-level alphabet, its
 last symbol takes the ``</w>`` word end, and the merges apply lowest rank
 first. Ids are framed by ``<|startoftext|>`` (49406 in CLIP's vocabulary)
-and ``<|endoftext|>`` (49407), which also pads; an id missing from the
+and ``<|endoftext|>`` (49407), which also pads unless the checkpoint's
+``special_tokens_map.json`` or ``tokenizer_config.json`` names another pad
+token (some CLIP checkpoints pad with ``!``); an id missing from the
 vocabulary becomes ``<|endoftext|>``, the unknown token.
 """
 
@@ -101,17 +103,32 @@ def pre_tokenize(text: str) -> list:
     return pieces
 
 
+def _pad_token(path: str) -> str:
+    """The pad token a checkpoint directory names (a string, or a dict with
+    its ``content``), else ``<|endoftext|>``."""
+    for name in ("special_tokens_map.json", "tokenizer_config.json"):
+        f = os.path.join(path, name)
+        if os.path.exists(f):
+            with open(f, encoding="utf-8") as fh:
+                tok = json.load(fh).get("pad_token")
+            if isinstance(tok, dict):
+                tok = tok.get("content")
+            if tok:
+                return tok
+    return EOS
+
+
 class CLIPTokenizer:
     """``tokenizer(prompts, padding=True, truncation=True, max_length=77,
     return_tensors='np')`` as a Hugging Face CLIP tokenizer answers it."""
 
-    def __init__(self, vocab: dict, merges: list):
+    def __init__(self, vocab: dict, merges: list, pad_token: str = EOS):
         self.encoder = dict(vocab)
         self.ranks = {tuple(m): r for r, m in enumerate(merges)}
         self.byte_encoder = bytes_to_unicode()
         self.bos_id = self.encoder[BOS]
         self.eos_id = self.encoder[EOS]
-        self.pad_id = self.eos_id
+        self.pad_id = self.encoder[pad_token]
         self._cache: dict = {}
 
     @classmethod
@@ -120,7 +137,8 @@ class CLIPTokenizer:
             vocab = json.load(f)
         with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
             lines = f.read().strip().split("\n")[1:_MAX_MERGES + 1]
-        return cls(vocab, [tuple(line.split()) for line in lines])
+        return cls(vocab, [tuple(line.split()) for line in lines],
+                   pad_token=_pad_token(path))
 
     def bpe(self, piece: str) -> list:
         if piece in self._cache:

@@ -13,9 +13,10 @@ the local disk (``models.clip_loader.load_text_tower``,
 ``models.tokenizer.CLIPTokenizer``; a directory, or the Hugging Face cache)
 on ``device``, or the tower and tokenizer the caller gives; where neither
 is there, ``embed_class_names`` raises, as the reference does offline, and
-the experiment takes its offline fallback. Nothing is downloaded. Not
-ported: the autoencoder binarizers (``ae*``) and the FILIP token
-embeddings.
+the experiment takes its offline fallback. Nothing is downloaded. The same
+stage gives FILIP's token-level class-text embeddings
+(``embed_class_name_tokens``). Not ported: the autoencoder binarizers
+(``ae*``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import os
 
 import numpy as np
 import torch
+
+from concepthash_tpu_torch.models.layers import dense
 
 # ---------------------------------------------------------------------------
 # deterministic linear algebra helpers
@@ -128,21 +131,11 @@ def maxmin_hamming_codebook(nclass: int, nbit: int, seed: int = 42,
 # language-guided codebook
 # ---------------------------------------------------------------------------
 
-def embed_class_names(class_names: list,
-                      model_id: str = "openai/clip-vit-base-patch32",
-                      prompt_prefix: str = "a photo of a ",
-                      prompt_postfix: str = "", batch_size: int = 100,
-                      text_tower=None, tokenizer=None,
-                      device=None) -> np.ndarray:
-    """CLIP-text pooled embeddings of "<prefix><class name><postfix>"
-    prompts, (nclass, width) float32: the pre-projection pooled output.
-
-    ``text_tower`` is a ``models.clip.ClipTextTower``; ``tokenizer`` is
-    called as a Hugging Face tokenizer is (``tokenizer(prompts, padding=True,
-    truncation=True, max_length=77, return_tensors='np')['input_ids']``).
-    Either one not given is read from ``model_id`` on the local disk (the
-    tower onto ``device``, CUDA unless asked otherwise); raises ``OSError``
-    when it is not there."""
+def _text_stage(class_names: list, model_id: str, prompt_prefix: str,
+                prompt_postfix: str, text_tower, tokenizer, device):
+    """The prompts' token ids (padded to the longest prompt with the
+    checkpoint's pad id) and the text tower, each read from ``model_id``
+    on the local disk when the caller gives none."""
     if prompt_prefix and not prompt_prefix.endswith(" "):
         prompt_prefix += " "
     prompts = [f"{prompt_prefix}{name}{prompt_postfix}" for name in class_names]
@@ -160,13 +153,53 @@ def embed_class_names(class_names: list,
                      next(text_tower.parameters()).device)
     ids = tokenizer(prompts, padding=True, truncation=True, max_length=77,
                     return_tensors="np")["input_ids"].astype(np.int64)
-    dev = next(text_tower.parameters()).device
+    return ids, text_tower
+
+
+def embed_class_names(class_names: list,
+                      model_id: str = "openai/clip-vit-base-patch32",
+                      prompt_prefix: str = "a photo of a ",
+                      prompt_postfix: str = "", batch_size: int = 100,
+                      text_tower=None, tokenizer=None,
+                      device=None) -> np.ndarray:
+    """CLIP-text pooled embeddings of "<prefix><class name><postfix>"
+    prompts, (nclass, width) float32: the pre-projection pooled output.
+
+    ``text_tower`` is a ``models.clip.ClipTextTower``; ``tokenizer`` is
+    called as a Hugging Face tokenizer is (``tokenizer(prompts, padding=True,
+    truncation=True, max_length=77, return_tensors='np')['input_ids']``).
+    Either one not given is read from ``model_id`` on the local disk (the
+    tower onto ``device``, CUDA unless asked otherwise); raises ``OSError``
+    when it is not there."""
+    ids, tower = _text_stage(class_names, model_id, prompt_prefix,
+                             prompt_postfix, text_tower, tokenizer, device)
+    return _run_tower(tower, ids, batch_size, lambda out: out["pooled"])
+
+
+def embed_class_name_tokens(class_names: list,
+                            model_id: str = "openai/clip-vit-base-patch32",
+                            prompt_prefix: str = "a photo of a ",
+                            prompt_postfix: str = "", batch_size: int = 100,
+                            text_tower=None, tokenizer=None,
+                            device=None) -> np.ndarray:
+    """Token-level text embeddings for FILIP: each prompt's
+    ``last_hidden_state`` projected by the tower's ``text_projection``,
+    (nclass, T, projection width) float32, T the longest prompt's length.
+    The pad positions are in (FILIP's max runs over them), so the pad id is
+    the checkpoint's. Arguments as ``embed_class_names``."""
+    ids, tower = _text_stage(class_names, model_id, prompt_prefix,
+                             prompt_postfix, text_tower, tokenizer, device)
+    return _run_tower(tower, ids, batch_size, lambda out: dense(
+        tower.text_projection, out["last_hidden_state"], tower.dtype))
+
+
+def _run_tower(tower, ids: np.ndarray, batch_size: int, pick) -> np.ndarray:
+    dev = next(tower.parameters()).device
     outs = []
     with torch.inference_mode():
         for s in range(0, len(ids), batch_size):
             batch = torch.from_numpy(ids[s:s + batch_size]).to(dev)
-            outs.append(text_tower(input_ids=batch)["pooled"].float().cpu()
-                        .numpy())
+            outs.append(pick(tower(input_ids=batch)).float().cpu().numpy())
     return np.concatenate(outs).astype(np.float32)
 
 

@@ -11,10 +11,11 @@ update k uses ``mult(k // steps_per_epoch)`` as the reference does.
 The optimizers follow the reference's update rules: adam couples weight decay
 into the gradient (``torch.optim.Adam``'s ``weight_decay`` is
 ``optax.add_decayed_weights`` followed by ``scale_by_adam``); adamw decouples
-it; sgd adds it to the gradient before momentum (optional nesterov). All
-three can be made capturable (``make_capturable``) for several steps per CUDA
-graph; sgd does so through ``CapturableSGD``, whose step reads a tensor rate
-on the device.
+it; sgd adds it to the gradient before momentum (optional nesterov); lars
+is ``optax.lars`` (``Lars``). All four can be made capturable
+(``make_capturable``) for several steps per CUDA graph; sgd does so through
+``CapturableSGD``, whose step reads a tensor rate on the device, and
+``Lars`` reads its rate as given, a float or a device tensor.
 
 ``backbone_lr_scale`` is the reference's param-group policy: a parameter
 whose name starts with ``backbone.`` and contains no ``adapter`` is frozen
@@ -124,8 +125,8 @@ def _base_optimizer(optim_cfg: dict, groups: list,
                                nesterov=bool(optim_cfg.get("nesterov", False)),
                                weight_decay=wd)
     if name == "lars":
-        raise NotImplementedError("the lars optimizer is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
+        return Lars(groups, lr=lr, weight_decay=wd,
+                    momentum=float(optim_cfg.get("momentum", 0.9)))
     raise ValueError(f"unknown optimizer {name!r}")
 
 
@@ -171,6 +172,53 @@ class CapturableSGD(torch.optim.SGD):
                          if group["nesterov"] else bufs)
             torch._foreach_sub_(params, torch._foreach_mul(grads,
                                                            group["lr"]))
+        return loss
+
+
+class Lars(torch.optim.Optimizer):
+    """LARS with ``optax.lars``'s arithmetic (its defaults: trust
+    coefficient 1e-3, eps 0, no nesterov), per parameter tensor:
+
+        u = g + weight_decay * p
+        u = u * (1e-3 * |p| / |u|)      (ratio 1 where |p| or |u| is 0)
+        u = lr * u
+        m = u + momentum * m;  p -= m
+
+    The momentum buffer holds updates already scaled by the learning rate,
+    unlike ``torch.optim.SGD``'s. ``lr`` may be a float or a device tensor
+    (``make_capturable``): the step reads it on the device and waits on
+    nothing, so a CUDA graph captures it as it is."""
+
+    TRUST_COEFFICIENT = 1e-3
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0,
+                 momentum: float = 0.9):
+        super().__init__(params, {"lr": lr, "weight_decay": weight_decay,
+                                  "momentum": momentum})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            wd, lr = group["weight_decay"], group["lr"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = p.grad + wd * p if wd else p.grad
+                pn, un = torch.linalg.vector_norm(p), \
+                    torch.linalg.vector_norm(u)
+                ratio = torch.where((pn == 0) | (un == 0), 1.0,
+                                    self.TRUST_COEFFICIENT * pn / un)
+                u = (u * ratio) * lr
+                state = self.state[p]
+                if "momentum_buffer" not in state:
+                    state["momentum_buffer"] = torch.zeros_like(p)
+                buf = state["momentum_buffer"]
+                buf.mul_(group["momentum"]).add_(u)
+                p.sub_(buf)
         return loss
 
 
@@ -236,19 +284,20 @@ def scheduled_lrs(scheduler, start: int, count: int) -> np.ndarray:
 
 
 def make_capturable(optimizer: torch.optim.Optimizer) -> list:
-    """Turn an optimizer of ``build_optimizer`` (adam, adamw or sgd) into one
-    whose step a CUDA graph can capture: each group's ``lr`` a float32
-    tensor on its parameters' device (which ``LambdaLR`` fills in place);
-    adam and adamw also get ``capturable=True`` and their ``step`` counters
-    moved there (sgd keeps no counter). Returns the groups' ``lr`` tensors;
+    """Turn an optimizer of ``build_optimizer`` (adam, adamw, sgd or lars)
+    into one whose step a CUDA graph can capture: each group's ``lr`` a
+    float32 tensor on its parameters' device (which ``LambdaLR`` fills in
+    place); adam and adamw also get ``capturable=True`` and their ``step``
+    counters moved there (sgd and lars keep no counter). Returns the
+    groups' ``lr`` tensors;
     a caller that captures the step writes them before each step, since a
     captured step reads the tensor, not a Python float. Idempotent."""
     adam = isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
-    if not adam and not isinstance(optimizer, CapturableSGD):
+    if not adam and not isinstance(optimizer, (CapturableSGD, Lars)):
         raise NotImplementedError(
-            f"several steps per dispatch on the card take adam, adamw or "
-            f"sgd; {type(optimizer).__name__} has no capturable step here "
-            "(ROADMAP Queue 1 item 6)")
+            f"several steps per dispatch on the card take adam, adamw, sgd "
+            f"or lars; {type(optimizer).__name__} has no capturable step "
+            "here (ROADMAP Queue 1 item 6)")
     lrs = []
     for group in optimizer.param_groups:
         dev = group["params"][0].device

@@ -13,8 +13,15 @@ function:
   query/key/value kernels are (D, H, hd) with (H, hd) biases and whose out
   kernel is (H, hd, D);
 - ``hash_bn/bn/{scale,bias}`` and ``batch_stats/hash_bn/bn/{mean,var}``
-  become the code batch-norm's weight, bias and running statistics;
-- ``constants/center`` becomes the ``center`` buffer.
+  become the code batch-norm's weight, bias and running statistics; the
+  decorrelated one's ``batch_stats/hash_bn/{mean,whiten}`` its buffers;
+- ``constants/center`` and ``constants/token_embeds`` (FILIP) become the
+  ``center`` and ``token_embeds`` buffers;
+- ``backbone/vpt_pe_{i}`` become ``backbone.vpt_pe.{i}``; an encoder
+  layer's ``self_attn/adapter_{q,k,v,out}_proj`` (q/k/v/out adapters) keep
+  their names under the layer's attention;
+- ``self_attn_at_last`` keeps its leaf names (``q``, ``k``, ``v``, or
+  ``{q,k,v}_1``, ``_ln``, ``_2`` when ``strong``, and ``pe``).
 
 ``text_from_flax(params)`` does the same for the CLIP text tower
 (``models.clip.ClipTextTower``), whose q, k and v projections stay separate.
@@ -61,6 +68,10 @@ def _encoder_layer(sd: dict, prefix: str, p: dict) -> None:
     sd[f"{prefix}.self_attn.qkv_proj.bias"] = _t(np.concatenate(
         [np.asarray(a[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")]))
     _dense(sd, f"{prefix}.self_attn.out_proj", a["out_proj"])
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        if f"adapter_{name}" in a:
+            _adapter(sd, f"{prefix}.self_attn.adapter_{name}",
+                     a[f"adapter_{name}"])
     _dense(sd, f"{prefix}.fc1", p["fc1"])
     _dense(sd, f"{prefix}.fc2", p["fc2"])
     for name in ("adapter_attn", "adapter_mlp"):
@@ -80,6 +91,9 @@ def _vision_tower(sd: dict, prefix: str, p: dict) -> None:
                     key=lambda k: int(k.split("_")[1]))
     for k in layers:
         _encoder_layer(sd, f"{prefix}.layers.{k.split('_')[1]}", p[k])
+        if f"vpt_pe_{k.split('_')[1]}" in p:
+            i = k.split("_")[1]
+            sd[f"{prefix}.vpt_pe.{i}"] = _t(p[f"vpt_pe_{i}"])
     _ln(sd, f"{prefix}.post_layernorm", p["post_layernorm"])
     _dense(sd, f"{prefix}.visual_projection", p["visual_projection"])
 
@@ -100,6 +114,16 @@ def _hash_query_block(sd: dict, prefix: str, p: dict) -> None:
         _dense(sd, f"{prefix}.{n}", p[n])
 
 
+def _self_attn_at_last(sd: dict, prefix: str, p: dict) -> None:
+    for name, leaf in p.items():
+        if name == "pe":
+            sd[f"{prefix}.pe"] = _t(leaf)
+        elif name.endswith("_ln"):
+            _ln(sd, f"{prefix}.{name}", leaf)
+        else:
+            _dense(sd, f"{prefix}.{name}", leaf)
+
+
 def from_flax(variables: dict) -> dict:
     """State dict of the port's ConceptHash from the reference's variables
     (numpy leaves). Keys match ``ConceptHash.state_dict()``; load it with
@@ -109,6 +133,8 @@ def from_flax(variables: dict) -> dict:
     sd["hash_queries"] = _t(p["hash_queries"])
     _hash_query_block(sd, "hash_attention", p["hash_attention"])
     _vision_tower(sd, "backbone", p["backbone"])
+    if "self_attn_at_last" in p:
+        _self_attn_at_last(sd, "self_attn_at_last", p["self_attn_at_last"])
     for name in ("hash_pe", "concept_pe"):
         if name in p:
             sd[name] = _t(p[name])
@@ -120,6 +146,10 @@ def from_flax(variables: dict) -> dict:
         sd["hash_bn.bias"] = _t(bn["bias"])
         sd["hash_bn.running_mean"] = _t(stats["mean"])
         sd["hash_bn.running_var"] = _t(stats["var"])
+    elif "hash_bn" in variables.get("batch_stats", {}):
+        stats = variables["batch_stats"]["hash_bn"]
+        sd["hash_bn.mean"] = _t(stats["mean"])
+        sd["hash_bn.whiten"] = _t(stats["whiten"])
     if "center" in p:
         sd["center"] = _t(p["center"])
     else:
@@ -133,6 +163,8 @@ def from_flax(variables: dict) -> dict:
             sd["concept_ce.centroids"] = _t(ce["centroids"])
         else:
             _dense(sd, "concept_ce", ce)
+    if "token_embeds" in variables.get("constants", {}):
+        sd["token_embeds"] = _t(variables["constants"]["token_embeds"])
     return sd
 
 

@@ -567,10 +567,10 @@ def test_kernel_settings_at_f32_raise_on_card(cuda_device, vision):
     assert _concepthash(torch.bfloat16, cuda_device, **vision) is not None
 
 
-def _tiny_training(vision, optim=None):
+def _tiny_training(vision, optim=None, **over):
     """The canonical ConceptHash at a tiny size in bf16, with the optimizer
     a graphed run uses (capturable, float32 rates); ``optim`` replaces
-    adam."""
+    adam; ``over`` updates config groups (``model={...}``, ...)."""
     from concepthash_tpu_torch.methods import build_training
     from concepthash_tpu_torch.train.optim import make_capturable
 
@@ -591,6 +591,8 @@ def _tiny_training(vision, optim=None):
         "epochs": 10, "backbone_lr_scale": 0, "compute_dtype": "bfloat16",
         "seed": 0,
     }
+    for group, keys in over.items():
+        cfg[group] = {**cfg[group], **keys}
     centers = np.random.default_rng(1).standard_normal((10, 32)).astype(
         np.float32)
     tr = build_training(cfg, centers, 3, device="cuda", vision=vision)
@@ -611,10 +613,44 @@ def test_graphed_train_steps_equal_eager_steps(cuda_device, vision, optim):
     against six eager steps from the same state: losses, parameters, sgd's
     momentum buffers and the dropout generator bit for bit; the kernels
     counted per replay."""
+    _graph_vs_eager(cuda_device, vision, optim)
+
+
+_KERNELS = dict(attention_impl="pallas", fused_ln="pallas")
+_FILIP = {"filip": True, "token_embeds_array": np.random.default_rng(2)
+          .standard_normal((10, 5, 32)).astype(np.float32)}
+_FILIP_LOSS = {"loss_scales": {"bin_logits": 1, "cont_logits": 1,
+                               "concept_logits": 1, "filip_logits": 1}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["sa_dbn", "filip", "lars", "vpt_remat",
+                                    "qkvo"])
+def test_graphed_option_steps_equal_eager_steps(cuda_device, option):
+    """As above, with kernels 5 and 6, for the options: SelfAttentionAtLast
+    (concepthash_sa.yaml's, argmax-centred Gaussian mask on the 4 x 4 grid)
+    with the decorrelated BatchNorm, whose running statistics also equal;
+    FILIP's token logits in the loss; lars (momentum buffers equal);
+    vpt_pe with backbone.remat (each layer's forward recomputed, so the
+    kernels launch twice a layer a step); q/k/v/out adapters (no LN ->
+    matmul kernel)."""
+    over = {
+        "sa_dbn": dict(model={"self_attn_at_last": {"mask_sigma": 0.5},
+                              "add_bn": "dbn"}),
+        "filip": dict(model=_FILIP, criterion=_FILIP_LOSS),
+        "lars": dict(optim={"name": "lars", "lr": 0.1, "momentum": 0.9,
+                            "weight_decay": 1e-4}),
+        "vpt_remat": dict(model={"vpt_pe": True}, backbone={"remat": True}),
+        "qkvo": dict(model={"attention_adapter": True}),
+    }[option]
+    _graph_vs_eager(cuda_device, _KERNELS, over.pop("optim", None), **over)
+
+
+def _graph_vs_eager(cuda_device, vision, optim, **over):
     from concepthash_tpu_torch.train.state import make_multi_train_step
 
-    graph = _tiny_training(vision, optim)
-    eager = _tiny_training(vision, optim)
+    graph = _tiny_training(vision, optim, **over)
+    eager = _tiny_training(vision, optim, **over)
     eager.model.load_state_dict(graph.model.state_dict())
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     images = torch.randn(3, 2, 4, 32, 32, 3, generator=gen,
@@ -638,12 +674,48 @@ def test_graphed_train_steps_equal_eager_steps(cuda_device, vision, optim):
         if optim and p.requires_grad:
             assert torch.equal(graph.optimizer.state[p]["momentum_buffer"],
                                eager.optimizer.state[q]["momentum_buffer"]), n
+    for (n, b), c in zip(graph.model.named_buffers(), eager.model.buffers()):
+        assert torch.equal(b, c), n
     assert torch.equal(graph.generator.get_state(),
                        eager.generator.get_state())
     assert graph.scheduler.last_epoch == eager.scheduler.last_epoch == 6
     if vision:
-        assert multi.launches_per_replay == {"ln_matmul_cuda": 2 * 2 * 2,
-                                             "attention_cuda": 2 * 2}
+        # 2 steps x 2 layers, each layer's forward twice under remat
+        runs = 2 * 2 * (2 if over.get("backbone", {}).get("remat") else 1)
+        ln = 0 if over.get("model", {}).get("attention_adapter") else 2 * runs
+        want = {"attention_cuda": runs, **({"ln_matmul_cuda": ln} if ln
+                                           else {})}
+        assert multi.launches_per_replay == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_ln", ["auto", "pallas"])
+@pytest.mark.parametrize("model", [
+    {"vpt_pe": True}, {"attention_adapter": True},
+    {"self_attn_at_last": {"mask_sigma": 0.5}, "add_bn": "dbn"}, _FILIP],
+    ids=["vpt_pe", "qkvo", "sa_dbn", "filip"])
+def test_option_encodes_take_their_kernels(cuda_device, model, fused_ln):
+    """An eval encode with ``attention_impl="pallas"``: under
+    ``fused_ln="auto"`` kernel 1 once a layer with vpt_pe (its prompts added
+    between the layer launches), SA + DBN and FILIP; under 'pallas' the
+    discrete path with kernels 5 and 6 (LN1 -> q|k|v and LN2 -> fc1 a
+    layer). q/k/v/out adapters take neither kernel 1 nor kernel 6 (the
+    reference turns fusion off there), kernel 5 only. Finite codes."""
+    tr = _tiny_training(dict(attention_impl="pallas", fused_ln=fused_ln),
+                        model=model)
+    images = torch.randn(16, 32, 32, 3, generator=torch.Generator()
+                         .manual_seed(6))
+    counts = lambda: (tfl.encoder_layer_cuda.launches,  # noqa: E731
+                      tln.ln_matmul_cuda.launches, tat.attention_cuda.launches)
+    before = counts()
+    with torch.no_grad():
+        codes = tr.model.eval()(images.to(cuda_device))["codes"]
+    got = tuple(a - b for a, b in zip(counts(), before))
+    if model.get("attention_adapter"):
+        assert got == (0, 0, 2)
+    else:
+        assert got == ((2, 0, 0) if fused_ln == "auto" else (0, 4, 2))
+    assert codes.shape == (16, 16) and torch.isfinite(codes).all()
 
 
 @pytest.mark.cuda

@@ -11,7 +11,9 @@ backbone, 16 bits, batch 8, float32:
     the reference's keys and its ``lr`` values equal the reference's;
 (c) without ``--device`` and without CUDA it raises;
 (d) ``models/last.pt`` reloads to the same codes, bit for bit;
-(e) each option that is not ported raises ``NotImplementedError``;
+(e) each option that is not ported raises ``NotImplementedError``, and
+    each option this round ported (FILIP, DecorrelatedBN, vpt_pe,
+    ``backbone.remat``, lars) trains an epoch and evaluates;
 (f) the eval-only modes: ``exp=validation`` and ``exp=extract`` on the
     reference's run directory (its ``last.msgpack``) against the reference's
     own eval-only runs (codes in sign on >= 99.9% of bits, mAP within 1e-3),
@@ -188,15 +190,51 @@ def test_last_checkpoint_reloads_to_the_same_codes(port_run, workdir):
 
 @pytest.mark.parametrize("extra", [
     ["model=orthohash_adapter"], ["model=itq"], ["model=adsh"],
-    ["model=odc"], ["model=ssdh"], ["model=concepthash_filip"],
-    ["+backbone.remat=true"], ["optim.name=lars"], ["model.add_bn=dbn"],
-    ["model.vpt_pe=true"], ["+model.self_attn_at_last=true"],
+    ["model=odc"], ["model=ssdh"],
     ["native_decode=true"], ["+profile.enabled=true"], ["+debug.nans=true"],
 ])
 def test_unported_options_raise(workdir, extra):
     logdir = os.path.join(workdir, "unported")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main_gpu.main(["--device", "cpu", *_args(workdir, logdir), *extra])
+
+
+@pytest.mark.parametrize("extra", [
+    ["model=concepthash_filip"], ["+backbone.remat=true"],
+    ["optim.name=lars"], ["model.add_bn=dbn"], ["model.vpt_pe=true"],
+])
+def test_ported_options_run(workdir, extra):
+    """One epoch of main_gpu with the option: a finite train record, a test
+    record, and the option in the checkpoint (FILIP's pseudo-token
+    embeddings, offline, at the backbone's projection width, 8 a class;
+    the DBN's statistics; vpt_pe's prompts)."""
+    logdir = os.path.join(workdir, "ported_" + extra[0].split("=")[0]
+                          .replace(".", "_").lstrip("+") + extra[0][-4:])
+    best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
+                          "epochs=1", *extra])
+    assert best is not None and 0.0 <= best <= 1.0
+    train, test = _history(logdir, "train"), _history(logdir, "test")
+    assert len(train) == len(test) == 1 and np.isfinite(train[0]["loss"])
+    sd = torch.load(os.path.join(logdir, "models", "last.pt"))["model"]
+    with open(os.path.join(logdir, "log.txt")) as f:
+        log = f.read()
+    if extra == ["model=concepthash_filip"]:
+        assert tuple(sd["token_embeds"].shape) == (3, 8, 32)
+        assert "pseudo-tokens" in log and "filip" in train[0]
+    if extra == ["model.add_bn=dbn"]:
+        assert tuple(sd["hash_bn.whiten"].shape) == (4, 4, 4)
+        assert "hash_bn.running_var" not in sd
+    if extra == ["model.vpt_pe=true"]:
+        assert tuple(sd["backbone.vpt_pe.1"].shape) == (1, 4, 64)
+
+
+def test_self_attn_at_last_needs_a_mapping(workdir):
+    """A bare ``self_attn_at_last: true`` (the reference fails on it with an
+    AttributeError) raises a ValueError that asks for a mapping."""
+    logdir = os.path.join(workdir, "sa_bool")
+    with pytest.raises(ValueError, match="mapping"):
+        main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
+                       "+model.self_attn_at_last=true"])
 
 
 def test_help(capsys):

@@ -1,8 +1,9 @@
 """The port's optimizers, schedules and freeze policy (``train/optim.py``)
 against the JAX package's (optax): each schedule at and around its epoch
-boundaries, three updates of adam, adamw and sgd (with and without
-nesterov), with and without a backbone group at a scaled rate, and the
-freeze labels on the ConceptHash parameter tree."""
+boundaries, three updates of adam, adamw, sgd (with and without nesterov)
+and lars (with a zero-norm leaf, as a tensor rate too), with and without a
+backbone group at a scaled rate, and the freeze labels on the ConceptHash
+parameter tree."""
 
 import jax
 import jax.numpy as jnp
@@ -83,7 +84,28 @@ def test_three_updates_match_optax(opt, scale):
     step per epoch (the rate changes every step): every leaf equal to
     optax's within f32 rounding (rtol 1e-5, atol 1e-7). Scale 0 leaves the
     backbone bit-unchanged, with no gradient and no optimizer state."""
+    _check_three_updates(opt, scale, _tree(0))
+
+
+LARS = [{"name": "lars", "lr": 0.1, "momentum": 0.9, "weight_decay": 1e-2},
+        {"name": "lars", "lr": 0.5}]
+
+
+@pytest.mark.parametrize("capturable", [False, True])
+@pytest.mark.parametrize("scale", [1.0, 0.5, 0.0])
+@pytest.mark.parametrize("opt", LARS, ids=lambda o: str(o))
+def test_lars_matches_optax(opt, scale, capturable):
+    """lars as ``optax.lars`` (weight decay, the trust ratio, the rate, then
+    momentum on the scaled update), three updates as above, with a leaf
+    whose norm is 0 (its trust ratio is 1); ``capturable``: with the rates
+    as tensors (``make_capturable``, which a CUDA graph needs), set from
+    ``scheduled_lrs`` as a graphed chunk sets them."""
     tree = _tree(0)
+    tree["head"]["zero"] = np.zeros((2, 5), np.float32)
+    _check_three_updates(opt, scale, tree, capturable)
+
+
+def _check_three_updates(opt, scale, tree, capturable=False):
     sched = {"name": "csw", "warmup_epochs": 2}
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     tx = joptim.build_optimizer(opt, sched, 10, 1, params,
@@ -92,9 +114,12 @@ def test_three_updates_match_optax(opt, scale):
     mod = _module(tree)
     optimizer, scheduler = toptim.build_optimizer(opt, sched, 10, 1, mod,
                                                   backbone_lr_scale=scale)
+    if capturable:
+        toptim.make_capturable(optimizer)
     named = dict(mod.named_parameters())
     rng = np.random.default_rng(1)
     for _ in range(3):
+        toptim.follow_schedule(optimizer, scheduler)
         grads = jax.tree_util.tree_map(
             lambda p: rng.standard_normal(p.shape).astype(np.float32), tree)
         updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray, grads),
@@ -120,12 +145,6 @@ def test_three_updates_match_optax(opt, scale):
             np.testing.assert_array_equal(
                 named[name].detach().numpy(),
                 tree["backbone"]["fc"][name.split(".")[-1]])
-
-
-def test_lars_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        toptim.build_optimizer({"name": "lars"}, None, 1, 1,
-                               _module(_tree(0)))
 
 
 def test_freeze_labels_match_on_the_concepthash_tree():

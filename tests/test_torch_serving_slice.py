@@ -166,13 +166,84 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+def _option_pair(rng, token_embeds=None, **head):
+    """A JAX ConceptHash with ``head`` options (seeded centers) and its
+    variables (seeded adapter up-projections), and 6 seeded images."""
+    cfg = dict(HEAD, **head)
+    center = rng.standard_normal((HEAD["nclass"], HEAD["center_dim"])).astype(
+        np.float32)
+    jm = JConceptHash(JVisionConfig(**VISION), JConceptHashConfig(**cfg),
+                      adapters=JAdapterConfig(bottleneck_dim=BOTTLENECK),
+                      fixed_center=jnp.asarray(center),
+                      token_embeds=(None if token_embeds is None
+                                    else jnp.asarray(token_embeds)))
+    imgs = rng.standard_normal((6, 32, 32, 3)).astype(np.float32)
+    variables = jax.tree_util.tree_map(np.array, jm.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.asarray(imgs[:1]), train=False))
+    for i in range(VISION["num_layers"]):
+        for name in ("adapter_attn", "adapter_mlp"):
+            up = variables["params"]["backbone"][f"layers_{i}"][name]["up"]
+            up["kernel"] = (0.1 * rng.standard_normal(up["kernel"].shape)
+                            ).astype(np.float32)
+    return jm, variables, imgs, cfg
+
+
+def test_dbn_forward_matches_jax():
+    """add_bn='dbn': the eval forward with seeded running statistics (a
+    mean and a whitening matrix a group) and the train forward with the
+    batch's, and the running statistics it leaves, within 1e-5."""
+    rng = np.random.default_rng(7)
+    jm, variables, imgs, cfg = _option_pair(rng, add_bn="dbn", dropout=0.0)
+    stats = variables["batch_stats"]["hash_bn"]
+    stats["mean"] = (0.1 * rng.standard_normal(stats["mean"].shape)).astype(
+        np.float32)
+    stats["whiten"] = (stats["whiten"] + 0.05 * rng.standard_normal(
+        stats["whiten"].shape)).astype(np.float32)
+    pm = ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**cfg),
+                     AdapterConfig(bottleneck_dim=BOTTLENECK), device="cpu")
+    pm.load_state_dict(from_flax(variables), strict=True)
+    want = jm.apply(variables, jnp.asarray(imgs), train=False)
+    with torch.no_grad():
+        got = pm(torch.tensor(imgs))
+    np.testing.assert_allclose(got["codes"].numpy(), np.asarray(want["codes"]),
+                               rtol=1e-5, atol=1e-5)
+    want, new = jm.apply(variables, jnp.asarray(imgs), train=True,
+                         mutable=["batch_stats"])
+    got = pm(torch.tensor(imgs), train=True)
+    np.testing.assert_allclose(got["codes"].detach().numpy(),
+                               np.asarray(want["codes"]), rtol=1e-5,
+                               atol=1e-5)
+    for k in ("mean", "whiten"):
+        np.testing.assert_allclose(
+            getattr(pm.hash_bn, k).numpy(),
+            np.asarray(new["batch_stats"]["hash_bn"][k]), rtol=1e-5,
+            atol=1e-6, err_msg=k)
+
+
+def test_token_embeds_forward_matches_jax():
+    """FILIP's token embeddings: the i2t, t2i and mean logits (float32,
+    from the projected concept tokens) and every other output within
+    1e-5; the embeddings ride in the state dict as ``token_embeds``."""
+    rng = np.random.default_rng(8)
+    te = rng.standard_normal((HEAD["nclass"], 3, 32)).astype(np.float32)
+    jm, variables, imgs, cfg = _option_pair(rng, token_embeds=te)
+    pm = ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**cfg),
+                     AdapterConfig(bottleneck_dim=BOTTLENECK),
+                     token_embeds=torch.zeros(10, 3, 32), device="cpu")
+    pm.load_state_dict(from_flax(variables), strict=True)
+    assert torch.equal(pm.token_embeds, torch.tensor(te))
+    want = jm.apply(variables, jnp.asarray(imgs), train=False)
+    with torch.no_grad():
+        got = pm(torch.tensor(imgs))
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].dtype == torch.float32 or key == "hash_features"
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
+
+
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ConceptHash(ClipVisionConfig(**VISION),
-                    ConceptHashConfig(**HEAD, add_bn="dbn"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD),
-                    token_embeds=torch.zeros(10, 3, 32), device="cpu")
     pm = ConceptHash(ClipVisionConfig(**VISION, fused_ln="pallas_layer"),
                      ConceptHashConfig(**HEAD), device="cpu")
     with pytest.raises(NotImplementedError):    # the whole-layer backward
@@ -284,7 +355,7 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
                                   max_position_embeddings=16,
                                   vocab_size=600, projection_dim=32,
                                   eos_token_id=599),
-                     pretrained_images=6)
+                     pretrained_images=6, variant_images=6, filip_tokens=3)
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
     assert "\nplanted rows found at distance 0: 6/6" in out
@@ -322,23 +393,46 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     # phase 15: K=2 steps a chunk, a warm-up chunk and a replayed one
     assert "graph vs eager train (auto, K=2, B=4" in out
     assert "graph vs eager train (auto, sgd, K=2, B=4" in out
+    # phase 15's three, then phase 16's sa+dbn, filip and lars
     assert out.count("(replayed chunk); max rel |d| 0, parameters max |d| "
-                     "0: bit for bit True (required)") == 3
-    assert out.count("per-step lr equals current_lr: True") == 3
+                     "0: bit for bit True (required)") == 6
+    assert "graph vs eager train (pallas, lars, K=2" in out
+    assert out.count("per-step lr equals current_lr: True") == 6
     assert f"counted (0, 0, 0, {2 * 2 * 2 * n}, {2 * 2 * n}, 0)" in out
     assert "the dropout generator advanced every chunk: True" in out
     assert "codes equal bit for bit: True, losses: True" in out
     assert ("chunked flagship run (train_chunk 2): 12 train images, 3 steps "
             "of 4 an epoch (1 chunks of 2 and 1 single steps)") in out
-    assert "(|d| 0, tolerance 1e-06)" in out
-    assert "best test codes (3, 16) bit for bit: True" in out
-    assert ("(rel 0), last parameters max |d| 0: bit for bit True "
-            "(required); records 2") in out
+    assert out.count("(|d| 0, tolerance 1e-06)") == 3
+    assert out.count("best test codes (3, 16) bit for bit: True") == 3
+    assert out.count("(rel 0), last parameters max |d| 0: bit for bit True "
+                     "(required); records 2") == 3
     assert "at train_chunk 1 on the same 3 steps" in out
     assert ("vision tower equal to the written one bit for bit: True; 6 "
             "images encode to the source model's codes bit for bit: True; "
             "the codebook (3, 32) from the real text stage on cpu: True, "
             "max |d| against the CPU's 0") in out
+    # phase 16: each option's encode (kernel 1 once a layer, none with
+    # q/k/v/out adapters), train steps, remat, and the two models' runs
+    assert out.count(f"expected ({n}, 0, 0, 0, 0, 0)") == 6
+    assert "variant qkvo: 6 images" in out
+    assert "launches (0, 0, 0, 0, 0, 0), expected (0, 0, 0, 0, 0, 0)" in out
+    assert out.count(", all steps alike: True") == 4
+    assert (f"launches per step (0, 0, 0, {4 * n}, {2 * n}, 0), expected "
+            f"(0, 0, 0, {4 * n}, {2 * n}, 0)") in out      # remat
+    assert (f"launches per step (0, 0, 0, 0, {n}, 0), expected (0, 0, 0, 0, "
+            f"{n}, 0)") in out                              # qkvo
+    assert "parameters max |d| 0: bit for bit True (required)" in out
+    assert "remat step vs stored-activation step" in out
+    for model in ("concepthash_sa", "concepthash_filip"):
+        assert (f"{model} run (train_chunk 2): 3 steps of 4 an epoch") in out
+    # 2 layers x (1 test + 3 database batches) x 2 evaluations, each run
+    assert out.count("launches (16, 0, 0, 0, 0, 0), expected (16, 0, 0, 0, "
+                     "0, 0)") == 3
+    assert ("from the local checkpoint's text stage on cpu, max |d| against "
+            "the CPU's 0 (tolerance 0.0001); the model's buffer equal: "
+            "True") in out
+    assert "phase 16 (c) img/s" in out
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]

@@ -202,8 +202,12 @@ def test_backbone_factory_matches_jax(backbone):
             == dataclasses.asdict(jfactory.adapter_config_from_model_cfg(
                 model)))
     assert tfactory.adapter_config_from_model_cfg({}) is None
-    with pytest.raises(NotImplementedError):
-        tfactory.vision_config_from_backbone_cfg({"remat": True})
+    remat = {**backbone, "remat": True}
+    got = tfactory.vision_config_from_backbone_cfg(remat)
+    want = jfactory.vision_config_from_backbone_cfg(remat)
+    assert got.remat is True
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
 
 
 def test_methods_build_the_reference_configuration():
