@@ -116,9 +116,9 @@ check; it imports nothing of JAX or of the JAX package. Phases:
 15. several steps per dispatch (CUDA graphs) at ViT-B/32 full width and
    depth: (a) 2 x 8 train steps at B=32 (dropout 0) through
    ``make_multi_train_step`` (a warm-up chunk, then a replay) against 16
-   eager steps from the same state and optimizer, per-step losses and the
-   parameters bit for bit (the gap to the ``train_chunk=1`` optimizer
-   printed), the per-step ``lr`` equal to ``current_lr``; again with
+   eager steps from the same state (the optimizer a ``train_chunk=1`` run
+   builds), per-step losses and the parameters bit for bit, the per-step
+   ``lr`` equal to ``current_lr``; again with
    ``attention_impl="pallas"``, ``fused_ln="pallas"``, kernels 5 and 6
    counted per replay, and again with sgd (momentum, weight decay); with
    dropout 0.1, three chunks on the same batches:
@@ -131,8 +131,10 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    included; ``exp=validation use_last=true`` reproduces the run's last
    mAP within 1e-6, ``exp=extract`` writes the run's best test codes bit
    for bit, a run stopped after epoch 1 and resumed reaches the epoch-2
-   train loss and the last parameters bit for bit; train img/s beside a
-   ``train_chunk=1`` run on the same set, and with the device's busy share
+   train loss and the last parameters bit for bit; a ``train_chunk=1`` run
+   on the same set and seed reaches both epochs' losses and
+   ``models/last.pt`` bit for bit (one optimizer arithmetic for every
+   step), its train img/s printed beside, and with the device's busy share
    beside phase 14's; (d) random vision and text towers written as a local Hugging
    Face CLIP checkpoint (``config.json``, ``pytorch_model.bin``, a synthetic
    ``vocab.json`` and ``merges.txt``): the flagship built with
@@ -1582,21 +1584,19 @@ def stacked_batches(sizes: Sizes, vcfg, nclass: int, chunks: int, device,
 
 def graph_vs_eager_train(sizes: Sizes, device, vision,
                          optim: dict | None = None, over: dict | None = None,
-                         label: str = "", plain: bool = True) -> tuple:
+                         label: str = "") -> tuple:
     """Phase 15 (a): copies of one model and optimizer state (the canonical
     config at B=32, dropout 0); 2K steps through ``make_multi_train_step``
     (a warm-up chunk, then a graph replay) and 2K eager steps of
-    ``make_train_step`` on the same batches, held per step: the eager copy
-    with the graph's optimizer (capturable, float32 rates), which is what a
-    run's single steps use beside its chunks. A third copy keeps the
-    optimizer of ``train_chunk=1`` (float rates): printed, since one bf16
-    rounding apart the two drift apart over the steps. Returns the graph's
-    training and runner. ``optim`` replaces the config's adam; ``over``
-    updates config groups (phase 16's variants, named ``label``), which
-    leave the third copy out (``plain`` False); the state dicts compared
-    include the buffers (running statistics, FILIP's token embeddings)."""
+    ``make_train_step`` on the same batches, held per step bit for bit: the
+    eager copy is the optimizer a run at ``train_chunk=1`` builds (on the
+    card capturable, with the float32 rates a chunk reads: one arithmetic
+    for every step). Returns the graph's training and runner. ``optim``
+    replaces the config's adam; ``over`` updates config groups (phase 16's
+    variants, named ``label``); the state dicts compared include the
+    buffers (running statistics, FILIP's token embeddings)."""
     from concepthash_tpu_torch.methods import build_training
-    from concepthash_tpu_torch.train.optim import current_lr, make_capturable
+    from concepthash_tpu_torch.train.optim import current_lr
     from concepthash_tpu_torch.train.state import make_multi_train_step
 
     cfg = variant_config(sizes, **(over or {}))
@@ -1606,14 +1606,10 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
     nclass = cfg["model"]["nclass"]
     centers = torch.randn(nclass, sizes.head.get("center_dim", 512),
                           generator=torch.Generator().manual_seed(0))
-    copies = [build_training(cfg, centers, sizes.steps_per_epoch,
-                             device=device, vision=vision)
-              for _ in range(3 if plain else 2)]
-    graph, eager = copies[:2]
-    for tr in copies[1:]:
-        tr.model.load_state_dict(graph.model.state_dict())
-    if device.type == "cuda":
-        make_capturable(eager.optimizer)
+    graph, eager = [build_training(cfg, centers, sizes.steps_per_epoch,
+                                   device=device, vision=vision)
+                    for _ in range(2)]
+    eager.model.load_state_dict(graph.model.state_dict())
     vcfg = graph.model.vision_cfg
     batches, stacked = stacked_batches(sizes, vcfg, nclass, 2, device, 23)
     multi = make_multi_train_step(graph.model, graph.loss_fn, graph.optimizer,
@@ -1627,17 +1623,13 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
     torch.cuda.synchronize()
     launches = counts()
     e_loss = [float(eager.step(b)["loss"]) for b in batches]
-    p_loss = ([float(copies[2].step(b)["loss"]) for b in batches] if plain
-              else e_loss)
     want_lr = [current_lr(cfg["optim"], cfg["scheduler"], cfg["epochs"],
                           sizes.steps_per_epoch, s)
                for s in range(len(batches))]
-    # the card's runner reads float32 learning rates; the CPU's loop the
-    # schedule's doubles
-    lr_ok = (lrs == want_lr if device.type == "cuda" else
-             all(abs(a - b) <= 2 ** -23 * b for a, b in zip(lrs, want_lr)))
+    # every step, chunked or single, on the card or the CPU, reads the
+    # float32 rate of the schedule
+    lr_ok = lrs == want_lr
     rel = max(abs(g - e) / abs(e) for g, e in zip(g_loss, e_loss))
-    rel_plain = max(abs(g - e) / abs(e) for g, e in zip(g_loss, p_loss))
     gp, ep = graph.model.state_dict(), eager.model.state_dict()
     d_param = max((gp[k].float() - ep[k].float()).abs().max().item()
                   for k in gp)
@@ -1653,9 +1645,7 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
           + ", ".join(f"{x:.5f}" for x in e_loss[K:])
           + f" (replayed chunk); max rel |d| {rel:.3g}, parameters max |d| "
           f"{d_param:.3g}: bit for bit {same} (required); "
-          + (f"against the train_chunk=1 optimizer max rel |d| "
-             f"{rel_plain:.3g}; " if plain else "")
-          + f"per-step lr equals current_lr: {lr_ok} "
+          f"per-step lr equals current_lr: {lr_ok} "
           f"({lrs[0]:.6g} .. {lrs[-1]:.6g}); replays "
           f"{getattr(multi, 'replays', 0)}, launches per replay "
           f"{getattr(multi, 'launches_per_replay', None)}, counted "
@@ -1673,7 +1663,7 @@ def graph_vs_eager_train(sizes: Sizes, device, vision,
         if device.type == "cuda" and multi.launches_per_replay != {
                 "ln_matmul_cuda": K * 2 * n_lay, "attention_cuda": K * n_lay}:
             fail(f"launches per replay {multi.launches_per_replay}")
-    del eager, copies
+    del eager
     return graph, multi
 
 
@@ -1690,13 +1680,9 @@ def graph_dropout(sizes: Sizes, device) -> None:
     nclass = cfg["model"]["nclass"]
     centers = torch.randn(nclass, sizes.head.get("center_dim", 512),
                           generator=torch.Generator().manual_seed(0))
-    from concepthash_tpu_torch.train.optim import make_capturable
-
     tr = build_training(cfg, centers, sizes.steps_per_epoch, device=device)
     twin = build_training(cfg, centers, sizes.steps_per_epoch, device=device)
     twin.model.load_state_dict(tr.model.state_dict())
-    if device.type == "cuda":
-        make_capturable(twin.optimizer)
     batches, stacked = stacked_batches(sizes, tr.model.vision_cfg, nclass, 1,
                                        device, 29)
     multi = make_multi_train_step(tr.model, tr.loss_fn, tr.optimizer,
@@ -2115,11 +2101,27 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
         eval_only_and_resume("flagship", tmp, run, train, test, argv,
                              eval_argv)
 
-        # ---- one step a dispatch on the same set, for the timing ----
+        # ---- one step a dispatch on the same set: the same run (F2) ----
         one = main_gpu.build_experiment(argv(os.path.join(tmp, "one"),
                                              "train_chunk=1"))
-        one.train_one_epoch(0)
-        one_s = one.train_one_epoch(1)["time"]
+        one_train = [one.train_one_epoch(0), one.train_one_epoch(1)]
+        one_s = one_train[1]["time"]
+        last = torch.load(os.path.join(run, "models", "last.pt"))["model"]
+        one_sd = one.model.state_dict()
+        d_one = max((last[k].float() - one_sd[k].float()).abs().max().item()
+                    for k in last)
+        same_one = (all(a["loss"] == b["loss"]
+                        for a, b in zip(one_train, train))
+                    and d_one == 0.0 and set(last) == set(one_sd))
+        print("train_chunk=1 against the chunked run on the same seed: "
+              "epoch losses " + ", ".join(f"{r['loss']:.6f}"
+                                          for r in one_train)
+              + " against " + ", ".join(f"{r['loss']:.6f}" for r in train)
+              + f", models/last.pt max |d| {d_one:.3g}: bit for bit "
+              f"{same_one} (required)")
+        if not same_one:
+            fail("train_chunk=1 and train_chunk=auto differ on the same "
+                 "seed (F2): one optimizer arithmetic is required")
         for loader in one.loaders.values():
             loader.close()
         del one
@@ -2370,11 +2372,10 @@ def variant_steps(sizes: Sizes, device) -> None:
 
     # ---- graphed chunks against eager steps ----
     graph_vs_eager_train(sizes, device, TRAIN_VISION,
-                         over=variants["sa+dbn"], label="sa+dbn", plain=False)
+                         over=variants["sa+dbn"], label="sa+dbn")
     graph_vs_eager_train(sizes, device, TRAIN_VISION,
-                         over=variants["filip"], label="filip", plain=False)
-    graph_vs_eager_train(sizes, device, TRAIN_VISION, LARS_OPTIM,
-                         plain=False)
+                         over=variants["filip"], label="filip")
+    graph_vs_eager_train(sizes, device, TRAIN_VISION, LARS_OPTIM)
     torch.cuda.empty_cache()
 
 

@@ -27,7 +27,8 @@ from concepthash_tpu_torch.models.backbone_factory import (
 from concepthash_tpu_torch.models.concepthash import (ConceptHash,
                                                       ConceptHashConfig,
                                                       SelfAttnLastConfig)
-from concepthash_tpu_torch.train.optim import build_optimizer
+from concepthash_tpu_torch.train.optim import (build_optimizer,
+                                               make_capturable)
 from concepthash_tpu_torch.train.state import make_train_step
 
 
@@ -226,13 +227,18 @@ def training_for(config: dict, model: ConceptHash, loss_fn: Callable,
                  steps_per_epoch: int) -> Training:
     """The train step over a built ``model``: optimizer and schedule with
     the backbone policy, and a dropout generator on the model's device
-    seeded from ``config['seed']`` + 1."""
+    seeded from ``config['seed']`` + 1. On the card the optimizer is made
+    capturable whatever ``train_chunk`` is, so that single steps and graphed
+    chunks share one arithmetic (float32 device rates; adam's bias
+    correction on the device)."""
     method = get_method(config["model"]["name"])
     dev = next(model.parameters()).device
     optimizer, scheduler = build_optimizer(
         config.get("optim", {}) or {}, config.get("scheduler", {}) or {},
         int(config.get("epochs", 100)), steps_per_epoch, model,
         backbone_lr_scale=float(config.get("backbone_lr_scale", 1.0)))
+    if dev.type == "cuda":
+        make_capturable(optimizer)
     generator = torch.Generator(device=dev).manual_seed(
         int(config.get("seed", 42)) + 1)
     step = make_train_step(model, loss_fn, optimizer, scheduler,

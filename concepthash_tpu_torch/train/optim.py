@@ -2,11 +2,15 @@
 (counterpart of concepthash_tpu/train/optim.py).
 
 The schedules are epoch-granular: the LR changes once per epoch. They are a
-multiplier of the base LR in the arithmetic of the epoch they are given:
-double for training, float32 for the logged ``current_lr``, as the
-reference's optax schedule computes it. Training applies them through
-``torch.optim.lr_scheduler.LambdaLR`` stepped once per optimizer step, so
-update k uses ``mult(k // steps_per_epoch)`` as the reference does.
+multiplier of the base LR in the arithmetic of the epoch they are given.
+Every optimizer step, on every device and at every ``train_chunk``, takes
+the float32 rate of the reference's optax schedule (``scheduled_lrs``:
+``float32(mult) * float32(base)`` per group, the logged ``current_lr`` for
+group 0): ``EpochLambdaLR``, stepped once per optimizer step, writes it, so
+update k uses ``mult(k // steps_per_epoch)`` as the reference does. On the
+card the optimizer is capturable (``make_capturable``) at every
+``train_chunk``, its rates float32 device tensors that a single step sets
+from ``follow_schedule`` and a graphed chunk from ``scheduled_lrs``.
 
 The optimizers follow the reference's update rules: adam couples weight decay
 into the gradient (``torch.optim.Adam``'s ``weight_decay`` is
@@ -224,13 +228,19 @@ class Lars(torch.optim.Optimizer):
 
 class EpochLambdaLR(torch.optim.lr_scheduler.LambdaLR):
     """``LambdaLR`` at ``mult(step // steps_per_epoch)`` that keeps the
-    epoch law for ``scheduled_lrs`` (and out of its state dict)."""
+    epoch law for ``scheduled_lrs`` (and out of its state dict) and writes
+    each group the float32 rate ``scheduled_lrs`` gives, as a Python float
+    (exact: a float32 value is a double), not ``LambdaLR``'s double
+    product."""
 
     def __init__(self, optimizer, mult: Callable, steps_per_epoch: int):
         self.epoch_multiplier = mult
         self.steps_per_epoch = steps_per_epoch
         super().__init__(optimizer,
                          lambda step: mult(step // steps_per_epoch))
+
+    def get_lr(self) -> list:
+        return [float(r) for r in scheduled_lrs(self, self.last_epoch, 1)[0]]
 
     def state_dict(self) -> dict:
         sd = super().state_dict()
@@ -320,7 +330,7 @@ def follow_schedule(optimizer: torch.optim.Optimizer, scheduler) -> None:
     tensors to ``scheduled_lrs`` at the schedule's step, the float32 rates a
     graphed chunk uses, so that single steps and graphed ones of one run
     share their arithmetic. An optimizer with float rates is left to
-    ``LambdaLR``."""
+    ``EpochLambdaLR``, which writes the same float32 values."""
     if scheduler is None or not hasattr(scheduler, "epoch_multiplier"):
         return
     groups = optimizer.param_groups

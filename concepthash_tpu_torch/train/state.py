@@ -115,9 +115,11 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     from ``generator``), the loss, the backward, the optimizer step and the
     schedule step, and returns the loss, its parts and the accuracies as
     detached 0-d tensors (reading them waits for the device). batch holds
-    image (B, H, W, C) normalized and label (B, C) one-hot f32. A
-    capturable optimizer (``optim.make_capturable``) takes the float32
-    rates a graphed chunk takes (``optim.follow_schedule``)."""
+    image (B, H, W, C) normalized and label (B, C) one-hot f32. Every step
+    takes the float32 rate of the schedule: a capturable optimizer
+    (``optim.make_capturable``, what the card builds) through
+    ``optim.follow_schedule``, one with float rates (the CPU) through
+    ``optim.EpochLambdaLR``."""
 
     def step(batch: dict) -> dict:
         out = model(batch["image"], train=True,
@@ -188,7 +190,7 @@ def make_multi_train_step(model: nn.Module, loss_fn: Callable,
         for k in range(next(iter(batches.values())).shape[0]):
             lrs.append(float(optimizer.param_groups[0]["lr"]))
             per_step.append(step({n: v[k] for n, v in batches.items()}))
-        multi_step.last_lrs = torch.tensor(lrs, dtype=torch.float64)
+        multi_step.last_lrs = torch.tensor(lrs, dtype=torch.float32)
         return _stacked(per_step)
 
     multi_step.last_lrs = None

@@ -823,3 +823,32 @@ def test_graphed_run_resumes_bit_for_bit(cuda_device, tmp_path):
     sw, sr = whole.model.state_dict(), resumed.model.state_dict()
     for k in sw:
         assert torch.equal(sw[k], sr[k]), k
+
+
+@pytest.mark.cuda
+def test_train_chunk_1_equals_chunked_run_bit_for_bit(cuda_device, tmp_path):
+    """One optimizer arithmetic for every step: the same seed at
+    ``train_chunk=1`` and at ``train_chunk=8`` (9 steps an epoch: a chunk of
+    8, the warm-up in epoch 1 and a replay in epoch 2, then a single tail
+    step) gives the same train records and final parameters bit for bit.
+    Both runs take the capturable optimizer with float32 rates."""
+    import json
+
+    main_gpu = _main_gpu()
+    runs = {}
+    for chunk in ("1", "8"):
+        exp = main_gpu.build_experiment(_card_run(
+            tmp_path, f"chunk{chunk}", f"train_chunk={chunk}"))
+        assert exp.training.optimizer.param_groups[0]["capturable"]
+        exp.main()
+        with open(tmp_path / f"chunk{chunk}" / "train_history.json") as f:
+            train = [{k: v for k, v in r.items() if k != "time"}
+                     for r in json.load(f)]
+        runs[chunk] = (exp, train)
+    assert runs["1"][0].train_multi_step is None
+    assert runs["8"][0].train_multi_step.replays == 1
+    assert runs["1"][1] == runs["8"][1]
+    s1, s8 = (runs[c][0].model.state_dict() for c in ("1", "8"))
+    for k in s1:
+        assert torch.equal(s1[k], s8[k]), k
+

@@ -30,7 +30,8 @@ from concepthash_tpu_torch.experiments.hashing import resolve_train_chunk
 from concepthash_tpu_torch.train import optim as toptim
 from concepthash_tpu_torch.train.state import (make_eval_step,
                                                make_multi_eval_step,
-                                               make_multi_train_step)
+                                               make_multi_train_step,
+                                               make_train_step)
 from concepthash_tpu_torch.utils.meters import MeterBank
 from concepthash_tpu_torch.weights import from_flax
 
@@ -111,8 +112,11 @@ def test_multi_step_equals_single_steps_exactly():
         assert torch.equal(sa[k], sb[k]), k
     assert a.scheduler.last_epoch == b.scheduler.last_epoch == K
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
-    want_lr = [0.001 * (e // STEPS_PER_EPOCH + 1) / 10 for e in range(K)]
-    np.testing.assert_allclose(multi.last_lrs.numpy(), want_lr, rtol=1e-12)
+    # every step's rate is the float32 of the reference's schedule
+    want_lr = [toptim.current_lr(cfg["optim"], cfg["scheduler"],
+                                 cfg["epochs"], STEPS_PER_EPOCH, e)
+               for e in range(K)]
+    assert multi.last_lrs.tolist() == want_lr
 
 
 @pytest.fixture(scope="module")
@@ -218,6 +222,62 @@ def test_scheduled_lrs_are_current_lr():
         assert "epoch_multiplier" not in sd
         sch.load_state_dict(sd)
         assert np.array_equal(toptim.scheduled_lrs(sch, 7, 30), rates)
+
+
+class _Tiny(torch.nn.Module):
+    """A frozen-able 'backbone' and a head: two parameter groups at
+    backbone_lr_scale 0.1, with the train step's model interface."""
+
+    def __init__(self):
+        super().__init__()
+        torch.manual_seed(0)
+        self.backbone = torch.nn.Linear(3, 4)
+        self.head = torch.nn.Linear(4, 2)
+
+    def forward(self, x, train=False, output_attentions=False,
+                generator=None):
+        return {"logits": self.head(torch.tanh(self.backbone(x)))}
+
+
+def test_every_step_takes_the_float32_schedule():
+    """Over a csw schedule crossing epoch boundaries (warm-up, then the
+    cosine), the rate each single step's optimizer reads, per group, is
+    ``scheduled_lrs``'s float32 exactly, and a chunk's ``last_lrs`` is its
+    column 0: one arithmetic on every device and at every train_chunk."""
+    sched, epochs, spe, steps = {"name": "csw", "warmup_epochs": 2}, 5, 2, 9
+    rng = np.random.default_rng(0)
+    batches = [{"image": torch.tensor(rng.standard_normal((4, 3)),
+                                      dtype=torch.float32),
+                "label": torch.eye(2)[rng.integers(0, 2, 4)]}
+               for _ in range(steps)]
+
+    def loss_fn(out, batch):
+        total = ((out["logits"] - batch["label"]) ** 2).mean()
+        return total, {}
+
+    seen, rates = [], None
+    for chunked in (False, True):
+        model = _Tiny()
+        opt, sch = toptim.build_optimizer({"lr": 1e-3}, sched, epochs, spe,
+                                          model, backbone_lr_scale=0.1)
+        if rates is None:
+            rates = toptim.scheduled_lrs(sch, 0, steps)
+        opt.register_step_pre_hook(lambda o, args, kwargs: seen.append(
+            [g["lr"] for g in o.param_groups]))
+        if chunked:
+            multi = make_multi_train_step(model, loss_fn, opt, sch)
+            stacked = {k: torch.stack([b[k] for b in batches])
+                       for k in batches[0]}
+            multi(stacked)
+            assert multi.last_lrs.tolist() == [float(r) for r in rates[:, 0]]
+        else:
+            step = make_train_step(model, loss_fn, opt, sch)
+            for b in batches:
+                step(b)
+    assert len({round(float(r), 12) for r in rates[:, 0]}) > 2
+    want = [[float(r) for r in row] for row in rates]
+    assert seen == want + want
+    assert all(type(lr) is float for row in seen for lr in row)
 
 
 def test_make_capturable_keeps_the_rates():
