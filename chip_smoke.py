@@ -162,7 +162,31 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    2 epochs, counted (kernel 1 at 12 launches an eval batch), each with
    ``exp=validation``, ``exp=extract`` and a resume checked as phase 15
    (c) checks them, their epoch-2 train and eval img/s printed beside the
-   chunked flagship's.
+   chunked flagship's;
+17. the supervised baselines on the CLIP-adapter trunk (the config dicts
+   of their configs/model/*.yaml at ViT-B/32, adapters 384, 64 bits, 200
+   classes, bf16, seeded weights; descriptor as ce_adapter's with no
+   objective): (a) one seeded trunk shared by the 11 heads (orthohash,
+   orthohash_bcs, csq, dpn, hashnet, dpsh, dtsh, greedyhash, ce,
+   descriptor, clip) encodes 64 seeded images on the card, counted
+   (kernel 1 at 12 launches an encode, no other kernel), against the same
+   weights at float32 on the CPU, whose trunk runs once: codes agree in
+   sign on >= 99% of bits, descriptor's and clip's features at mean row
+   cosine >= 0.99, orthohash's, ce's and clip's logits within
+   ``LOGIT_RTOL`` of the largest; (b) five eager train steps of each at
+   B=32 at the kernel settings, counted (kernels 5 and 6 at 12 and 24 a
+   step), the loss finite and falling (descriptor: zero, its adapters
+   unchanged at weight decay 0), the frozen backbone bit-unchanged,
+   hashnet's ``keep_train_size`` bank equal to its batch's detached
+   tanh(beta * codes), and for every method but hashnet a graphed chunk
+   (a warm-up and a replay of 8) against eager steps bit for bit; (c)
+   after phase 16 (c), on phase 15's synthetic set: ``main_gpu.py
+   model=orthohash_adapter``, ``model=hashnet_adapter`` (one step a
+   dispatch) and ``model=clip_finetune`` (vision tower and class-text
+   centers from phase 15 (d)'s local checkpoint) at ``train_chunk=auto``,
+   2 epochs, counted, each with ``exp=validation`` within 1e-6 of its last
+   mAP, their epoch-2 train and eval img/s printed beside the chunked
+   flagship's.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2108,8 +2132,8 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
         one_s = one_train[1]["time"]
         last = torch.load(os.path.join(run, "models", "last.pt"))["model"]
         one_sd = one.model.state_dict()
-        d_one = max((last[k].float() - one_sd[k].float()).abs().max().item()
-                    for k in last)
+        d_one = max((last[k].float().cpu() - one_sd[k].float().cpu())
+                    .abs().max().item() for k in last)
         same_one = (all(a["loss"] == b["loss"]
                         for a, b in zip(one_train, train))
                     and d_one == 0.0 and set(last) == set(one_sd))
@@ -2154,6 +2178,8 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
         print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
         run_variant_runs(sizes, device, tmp, argv, eval_argv, hf_dir,
                          chunked)
+        run_baseline_runs(sizes, device, tmp, argv, eval_argv, hf_dir,
+                          chunked)
 
 
 # ---------------------------------------------------------------------------
@@ -2482,6 +2508,449 @@ def run_variants(sizes: Sizes, device) -> None:
     print(f"phase 16 (a), (b): {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the supervised baselines on the CLIP-adapter trunk
+# ---------------------------------------------------------------------------
+
+# each method's configs/model/*.yaml (descriptor has none: ce_adapter's
+# groups with no objective)
+BASELINE_YAML = {
+    "orthohash": "orthohash_adapter", "orthohash_bcs": "orthohash_bcs_adapter",
+    "csq": "csq_adapter", "dpn": "dpn_adapter", "hashnet": "hashnet_adapter",
+    "dpsh": "dpsh_adapter", "dtsh": "dtsh_adapter",
+    "greedyhash": "sgh_adapter", "ce": "ce_adapter",
+    "descriptor": "ce_adapter", "clip": "clip_finetune",
+}
+# bf16 card logits against the CPU's f32: max |d| <= LOGIT_RTOL * max |ref|
+LOGIT_RTOL = 0.05
+# descriptor's and clip's features: mean row cosine against the CPU's
+MIN_FEATURE_COSINE = 0.99
+
+
+def baseline_config(sizes: Sizes, name: str) -> dict:
+    """The config dicts of the method's configs/model/*.yaml (with
+    dataset=cub200) at ``sizes``' model: its backbone, nbit and nclass, in
+    bf16."""
+    import os
+
+    from concepthash_tpu_torch.config.loader import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs"), "train",
+                      ["dataset=cub200", f"model={BASELINE_YAML[name]}",
+                       "compute_dtype=bfloat16"])
+    cfg["model"].update(name=name, nclass=sizes.head["nclass"],
+                        nbit=sizes.head["nbit"])
+    if name == "descriptor":
+        cfg["criterion"] = {}
+    cfg["backbone"] = ({"name": "cut", **sizes.vision} if sizes.vision
+                       else {"name": "openai/clip-vit-base-patch32"})
+    cfg["seed"] = 0
+    return cfg
+
+
+def baseline_codebook(sizes: Sizes, name: str, cfg: dict):
+    """The method's codebook from its config (orthohash's N, csq's H,
+    dpn's B, signed), clip's seeded (nclass, proj) class-text centers, or
+    None."""
+    from concepthash_tpu_torch.methods import get_method, prepare_codebook
+
+    if name == "clip":
+        proj = sizes.vision.get("projection_dim", 512)
+        return torch.randn(sizes.head["nclass"], proj, generator=torch
+                           .Generator().manual_seed(0)).numpy()
+    return prepare_codebook(get_method(name), cfg)
+
+
+def with_trunk(model, trunk):
+    """``model`` (built with a 0-layer tower) on the shared ``trunk``."""
+    model.backbone = trunk
+    model.vision_cfg = trunk.tower.cfg
+    return model
+
+
+def baseline_on(sizes: Sizes, name: str, trunk, device, vision=None):
+    """(config, codebook, model, loss) of ``name``: the head built from the
+    config's seed, on ``trunk``."""
+    from concepthash_tpu_torch.methods import build_model
+
+    cfg = baseline_config(sizes, name)
+    cb = baseline_codebook(sizes, name, cfg)
+    model, loss_fn = build_model(cfg, cb, device=device,
+                                 vision=dict(num_layers=0, **(vision or {})))
+    return cfg, cb, with_trunk(model, trunk), loss_fn
+
+
+def seeded_trunk(sizes: Sizes, device, vision=None, like=None):
+    """The baselines' shared trunk: ViT-B/32 with adapters at
+    ``sizes.bottleneck``, bf16, seeded weights (the adapters'
+    up-projections too); ``like`` copies another trunk's weights."""
+    from concepthash_tpu_torch.models.backbone_factory import \
+        vision_config_from_backbone_cfg
+    from concepthash_tpu_torch.models.clip import AdapterConfig
+    from concepthash_tpu_torch.models.trunk import Trunk
+
+    vcfg = vision_config_from_backbone_cfg(
+        baseline_config(sizes, "orthohash")["backbone"])
+    if vision:
+        vcfg = dataclasses.replace(vcfg, **vision)
+    gen = torch.Generator().manual_seed(5)
+    # bf16 on the card, as the configs run; the CPU's reference in f32
+    trunk = Trunk("clip", vcfg, AdapterConfig(bottleneck_dim=sizes.bottleneck),
+                  torch.bfloat16 if device.type == "cuda" else torch.float32,
+                  gen)
+    seed_adapters(trunk, gen)
+    if like is not None:
+        trunk.load_state_dict(like.state_dict())
+    return trunk.to(device)
+
+
+def baseline_forwards(sizes: Sizes, device) -> None:
+    """Phase 17 (a): every method's head on the one shared trunk encodes
+    ``sizes.variant_images`` seeded images in bf16 on the card, counted
+    (kernel 1 once a layer, no other kernel), against the same weights at
+    float32 on the CPU, whose trunk runs once: codes agree in sign on
+    >= 99% of bits (descriptor's and clip's features: mean row cosine >=
+    0.99), and orthohash's, ce's and clip's logits within LOGIT_RTOL."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.methods import build_model
+    from concepthash_tpu_torch.ops.numerics import l2_normalize
+
+    t_a = time.perf_counter()
+    trunk = seeded_trunk(sizes, device)
+    vcfg = trunk.tower.cfg
+    gen = torch.Generator(device=device).manual_seed(53)
+    raw = torch.randint(0, 256, (sizes.variant_images, sizes.image_side,
+                                 sizes.image_side, 3), generator=gen,
+                        device=device, dtype=torch.uint8)
+    images = normalize(center_crop(raw, vcfg.image_size), 3)
+    cpu_trunk = seeded_trunk(sizes, torch.device("cpu"), like=trunk)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        enc_cpu = cpu_trunk(images.float().cpu())
+    cpu_s = time.perf_counter() - t0
+    del cpu_trunk
+    n_lay = vcfg.num_layers
+    rows = []
+    for name in BASELINE_YAML:
+        cfg, cb, model, _ = baseline_on(sizes, name, trunk, device)
+        model.eval()
+        torch.cuda.synchronize()
+        count_reset()
+        with torch.inference_mode():
+            out = model(images)
+        torch.cuda.synchronize()
+        launches = counts()
+        cpu, _ = build_model(dict(cfg, compute_dtype="float32"), cb,
+                             device=torch.device("cpu"),
+                             vision=dict(num_layers=0))
+        head = {k: v for k, v in model.state_dict().items()
+                if not k.startswith("backbone.")}
+        cpu.load_state_dict(head, strict=False)
+        with torch.inference_mode():
+            want = cpu.eval().head(enc_cpu)
+        codes, ref = out["codes"].float().cpu(), want["codes"]
+        if name in ("descriptor", "clip"):
+            agree = (l2_normalize(codes) * l2_normalize(ref)).sum(-1) \
+                .mean().item()
+            limit, what = MIN_FEATURE_COSINE, "feature cosine"
+        else:
+            agree = ((codes > 0) == (ref > 0)).float().mean().item()
+            limit, what = MIN_SIGN_AGREEMENT, "sign agreement"
+        logit_err = {k: ((out[k].float().cpu() - want[k]).abs().max()
+                         / want[k].abs().max()).item()
+                     for k in ("logits", "logits2") if k in want
+                     and name in ("orthohash", "orthohash_bcs", "ce",
+                                  "clip")}
+        expect = (n_lay, 0, 0, 0, 0, 0)
+        finite = all(torch.isfinite(v).all() for v in out.values())
+        rows.append(f"{name} {what} {agree:.6f}" + "".join(
+            f", {k} rel |d| {v:.3g}" for k, v in logit_err.items()))
+        print(f"baseline {name} encode ({sizes.variant_images} images, "
+              f"bf16 on the card against f32 on the CPU): codes "
+              f"{tuple(codes.shape)}, {what} {agree:.6f} (limit {limit}); "
+              + "".join(f"{k} max |d| / max |ref| {v:.4g} (limit "
+                        f"{LOGIT_RTOL}); " for k, v in logit_err.items())
+              + f"launches {launches} against {expect}")
+        if not finite or codes.shape[0] != sizes.variant_images:
+            fail(f"baseline {name}: outputs not finite")
+        if agree < limit:
+            fail(f"baseline {name}: {what} {agree:.4f} < {limit}")
+        if any(v > LOGIT_RTOL for v in logit_err.values()):
+            fail(f"baseline {name}: logits {logit_err} beyond {LOGIT_RTOL}")
+        if launches != expect:
+            fail(f"baseline {name}: launches {launches} != {expect}")
+        del model, cpu, out, want
+    print(f"phase 17 (a): {time.perf_counter() - t_a:.1f} s (the CPU's f32 "
+          f"trunk once: {cpu_s:.1f} s)")
+    del trunk
+    torch.cuda.empty_cache()
+
+
+def baseline_steps(sizes: Sizes, device) -> None:
+    """Phase 17 (b): five eager train steps of every method at B=32 at the
+    kernel settings on one seeded batch, counted per step (kernels 5 and 6
+    once and twice a layer); the loss finite and falling; the frozen
+    backbone bit-unchanged; descriptor's loss zero and, at weight decay 0,
+    its adapters unchanged (the config's adam would move them by its
+    weight decay alone, as in the reference); hashnet with
+    ``keep_train_size``: each step's bank rows equal to its batch's
+    detached tanh(beta * codes) and labels after every step (the batch at
+    dataset rows 0..B-1 of 2B, the other rows untouched). Then, for every
+    method but
+    hashnet (one step a dispatch), a graphed chunk against eager steps:
+    a warm-up chunk and a replay, losses, parameters and BatchNorm
+    statistics bit for bit."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.methods import training_for
+    from concepthash_tpu_torch.train.custom_steps import hashnet_beta
+
+    t_b = time.perf_counter()
+    trunk = seeded_trunk(sizes, device, TRAIN_VISION)
+    vcfg = trunk.tower.cfg
+    n_lay = vcfg.num_layers
+    nclass = sizes.head["nclass"]
+    B, steps = sizes.train_batch, sizes.train_steps
+    dgen = torch.Generator(device=device).manual_seed(59)
+    raw = torch.randint(0, 256, (B, sizes.image_side, sizes.image_side, 3),
+                        generator=dgen, device=device, dtype=torch.uint8)
+    y = torch.randint(0, nclass, (B,), generator=dgen, device=device)
+    batch = {"image": normalize(center_crop(raw, vcfg.image_size), 3),
+             "label": F.one_hot(y, nclass).float()}
+    frozen = {k: v.clone() for k, v in trunk.state_dict().items()}
+    expect = (0, 0, 0, 2 * n_lay, n_lay, 0)
+    for name in BASELINE_YAML:
+        t_m = time.perf_counter()
+        cfg, cb, model, loss_fn = baseline_on(
+            sizes, name, copy.deepcopy(trunk), device, TRAIN_VISION)
+        if name == "hashnet":
+            # the batch's images are dataset rows 0..B-1 of a set of 2B
+            cfg["criterion"]["keep_train_size"] = 1
+            cfg["_train_size_"] = 2 * B
+            beta = hashnet_beta(0, sizes.steps_per_epoch,
+                                int(cfg["criterion"]["step_continuation"]))
+        if name == "descriptor":
+            cfg["optim"]["weight_decay"] = 0.0
+        tr = training_for(cfg, model, loss_fn, sizes.steps_per_epoch)
+        codes_seen = []
+        hook = model.register_forward_hook(
+            lambda m, i, o: codes_seen.append(o["codes"].detach()))
+        torch.cuda.synchronize()
+        count_reset()
+        losses, per_step, bank_ok = [], [], True
+        for i in range(steps):
+            if i == 1:
+                t0 = time.perf_counter()
+            before = counts()
+            b = dict(batch)
+            if name == "hashnet":
+                b["index"] = torch.arange(B, device=device)
+            losses.append(float(tr.step(b)["loss"]))
+            per_step.append(tuple(a - c for a, c in zip(counts(), before)))
+            if name == "hashnet":
+                bank_ok &= (torch.equal(tr.extra["U"][:B],
+                                        torch.tanh(beta * codes_seen[-1]))
+                            and torch.equal(tr.extra["Y"][:B],
+                                            batch["label"])
+                            and not tr.extra["U"][B:].any())
+        step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+        hook.remove()
+        sd = model.backbone.state_dict()
+        moved_frozen = [k for k, v in frozen.items()
+                        if "adapter" not in k and not torch.equal(sd[k], v)]
+        adapters_same = all(torch.equal(sd[k], v) for k, v in frozen.items()
+                            if "adapter" in k)
+        extra = ""
+        if name == "hashnet":
+            extra = (f"; the bank's rows equal each batch's detached "
+                     f"tanh(beta * codes) and labels: {bank_ok} (beta "
+                     f"{beta})")
+        print(f"baseline {name} train steps (B={B}, kernels 5 and 6): loss "
+              + ", ".join(f"{x:.5f}" for x in losses)
+              + f"; launches per step {per_step[0]} against {expect}, the "
+              f"same every step: {len(set(per_step)) == 1}; frozen backbone "
+              f"unchanged: {not moved_frozen}; adapters unchanged: "
+              f"{adapters_same}{extra}; {step_ms:.1f} ms a step after the "
+              "first (host clock, eager)")
+        if any(p != expect for p in per_step):
+            fail(f"baseline {name}: launches per step {per_step}")
+        if moved_frozen:
+            fail(f"baseline {name}: frozen parameters moved: "
+                 f"{moved_frozen[:3]}")
+        if name == "descriptor":
+            if any(x != 0.0 for x in losses) or not adapters_same:
+                fail("descriptor: loss not zero or adapters moved")
+        elif not all(math.isfinite(x) for x in losses) or \
+                losses[-1] >= losses[0] or adapters_same:
+            fail(f"baseline {name}: loss {losses} not finite or not "
+                 "falling, or the adapters did not move")
+        if name == "hashnet" and not bank_ok:
+            fail("hashnet: the bank's rows differ from their batches'")
+        del tr, model
+        if name != "hashnet":
+            baseline_graph_vs_eager(sizes, name, trunk, device)
+        print(f"baseline {name}: {time.perf_counter() - t_m:.1f} s")
+    print(f"phase 17 (b): {time.perf_counter() - t_b:.1f} s")
+    del trunk
+    torch.cuda.empty_cache()
+
+
+def baseline_graph_vs_eager(sizes: Sizes, name: str, trunk, device) -> None:
+    """Two chunks of ``sizes.graph_chunk`` steps through
+    ``make_multi_train_step`` (a warm-up, then a replay) against as many
+    eager steps from the same state, bit for bit."""
+    from concepthash_tpu_torch.methods import training_for
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    trs = []
+    for _ in range(2):
+        cfg, cb, model, loss_fn = baseline_on(
+            sizes, name, copy.deepcopy(trunk), device, TRAIN_VISION)
+        trs.append(training_for(cfg, model, loss_fn, sizes.steps_per_epoch))
+    graph, eager = trs
+    nclass = sizes.head["nclass"]
+    batches, stacked = stacked_batches(sizes, trunk.tower.cfg, nclass, 2,
+                                       device, 61)
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    g_loss = [x for chunk in stacked for x in multi(chunk)["loss"].tolist()]
+    e_loss = [float(eager.step(b)["loss"]) for b in batches]
+    gs, es = graph.model.state_dict(), eager.model.state_dict()
+    d = max((gs[k].float() - es[k].float()).abs().max().item() for k in gs)
+    same = g_loss == e_loss and d == 0.0
+    K, n_lay = sizes.graph_chunk, trunk.tower.cfg.num_layers
+    want = {"ln_matmul_cuda": 2 * K * n_lay, "attention_cuda": K * n_lay}
+    per_replay = getattr(multi, "launches_per_replay", want)
+    print(f"baseline {name} graph vs eager train (K={K}, a warm-up chunk "
+          f"and a replay): losses {g_loss[-1]:.5f} / {e_loss[-1]:.5f} at the "
+          f"last step, state max |d| {d:.3g}: bit for bit {same} "
+          f"(required); replays {getattr(multi, 'replays', 0)}, launches "
+          f"per replay {per_replay}")
+    if not same:
+        fail(f"baseline {name}: graphed steps differ from eager ones")
+    if per_replay != want:
+        fail(f"baseline {name}: launches per replay {per_replay} != {want}")
+    del graph, eager, trs
+
+
+def run_baselines(sizes: Sizes, device) -> None:
+    """Phase 17 (a) and (b)."""
+    t0 = time.perf_counter()
+    baseline_forwards(sizes, device)
+    baseline_steps(sizes, device)
+    print(f"phase 17 (a), (b): {time.perf_counter() - t0:.1f} s")
+
+
+def run_baseline_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
+                      hf_dir: str, flagship: dict) -> None:
+    """Phase 17 (c): ``main_gpu.py model=orthohash_adapter``,
+    ``model=hashnet_adapter`` and ``model=clip_finetune`` (its vision
+    tower and class-text centers from phase 15 (d)'s local checkpoint) on
+    phase 15's synthetic set at ``train_chunk`` auto, 2 epochs each,
+    counted (kernel 1 at one launch a layer and eval batch; no other
+    kernel): a run directory, finite records, graph replays (hashnet: one
+    step a dispatch), ``exp=validation use_last=true`` within 1e-6 of the
+    run's last mAP; epoch-2 train and eval img/s beside phase 15's
+    flagship."""
+    import os
+
+    import main_gpu
+    from concepthash_tpu_torch.methods import prepare_codebook
+
+    t_c = time.perf_counter()
+    rows = [("flagship (phase 15)", flagship["train_img_s"],
+             flagship["eval_img_s"])]
+    for model, extra in (("orthohash_adapter", ()), ("hashnet_adapter", ()),
+                         ("clip_finetune", (f"backbone.name={hf_dir}",))):
+        run = os.path.join(tmp, model)
+        exp = main_gpu.build_experiment(argv(run, f"model={model}", *extra))
+        torch.cuda.synchronize()
+        count_reset()
+        t0 = time.perf_counter()
+        exp.main()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        with open(os.path.join(run, "train_history.json")) as f:
+            train = json.load(f)
+        with open(os.path.join(run, "test_history.json")) as f:
+            test = json.load(f)
+        with open(os.path.join(run, "log.txt")) as f:
+            log = f.read()
+        steps = len(exp.loaders["train"])
+        batch = int(exp.config["batch_size"])
+        K = exp.train_chunk
+        n_layers = exp.model.vision_cfg.num_layers
+        eval_batches = len(exp.loaders["test"]) + len(exp.loaders["db"])
+        want = (2 * n_layers * eval_batches, 0, 0, 0, 0, 0)
+        runner = exp.train_multi_step
+        replays = getattr(runner, "replays", 0)
+        want_replays = (0 if model == "hashnet_adapter" or
+                        device.type != "cuda" else 2 * (steps // K) - 1)
+        print(f"{model} run (train_chunk {K}): {steps} steps of {batch} an "
+              "epoch; train records "
+              + "; ".join(f"ep {r['ep']} loss {r['loss']:.5f} "
+                          f"{r['time']:.2f} s" for r in train)
+              + "; test mAP " + ", ".join(f"{r['mAP']:.6f}" for r in test)
+              + f"; graph replays {replays} train (expected "
+              f"{want_replays}); launches {launches} against {want}; the "
+              f"run {run_s:.1f} s")
+        if len(train) != 2 or len(test) != 2 or not all(
+                math.isfinite(r["loss"]) for r in train):
+            fail(f"{model}: not two finite train records and two test "
+                 "records")
+        if launches != want:
+            fail(f"{model}: kernel 1 not launched once a layer and eval "
+                 "batch, or another kernel launched")
+        if replays != want_replays or (model == "hashnet_adapter"
+                                       and runner is not None):
+            fail(f"{model}: {replays} train replays, expected "
+                 f"{want_replays}")
+        if model == "hashnet_adapter" and K > 1 and \
+                "does not apply" not in log:
+            fail("hashnet: the log does not say train_chunk does not apply")
+        if model == "clip_finetune":
+            cpu = prepare_codebook(exp.method, exp.config,
+                                   device=torch.device("cpu"))
+            err = float(np.abs(exp.codebook - cpu).max())
+            same = torch.equal(exp.model.text_centers.cpu(),
+                               torch.as_tensor(exp.codebook))
+            print(f"{model}: class-text centers {exp.codebook.shape} from "
+                  f"the local checkpoint's text stage on {device.type}, max "
+                  f"|d| against the CPU's {err:.3g} (tolerance "
+                  f"{TEXT_ATOL}); the model's centers equal: {same}; "
+                  f"logit_scale {exp.model.logit_scale.item():.6f}")
+            if "fallback" in log or "falls back" in log or \
+                    "pretrained weights unavailable" in log or \
+                    err > TEXT_ATOL or not same:
+                fail(f"{model}: the centers did not come from the local "
+                     f"text stage, or differ from the CPU's by {err}")
+        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
+        eval_s = host_s(lambda: (exp.encode_split("test"),
+                                 exp.encode_split("db")), 1)
+        rows.append((model, steps * batch / train[1]["time"],
+                     n_eval / eval_s))
+        for loader in exp.loaders.values():
+            loader.close()
+        del exp
+        ev = main_gpu.build_experiment(eval_argv(
+            "exp=validation", f"logdir={run}", "use_last=true"))
+        got = ev.main()
+        d_map = abs(got["mAP"] - test[-1]["mAP"])
+        print(f"{model} exp=validation use_last=true: mAP {got['mAP']:.6f} "
+              f"against the run's last {test[-1]['mAP']:.6f}, |d| "
+              f"{d_map:.3g} (tolerance {REPLAY_MAP_ATOL})")
+        if d_map > REPLAY_MAP_ATOL:
+            fail(f"{model}: exp=validation does not reproduce the run")
+        del ev
+    print("phase 17 (c) img/s, epoch-2 train and eval encode, train_chunk "
+          "auto: " + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}"
+                               for n, t, e in rows)
+          + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
+    print(f"phase 17 (c): {time.perf_counter() - t_c:.1f} s")
+
+
 def _flatten(x):
     if isinstance(x, (list, tuple)):
         return [y for item in x for y in _flatten(item)]
@@ -2710,6 +3179,7 @@ def run(sizes: Sizes, device) -> dict:
     run_text_tower(sizes, device)
     flagship = run_flagship(sizes, device)
     run_variants(sizes, device)
+    run_baselines(sizes, device)
     run_graphs(sizes, device, flagship)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",

@@ -29,14 +29,20 @@ ran, ``outputs/codebook.pt``. ``resume_logdir`` continues a run from its
 ``optims/last.pt``; ``finetune_path`` takes a port checkpoint, or a JAX
 package checkpoint or run directory (read with
 ``utils.io.load_jax_checkpoint`` and carried across by
-``weights.from_flax``), leniently. ``RetrievalEvaluation`` scores a run's
-``models/{best,last}.pt`` (or its JAX ``.msgpack``) into ``eval_logdir``.
+``weights.from_flax`` or ``weights.baseline_from_flax``), leniently.
+``RetrievalEvaluation`` scores a run's ``models/{best,last}.pt`` (or its
+JAX ``.msgpack``) into ``eval_logdir``.
 
 With ``model.filip`` the run first takes FILIP's class-text token
 embeddings from the local CLIP checkpoint's text stage, or, where it is not
 on the disk, the reference's deterministic pseudo-tokens (loudly logged);
 the model keeps them as its ``token_embeds`` buffer, which its checkpoints
 carry.
+
+A method with a train step of its own (HashNet) takes it one step per
+dispatch at any ``train_chunk``, with the batch's dataset indices, and its
+train-state extras (the bank) go into ``optims/*.pt`` with the rest of the
+train state.
 
 Not ported, and raising ``NotImplementedError``: the other regimes and
 methods (``methods.get_method``), ``native_decode``, and the ``profile``
@@ -193,6 +199,8 @@ class RetrievalExperiment:
         }
         for k, v in self.datasets.items():
             logging.info("%s dataset: %d items", k, len(v))
+        # what methods with train-set-sized state read (HashNet's bank)
+        cfg["_train_size_"] = len(self.datasets["train"])
         bs = int(cfg.get("batch_size", 64))
         resize = int(ds.get("resize", 256))
         cache = bool(cfg.get("cache_images",
@@ -352,11 +360,18 @@ class RetrievalExperiment:
         self.state = create_train_state(
             self.model, tr.optimizer, tr.scheduler,
             {"dropout": tr.generator, "augment": self.aug_generator,
-             "op": self.op_generator}, loader=self.loaders["train"])
+             "op": self.op_generator}, loader=self.loaders["train"],
+            extra=tr.extra)
+        if tr.custom and self.train_chunk > 1:
+            # the reference builds no multi step for a method's own step
+            logging.info("train_chunk %d does not apply to %s's own train "
+                         "step: one step a dispatch (eval still chunks)",
+                         self.train_chunk, self.method.name)
         self.train_multi_step = (make_multi_train_step(
             self.model, tr.loss_fn, tr.optimizer, tr.scheduler,
             output_attentions=self.method.needs_attentions(cfg),
-            generator=tr.generator) if self.train_chunk > 1 else None)
+            generator=tr.generator)
+            if self.train_chunk > 1 and not tr.custom else None)
 
     # ------------------------------------------------------------------ train
     def train_one_epoch(self, ep: int) -> dict:
@@ -381,8 +396,11 @@ class RetrievalExperiment:
                 self._on_device(batch["image"]), self.aug_generator,
                 crop=self.crop, norm=self.norm, train=True,
                 augment=self.augment, op_generator=self.op_generator)
-            metrics = self.train_step(
-                {"image": images, "label": self._on_device(batch["label"])})
+            step_batch = {"image": images,
+                          "label": self._on_device(batch["label"])}
+            if self.training.custom:    # a method's own step reads the rows
+                step_batch["index"] = self._on_device(batch["index"])
+            metrics = self.train_step(step_batch)
             meters.update_device(metrics, n)
 
         for batch in self.loaders["train"]:
@@ -499,13 +517,16 @@ class RetrievalExperiment:
         """(state dict, epoch) of a port checkpoint (.pt) or a JAX package
         checkpoint (.msgpack)."""
         if path.endswith(".msgpack"):
-            from concepthash_tpu_torch.weights import from_flax
+            from concepthash_tpu_torch.weights import (baseline_from_flax,
+                                                       from_flax)
 
             blob = io.load_jax_checkpoint(path)
             if "params" not in blob:
                 raise ValueError(f"{path} is not a network checkpoint (keys: "
                                  f"{sorted(blob)})")
-            return from_flax(blob), int(blob.get("epoch", 0))
+            bridge = (from_flax if "hash_queries" in blob["params"]
+                      else baseline_from_flax)
+            return bridge(blob), int(blob.get("epoch", 0))
         blob = io.load_checkpoint(path)
         return blob["model"], int(blob.get("epoch", 0))
 

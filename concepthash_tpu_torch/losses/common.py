@@ -1,5 +1,6 @@
-"""Shared loss math: margin cross-entropy on cosine logits, soft-target CE,
-the quantization gap (counterpart of concepthash_tpu/losses/common.py).
+"""Shared loss math: margin cross-entropy on cosine logits (additive and
+ArcFace-style), soft-target CE, binary CE on logits, the quantization gap
+(counterpart of concepthash_tpu/losses/common.py).
 
 Pure functions over one-hot labels, in f32."""
 
@@ -35,6 +36,22 @@ def margin_ce(logits: torch.Tensor, onehot: torch.Tensor, margin: float,
         return -(norm[None] * logp).sum(dim=-1).mean()
     return soft_cross_entropy(margin_logits(logits, onehot, margin, scale),
                               norm)
+
+
+def arc_margin_logits(logits: torch.Tensor, onehot: torch.Tensor,
+                      margin: float, scale: float) -> torch.Tensor:
+    """ArcFace-style margin on cosine logits:
+    scale * cos(arccos(clip(logits)) + margin * onehot)."""
+    theta = torch.arccos(torch.clamp(logits.float(), -0.99999, 0.99999))
+    return scale * torch.cos(theta + margin * onehot)
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor,
+                                     targets: torch.Tensor) -> torch.Tensor:
+    """Mean over every element of the stable BCE on logits."""
+    logits = logits.float()
+    return (torch.relu(logits) - logits * targets
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
 
 
 def quantization_cosine(codes: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,25 @@
 """The method registry from config dicts (counterpart of
-concepthash_tpu/methods.py), for ``concepthash``: the ``Method`` record (the
-model factory, the loss, the codebook it needs), the codebook stage, and,
-wired as the reference's experiment loop wires them, the optimizer, the LR
-schedule and the train step (``build_model``, ``training_for`` and the two
-in one, ``build_training``).
+concepthash_tpu/methods.py): the ``Method`` record (the model factory, the
+loss, the codebook it needs, and a train step and train-state extras of
+its own where it has them), the codebook stage, and, wired as the
+reference's experiment loop wires them, the optimizer, the LR schedule and
+the train step (``build_model``, ``training_for`` and the two in one,
+``build_training``).
 
-The config dicts are main.py's: ``model``, ``backbone``, ``criterion``,
-``optim``, ``scheduler``, ``epochs``, ``backbone_lr_scale``,
-``compute_dtype``. Every other method of the reference raises
-``NotImplementedError`` from ``get_method``.
+Methods: ``concepthash`` and the ``sgd``-regime supervised baselines on the
+CLIP-adapter trunk (``models/baselines.py``): ``orthohash``,
+``orthohash_bcs``, ``csq``, ``dpn``, ``hashnet`` (a train step of its own,
+``train/custom_steps.py``), ``dpsh``, ``dtsh``, ``greedyhash``, ``ce``,
+``descriptor`` (no objective) and ``clip``. The config dicts are main.py's:
+``model``, ``backbone``, ``criterion``, ``optim``, ``scheduler``,
+``epochs``, ``backbone_lr_scale``, ``compute_dtype``. Every other method of
+the reference raises ``NotImplementedError`` from ``get_method``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Callable, Optional
 
@@ -21,14 +27,19 @@ import numpy as np
 import torch
 
 from concepthash_tpu_torch import resolve_device
+from concepthash_tpu_torch.losses import baselines as L
 from concepthash_tpu_torch.losses.concepthash import lgh_loss
 from concepthash_tpu_torch.models.backbone_factory import (
     adapter_config_from_model_cfg, vision_config_from_backbone_cfg)
+from concepthash_tpu_torch.models.baselines import (BaselineConfig,
+                                                    BaselineHashNet)
 from concepthash_tpu_torch.models.concepthash import (ConceptHash,
                                                       ConceptHashConfig,
                                                       SelfAttnLastConfig)
 from concepthash_tpu_torch.train.optim import (build_optimizer,
                                                make_capturable)
+from concepthash_tpu_torch.train.custom_steps import (hashnet_extra,
+                                                      hashnet_step)
 from concepthash_tpu_torch.train.state import make_train_step
 
 
@@ -103,6 +114,34 @@ def _build_concepthash(config, codebook, *, device=None,
                        generator=generator)
 
 
+def _build_baseline(head: str, config, codebook, *, device=None,
+                    generator: Optional[torch.Generator] = None,
+                    vision: Optional[dict] = None) -> BaselineHashNet:
+    """A supervised baseline with ``head`` from ``config``; ``codebook``
+    is orthohash's fixed signed codebook or clip's class-text centers.
+    ``vision`` overrides fields of the backbone's ClipVisionConfig."""
+    m = config["model"]
+    vcfg = vision_config_from_backbone_cfg(config.get("backbone", {}) or {})
+    if vision:
+        vcfg = dataclasses.replace(vcfg, **vision)
+    bcfg = BaselineConfig(nbit=int(m["nbit"]), nclass=int(m["nclass"]),
+                          head=head, add_bn=bool(m.get("add_bn", True)),
+                          ce_cossim=m.get("m_type", "ce") != "ce",
+                          bcs=bool(m.get("bcs", False)),
+                          hash_bias=bool(m.get("hash_bias", False)))
+    return BaselineHashNet(vcfg, bcfg, adapter_config_from_model_cfg(m),
+                           codebook=codebook,
+                           backbone_cfg=config.get("backbone"),
+                           dtype=_compute_dtype(config), device=device,
+                           generator=generator)
+
+
+def _build_orthohash_bcs(config, codebook, **kw) -> BaselineHashNet:
+    """orthohash with the second, sign-centroid logits head (model.bcs)."""
+    config = {**config, "model": {**dict(config["model"]), "bcs": True}}
+    return _build_baseline("orthohash", config, codebook, **kw)
+
+
 def _criterion_kwargs(config) -> dict:
     crit = dict(config.get("criterion", {}) or {})
     crit.pop("name", None)
@@ -133,6 +172,39 @@ def _lgh_build_loss(config, codebook) -> Callable:
     return loss
 
 
+def _simple_loss(loss_fn: Callable) -> Callable:
+    """build(config, codebook) -> loss(outputs, batch): ``loss_fn`` with the
+    criterion's keys and, where the method has one, the codebook in place
+    of the criterion's codebook spec (moved to the labels' device at the
+    first call, before any graph captures the step)."""
+
+    def build(config, codebook):
+        kw = _criterion_kwargs(config)
+        cb = (torch.as_tensor(np.asarray(codebook), dtype=torch.float32)
+              if codebook is not None else None)
+        per_device: dict = {}
+
+        def loss(outputs, batch):
+            y = batch["label"]
+            if cb is None:
+                return loss_fn(outputs, y, **kw)
+            if y.device not in per_device:
+                per_device[y.device] = {**kw, "codebook": cb.to(y.device)}
+            return loss_fn(outputs, y, **per_device[y.device])
+
+        return loss
+
+    return build
+
+
+def _null_loss(config, codebook) -> Callable:
+    """The loss of a method trained without an objective (descriptor): zero,
+    with a zero gradient into everything the codes depend on, as the
+    reference's gradient of a constant is zero (so the optimizer's weight
+    decay still acts, as it does there)."""
+    return lambda outputs, batch: (0.0 * outputs["codes"].sum(), {})
+
+
 def _needs_attentions(config) -> bool:
     return ((config.get("criterion", {}) or {}).get("loss_scales", {})
             or {}).get("attn_div_loss", 0) != 0
@@ -145,23 +217,55 @@ class Method:
     build_loss: Callable   # (config, codebook) -> loss(outputs, batch)
     codebook: Optional[str] = None     # None | 'signed' | 'continuous'
     needs_attentions: Callable = lambda cfg: False
+    # a train step of the method's own, taken one step per dispatch:
+    # (model, config, optimizer, scheduler, generator, steps_per_epoch,
+    #  extra) -> step(batch) -> metrics
+    custom_step: Optional[Callable] = None
+    # the train state's extras (config, device) -> {name: tensor}
+    init_extra: Optional[Callable] = None
 
 
-_METHODS = {"concepthash": Method("concepthash", _build_concepthash,
-                                  _lgh_build_loss, codebook="continuous",
-                                  needs_attentions=_needs_attentions)}
+def _baseline(head: str) -> Callable:
+    return functools.partial(_build_baseline, head)
+
+
+# in the reference's order of registration; list_methods keeps it
+_METHODS = {m.name: m for m in (
+    Method("concepthash", _build_concepthash, _lgh_build_loss,
+           codebook="continuous", needs_attentions=_needs_attentions),
+    Method("orthohash", _baseline("orthohash"),
+           _simple_loss(L.orthohash_loss), codebook="signed"),
+    Method("orthohash_bcs", _build_orthohash_bcs,
+           _simple_loss(L.orthohash_loss), codebook="signed"),
+    Method("csq", _baseline("csq"), _simple_loss(L.csq_loss),
+           codebook="signed"),
+    Method("dpn", _baseline("dpn"), _simple_loss(L.dpn_loss),
+           codebook="signed"),
+    Method("hashnet", _baseline("pairwise"), _simple_loss(L.hashnet_loss),
+           custom_step=hashnet_step, init_extra=hashnet_extra),
+    Method("dpsh", _baseline("pairwise"), _simple_loss(L.dpsh_loss)),
+    Method("dtsh", _baseline("pairwise"), _simple_loss(L.dtsh_loss)),
+    Method("greedyhash", _baseline("greedyhash"),
+           _simple_loss(L.greedyhash_loss)),
+    Method("ce", _baseline("ce"), _simple_loss(L.ce_loss)),
+    Method("descriptor", _baseline("descriptor"), _null_loss),
+    Method("clip", _baseline("clip"), _simple_loss(L.ce_loss),
+           codebook="continuous"),
+)}
 
 
 def get_method(name: str) -> Method:
     if name not in _METHODS:
         raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP Queue 1 item 10); "
-            f"ported: {sorted(_METHODS)}")
+            f"method {name!r} is not ported yet (ROADMAP Queue 1 items 5-8: "
+            "the fine-grained, adsh, unsupervised, shallow, pretraining and "
+            f"odc methods); ported: {list_methods()}")
     return _METHODS[name]
 
 
 def list_methods() -> list:
-    return sorted(_METHODS)
+    """The ported methods, the flagship first."""
+    return list(_METHODS)
 
 
 def prepare_codebook(method: Method, config, logdir: str | None = None,
@@ -199,15 +303,18 @@ def prepare_codebook(method: Method, config, logdir: str | None = None,
 
 @dataclasses.dataclass
 class Training:
-    """What one ConceptHash training run steps: ``step(batch) -> metrics``
-    updates ``model``, ``optimizer`` and ``scheduler`` in place."""
+    """What one training run steps: ``step(batch) -> metrics`` updates
+    ``model``, ``optimizer``, ``scheduler`` and ``extra`` in place.
+    ``custom`` is true for a method's own step (one step per dispatch)."""
 
-    model: ConceptHash
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     loss_fn: Callable
     generator: torch.Generator
     step: Callable
+    extra: dict = dataclasses.field(default_factory=dict)
+    custom: bool = False
 
 
 def build_model(config: dict, codebook, *, device=None,
@@ -223,7 +330,7 @@ def build_model(config: dict, codebook, *, device=None,
     return model, method.build_loss(config, codebook)
 
 
-def training_for(config: dict, model: ConceptHash, loss_fn: Callable,
+def training_for(config: dict, model: torch.nn.Module, loss_fn: Callable,
                  steps_per_epoch: int) -> Training:
     """The train step over a built ``model``: optimizer and schedule with
     the backbone policy, and a dropout generator on the model's device
@@ -241,10 +348,17 @@ def training_for(config: dict, model: ConceptHash, loss_fn: Callable,
         make_capturable(optimizer)
     generator = torch.Generator(device=dev).manual_seed(
         int(config.get("seed", 42)) + 1)
-    step = make_train_step(model, loss_fn, optimizer, scheduler,
-                           output_attentions=method.needs_attentions(config),
-                           generator=generator)
-    return Training(model, optimizer, scheduler, loss_fn, generator, step)
+    extra = method.init_extra(config, dev) if method.init_extra else {}
+    if method.custom_step is not None:
+        step = method.custom_step(model, config, optimizer, scheduler,
+                                  generator, max(steps_per_epoch, 1), extra)
+    else:
+        step = make_train_step(
+            model, loss_fn, optimizer, scheduler,
+            output_attentions=method.needs_attentions(config),
+            generator=generator)
+    return Training(model, optimizer, scheduler, loss_fn, generator, step,
+                    extra, method.custom_step is not None)
 
 
 def build_training(config: dict, codebook, steps_per_epoch: int, *,

@@ -66,7 +66,8 @@ def maybe_load_pretrained_vision(backbone_cfg: dict, model) -> bool:
     entry; nothing is downloaded) into ``model.backbone`` in place, the
     adapters keeping their init; a checkpoint that is not there, or whose
     shapes differ, logs a warning and keeps the init, as the reference
-    does. Returns whether weights were loaded."""
+    does. The tower is ``model.backbone`` (ConceptHash) or its ``tower``
+    (the baselines' trunk). Returns whether weights were loaded."""
     if not backbone_cfg.get("pretrained", False):
         return False
     name = backbone_cfg.get("name")
@@ -74,7 +75,8 @@ def maybe_load_pretrained_vision(backbone_cfg: dict, model) -> bool:
         from concepthash_tpu_torch.models.clip_loader import \
             load_vision_weights
 
-        n = load_vision_weights(model.backbone, name)
+        n = load_vision_weights(getattr(model.backbone, "tower",
+                                        model.backbone), name)
     except Exception as e:  # not on this disk, or another geometry
         logging.warning("pretrained weights unavailable (%s); using random "
                         "init", e)

@@ -1,7 +1,7 @@
 """Shared model layers: cosine classifier, sign straight-through estimator,
 code batch-norm and its decorrelated (whitening) form, flax-style dropout,
 small MLP (counterpart of concepthash_tpu/models/layers.py, the paths
-ConceptHash uses).
+ConceptHash and the supervised baselines use).
 
 Parameters are float32; ``dtype`` is the compute dtype, as in the reference.
 Initial values are drawn from a ``torch.Generator`` with the reference's
@@ -55,18 +55,43 @@ def layer_norm(mod: nn.LayerNorm, x: torch.Tensor,
 
 class CosSim(nn.Module):
     """Cosine-similarity classifier: normalize(x) @ normalize(centroids)^T,
-    f32 logits."""
+    f32 logits. ``x`` keeps its own dtype (the reference normalizes it as
+    given); the centroids are cast to the compute dtype.
+
+    ``codebook``: fixed (nclass, nfeat) initial centroids (otherwise drawn
+    from N(0, 1)); ``learn_cent`` False keeps them as the ``centroids``
+    buffer (the reference's ``constants`` collection) instead of a
+    parameter. ``forward(x, sign_centroids=True)`` scores against the
+    centroids' signs (orthohash_bcs's second head). ``group``,
+    ``single_quan`` and ``input_group``, which no module or config of the
+    reference reaches, are not ported (ROADMAP Queue 1 item 1, what
+    remains)."""
 
     def __init__(self, nfeat: int, nclass: int, dtype=torch.float32,
-                 generator=None):
+                 generator=None, *, codebook=None, learn_cent: bool = True,
+                 group: int = 1, single_quan: bool = False,
+                 input_group: int = 1):
         super().__init__()
+        if group != 1 or single_quan or input_group != 1:
+            raise NotImplementedError(
+                "CosSim's group, single_quan and input_group are not ported "
+                "yet (ROADMAP Queue 1 item 1, what remains)")
         self.dtype = dtype
-        self.centroids = nn.Parameter(
-            normal_(torch.empty(nclass, nfeat), 1.0, generator))
+        cent = (torch.as_tensor(codebook, dtype=torch.float32).cpu().clone()
+                if codebook is not None
+                else normal_(torch.empty(nclass, nfeat), 1.0, generator))
+        if learn_cent:
+            self.centroids = nn.Parameter(cent)
+        else:
+            self.register_buffer("centroids", cent)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xn = l2_normalize(x.to(self.dtype))
-        cn = l2_normalize(self.centroids.to(self.dtype))
+    def forward(self, x: torch.Tensor,
+                sign_centroids: bool = False) -> torch.Tensor:
+        cent = self.centroids.to(self.dtype)
+        if sign_centroids:
+            cent = torch.sign(cent)
+        xn = l2_normalize(x)
+        cn = l2_normalize(cent)
         return xn.float() @ cn.float().t()
 
 

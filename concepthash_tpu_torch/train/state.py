@@ -36,7 +36,9 @@ class TrainState:
     and LR schedule, the step counter, and the explicit generators
     (``generators``: dropout, the augmentation's draws on the card, the
     op-index draws on the host), plus the train loader, whose shuffle order
-    is a function of its epoch. ``state_dict`` / ``load_state_dict`` carry
+    is a function of its epoch, and a method's own extras (``extra``:
+    tensors its train step updates in place, HashNet's bank). ``state_dict``
+    / ``load_state_dict`` carry
     everything but the model's own weights (``model.state_dict()``), which
     checkpoints keep apart, as the reference keeps ``params`` apart from
     ``opt_state``."""
@@ -46,6 +48,7 @@ class TrainState:
     scheduler: object
     generators: dict
     loader: object = None
+    extra: dict = dataclasses.field(default_factory=dict)
 
     @property
     def step(self) -> int:
@@ -60,6 +63,8 @@ class TrainState:
                              for k, g in self.generators.items()}}
         if self.loader is not None:
             sd["loader_epoch"] = int(self.loader.epoch)
+        if self.extra:
+            sd["extra"] = {k: v.detach().cpu() for k, v in self.extra.items()}
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
@@ -95,15 +100,18 @@ class TrainState:
             self.generators[k].set_state(state)
         if self.loader is not None and "loader_epoch" in sd:
             self.loader.epoch = int(sd["loader_epoch"])
+        for k, v in sd.get("extra", {}).items():
+            self.extra[k].copy_(v)
 
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
-                       scheduler, generators: dict,
-                       loader=None) -> TrainState:
+                       scheduler, generators: dict, loader=None,
+                       extra: Optional[dict] = None) -> TrainState:
     """The record of one run's training state (the reference's
     ``create_train_state``; here the parts already exist and are gathered,
     not initialised)."""
-    return TrainState(model, optimizer, scheduler, dict(generators), loader)
+    return TrainState(model, optimizer, scheduler, dict(generators), loader,
+                      dict(extra or {}))
 
 
 def make_train_step(model: nn.Module, loss_fn: Callable,

@@ -23,6 +23,12 @@ function:
 - ``self_attn_at_last`` keeps its leaf names (``q``, ``k``, ``v``, or
   ``{q,k,v}_1``, ``_ln``, ``_2`` when ``strong``, and ``pe``).
 
+``baseline_from_flax(variables)`` does the same for a supervised baseline
+(``models.baselines.BaselineHashNet``): the ``backbone/tower`` tree
+(encoder layers and adapters as above), ``hash_fc``, ``hash_bn`` and its
+statistics, ``ce_fc`` (the cosine classifier's ``centroids``, a parameter
+or a constant, or a Dense) and ``logit_scale``.
+
 ``text_from_flax(params)`` does the same for the CLIP text tower
 (``models.clip.ClipTextTower``), whose q, k and v projections stay separate.
 """
@@ -165,6 +171,31 @@ def from_flax(variables: dict) -> dict:
             _dense(sd, "concept_ce", ce)
     if "token_embeds" in variables.get("constants", {}):
         sd["token_embeds"] = _t(variables["constants"]["token_embeds"])
+    return sd
+
+
+def baseline_from_flax(variables: dict) -> dict:
+    """State dict of the port's BaselineHashNet from the reference's
+    variables (numpy leaves); load it with ``strict=True``."""
+    p = variables["params"]
+    sd: dict = {}
+    _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
+    if "hash_fc" in p:
+        _dense(sd, "hash_fc", p["hash_fc"])
+    if "hash_bn" in p:
+        stats = variables["batch_stats"]["hash_bn"]["bn"]
+        sd["hash_bn.weight"] = _t(p["hash_bn"]["bn"]["scale"])
+        sd["hash_bn.bias"] = _t(p["hash_bn"]["bn"]["bias"])
+        sd["hash_bn.running_mean"] = _t(stats["mean"])
+        sd["hash_bn.running_var"] = _t(stats["var"])
+    ce = p.get("ce_fc") or variables.get("constants", {}).get("ce_fc")
+    if ce is not None:
+        if "centroids" in ce:
+            sd["ce_fc.centroids"] = _t(ce["centroids"])
+        else:
+            _dense(sd, "ce_fc", ce)
+    if "logit_scale" in p:
+        sd["logit_scale"] = _t(p["logit_scale"])
     return sd
 
 

@@ -852,3 +852,101 @@ def test_train_chunk_1_equals_chunked_run_bit_for_bit(cuda_device, tmp_path):
     for k in s1:
         assert torch.equal(s1[k], s8[k]), k
 
+
+
+def _tiny_baseline(name, vision=None, dtype="bfloat16"):
+    """A supervised baseline on the tiny trunk (hidden 64, 2 layers, 32^2
+    images), 16 bits, 10 classes, adam and csw as configs/model/*.yaml
+    have them; orthohash with its seeded signed codebook, the adapters'
+    up-projections seeded so they carry signal."""
+    from concepthash_tpu_torch.methods import build_training
+
+    cfg = {
+        "model": {"name": name, "nbit": 16, "nclass": 10,
+                  "has_adapter": True, "adapter_bottleneck_dim": 16,
+                  "add_bn": True},
+        "backbone": {"name": "tiny", "hidden_size": 64,
+                     "intermediate_size": 128, "num_layers": 2,
+                     "num_heads": 4, "patch_size": 8, "image_size": 32,
+                     "projection_dim": 32},
+        "criterion": {"ce": 1, "s": 8, "m": 0.2, "m_type": "cos"},
+        "optim": {"name": "adam", "lr": 0.001, "weight_decay": 0.00001},
+        "scheduler": {"name": "csw", "warmup_epochs": 2},
+        "epochs": 10, "backbone_lr_scale": 0, "compute_dtype": dtype,
+        "seed": 0,
+    }
+    rng = np.random.default_rng(1)
+    codebook = np.where(rng.standard_normal((10, 16)) > 0, 1.0,
+                        -1.0).astype(np.float32)
+    tr = build_training(cfg, codebook, 3, device="cuda", vision=vision)
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for layer in tr.model.backbone.tower.layers:
+            for ad in (layer.adapter_attn, layer.adapter_mlp):
+                ad.up.weight.copy_(0.1 * torch.randn(ad.up.weight.shape,
+                                                     generator=g))
+    return tr
+
+
+@pytest.mark.cuda
+def test_orthohash_encode_takes_kernel_1(cuda_device):
+    """orthohash's bf16 eval encode runs kernel 1 once a layer, and its
+    codes agree in sign on >= 99% of bits with the same weights' encode
+    through the layer's plain version."""
+    from concepthash_tpu_torch.models import clip
+
+    model = _tiny_baseline("orthohash").model.eval()
+    images = torch.randn(16, 32, 32, 3, generator=torch.Generator()
+                         .manual_seed(6)).to(cuda_device)
+    before = tfl.encoder_layer_cuda.launches
+    with torch.no_grad():
+        out = model(images)
+        assert tfl.encoder_layer_cuda.launches == before + 2
+        saved = clip.encoder_layer
+        clip.encoder_layer = lambda x, w, **kw: tfl.layer_reference(x, w,
+                                                                    **kw)
+        try:
+            plain = model(images)
+        finally:
+            clip.encoder_layer = saved
+    assert tfl.encoder_layer_cuda.launches == before + 2
+    assert out["codes"].shape == (16, 16) and torch.isfinite(
+        out["logits"]).all()
+    agree = ((out["codes"] > 0) == (plain["codes"] > 0)).float().mean()
+    assert agree >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vision", [None, _KERNELS], ids=["auto", "kernels"])
+def test_graphed_orthohash_steps_equal_eager_steps(cuda_device, vision):
+    """Three chunks of K=2 orthohash steps (a warm-up, then replays)
+    against six eager steps from the same state: losses, parameters and
+    the code BatchNorm's running statistics bit for bit; with kernels 5
+    and 6, counted per replay."""
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    graph = _tiny_baseline("orthohash", vision)
+    eager = _tiny_baseline("orthohash", vision)
+    eager.model.load_state_dict(graph.model.state_dict())
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    images = torch.randn(3, 2, 4, 32, 32, 3, generator=gen,
+                         device=cuda_device)
+    labels = torch.nn.functional.one_hot(
+        torch.randint(0, 10, (3, 2, 4), generator=gen, device=cuda_device),
+        10).float()
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    got = torch.cat([multi({"image": images[c], "label": labels[c]})["loss"]
+                     for c in range(3)])
+    want = torch.stack([eager.step({"image": images[c, k],
+                                    "label": labels[c, k]})["loss"]
+                        for c in range(3) for k in range(2)])
+    assert multi.replays == 2 and torch.equal(got, want)
+    sg, se = graph.model.state_dict(), eager.model.state_dict()
+    assert "hash_bn.running_var" in sg and "ce_fc.centroids" in sg
+    for k in sg:
+        assert torch.equal(sg[k], se[k]), k
+    if vision:
+        assert multi.launches_per_replay == {"attention_cuda": 4,
+                                             "ln_matmul_cuda": 8}

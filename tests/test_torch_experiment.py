@@ -13,7 +13,8 @@ backbone, 16 bits, batch 8, float32:
 (d) ``models/last.pt`` reloads to the same codes, bit for bit;
 (e) each option that is not ported raises ``NotImplementedError``, and
     each option this round ported (FILIP, DecorrelatedBN, vpt_pe,
-    ``backbone.remat``, lars) trains an epoch and evaluates;
+    ``backbone.remat``, lars; the orthohash, csq, hashnet with its bank
+    and clip baselines) trains an epoch and evaluates;
 (f) the eval-only modes: ``exp=validation`` and ``exp=extract`` on the
     reference's run directory (its ``last.msgpack``) against the reference's
     own eval-only runs (codes in sign on >= 99.9% of bits, mAP within 1e-3),
@@ -189,7 +190,7 @@ def test_last_checkpoint_reloads_to_the_same_codes(port_run, workdir):
 
 
 @pytest.mark.parametrize("extra", [
-    ["model=orthohash_adapter"], ["model=itq"], ["model=adsh"],
+    ["model=semicon_ce_adapter"], ["model=itq"], ["model=adsh"],
     ["model=odc"], ["model=ssdh"],
     ["native_decode=true"], ["+profile.enabled=true"], ["+debug.nans=true"],
 ])
@@ -202,14 +203,20 @@ def test_unported_options_raise(workdir, extra):
 @pytest.mark.parametrize("extra", [
     ["model=concepthash_filip"], ["+backbone.remat=true"],
     ["optim.name=lars"], ["model.add_bn=dbn"], ["model.vpt_pe=true"],
+    ["model=orthohash_adapter"], ["model=csq_adapter"],
+    ["model=hashnet_adapter", "+criterion.keep_train_size=1",
+     "save_training_state=true"],
+    ["model=clip_finetune"],
 ])
 def test_ported_options_run(workdir, extra):
     """One epoch of main_gpu with the option: a finite train record, a test
     record, and the option in the checkpoint (FILIP's pseudo-token
     embeddings, offline, at the backbone's projection width, 8 a class;
-    the DBN's statistics; vpt_pe's prompts)."""
-    logdir = os.path.join(workdir, "ported_" + extra[0].split("=")[0]
-                          .replace(".", "_").lstrip("+") + extra[0][-4:])
+    the DBN's statistics; vpt_pe's prompts; orthohash's fixed centroids as
+    a buffer; csq's Hadamard codebook in its accuracy meter; HashNet's bank
+    of the 24 train images in the train state; clip's logit_scale)."""
+    logdir = os.path.join(workdir, "ported_" + "".join(
+        c if c.isalnum() else "_" for c in extra[0]))
     best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
                           "epochs=1", *extra])
     assert best is not None and 0.0 <= best <= 1.0
@@ -226,6 +233,23 @@ def test_ported_options_run(workdir, extra):
         assert "hash_bn.running_var" not in sd
     if extra == ["model.vpt_pe=true"]:
         assert tuple(sd["backbone.vpt_pe.1"].shape) == (1, 4, 64)
+    if extra == ["model=orthohash_adapter"]:
+        cent = sd["ce_fc.centroids"]
+        assert tuple(cent.shape) == (3, 16) and set(cent.unique().tolist()) \
+            <= {-1.0, 1.0}
+        assert "hacc" in train[0] and "hash_bn.running_var" in sd
+    if extra == ["model=csq_adapter"]:
+        assert "hacc" in train[0] and "ce_fc.centroids" not in sd
+    if extra[0] == "model=hashnet_adapter":
+        assert train[0]["beta"] == 1.0
+        bank = torch.load(os.path.join(logdir, "optims", "last.pt"))["extra"]
+        assert tuple(bank["U"].shape) == (24, 16)
+        assert tuple(bank["Y"].shape) == (24, 3)
+        # 3 steps of 8 cover the 24 train images: every row written
+        assert (bank["Y"].sum(1) == 1).all() and bank["U"].abs().min() > 0
+    if extra == ["model=clip_finetune"]:
+        assert float(sd["logit_scale"]) != 0.0 and "acc" in train[0]
+        assert "codebook stage failed" in log
 
 
 def test_self_attn_at_last_needs_a_mapping(workdir):

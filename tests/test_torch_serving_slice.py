@@ -258,8 +258,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     serving path reaches the mins through both gallery layouts, the train
     path launches 2 LN -> matmul and 1 attention per layer and step, phase
     15 (several steps per call, the eval-only modes, resume, a local CLIP
-    checkpoint) passes its checks, and the kernels' JSON line has every key
-    the card run prints, for all six TPU kernels."""
+    checkpoint) passes its checks, phase 17 (the supervised baselines'
+    encodes, train steps, graphed chunks and runs) passes its checks, and
+    the kernels' JSON line has every key the card run prints, for all six
+    TPU kernels."""
     import importlib.util
     import json
     import time
@@ -418,6 +420,22 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert "variant qkvo: 6 images" in out
     assert "launches (0, 0, 0, 0, 0, 0), expected (0, 0, 0, 0, 0, 0)" in out
     assert out.count(", all steps alike: True") == 4
+    # phase 17: every baseline's encode, train steps and graphed chunks
+    # (hashnet: one step a dispatch, its bank), and three main_gpu runs
+    assert out.count(f"against ({n}, 0, 0, 0, 0, 0)") == 11
+    assert out.count("sign agreement 1.000000 (limit 0.99)") == 9
+    assert out.count("feature cosine 1.000000 (limit 0.99)") == 2
+    assert out.count(f"against (0, 0, 0, {2 * n}, {n}, 0), the same every "
+                     "step: True; frozen backbone unchanged: True") == 11
+    assert "adapters unchanged: True; " in out
+    assert ("the bank's rows equal each batch's detached tanh(beta * "
+            "codes) and labels: True") in out
+    assert out.count("bit for bit True (required); replays") == 10
+    for model in ("orthohash_adapter", "hashnet_adapter", "clip_finetune"):
+        assert f"{model} run (train_chunk 2)" in out
+        assert (f"{model} exp=validation use_last=true" in out)
+    assert out.count("|d| 0 (tolerance 1e-06)") == 3
+    assert "clip_finetune: class-text centers (3, 32)" in out
     assert (f"launches per step (0, 0, 0, {4 * n}, {2 * n}, 0), expected "
             f"(0, 0, 0, {4 * n}, {2 * n}, 0)") in out      # remat
     assert (f"launches per step (0, 0, 0, 0, {n}, 0), expected (0, 0, 0, 0, "
