@@ -111,8 +111,8 @@ def offline_text_embedder(class_names, dim: int = 512):
 def _unported_options(config: dict):
     reasons = {
         "native_decode": "native_decode (ROADMAP Queue 1 item 3)",
-        "profile": "the profile key (StepProfiler, ROADMAP Queue 1 item 10)",
-        "debug": "the debug key (ROADMAP Queue 1 item 10)",
+        "profile": "the profile key (StepProfiler, ROADMAP Queue 1 item 5)",
+        "debug": "the debug key (ROADMAP Queue 1 item 5)",
     }
     for key, what in reasons.items():
         if config.get(key):

@@ -307,7 +307,7 @@ def make_capturable(optimizer: torch.optim.Optimizer) -> list:
         raise NotImplementedError(
             f"several steps per dispatch on the card take adam, adamw, sgd "
             f"or lars; {type(optimizer).__name__} has no capturable step "
-            "here (ROADMAP Queue 1 item 6)")
+            "here (ROADMAP Queue 1 item 5)")
     lrs = []
     for group in optimizer.param_groups:
         dev = group["params"][0].device
