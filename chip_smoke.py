@@ -186,7 +186,37 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    centers from phase 15 (d)'s local checkpoint) at ``train_chunk=auto``,
    2 epochs, counted, each with ``exp=validation`` within 1e-6 of its last
    mAP, their epoch-2 train and eval img/s printed beside the chunked
-   flagship's.
+   flagship's;
+18. the fine-grained heads, the adsh regime, the autoencoder binarizers
+   and the loader (the config dicts of configs/model/a2net_ce_adapter,
+   semicon_ce_adapter, semicon and adsh .yaml at ViT-B/32, adapters 384,
+   4 maps, 64 bits, 200 classes, bf16, seeded weights): (a) one seeded
+   trunk shared by the four heads encodes 64 seeded images on the card,
+   counted (kernel 1 at 12 launches an encode, no other kernel), against
+   the same weights at float32 on the CPU: codes agree in sign on >= 99%
+   of bits, A2NetCE's and SemiconCE's logits within ``LOGIT_RTOL``; (b)
+   five eager train steps each of a2net_ce, semicon_ce and adsh (against
+   an 800-row V) at B=32 at the kernel settings, counted (kernels 5 and 6
+   at 12 and 24 a step), the loss finite and falling (a2net_ce: its loss
+   and gradients against their plain versions'), the frozen backbone
+   bit-unchanged, graphed chunks of the two CE heads bit for bit;
+   ``solve_dcc`` at CUB-200's size on the card against the CPU (>= 99.9%
+   of entries equal) and timed; ``ae_fit`` (``ae``,
+   ``induced_ae_norm_cossim``) on a (200, 512) embedding, 1,000 iterations
+   card against CPU (signs on >= 99%), then ``ae``'s 10,000 on the card,
+   timed; (c) after phase 17 (c), on phase 15's synthetic set:
+   ``main_gpu.py model=a2net_ce_adapter`` and ``model=semicon_ce_adapter``
+   at ``train_chunk`` auto with ``exp=validation`` (at the run's batch
+   size) within 1e-6 of the last mAP, and ``model=semicon`` (the adsh
+   regime): finite losses, a +-1 (800, 64) ``outputs/db_codes.pt``, a mAP
+   in [0, 1], counted (kernel 1 in every eval batch), img/s beside the
+   chunked flagship's; (d) the loader alone on phase 15's 800 train PNGs,
+   PIL against ``native_decode`` (the native route required where the
+   library builds; where it cannot, every image to PIL with the WARNING),
+   then the chunked flagship again with ``cache_images=true`` (epoch
+   losses and ``models/last.pt`` bit for bit the default run's) and, where
+   the library builds, ``native_decode=true``: epoch-2 train img/s and
+   the busy share beside the default run's.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -289,6 +319,10 @@ class Sizes:
     pretrained_images: int = 256
     variant_images: int = 64           # phase 16 (a): each option's encode
     filip_tokens: int = 8              # phase 16 (a), (b): seeded tokens
+    adsh_db: int = 800                 # phase 18 (b): stored codes V's rows
+    dcc_split: tuple = (5994, 2000)    # CUB-200's train rows, num_samples
+    ae_embedding: tuple = (200, 512)   # classes x CLIP text width
+    ae_iters: tuple = (1000, 10000)    # card vs CPU; the full fit, timed
 
 
 def fail(msg: str) -> None:
@@ -778,6 +812,59 @@ class plain_kernels:
         self.mods[0].ln_matmul_cuda, self.mods[1].attention_cuda = self.saved
 
 
+def grads_vs_plain(model, loss_fn, batch: dict) -> tuple:
+    """The train-mode loss and the gradient of every trained tensor with
+    the kernels and with their plain versions: (loss with the kernels,
+    loss plain, {trained tensor: cosine of the two gradients}). Raw
+    gradients, where an adam step would turn components that cancel to
+    rounding size into sign flips of a full step."""
+    trained = {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+    def grads():
+        total, _ = loss_fn(model(batch["image"], train=True), batch)
+        return float(total), torch.autograd.grad(total, list(
+            trained.values()))
+
+    loss_k, g_k = grads()
+    with plain_kernels():
+        loss_p, g_p = grads()
+    return loss_k, loss_p, {
+        n: F.cosine_similarity(a.double().flatten(), b.double().flatten(),
+                               dim=0).item()
+        for n, a, b in zip(trained, g_k, g_p)}
+
+
+def step_vs_plain(tr, batch: dict) -> tuple:
+    """One train step of ``tr`` (a ``methods.Training``) with the kernels
+    and one from the same state with their plain versions (the dropout
+    generator reseeded for each); the state is restored after each.
+    Returns (loss with the kernels, loss plain, {trained tensor: cosine of
+    the two updates})."""
+    model = tr.model
+    trained = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    snap = (copy.deepcopy(model.state_dict()),
+            copy.deepcopy(tr.optimizer.state_dict()),
+            copy.deepcopy(tr.scheduler.state_dict()))
+    start = {n: p.detach().clone() for n, p in trained.items()}
+
+    def one_step():
+        tr.generator.manual_seed(1)
+        loss = float(tr.step(batch)["loss"])
+        upd = {n: (p.detach() - start[n]).double().flatten()
+               for n, p in trained.items()}
+        model.load_state_dict(snap[0])
+        tr.optimizer.load_state_dict(snap[1])
+        tr.scheduler.load_state_dict(snap[2])
+        return loss, upd
+
+    loss_k, upd_k = one_step()
+    with plain_kernels():
+        loss_p, upd_p = one_step()
+    return loss_k, loss_p, {
+        n: F.cosine_similarity(upd_k[n], upd_p[n], dim=0).item()
+        for n in trained}
+
+
 # ---------------------------------------------------------------------------
 # the train slice
 # ---------------------------------------------------------------------------
@@ -872,26 +959,7 @@ def run_train(sizes: Sizes, device) -> dict:
         fail(f"frozen parameters changed: {moved[:5]}")
 
     # ---- one step with the kernels against one with the plain versions ----
-    snap = (copy.deepcopy(model.state_dict()),
-            copy.deepcopy(tr.optimizer.state_dict()),
-            copy.deepcopy(tr.scheduler.state_dict()))
-    start = {n: p.detach().clone() for n, p in trained.items()}
-
-    def one_step():
-        tr.generator.manual_seed(1)
-        loss = float(tr.step(batch)["loss"])
-        upd = {n: (p.detach() - start[n]).double().flatten()
-               for n, p in trained.items()}
-        model.load_state_dict(snap[0])
-        tr.optimizer.load_state_dict(snap[1])
-        tr.scheduler.load_state_dict(snap[2])
-        return loss, upd
-
-    loss_k, upd_k = one_step()
-    with plain_kernels():
-        loss_p, upd_p = one_step()
-    cos = {n: F.cosine_similarity(upd_k[n], upd_p[n], dim=0).item()
-           for n in trained}
+    loss_k, loss_p, cos = step_vs_plain(tr, batch)
     held = {n: c for n, c in cos.items() if n not in NULL_GRADIENT}
     worst = min(held, key=held.get)
     print(f"train step, kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f}; "
@@ -2159,7 +2227,9 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
         n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
         eval_s = host_s(lambda: (exp.encode_split("test"),
                                  exp.encode_split("db")), 1)
-        chunked = {"train_img_s": img_s, "eval_img_s": n_eval / eval_s}
+        chunked = {"train_img_s": img_s, "eval_img_s": n_eval / eval_s,
+                   "busy": busy_share(kernels, epoch_s), "batch": batch,
+                   "resize": int(exp.config["dataset"]["resize"])}
         print(f"flagship eval encode at train_chunk {K}: "
               f"{chunked['eval_img_s']:.1f} img/s ({n_eval} images)")
         print(f"flagship train img/s in epoch 2: {img_s:.1f} at train_chunk "
@@ -2180,6 +2250,8 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
                          chunked)
         run_baseline_runs(sizes, device, tmp, argv, eval_argv, hf_dir,
                           chunked)
+        run_finegrained_runs(sizes, device, tmp, argv, eval_argv, chunked)
+        run_loader(sizes, device, tmp, argv, chunked)
 
 
 # ---------------------------------------------------------------------------
@@ -2536,8 +2608,9 @@ def baseline_config(sizes: Sizes, name: str) -> dict:
     from concepthash_tpu_torch.config.loader import load_config
 
     root = os.path.dirname(os.path.abspath(__file__))
+    yaml = {**BASELINE_YAML, **FINEGRAINED_YAML}[name]
     cfg = load_config(os.path.join(root, "configs"), "train",
-                      ["dataset=cub200", f"model={BASELINE_YAML[name]}",
+                      ["dataset=cub200", f"model={yaml}",
                        "compute_dtype=bfloat16"])
     cfg["model"].update(name=name, nclass=sizes.head["nclass"],
                         nbit=sizes.head["nbit"])
@@ -2934,8 +3007,12 @@ def run_baseline_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
         for loader in exp.loaders.values():
             loader.close()
         del exp
+        # at the run's batch size: SEMICON's suppression mask is
+        # standardized over the batch, so configs/val.yaml's batch of 64
+        # would give other codes (in the reference too)
         ev = main_gpu.build_experiment(eval_argv(
-            "exp=validation", f"logdir={run}", "use_last=true"))
+            "exp=validation", f"logdir={run}", "use_last=true",
+            f"batch_size={batch}"))
         got = ev.main()
         d_map = abs(got["mAP"] - test[-1]["mAP"])
         print(f"{model} exp=validation use_last=true: mAP {got['mAP']:.6f} "
@@ -2949,6 +3026,545 @@ def run_baseline_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
                                for n, t, e in rows)
           + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
     print(f"phase 17 (c): {time.perf_counter() - t_c:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the fine-grained heads, the adsh regime, the autoencoder
+# binarizers, and the loader's native decode and image cache
+# ---------------------------------------------------------------------------
+
+FINEGRAINED_YAML = {"a2net_ce": "a2net_ce_adapter",
+                    "semicon_ce": "semicon_ce_adapter", "semicon": "semicon",
+                    "adsh": "adsh"}
+# the database codes of solve_dcc on the card against the CPU's: least share
+# of equal entries (a sign whose argument is within rounding of 0 may flip)
+MIN_DCC_AGREEMENT = 0.999
+# configs/model/semicon.yaml's and adsh.yaml's criterion gamma
+ADSH_GAMMA = 200.0
+
+
+class GivenTrunk(torch.nn.Module):
+    """A trunk that returns outputs computed before: the CPU's f32 trunk,
+    run once for every head."""
+
+    def __init__(self, enc: dict):
+        super().__init__()
+        self.enc = enc
+
+    def forward(self, images, train: bool = False,
+                output_attentions: bool = False) -> dict:
+        return self.enc
+
+
+def finegrained_forwards(sizes: Sizes, device) -> None:
+    """Phase 18 (a): the four models' heads (A2NetCE, SemiconCE, Semicon,
+    adsh's csq head) on one seeded trunk encode ``sizes.variant_images``
+    seeded images in bf16 on the card, counted (kernel 1 once a layer, no
+    other kernel), against the same weights at float32 on the CPU, whose
+    trunk runs once: codes agree in sign on >= 99% of bits, A2NetCE's and
+    SemiconCE's logits within LOGIT_RTOL of the largest."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.methods import build_model
+
+    t_a = time.perf_counter()
+    trunk = seeded_trunk(sizes, device)
+    vcfg = trunk.tower.cfg
+    gen = torch.Generator(device=device).manual_seed(67)
+    raw = torch.randint(0, 256, (sizes.variant_images, sizes.image_side,
+                                 sizes.image_side, 3), generator=gen,
+                        device=device, dtype=torch.uint8)
+    images = normalize(center_crop(raw, vcfg.image_size), 3)
+    cpu_trunk = seeded_trunk(sizes, torch.device("cpu"), like=trunk)
+    with torch.inference_mode():
+        enc_cpu = cpu_trunk(images.float().cpu())
+    del cpu_trunk
+    expect = (vcfg.num_layers, 0, 0, 0, 0, 0)
+    for name in FINEGRAINED_YAML:
+        cfg, cb, model, _ = baseline_on(sizes, name, trunk, device)
+        model.eval()
+        torch.cuda.synchronize()
+        count_reset()
+        with torch.inference_mode():
+            out = model(images)
+        torch.cuda.synchronize()
+        launches = counts()
+        cpu, _ = build_model(dict(cfg, compute_dtype="float32"), cb,
+                             device=torch.device("cpu"),
+                             vision=dict(num_layers=0))
+        cpu.load_state_dict({k: v for k, v in model.state_dict().items()
+                             if not k.startswith("backbone.")}, strict=False)
+        cpu.backbone = GivenTrunk(enc_cpu)
+        with torch.inference_mode():
+            want = cpu.eval()(images.float().cpu())
+        codes, ref = out["codes"].float().cpu(), want["codes"]
+        agree = ((codes > 0) == (ref > 0)).float().mean().item()
+        logit_err = ({"logits": ((out["logits"].float().cpu()
+                                  - want["logits"]).abs().max()
+                                 / want["logits"].abs().max()).item()}
+                     if "logits" in want else {})
+        finite = all(torch.isfinite(v).all() for v in out.values())
+        print(f"fine-grained {name} encode ({sizes.variant_images} images, "
+              f"bf16 on the card against f32 on the CPU): codes "
+              f"{tuple(codes.shape)}, sign agreement {agree:.6f} (limit "
+              f"{MIN_SIGN_AGREEMENT}); "
+              + "".join(f"{k} max |d| / max |ref| {v:.4g} (limit "
+                        f"{LOGIT_RTOL}); " for k, v in logit_err.items())
+              + f"launches {launches} against {expect}")
+        if not finite or codes.shape != (sizes.variant_images,
+                                         sizes.head["nbit"]):
+            fail(f"fine-grained {name}: outputs not finite or of a wrong "
+                 "shape")
+        if agree < MIN_SIGN_AGREEMENT:
+            fail(f"fine-grained {name}: sign agreement {agree:.4f}")
+        if any(v > LOGIT_RTOL for v in logit_err.values()):
+            fail(f"fine-grained {name}: logits {logit_err} beyond "
+                 f"{LOGIT_RTOL}")
+        if launches != expect:
+            fail(f"fine-grained {name}: launches {launches} != {expect}")
+        del model, cpu, out, want
+    print(f"phase 18 (a): {time.perf_counter() - t_a:.1f} s")
+    del trunk
+    torch.cuda.empty_cache()
+
+
+def adsh_batch_targets(sizes: Sizes, labels: torch.Tensor, device) -> dict:
+    """The adsh loss's targets for a batch that is ``sizes.adsh_db``-row
+    train set's rows 0..B-1: seeded +-1 database codes V, the other rows'
+    labels seeded, S their softened similarity to the batch."""
+    from concepthash_tpu_torch.losses.baselines import soften_sim
+
+    N, nbit, B = sizes.adsh_db, sizes.head["nbit"], labels.shape[0]
+    g = torch.Generator(device=device).manual_seed(73)
+    V = torch.randint(0, 2, (N, nbit), generator=g, device=device) * 2.0 - 1
+    db = torch.randint(0, sizes.head["nclass"], (N,), generator=g,
+                       device=device)
+    db[:B] = labels
+    S = soften_sim((labels[:, None] == db[None, :]).float() * 2 - 1)
+    return {"S": S, "V": V, "V_omega": V[:B]}
+
+
+def finegrained_steps(sizes: Sizes, device) -> None:
+    """Phase 18 (b): five eager train steps each of a2net_ce, semicon_ce
+    and adsh (the csq head against ``sizes.adsh_db`` stored codes) at B=32
+    at the kernel settings on one seeded batch, counted per step (kernels 5
+    and 6 once and twice a layer); the loss finite and, for semicon_ce and
+    adsh, falling (a2net_ce's reconstruction term grows on a random
+    12-layer tower in the reference too; its train loss and gradients with
+    the kernels against their plain versions' stand for it: loss within
+    ``TRAIN_LOSS_RTOL``, gradient cosine >= ``MIN_UPDATE_COSINE``); the
+    frozen backbone bit-unchanged. Then a graphed chunk of a2net_ce and of
+    semicon_ce against eager steps, bit for bit; ``solve_dcc`` at CUB-200's
+    size on the card against the CPU; ``ae_fit`` on the card against the
+    CPU, then the full fit timed."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.losses.baselines import adsh_loss
+    from concepthash_tpu_torch.methods import training_for
+
+    t_b = time.perf_counter()
+    trunk = seeded_trunk(sizes, device, TRAIN_VISION)
+    vcfg = trunk.tower.cfg
+    n_lay = vcfg.num_layers
+    nclass, nbit = sizes.head["nclass"], sizes.head["nbit"]
+    B, steps = sizes.train_batch, sizes.train_steps
+    dgen = torch.Generator(device=device).manual_seed(71)
+    raw = torch.randint(0, 256, (B, sizes.image_side, sizes.image_side, 3),
+                        generator=dgen, device=device, dtype=torch.uint8)
+    y = torch.randint(0, nclass, (B,), generator=dgen, device=device)
+    batch = {"image": normalize(center_crop(raw, vcfg.image_size), 3),
+             "label": F.one_hot(y, nclass).float()}
+    frozen = {k: v.clone() for k, v in trunk.state_dict().items()
+              if "adapter" not in k}
+    expect = (0, 0, 0, 2 * n_lay, n_lay, 0)
+    for name in ("a2net_ce", "semicon_ce", "adsh"):
+        t_m = time.perf_counter()
+        cfg, cb, model, loss_fn = baseline_on(
+            sizes, name, copy.deepcopy(trunk), device, TRAIN_VISION)
+        b = dict(batch)
+        if name == "adsh":
+            b["adsh"] = adsh_batch_targets(sizes, y, device)
+
+            def loss_fn(outputs, bt):
+                return adsh_loss(outputs, bt["adsh"], gamma=ADSH_GAMMA,
+                                 nbit=nbit)
+        tr = training_for(cfg, model, loss_fn, sizes.steps_per_epoch)
+        if name == "a2net_ce":
+            loss_k, loss_p, cos = grads_vs_plain(model, loss_fn, b)
+            worst = min(cos, key=cos.get)
+            print(f"fine-grained {name} train forward and backward, kernels "
+                  f"vs plain: loss {loss_k:.6f} vs {loss_p:.6f}; gradient "
+                  f"cosine min {cos[worst]:.6f} ({worst}), mean "
+                  f"{sum(cos.values()) / len(cos):.6f}")
+            if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+                    cos[worst] < MIN_UPDATE_COSINE:
+                fail(f"fine-grained {name}: the kernels' gradients differ "
+                     "from their plain versions'")
+        torch.cuda.synchronize()
+        count_reset()
+        losses, per_step, parts = [], [], []
+        for i in range(steps):
+            if i == 1:
+                t0 = time.perf_counter()
+            before = counts()
+            m = tr.step(b)
+            losses.append(float(m["loss"]))
+            parts.append({k: float(v) for k, v in m.items()
+                          if k not in ("loss", "acc")})
+            per_step.append(tuple(a - c for a, c in zip(counts(), before)))
+        step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+        sd = model.backbone.state_dict()
+        moved_frozen = [k for k, v in frozen.items()
+                        if not torch.equal(sd[k], v)]
+        print(f"fine-grained {name} train steps (B={B}, kernels 5 and 6): "
+              "loss " + ", ".join(f"{x:.5f}" for x in losses) + " ("
+              + ", ".join(f"{k} {parts[0][k]:.4g} -> {parts[-1][k]:.4g}"
+                          for k in parts[0])
+              + f"); launches per step {per_step[0]} against {expect}, the "
+              f"same every step: {len(set(per_step)) == 1}; frozen backbone "
+              f"unchanged: {not moved_frozen}; {step_ms:.1f} ms a step "
+              "after the first (host clock, eager)")
+        if any(p != expect for p in per_step):
+            fail(f"fine-grained {name}: launches per step {per_step}")
+        if moved_frozen:
+            fail(f"fine-grained {name}: frozen parameters moved: "
+                 f"{moved_frozen[:3]}")
+        # A2-Net-CE's reconstruction of the 12-layer random tower's
+        # features through the tied hash layer grows under the config's
+        # adam in the reference too: the gradients against the plain
+        # versions' above stand for it
+        falls = name == "a2net_ce" or losses[-1] < losses[0]
+        if not all(math.isfinite(x) for x in losses) or not falls:
+            fail(f"fine-grained {name}: loss {losses} not finite or not "
+                 "falling")
+        del tr, model
+        if name != "adsh":      # one step a dispatch in the adsh regime
+            baseline_graph_vs_eager(sizes, name, trunk, device)
+        print(f"fine-grained {name}: {time.perf_counter() - t_m:.1f} s")
+    del trunk
+    torch.cuda.empty_cache()
+    check_dcc(sizes, device)
+    check_ae_fit(sizes, device)
+    print(f"phase 18 (b): {time.perf_counter() - t_b:.1f} s")
+
+
+def check_dcc(sizes: Sizes, device) -> None:
+    """``solve_dcc`` at CUB-200's size (``sizes.dcc_split``: 5,994 train
+    rows, num_samples 2,000, 64 bits) from seeded inputs on the card
+    against the CPU: the share of equal database codes, and its time."""
+    from concepthash_tpu_torch.losses.baselines import soften_sim, solve_dcc
+
+    n_train, m = sizes.dcc_split
+    nbit, nclass = sizes.head["nbit"], sizes.head["nclass"]
+    rng = np.random.default_rng(79)
+    labels = rng.integers(0, nclass, n_train)
+    omega = rng.choice(n_train, m, replace=False)
+    S = soften_sim(torch.from_numpy(
+        (labels[omega][:, None] == labels[None, :]).astype(np.float32)
+        * 2 - 1))
+    U = torch.tanh(torch.from_numpy(rng.standard_normal((m, nbit))
+                                    .astype(np.float32)))
+    V = torch.from_numpy(np.sign(rng.standard_normal((n_train, nbit)))
+                         .astype(np.float32))
+    t0 = time.perf_counter()
+    want = solve_dcc(V, U, S, omega, ADSH_GAMMA, nbit)
+    cpu_s = time.perf_counter() - t0
+    args = [t.to(device) for t in (V, U, S)]
+    got = solve_dcc(*args[:3], omega, ADSH_GAMMA, nbit)
+    agree = (got.cpu() == want).float().mean().item()
+    ms = cuda_ms(lambda: solve_dcc(*args[:3], omega, ADSH_GAMMA, nbit), 3)
+    print(f"solve_dcc (n_train {n_train}, |omega| {m}, nbit {nbit}) on the "
+          f"card against the CPU: V agrees on {agree:.6f} of entries (limit "
+          f"{MIN_DCC_AGREEMENT}), {(want != V).float().mean().item():.4f} "
+          f"of the bits moved; {ms:.3f} ms on the card (CUDA events), "
+          f"{cpu_s * 1e3:.1f} ms on the CPU")
+    if agree < MIN_DCC_AGREEMENT or not set(got.unique().tolist()) <= {
+            -1.0, 1.0}:
+        fail(f"solve_dcc: the card's V agrees on {agree:.5f} of entries")
+
+
+def check_ae_fit(sizes: Sizes, device) -> None:
+    """``ae_fit`` for ``ae`` and ``induced_ae_norm_cossim`` on a seeded
+    (200, 512) embedding to 64 bits, ``sizes.ae_iters[0]`` iterations from
+    one init on the card and on the CPU: signs agree on >= 99%; then
+    ``ae``'s full ``sizes.ae_iters[1]`` iterations on the card, timed."""
+    from concepthash_tpu_torch.train.codebook import ae_fit, ae_init
+
+    n, d = sizes.ae_embedding
+    nbit = sizes.head["nbit"]
+    it_cmp, it_full = sizes.ae_iters
+    emb = np.random.default_rng(83).standard_normal((n, d)).astype(
+        np.float32)
+    for method in ("ae", "induced_ae_norm_cossim"):
+        init = ae_init(d, nbit, method)
+        t0 = time.perf_counter()
+        card = ae_fit(emb, nbit, method, iters=it_cmp, init=init,
+                      device=device)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = ae_fit(emb, nbit, method, iters=it_cmp, init=init,
+                     device="cpu")
+        cpu_s = time.perf_counter() - t0
+        agree = float((np.sign(card) == np.sign(cpu)).mean())
+        print(f"ae_fit {method} ({n} x {d} -> {nbit} bits, {it_cmp} "
+              f"iterations from one init): signs agree on {agree:.6f} (limit "
+              f"{MIN_SIGN_AGREEMENT}), max |d| {np.abs(card - cpu).max():.3g};"
+              f" {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
+        if not np.isfinite(card).all() or agree < MIN_SIGN_AGREEMENT:
+            fail(f"ae_fit {method}: signs agree on {agree:.4f}")
+    t0 = time.perf_counter()
+    full = ae_fit(emb, nbit, "ae", iters=it_full, device=device)
+    torch.cuda.synchronize()
+    print(f"ae_fit ae, the full {it_full} iterations on the card: "
+          f"{time.perf_counter() - t0:.2f} s; codes finite: "
+          f"{bool(np.isfinite(full).all())}")
+    if not np.isfinite(full).all():
+        fail("ae_fit: the full fit is not finite")
+
+
+def run_finegrained(sizes: Sizes, device) -> None:
+    """Phase 18 (a) and (b)."""
+    t0 = time.perf_counter()
+    finegrained_forwards(sizes, device)
+    finegrained_steps(sizes, device)
+    print(f"phase 18 (a), (b): {time.perf_counter() - t0:.1f} s")
+
+
+def run_finegrained_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
+                         flagship: dict) -> None:
+    """Phase 18 (c): ``main_gpu.py model=a2net_ce_adapter`` and
+    ``model=semicon_ce_adapter`` at ``train_chunk`` auto, and
+    ``model=semicon`` (the adsh regime, one step a dispatch) on phase 15's
+    synthetic set, 2 epochs each, counted (kernel 1 at one launch a layer
+    and eval batch, the adsh regime's subset encodes included; no other
+    kernel): finite records; the CE models' graph replays and
+    ``exp=validation use_last=true`` at the run's batch size within 1e-6
+    of the run's last mAP;
+    semicon's +-1 (n_train, nbit) ``outputs/db_codes.pt`` and a mAP in
+    [0, 1]; train and eval img/s beside phase 15's flagship."""
+    import os
+
+    import main_gpu
+
+    t_c = time.perf_counter()
+    rows = [("flagship (phase 15)", flagship["train_img_s"],
+             flagship["eval_img_s"])]
+    for model in ("a2net_ce_adapter", "semicon_ce_adapter", "semicon"):
+        run = os.path.join(tmp, model)
+        exp = main_gpu.build_experiment(argv(run, f"model={model}"))
+        torch.cuda.synchronize()
+        count_reset()
+        t0 = time.perf_counter()
+        exp.main()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        with open(os.path.join(run, "train_history.json")) as f:
+            train = json.load(f)
+        with open(os.path.join(run, "test_history.json")) as f:
+            test = json.load(f)
+        adsh = exp.method.regime == "adsh"
+        steps = exp.steps_per_epoch
+        batch = int(exp.config["batch_size"])
+        K = exp.train_chunk
+        n_layers = exp.model.vision_cfg.num_layers
+        if adsh:    # the subset's encode each epoch, then the test split
+            per_epoch = -(-exp.adsh_settings["num_samples"] // batch)
+            eval_batches = exp.epochs * per_epoch + len(exp.loaders["test"])
+        else:
+            eval_batches = 2 * (len(exp.loaders["test"])
+                                + len(exp.loaders["db"]))
+        want = (n_layers * eval_batches, 0, 0, 0, 0, 0)
+        replays = getattr(exp.train_multi_step, "replays", 0)
+        want_replays = (0 if adsh or device.type != "cuda"
+                        else 2 * (steps // K) - 1)
+        print(f"{model} run (train_chunk {K}): {steps} steps of {batch} an "
+              "epoch; train records "
+              + "; ".join(f"ep {r['ep']} loss {r['loss']:.5f}"
+                          + (f" {r['time']:.2f} s" if "time" in r else "")
+                          for r in train)
+              + "; test mAP " + ", ".join(f"{r['mAP']:.6f}" for r in test)
+              + f"; graph replays {replays} train (expected "
+              f"{want_replays}); launches {launches} against {want}; the "
+              f"run {run_s:.1f} s")
+        if len(train) != 2 or len(test) != (1 if adsh else 2) or not all(
+                math.isfinite(r["loss"]) for r in train):
+            fail(f"{model}: not two finite train records and the test "
+                 "records")
+        if launches != want:
+            fail(f"{model}: kernel 1 not launched once a layer and eval "
+                 "batch, or another kernel launched")
+        if replays != want_replays:
+            fail(f"{model}: {replays} train replays, expected "
+                 f"{want_replays}")
+        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
+        eval_s = host_s(lambda: (exp.encode_split("test"),
+                                 exp.encode_split("db")), 1)
+        if adsh:
+            V = torch.load(os.path.join(run, "outputs", "db_codes.pt"))["V"]
+            shape = (len(exp.datasets["train"]),
+                     int(exp.config["model"]["nbit"]))
+            print(f"{model}: outputs/db_codes.pt {tuple(V.shape)}, values "
+                  f"{sorted(V.unique().tolist())}; mAP {test[0]['mAP']:.6f}"
+                  f" scored with V as the database")
+            if tuple(V.shape) != shape or set(V.unique().tolist()) != {
+                    -1.0, 1.0} or not 0.0 <= test[0]["mAP"] <= 1.0:
+                fail(f"{model}: db_codes.pt or its mAP is wrong")
+            # whole-run rate: SGD steps with the subset encodes and DCC
+            rows.append((f"{model} (adsh, whole run)",
+                         exp.epochs * steps * batch / run_s, n_eval / eval_s))
+        else:
+            rows.append((model, steps * batch / train[1]["time"],
+                         n_eval / eval_s))
+        for loader in exp.loaders.values():
+            loader.close()
+        del exp
+        if adsh:
+            continue
+        # at the run's batch size: SEMICON's suppression mask is
+        # standardized over the batch, so configs/val.yaml's batch of 64
+        # would give other codes (in the reference too)
+        ev = main_gpu.build_experiment(eval_argv(
+            "exp=validation", f"logdir={run}", "use_last=true",
+            f"batch_size={batch}"))
+        got = ev.main()
+        d_map = abs(got["mAP"] - test[-1]["mAP"])
+        print(f"{model} exp=validation use_last=true: mAP {got['mAP']:.6f} "
+              f"against the run's last {test[-1]['mAP']:.6f}, |d| "
+              f"{d_map:.3g} (tolerance {REPLAY_MAP_ATOL})")
+        if d_map > REPLAY_MAP_ATOL:
+            fail(f"{model}: exp=validation does not reproduce the run")
+        del ev
+    print("phase 18 (c) img/s, epoch-2 train and eval encode: "
+          + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}" for n, t, e in rows)
+          + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
+    print(f"phase 18 (c): {time.perf_counter() - t_c:.1f} s")
+
+
+def native_headers() -> bool:
+    """Whether the C++ compiler finds libjpeg's and libpng's headers."""
+    import shutil
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return False
+    src = "#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n"
+    proc = subprocess.run([gxx, "-fsyntax-only", "-x", "c++", "-"],
+                          input=src, capture_output=True, text=True)
+    return proc.returncode == 0
+
+
+def run_loader(sizes: Sizes, device, tmp: str, argv, flagship: dict) -> None:
+    """Phase 18 (d): the loader alone on phase 15's train PNGs, PIL against
+    the C++ decode (where the library builds, as it must where the machine
+    has libjpeg's and libpng's headers, the native route is required;
+    where not, every image must go to PIL with the fallback logged), then
+    the chunked flagship of phase 15 (c) again with ``cache_images=true``
+    (its epoch losses and ``models/last.pt`` equal to the default run's bit
+    for bit) and, where the library builds, with ``native_decode=true``:
+    epoch-2 train img/s and the device's busy share beside the default
+    run's."""
+    import logging
+    import os
+
+    import main_gpu
+    from concepthash_tpu_torch import native
+    from concepthash_tpu_torch.data.manifest import HashingDataset
+    from concepthash_tpu_torch.data.pipeline import Loader
+
+    class Warnings(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    t_d = time.perf_counter()
+    headers = native_headers()
+    root = os.path.join(tmp, "synth")
+    ds = HashingDataset(root, "train.txt", sizes.flagship_classes)
+    resize, batch = flagship["resize"], flagship["batch"]
+    records = Warnings()
+    logging.getLogger().addHandler(records)
+    native.reset_counts()
+    decoded = {}
+    try:
+        built = native.available()      # the build at first use
+        for route in ("pil", "native"):
+            loader = Loader(ds, batch, resize=resize,
+                            native_decode=route == "native")
+            t0 = time.perf_counter()
+            decoded[route] = np.concatenate([b["image"][:b["n_valid"]]
+                                             for b in loader])
+            decoded[route + "_s"] = time.perf_counter() - t0
+            loader.close()
+    finally:
+        logging.getLogger().removeHandler(records)
+    n = len(ds)
+    warned = any("native_decode" in r.getMessage() for r in records.records)
+    rates = {r: n / decoded[r + "_s"] for r in ("pil", "native")}
+    diff = float(np.abs(decoded["pil"].astype(np.int16)
+                        - decoded["native"].astype(np.int16)).mean())
+    print(f"loader: the C++ compiler finds jpeglib.h and png.h: {headers}; "
+          f"the C++ decoder built and loaded: {built}")
+    print(f"loader alone, {n} train PNGs at {resize}^2: PIL {rates['pil']:.1f}"
+          f" img/s, native_decode {rates['native']:.1f} img/s; images by the "
+          f"C++ decoder {native.counts['native']}, sent to PIL "
+          f"{native.counts['fallback']}; the fallback logged: {warned}; mean "
+          f"|PIL - native| {diff:.3f} per channel value")
+    if headers and not built:
+        fail("native_decode: the headers are there but the library did not "
+             "build")
+    if built and (native.counts["native"] != n or native.counts["fallback"]):
+        fail("native_decode fell back to PIL where the library is there")
+    if not built and (native.counts["fallback"] != n or not warned):
+        fail("native_decode without its library: not every image went to "
+             "PIL with the fallback logged")
+    with open(os.path.join(tmp, "run", "train_history.json")) as f:
+        default = json.load(f)
+    last = torch.load(os.path.join(tmp, "run", "models", "last.pt"))["model"]
+    rows = [("default (phase 15 (c))", flagship["train_img_s"],
+             flagship["busy"])]
+    runs = ["cache_images=true"] + (["native_decode=true"] if built
+                                    else [])
+    for extra in runs:
+        run = os.path.join(tmp, "loader_" + extra.split("=")[0])
+        exp = main_gpu.build_experiment(argv(run, extra))
+        exp.main()
+        with open(os.path.join(run, "train_history.json")) as f:
+            train = json.load(f)
+        epoch_s = train[1]["time"]
+        steps = len(exp.loaders["train"])
+        kernels = device_breakdown(f"{extra} flagship train epoch",
+                                   lambda: exp.train_one_epoch(2), epoch_s,
+                                   rows=4)
+        rows.append((extra, steps * batch / epoch_s,
+                     busy_share(kernels, epoch_s)))
+        if extra == "cache_images=true":
+            sd = torch.load(os.path.join(run, "models", "last.pt"))["model"]
+            same = ([r["loss"] for r in train]
+                    == [r["loss"] for r in default]
+                    and set(sd) == set(last)
+                    and all(torch.equal(sd[k], last[k]) for k in last))
+            print("cache_images=true against the default run: epoch losses "
+                  + ", ".join(f"{r['loss']:.6f}" for r in train)
+                  + " against " + ", ".join(f"{r['loss']:.6f}"
+                                            for r in default)
+                  + f"; models/last.pt equal: bit for bit {same} "
+                  "(required)")
+            if not same:
+                fail("cache_images=true differs from the default run")
+        for loader in exp.loaders.values():
+            loader.close()
+        del exp
+    if not built:
+        print("native_decode=true run: skipped, the C++ decoder cannot be "
+              "built here (every image would go to PIL)")
+    print("phase 18 (d) epoch-2 train img/s and device busy share, the "
+          "chunked flagship: " + "; ".join(
+              f"{name} {img_s:.1f} img/s, busy {100 * busy:.1f}%"
+              for name, img_s, busy in rows)
+          + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
+    print(f"phase 18 (d): {time.perf_counter() - t_d:.1f} s")
 
 
 def _flatten(x):
@@ -3180,6 +3796,7 @@ def run(sizes: Sizes, device) -> dict:
     flagship = run_flagship(sizes, device)
     run_variants(sizes, device)
     run_baselines(sizes, device)
+    run_finegrained(sizes, device)
     run_graphs(sizes, device, flagship)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",

@@ -8,10 +8,11 @@ tail, the one-hots and indices and the ``cache`` rule are the reference's.
 
 One deliberate difference: the decode pool is the ``ImageSource``'s, and
 ``Loader.close()`` or abandoning an epoch mid-way shuts it down (the
-reference leaves its threads running). Not ported: the per-process shards
-of a multi-host run, ``native_decode``, ``ArrayDataset``, ``array_loader``,
-the ``dataloader`` alias (callers build a ``Loader``) and the ``workers`` and
-``prefetch`` knobs (the pool's width follows the cores; the prefetch depth is
+reference leaves its threads running). ``native_decode`` decodes with the
+C++ library (``native``), falling back to PIL per image as the reference
+does. Not ported: the per-process shards of a multi-host run,
+``ArrayDataset``, ``array_loader``, the ``dataloader`` alias (callers build
+a ``Loader``) and the ``workers`` and ``prefetch`` knobs (the pool's width follows the cores; the prefetch depth is
 ``PREFETCH``).
 """
 
@@ -77,9 +78,10 @@ class ImageSource:
     (fine-grained galleries are small: CUB 5,994 images ~1.2 GB at 256²)."""
 
     def __init__(self, dataset: HashingDataset, resize: int = 256,
-                 cache: bool = False):
+                 cache: bool = False, native_decode: bool = False):
         self.dataset = dataset
         self.resize = resize
+        self.native_decode = native_decode
         self.workers = _resolve_workers()
         self._cache = None
         self._pool = None  # persistent decode pool, created on first use
@@ -89,7 +91,8 @@ class ImageSource:
     def get(self, i: int) -> np.ndarray:
         if self._cache is not None and self._cache[i] is not None:
             return self._cache[i]
-        img = load_image_host(self.dataset.image_path(i), self.resize)
+        img = load_image_host(self.dataset.image_path(i), self.resize,
+                              use_native=self.native_decode)
         if self._cache is not None:
             self._cache[i] = img
         return img
@@ -123,9 +126,11 @@ class Loader:
 
     def __init__(self, dataset: HashingDataset, batch_size: int,
                  resize: int = 256, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0, cache: bool = False):
+                 drop_last: bool = False, seed: int = 0, cache: bool = False,
+                 native_decode: bool = False):
         self.dataset = dataset
-        self.source = ImageSource(dataset, resize, cache=cache)
+        self.source = ImageSource(dataset, resize, cache=cache,
+                                  native_decode=native_decode)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last

@@ -214,12 +214,17 @@ def load_image_host(path: str, resize: int = 256,
     """Decode + bicubic short-side resize + center crop to a uint8 (resize,
     resize, 3) array. Centered crops commute, so a later center crop to
     ``crop`` equals torchvision Resize(resize) + CenterCrop(crop).
-    ``use_native`` (the reference's C++ libjpeg/libpng route) is not
-    ported."""
+    ``use_native`` takes the C++ libjpeg/libpng route (``native``: bilinear,
+    DCT-scaled JPEG decode, the reference's bytes); a file it cannot decode,
+    or a machine where it cannot be built, goes to PIL as in the
+    reference."""
     if use_native:
-        raise NotImplementedError(
-            "native_decode (the C++ decode of concepthash_tpu/native) is not "
-            "ported yet (ROADMAP Queue 1 item 3)")
+        from concepthash_tpu_torch import native
+
+        with open(path, "rb") as f:
+            arr = native.decode_resize_crop(f.read(), resize)
+        if arr is not None:
+            return arr
     from PIL import Image
 
     with Image.open(path) as im:

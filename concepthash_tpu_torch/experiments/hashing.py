@@ -1,5 +1,5 @@
 """The experiments: train + retrieve, train-only and eval-only (counterpart
-of the ``sgd`` regime of concepthash_tpu/experiments/hashing.py
+of the ``sgd`` and ``adsh`` regimes of concepthash_tpu/experiments/hashing.py
 ``RetrievalExperiment``, ``GeneralExperiment`` and ``RetrievalEvaluation``).
 
 One run: the codebook stage, the model and its train step
@@ -44,9 +44,23 @@ dispatch at any ``train_chunk``, with the batch's dataset indices, and its
 train-state extras (the bank) go into ``optims/*.pt`` with the rest of the
 train state.
 
+A method of the ``adsh`` regime (``adsh``, ``semicon``) alternates, each
+epoch: ``max_iters`` passes of SGD over a random subset omega of
+``num_samples`` train rows against the stored database codes V, then a
+fresh encode of omega and the discrete update of V (``solve_dcc``, on the
+run's device). V's initial signs and each epoch's omega come from
+``np.random.default_rng(seed)`` in the reference's order; the schedule runs
+on ``max_iters * (num_samples // batch_size)`` steps an epoch, one step a
+dispatch at any ``train_chunk``. The run scores V (over the train labels)
+against the test codes and writes ``outputs/db_codes.pt``.
+
+``native_decode`` decodes the images with the C++ library (``native``),
+and ``cache_images`` keeps the decoded images in memory (``null`` is off,
+as in the reference's reading of ``configs/train.yaml``).
+
 Not ported, and raising ``NotImplementedError``: the other regimes and
-methods (``methods.get_method``), ``native_decode``, and the ``profile``
-and ``debug`` diagnostics.
+methods (``methods.get_method``), and the ``profile`` and ``debug``
+diagnostics.
 """
 
 from __future__ import annotations
@@ -65,12 +79,14 @@ from concepthash_tpu_torch.config.loader import save_config
 from concepthash_tpu_torch.data.manifest import HashingDataset
 from concepthash_tpu_torch.data.pipeline import Loader, seeding
 from concepthash_tpu_torch.data.preprocess import preprocess_batch
+from concepthash_tpu_torch.losses.baselines import (adsh_loss, soften_sim,
+                                                    solve_dcc)
 from concepthash_tpu_torch.methods import (build_model, get_method,
                                            prepare_codebook, training_for)
 from concepthash_tpu_torch.models.backbone_factory import \
     maybe_load_pretrained_vision
 from concepthash_tpu_torch.ops.retrieval import (calculate_mAP,
-                                                 calculate_pr_curve)
+                                                 calculate_pr_curve, get_sim)
 from concepthash_tpu_torch.train.optim import current_lr
 from concepthash_tpu_torch.train.state import (create_train_state,
                                                make_eval_step,
@@ -110,7 +126,6 @@ def offline_text_embedder(class_names, dim: int = 512):
 
 def _unported_options(config: dict):
     reasons = {
-        "native_decode": "native_decode (ROADMAP Queue 1 item 3)",
         "profile": "the profile key (StepProfiler, ROADMAP Queue 1 item 5)",
         "debug": "the debug key (ROADMAP Queue 1 item 5)",
     }
@@ -206,13 +221,14 @@ class RetrievalExperiment:
         cache = bool(cfg.get("cache_images",
                              len(self.datasets["train"]) < 20000))
         seed = int(cfg.get("seed", 42))
+        self._loader_kw = dict(resize=resize, cache=cache,
+                               native_decode=bool(cfg.get("native_decode",
+                                                          False)))
         self.loaders = {
-            "train": Loader(self.datasets["train"], bs, resize=resize,
-                            shuffle=True, drop_last=True, seed=seed,
-                            cache=cache),
-            "test": Loader(self.datasets["test"], bs, resize=resize,
-                           cache=cache),
-            "db": Loader(self.datasets["db"], bs, resize=resize, cache=cache),
+            "train": Loader(self.datasets["train"], bs, shuffle=True,
+                            drop_last=True, seed=seed, **self._loader_kw),
+            "test": Loader(self.datasets["test"], bs, **self._loader_kw),
+            "db": Loader(self.datasets["db"], bs, **self._loader_kw),
         }
         self.crop = int(ds.get("crop", 224))
         self.norm = int(ds.get("norm", 2))
@@ -348,7 +364,15 @@ class RetrievalExperiment:
         cfg = self.config
         self.epochs = int(cfg.get("epochs", 100))
         self.steps_per_epoch = max(len(self.loaders["train"]), 1)
-        self.training = tr = training_for(cfg, self.model, self.loss_fn,
+        loss_fn = self.loss_fn
+        if self.method.regime == "adsh":
+            # the schedule on the regime's own step count (SGD on a subset
+            # of num_samples rows, max_iters passes an epoch)
+            self.adsh_settings = _adsh_settings(cfg,
+                                                len(self.datasets["train"]))
+            self.steps_per_epoch = self.adsh_settings["steps"]
+            loss_fn = self._adsh_loss()
+        self.training = tr = training_for(cfg, self.model, loss_fn,
                                           self.steps_per_epoch)
         self.train_step = tr.step
         seed = int(cfg.get("seed", 42))
@@ -362,8 +386,10 @@ class RetrievalExperiment:
             {"dropout": tr.generator, "augment": self.aug_generator,
              "op": self.op_generator}, loader=self.loaders["train"],
             extra=tr.extra)
-        if tr.custom and self.train_chunk > 1:
-            # the reference builds no multi step for a method's own step
+        single = tr.custom or self.method.regime != "sgd"
+        if single and self.train_chunk > 1:
+            # the reference builds no multi step for a method's own step,
+            # nor for the adsh regime
             logging.info("train_chunk %d does not apply to %s's own train "
                          "step: one step a dispatch (eval still chunks)",
                          self.train_chunk, self.method.name)
@@ -371,7 +397,7 @@ class RetrievalExperiment:
             self.model, tr.loss_fn, tr.optimizer, tr.scheduler,
             output_attentions=self.method.needs_attentions(cfg),
             generator=tr.generator)
-            if self.train_chunk > 1 and not tr.custom else None)
+            if self.train_chunk > 1 and not single else None)
 
     # ------------------------------------------------------------------ train
     def train_one_epoch(self, ep: int) -> dict:
@@ -518,13 +544,17 @@ class RetrievalExperiment:
         checkpoint (.msgpack)."""
         if path.endswith(".msgpack"):
             from concepthash_tpu_torch.weights import (baseline_from_flax,
+                                                       finegrained_from_flax,
                                                        from_flax)
 
             blob = io.load_jax_checkpoint(path)
             if "params" not in blob:
                 raise ValueError(f"{path} is not a network checkpoint (keys: "
                                  f"{sorted(blob)})")
-            bridge = (from_flax if "hash_queries" in blob["params"]
+            params = blob["params"]
+            bridge = (from_flax if "hash_queries" in params
+                      else finegrained_from_flax
+                      if {"attn_conv", "sem_attn_0"} & set(params)
                       else baseline_from_flax)
             return bridge(blob), int(blob.get("epoch", 0))
         blob = io.load_checkpoint(path)
@@ -593,6 +623,8 @@ class RetrievalExperiment:
 
     # ------------------------------------------------------------------- main
     def main(self):
+        if self.method.regime == "adsh":
+            return self._main_adsh()
         cfg = self.config
         eval_interval = int(cfg.get("eval_interval", 10))
         save_interval = int(cfg.get("save_interval", 0))
@@ -638,6 +670,128 @@ class RetrievalExperiment:
                      os.path.join(self.logdir, "outputs", "test_best.pt"))
         io.fast_save({"codes": db_codes["codes"], "labels": db_labels},
                      os.path.join(self.logdir, "outputs", "db_best.pt"))
+
+
+    # ----------------------------------------------------------- adsh regime
+    def _adsh_loss(self):
+        """The asymmetric loss over ``batch['adsh']`` (S, V, V_omega); tanh
+        on the codes unless the model's codes are already activated."""
+        pre_act = bool(getattr(self.model, "codes_activated", False))
+        gamma = self.adsh_settings["gamma"]
+        nbit = self.adsh_settings["nbit"]
+
+        def loss_fn(outputs, batch):
+            return adsh_loss(outputs, batch["adsh"], gamma=gamma, nbit=nbit,
+                             apply_tanh=not pre_act)
+
+        return loss_fn
+
+    def _act(self, codes: torch.Tensor) -> torch.Tensor:
+        if getattr(self.model, "codes_activated", False):
+            return codes
+        return torch.tanh(codes)
+
+    def _main_adsh(self):
+        """The alternating optimization of the ``adsh`` regime: each epoch,
+        SGD over a resampled subset against the stored database codes V,
+        then V's discrete update from the subset's fresh codes."""
+        cfg = self.config
+        a = self.adsh_settings
+        gamma, nbit, num_samples = a["gamma"], a["nbit"], a["num_samples"]
+        seed = int(cfg.get("seed", 42))
+        bs = int(cfg.get("batch_size", 64))
+        dev = self.device
+        train_ds = self.datasets["train"]
+        n_train = len(train_ds)
+        rng = np.random.default_rng(seed)
+        train_onehot = train_ds.onehot_labels()
+        onehot_dev = torch.from_numpy(train_onehot).to(dev)
+        V = torch.from_numpy(np.sign(rng.standard_normal(
+            (n_train, nbit))).astype(np.float32)).to(dev)
+        for ep in range(self.epochs):
+            t0 = time.time()
+            omega = rng.choice(n_train, num_samples, replace=False)
+            sub = train_ds.subset(omega)
+            loader = Loader(sub, bs, shuffle=True, drop_last=True,
+                            seed=seed + ep, **self._loader_kw)
+            omega_dev = torch.from_numpy(omega).to(dev)
+            # the hard {-1, +1} pair matrix, softened: both the loss and
+            # the DCC take it
+            S_full = soften_sim(get_sim(onehot_dev[omega_dev], onehot_dev)
+                                .float() * 2 - 1)
+            meters = MeterBank()
+            for _ in range(a["inner_epochs"]):
+                for batch in loader:
+                    n = batch.pop("n_valid")
+                    # drop_last: every row valid; positions within omega
+                    pos = torch.from_numpy(batch["index"].astype(np.int64)) \
+                        .to(dev)
+                    images = preprocess_batch(
+                        self._on_device(batch["image"]), self.aug_generator,
+                        crop=self.crop, norm=self.norm, train=True,
+                        augment=self.augment, op_generator=self.op_generator)
+                    metrics = self.train_step({
+                        "image": images,
+                        "label": self._on_device(batch["label"]),
+                        "adsh": {"S": S_full[pos], "V": V,
+                                 "V_omega": V[omega_dev[pos]]}})
+                    meters.update_device(metrics, n)
+            loader.close()
+            # the subset's codes from the trained model, each batch padded
+            # as the reference's eval step takes it, then V's update
+            sub_loader = Loader(sub, bs, **self._loader_kw)
+            us, sub_pos = [], []
+            for batch in sub_loader:
+                n = batch.pop("n_valid")
+                images = preprocess_batch(self._on_device(batch["image"]),
+                                          crop=self.crop, norm=self.norm,
+                                          train=False)
+                codes, _ = self.eval_step({"image": images})
+                us.append(self._act(codes["codes"][:n]))
+                sub_pos.append(batch["index"][:n])
+            sub_loader.close()
+            sub_pos = torch.from_numpy(np.concatenate(sub_pos).astype(
+                np.int64)).to(dev)
+            # DCC takes the continuous codes: their magnitude carries
+            # confidence into the bit updates
+            V = solve_dcc(V, torch.cat(us), S_full[sub_pos],
+                          omega_dev[sub_pos], gamma, nbit)
+            res = meters.materialize()
+            self.train_history.append({"ep": ep, **res})
+            logging.info("adsh ep %d: loss=%.4f (%.1fs)", ep,
+                         res.get("loss", float("nan")), time.time() - t0)
+
+        # the database codes are the stored V
+        test_codes, test_labels, _ = self.encode_split("test")
+        mAP, recalls, precisions = calculate_mAP(
+            V, train_onehot, self._act(test_codes["codes"]), test_labels,
+            R=cfg.get("dataset", {}).get("R", -1),
+            PRs=tuple(cfg.get("PRs", (1, 5, 10))), device=dev)
+        self.test_history.append({"ep": self.epochs - 1, "mAP": mAP,
+                                  "recalls": recalls,
+                                  "precisions": precisions})
+        self.save_model("best", self.epochs - 1)
+        io.fast_save({"V": V}, os.path.join(self.logdir, "outputs",
+                                            "db_codes.pt"))
+        io.join_save_queue()
+        for loader in self.loaders.values():
+            loader.close()
+        self.best_metric = mAP
+        logging.info("adsh: mAP=%.4f", mAP)
+        return mAP
+
+
+def _adsh_settings(cfg: dict, n_train: int) -> dict:
+    """The adsh regime's criterion keys, and its optimizer steps an
+    epoch."""
+    crit = dict(cfg.get("criterion", {}) or {})
+    num_samples = min(int(crit.get("num_samples", 2000)), n_train)
+    inner = int(crit.get("max_iters", crit.get("inner_epochs", 3)))
+    bs = int(cfg.get("batch_size", 64))
+    return {"gamma": float(crit.get("gamma", 200.0)),
+            "nbit": int(cfg["model"]["nbit"]), "num_samples": num_samples,
+            "inner_epochs": inner,
+            "steps": max(1, inner * (num_samples // bs))}
 
 
 class GeneralExperiment(RetrievalExperiment):

@@ -1,12 +1,13 @@
 """The supervised baselines' objectives (counterpart of
-concepthash_tpu/losses/baselines.py, the ``sgd``-regime losses).
+concepthash_tpu/losses/baselines.py): the ``sgd``-regime losses, the
+fine-grained ones (``a2net_ce_loss``, ``semicon_ce_loss``) and the ``adsh``
+regime's asymmetric objective with its similarity rebalance and its
+database-code update (``adsh_loss``, ``soften_sim``, ``solve_dcc``).
 
 Each loss is ``fn(outputs, onehot, **cfg) -> (total, parts)`` over the
 model's output dict (codes and the head's logits), in f32. DTSH's triplets
-are vectorized with masks, as the reference does. The unsupervised,
-asymmetric and fine-grained objectives (``unsup_greedyhash_loss``,
-``adsh_loss``, ``soften_sim``, ``solve_dcc``, ``a2net_ce_loss``,
-``semicon_ce_loss``) wait for their regimes (ROADMAP Queue 1 items 6-7).
+are vectorized with masks, as the reference does. ``unsup_greedyhash_loss``
+waits for its regime (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -202,3 +203,92 @@ def ce_loss(outputs, onehot, multiclass: bool = False, margin: float = 0.0,
         loss = soft_cross_entropy(_margin(logits, onehot, margin, scale,
                                           m_type), onehot)
     return loss, {"ce": loss}
+
+
+# ---------------------------------------------------------------------------
+# the adsh regime: ADSH's and SEMICON's asymmetric objective
+# ---------------------------------------------------------------------------
+
+def adsh_loss(outputs, batch_codes_targets, gamma: float = 200.0,
+              nbit: int = 64, apply_tanh: bool = True, **_):
+    """(nbit S - u V^T)^2 + gamma ||u - V_omega||^2 against the stored
+    database codes V, both sums over (B * N) and scaled by 12 / nbit, as
+    the reference's executable criterion is. ``batch_codes_targets`` holds
+    S (B, N) soft similarity, V (N, nbit) and V_omega (B, nbit), the stored
+    codes of the batch's rows. ``apply_tanh=False`` for codes already
+    tanh-activated (SEMICON's)."""
+    u = torch.tanh(outputs["codes"]) if apply_tanh else outputs["codes"]
+    S = batch_codes_targets["S"]
+    V = batch_codes_targets["V"]
+    V_omega = batch_codes_targets["V_omega"]
+    denom = u.shape[0] * V.shape[0]
+    hash_loss = ((nbit * S - u @ V.t()) ** 2).sum() / denom / nbit * 12
+    quan = ((u - V_omega) ** 2).sum() / denom * gamma / nbit * 12
+    return hash_loss + quan, {"hash": hash_loss, "quan": quan}
+
+
+def soften_sim(S):
+    """The soft-similarity rebalance of the hard {-1, +1} pair matrix:
+    ``r = S.sum() / (1 - S).sum(); S * (1 + r) - r``. Positives stay +1,
+    negatives move to -(1 + 2r). An all-positive S (no negative mass)
+    keeps its values: the denominator is guarded, and any finite r is the
+    identity on +1. NumPy arrays or tensors; returns the same kind."""
+    neg_mass = (1.0 - S).sum()
+    r = S.sum() / (neg_mass + (neg_mass == 0))
+    return S * (1.0 + r) - r
+
+
+def solve_dcc(V: torch.Tensor, U: torch.Tensor, S: torch.Tensor, omega,
+              gamma: float, nbit: int) -> torch.Tensor:
+    """Discrete cyclic coordinate descent over the bits: the database codes
+    V (N, nbit) given the subset's continuous codes U (M, nbit) at rows
+    ``omega`` and their soft similarity S (M, N), one bit after another;
+    a zero argument keeps the old bit. Returns a new V on V's device."""
+    omega = torch.as_tensor(omega, device=V.device, dtype=torch.long)
+    expand_U = torch.zeros_like(V)
+    expand_U[omega] = U
+    Q = (nbit * S).t() @ U + gamma * expand_U          # (N, nbit)
+    V = V.clone()
+    for bit in range(nbit):
+        V_ = torch.cat([V[:, :bit], V[:, bit + 1:]], dim=1)
+        U_ = torch.cat([U[:, :bit], U[:, bit + 1:]], dim=1)
+        v_new = torch.sign(Q[:, bit] - V_ @ (U_.t() @ U[:, bit]))
+        V[:, bit] = torch.where(v_new == 0, V[:, bit], v_new)
+    return V
+
+
+# ---------------------------------------------------------------------------
+# the fine-grained heads
+# ---------------------------------------------------------------------------
+
+def a2net_ce_loss(outputs, onehot, gamma: float = 1.0, hash: float = 1.0,
+                  decorr: float = 0.1, **_):
+    """A2-Net-CE: CE on the logits, a decorrelation term on the tanh
+    codes' Gram matrix, and the reconstruction of the (detached) part
+    features through the tied hash layer plus the codes' tanh gap."""
+    codes, codes_tanh = outputs["codes"], outputs["codes_tanh"]
+    hash_loss = soft_cross_entropy(outputs["logits"], _row_normalized(onehot))
+    corr = codes_tanh.t() @ codes_tanh
+    n, nbit = codes_tanh.shape
+    decorr_loss = ((corr - torch.eye(nbit, device=corr.device) * n) ** 2) \
+        .mean()
+    rec_loss = (((outputs["rec_all_x"] - outputs["all_x"].detach()) ** 2)
+                .mean() + gamma * ((codes - codes_tanh) ** 2).mean())
+    total = hash * hash_loss + decorr * decorr_loss + rec_loss
+    return total, {"hash": hash_loss, "decorr": decorr_loss, "rec": rec_loss}
+
+
+def semicon_ce_loss(outputs, onehot, gamma: float = 0.1,
+                    loss_method: str = "ce", **_):
+    """SEMICON-CE: CE on the logits (``loss_method`` 'ce', else margin CE
+    at m 0.2, s 8) plus gamma times the codes' squared gap to their
+    signs."""
+    codes, logits = outputs["codes"], outputs["logits"]
+    norm = _row_normalized(onehot)
+    if loss_method == "ce":
+        hash_loss = soft_cross_entropy(logits, norm)
+    else:
+        hash_loss = soft_cross_entropy(margin_logits(logits, onehot, 0.2,
+                                                     8.0), norm)
+    quan = ((codes - torch.sign(codes)) ** 2).mean()
+    return hash_loss + gamma * quan, {"hash": hash_loss, "quan": quan}

@@ -6,14 +6,19 @@ reference's experiment loop wires them, the optimizer, the LR schedule and
 the train step (``build_model``, ``training_for`` and the two in one,
 ``build_training``).
 
-Methods: ``concepthash`` and the ``sgd``-regime supervised baselines on the
+Methods: ``concepthash``; the ``sgd``-regime supervised baselines on the
 CLIP-adapter trunk (``models/baselines.py``): ``orthohash``,
 ``orthohash_bcs``, ``csq``, ``dpn``, ``hashnet`` (a train step of its own,
 ``train/custom_steps.py``), ``dpsh``, ``dtsh``, ``greedyhash``, ``ce``,
-``descriptor`` (no objective) and ``clip``. The config dicts are main.py's:
-``model``, ``backbone``, ``criterion``, ``optim``, ``scheduler``,
-``epochs``, ``backbone_lr_scale``, ``compute_dtype``. Every other method of
-the reference raises ``NotImplementedError`` from ``get_method``.
+``descriptor`` (no objective) and ``clip``; the fine-grained heads
+(``models/finegrained.py``) ``a2net_ce`` and ``semicon_ce`` (``sgd``
+regime); and ``adsh`` (the csq head) and ``semicon`` under the ``adsh``
+regime, whose alternating optimization the experiment runs
+(``experiments/hashing.py``; their ``build_loss`` gives None). The config
+dicts are main.py's: ``model``, ``backbone``, ``criterion``, ``optim``,
+``scheduler``, ``epochs``, ``backbone_lr_scale``, ``compute_dtype``. Every
+other method of the reference raises ``NotImplementedError`` from
+``get_method``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from concepthash_tpu_torch.models.baselines import (BaselineConfig,
 from concepthash_tpu_torch.models.concepthash import (ConceptHash,
                                                       ConceptHashConfig,
                                                       SelfAttnLastConfig)
+from concepthash_tpu_torch.models.finegrained import HEADS as FINEGRAINED
+from concepthash_tpu_torch.models.finegrained import FineGrainedConfig
 from concepthash_tpu_torch.train.optim import (build_optimizer,
                                                make_capturable)
 from concepthash_tpu_torch.train.custom_steps import (hashnet_extra,
@@ -136,6 +143,29 @@ def _build_baseline(head: str, config, codebook, *, device=None,
                            generator=generator)
 
 
+def _build_finegrained(head: str, config, codebook, *, device=None,
+                       generator: Optional[torch.Generator] = None,
+                       vision: Optional[dict] = None) -> torch.nn.Module:
+    """A2NetCE, SemiconCE or Semicon (``head``) from ``config``; a
+    ``codebook`` (none of their configs asks for one) becomes TempCE's
+    fixed centers. ``vision`` overrides fields of the backbone's
+    ClipVisionConfig."""
+    m = config["model"]
+    vcfg = vision_config_from_backbone_cfg(config.get("backbone", {}) or {})
+    if vision:
+        vcfg = dataclasses.replace(vcfg, **vision)
+    fcfg = FineGrainedConfig(
+        nbit=int(m["nbit"]), nclass=int(m["nclass"]),
+        num_attns=int(m.get("num_attns", m.get("nattns", 4))),
+        with_softplus=bool(m.get("with_softplus", False)),
+        temp=float(m.get("temp", 10.0)))
+    return FINEGRAINED[head](vcfg, fcfg, adapter_config_from_model_cfg(m),
+                             fixed_center=codebook,
+                             backbone_cfg=config.get("backbone"),
+                             dtype=_compute_dtype(config), device=device,
+                             generator=generator)
+
+
 def _build_orthohash_bcs(config, codebook, **kw) -> BaselineHashNet:
     """orthohash with the second, sign-centroid logits head (model.bcs)."""
     config = {**config, "model": {**dict(config["model"]), "bcs": True}}
@@ -197,6 +227,12 @@ def _simple_loss(loss_fn: Callable) -> Callable:
     return build
 
 
+def _regime_loss(config, codebook) -> None:
+    """The loss of a method whose regime builds its own objective (adsh):
+    none here."""
+    return None
+
+
 def _null_loss(config, codebook) -> Callable:
     """The loss of a method trained without an objective (descriptor): zero,
     with a zero gradient into everything the codes depend on, as the
@@ -223,6 +259,7 @@ class Method:
     custom_step: Optional[Callable] = None
     # the train state's extras (config, device) -> {name: tensor}
     init_extra: Optional[Callable] = None
+    regime: str = "sgd"     # sgd | adsh (the experiment's loop)
 
 
 def _baseline(head: str) -> Callable:
@@ -249,17 +286,25 @@ _METHODS = {m.name: m for m in (
            _simple_loss(L.greedyhash_loss)),
     Method("ce", _baseline("ce"), _simple_loss(L.ce_loss)),
     Method("descriptor", _baseline("descriptor"), _null_loss),
+    Method("a2net_ce", functools.partial(_build_finegrained, "a2net_ce"),
+           _simple_loss(L.a2net_ce_loss)),
+    Method("semicon_ce", functools.partial(_build_finegrained, "semicon_ce"),
+           _simple_loss(L.semicon_ce_loss)),
     Method("clip", _baseline("clip"), _simple_loss(L.ce_loss),
            codebook="continuous"),
+    # the csq head's tanh codes, and SEMICON, under the adsh regime
+    Method("adsh", _baseline("csq"), _regime_loss, regime="adsh"),
+    Method("semicon", functools.partial(_build_finegrained, "semicon"),
+           _regime_loss, regime="adsh"),
 )}
 
 
 def get_method(name: str) -> Method:
     if name not in _METHODS:
         raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP Queue 1 items 5-8: "
-            "the fine-grained, adsh, unsupervised, shallow, pretraining and "
-            f"odc methods); ported: {list_methods()}")
+            f"method {name!r} is not ported yet (ROADMAP Queue 1 items 7-8: "
+            "the unsupervised, shallow, pretraining and odc methods); "
+            f"ported: {list_methods()}")
     return _METHODS[name]
 
 

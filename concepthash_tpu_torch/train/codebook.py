@@ -4,8 +4,10 @@ built (counterpart of concepthash_tpu/train/codebook.py).
 Methods (``get_codebook``): N gaussian; B Bernoulli +-1; H Hadamard (the CSQ
 recipe); O max-min-Hamming random search; L CLIP text embeddings of
 class-name prompts, binarized by itq / pca / pcaw / rand, or returned raw
-with ``quantized=False`` (ConceptHash's continuous centers); file, a matrix
-from ``path``. The linear algebra is numpy with the reference's sign
+with ``quantized=False`` (ConceptHash's continuous centers), or by the
+autoencoder binarizers (``ae_fit``: ``ae``, ``ae_cossim``,
+``ae_norm_cossim``, with the ``non`` and ``induced_`` prefixes); file, a
+matrix from ``path``. The linear algebra is numpy with the reference's sign
 conventions, so the same inputs and seed give the same codebook.
 
 The text stage runs the CLIP text tower and tokenizer of ``model_id`` from
@@ -15,8 +17,7 @@ on ``device``, or the tower and tokenizer the caller gives; where neither
 is there, ``embed_class_names`` raises, as the reference does offline, and
 the experiment takes its offline fallback. Nothing is downloaded. The same
 stage gives FILIP's token-level class-text embeddings
-(``embed_class_name_tokens``). Not ported: the autoencoder binarizers
-(``ae*``).
+(``embed_class_name_tokens``).
 """
 
 from __future__ import annotations
@@ -26,8 +27,11 @@ import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from concepthash_tpu_torch import resolve_device
 from concepthash_tpu_torch.models.layers import dense
+from concepthash_tpu_torch.ops.numerics import l2_normalize
 
 # ---------------------------------------------------------------------------
 # deterministic linear algebra helpers
@@ -203,18 +207,173 @@ def _run_tower(tower, ids: np.ndarray, batch_size: int, pick) -> np.ndarray:
     return np.concatenate(outs).astype(np.float32)
 
 
+def ae_init(d: int, nbit: int, method: str = "ae", n_induced: int = 1000,
+            seed: int = 42) -> dict:
+    """The binarizer's own initial parameters for ``method`` on
+    d-dimensional embeddings, as float32 numpy arrays in the reference's
+    layout, from a torch generator seeded by ``seed``: U(+-1/sqrt(fan_in))
+    weights, zero biases, N(0, 1) induced queries (the reference's laws;
+    its draws are jax.random's)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def layer(din, dout):
+        lim = 1.0 / np.sqrt(din)
+        return {"w": ((torch.rand(din, dout, generator=g) * 2 - 1) * lim)
+                .numpy(), "b": np.zeros(dout, np.float32)}
+
+    nonlinear = method.replace("induced_", "").startswith("non")
+    shapes = ({"e1": (d, d), "e2": (d, nbit), "d1": (nbit, d), "d2": (d, d)}
+              if nonlinear else {"e": (d, nbit), "d": (nbit, d)})
+    params = {k: layer(*v) for k, v in shapes.items()}
+    if "induced_" in method:
+        params["queries"] = torch.randn(n_induced, d, generator=g).numpy()
+    return params
+
+
+def _rescaled(g: torch.Tensor) -> torch.Tensor:
+    return (g - g.min()) / (g.max() - g.min()) * 2.0 - 1.0
+
+
 def ae_fit(embedding: np.ndarray, nbit: int, method: str = "ae",
-           **_kwargs) -> np.ndarray:
-    """The autoencoder binarizer: not ported (a JAX fit in the reference)."""
-    raise NotImplementedError(
-        f"binary_method {method!r}: the autoencoder binarizers (ae_fit) are "
-        "not ported yet (ROADMAP Queue 1 item 10)")
+           iters: int = 10000, t: float = 1.0, identity_scale: float = 1.0,
+           seed: int = 42, lr: float = 1e-4, n_induced: int = 1000,
+           init: dict | None = None, device=None) -> np.ndarray:
+    """The autoencoder binarizer: an encoder and a decoder trained on the
+    class embeddings by full-batch Adam (``lr``, ``iters`` steps) on
+
+      MSE reconstruction
+      + exp(-rec / t) * (1 - cos(b, sign(b)))         (quantization)
+      + identity_scale * mean((G_target - G_binary)^2)
+
+    where G_target is I (``ae``), the embeddings' cosine Gram matrix
+    (``ae_cossim``) or its min-max rescaling to [-1, 1]
+    (``ae_norm_cossim``); with the ``induced_`` prefix both Gram matrices
+    come from ``n_induced`` learned queries attending to the embeddings and
+    to the codes. A ``non`` prefix makes the encoder and the decoder
+    two-layer tanh-approximated GELU MLPs. Returns the real-valued codes
+    (nclass, nbit); the caller signs them.
+
+    ``init``: initial parameters as numpy arrays in the reference's layout
+    ({'e': {'w', 'b'}, 'd': ...}, or 'e1', 'e2', 'd1', 'd2', and
+    'queries'), else ``ae_init``'s, seeded by ``seed``. Runs on ``device``
+    (CUDA unless asked otherwise)."""
+    dev = resolve_device(device)
+    variant = method
+    induced = "induced_" in variant
+    variant = variant.replace("induced_", "")
+    nonlinear = variant.startswith("non")
+    variant = variant.replace("non", "")  # nonae -> ae
+
+    x = torch.as_tensor(np.asarray(embedding, np.float32), device=dev)
+    n, d = x.shape
+    if init is None:
+        init = ae_init(d, nbit, method, n_induced, seed)
+    def leaf(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev,
+                            requires_grad=True)
+
+    params = {k: ({f: leaf(a) for f, a in v.items()}
+                  if isinstance(v, dict) else leaf(v))
+              for k, v in init.items()}
+    leaves = [p for v in params.values()
+              for p in (v.values() if isinstance(v, dict) else (v,))]
+
+    def lin(p, z):
+        return z @ p["w"] + p["b"]
+
+    if nonlinear:
+        def enc(p, z):
+            return lin(p["e2"], F.gelu(lin(p["e1"], z), approximate="tanh"))
+
+        def dec(p, b):
+            return lin(p["d2"], F.gelu(lin(p["d1"], b), approximate="tanh"))
+    else:
+        def enc(p, z):
+            return lin(p["e"], z)
+
+        def dec(p, b):
+            return lin(p["d"], b)
+
+    gram_target = None
+    if not induced:
+        with torch.no_grad():
+            if variant == "ae_cossim":
+                gram_target = l2_normalize(x) @ l2_normalize(x).t()
+            elif variant == "ae_norm_cossim":
+                gram_target = _rescaled(l2_normalize(x) @ l2_normalize(x).t())
+            else:                   # plain ae: the orthogonality target
+                gram_target = torch.eye(n, device=dev)
+
+    def loss_fn(p):
+        b = enc(p, x)
+        rec_loss = ((x - dec(p, b)) ** 2).mean(dim=-1)          # (n,)
+        bl2 = l2_normalize(b)
+        if induced:
+            attn_t = l2_normalize(l2_normalize(p["queries"])
+                                  @ l2_normalize(x).t())
+            g_t = attn_t @ attn_t.t()
+            if variant == "ae_norm_cossim":
+                g_t = _rescaled(g_t)
+            attn_b = l2_normalize(l2_normalize(enc(p, p["queries"]))
+                                  @ bl2.t())
+            g_b = attn_b @ attn_b.t()
+        else:
+            g_t, g_b = gram_target, bl2 @ bl2.t()
+        identity_loss = ((g_t - g_b) ** 2).mean()
+        quan = 1.0 - (bl2 * l2_normalize(torch.sign(b).detach())).sum(-1)
+        return (rec_loss.mean() + (torch.exp(-rec_loss / t) * quan).mean()
+                + identity_scale * identity_loss)
+
+    # Adam as optax's: bias-corrected moments (float32 corrections from a
+    # step count on the device), eps outside the square root
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    mu = [torch.zeros_like(q) for q in leaves]
+    nu = [torch.zeros_like(q) for q in leaves]
+    count = torch.zeros((), device=dev)
+
+    def iteration():
+        grads = torch.autograd.grad(loss_fn(params), leaves)
+        with torch.no_grad():
+            count.add_(1.0)
+            c1, c2 = 1.0 - b1 ** count, 1.0 - b2 ** count
+            for q, g_, m, v in zip(leaves, grads, mu, nu):
+                m.mul_(b1).add_(g_, alpha=1.0 - b1)
+                v.mul_(b2).addcmul_(g_, g_, value=1.0 - b2)
+                q.sub_(lr * ((m / c1) / ((v / c2).sqrt() + eps)))
+
+    _repeat(iteration, int(iters), dev)
+    with torch.no_grad():
+        return enc(params, x).cpu().numpy().astype(np.float32)
+
+
+def _repeat(iteration, n: int, device: torch.device) -> None:
+    """``iteration()`` n times. On the card: three eager iterations on a
+    side stream (real ones), then the rest as replays of one CUDA graph of
+    an iteration (its shapes are static; the host would set the pace of a
+    loop of ~60 small kernels)."""
+    warm = 3
+    if device.type != "cuda" or n <= warm:
+        for _ in range(n):
+            iteration()
+        return
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            iteration()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        iteration()
+    for _ in range(n - warm):
+        graph.replay()
 
 
 def binarize_embedding(embedding: np.ndarray, nbit: int, method: str = "pca",
-                       seed: int = 42) -> np.ndarray:
+                       seed: int = 42, **ae_kwargs) -> np.ndarray:
     """Continuous (nclass, D) -> real-valued (nclass, nbit) targets; the
-    caller signs them."""
+    caller signs them. ``ae_kwargs`` go to ``ae_fit`` (``iters``, ``t``,
+    ``identity_scale``, ``device``)."""
     if method == "itq":
         mean, comps, scale, r = itq_fit(embedding, nbit, seed=seed)
         return (pca_transform(embedding, mean, comps, scale) @ r).astype(
@@ -230,7 +389,7 @@ def binarize_embedding(embedding: np.ndarray, nbit: int, method: str = "pca",
         idx = rng.permutation(embedding.shape[1])[:nbit]
         return embedding[:, idx].astype(np.float32)
     if "ae" in method:  # ae / nonae / [induced_]ae[_cossim|_norm_cossim]
-        return ae_fit(embedding, nbit, method=method, seed=seed)
+        return ae_fit(embedding, nbit, method=method, seed=seed, **ae_kwargs)
     raise ValueError(f"unknown binary_method {method!r} "
                      "(supported: itq, pca, pcaw, rand, ae*)")
 
@@ -255,13 +414,16 @@ def get_codebook(codebook_method: str, nclass: int, nbit: int, seed: int = 42,
                  binary_method: str = "pca", quantized: bool = True,
                  prompt_prefix: str = "a photo of a ",
                  prompt_postfix: str = "", text_embedder=None,
-                 path: str | None = None, device=None,
+                 path: str | None = None, ae_iters: int = 10000,
+                 t: float = 1.0, identity_scale: float = 1.0, device=None,
                  **_ignored) -> np.ndarray:
     """The codebook factory. 'L' with quantized=False returns the raw text
     embeddings (ConceptHash's centers); every other path returns a signed
     (nclass, nbit) +-1 matrix. ``text_embedder(class_names)`` replaces the
-    CLIP text stage, which otherwise runs on ``device``. 'file' loads a
-    (nclass, D) matrix from ``path``, signed unless quantized=False."""
+    CLIP text stage, which otherwise runs on ``device``, as the
+    autoencoder binarizers (``ae_iters``, ``t``, ``identity_scale``) do.
+    'file' loads a (nclass, D) matrix from ``path``, signed unless
+    quantized=False."""
     rng = np.random.default_rng(seed)
     if codebook_method == "file":
         cb = _load_codebook_file(path)
@@ -292,7 +454,10 @@ def get_codebook(codebook_method: str, nclass: int, nbit: int, seed: int = 42,
                                           device=device)
         if not quantized:
             return embedding
-        cb = binarize_embedding(embedding, nbit, binary_method, seed)
+        ae_kw = ({"iters": int(ae_iters), "t": float(t),
+                  "identity_scale": float(identity_scale), "device": device}
+                 if "ae" in binary_method else {})
+        cb = binarize_embedding(embedding, nbit, binary_method, seed, **ae_kw)
     else:
         raise ValueError(f"unknown codebook_method {codebook_method!r}")
 

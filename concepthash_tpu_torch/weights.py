@@ -29,6 +29,15 @@ function:
 statistics, ``ce_fc`` (the cosine classifier's ``centroids``, a parameter
 or a constant, or a Dense) and ``logit_scale``.
 
+``finegrained_from_flax(variables)`` does the same for a fine-grained head
+(``models.finegrained``: ``A2NetCE``, ``Semicon``, ``SemiconCE``): the
+trunk as above; ``attn_conv``, ``local_conv``, ``global_conv`` and the tied
+f32 ``hash_w`` (kept (in, out)); ``sem_attn_i``, ``sem_norm_i``,
+``icon_ln_i``, ``icon_i`` (a q|k|v attention as in the encoder layers),
+``hash_fc_i`` into ``ModuleList`` entries, and their ``_global`` forms;
+``ce_fc`` a Dense or TempCE, whose ``tp/fc{i}`` become ``tp.layers.{i}``
+and whose ``constants/ce_fc/center`` becomes the ``ce_fc.center`` buffer.
+
 ``text_from_flax(params)`` does the same for the CLIP text tower
 (``models.clip.ClipTextTower``), whose q, k and v projections stay separate.
 """
@@ -65,15 +74,21 @@ def _adapter(sd: dict, prefix: str, p: dict) -> None:
     sd[f"{prefix}.scale"] = _t(p["scale"])
 
 
+def _attention(sd: dict, prefix: str, a: dict) -> None:
+    """A CLIP-style attention's separate q, k, v projections into one
+    q|k|v weight, and its out projection."""
+    sd[f"{prefix}.qkv_proj.weight"] = _t(np.concatenate(
+        [np.asarray(a[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")]))
+    sd[f"{prefix}.qkv_proj.bias"] = _t(np.concatenate(
+        [np.asarray(a[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")]))
+    _dense(sd, f"{prefix}.out_proj", a["out_proj"])
+
+
 def _encoder_layer(sd: dict, prefix: str, p: dict) -> None:
     _ln(sd, f"{prefix}.layer_norm1", p["layer_norm1"])
     _ln(sd, f"{prefix}.layer_norm2", p["layer_norm2"])
     a = p["self_attn"]
-    sd[f"{prefix}.self_attn.qkv_proj.weight"] = _t(np.concatenate(
-        [np.asarray(a[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")]))
-    sd[f"{prefix}.self_attn.qkv_proj.bias"] = _t(np.concatenate(
-        [np.asarray(a[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")]))
-    _dense(sd, f"{prefix}.self_attn.out_proj", a["out_proj"])
+    _attention(sd, f"{prefix}.self_attn", a)
     for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
         if f"adapter_{name}" in a:
             _adapter(sd, f"{prefix}.self_attn.adapter_{name}",
@@ -196,6 +211,43 @@ def baseline_from_flax(variables: dict) -> dict:
             _dense(sd, "ce_fc", ce)
     if "logit_scale" in p:
         sd["logit_scale"] = _t(p["logit_scale"])
+    return sd
+
+
+def finegrained_from_flax(variables: dict) -> dict:
+    """State dict of the port's A2NetCE, Semicon or SemiconCE from the
+    reference's variables (numpy leaves); load it with ``strict=True``."""
+    p = variables["params"]
+    sd: dict = {}
+    _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
+    for name in ("attn_conv", "local_conv", "global_conv", "hash_fc_global"):
+        if name in p:
+            _dense(sd, name, p[name])
+    if "hash_w" in p:
+        sd["hash_w"] = _t(p["hash_w"])
+    for name, leaf in p.items():
+        m = re.fullmatch(r"(sem_attn|sem_norm|icon_ln|icon|hash_fc)_(\d+)",
+                         name)
+        if m is None:
+            continue
+        prefix = f"{m.group(1)}.{m.group(2)}"
+        if m.group(1) in ("sem_norm", "icon_ln"):
+            _ln(sd, prefix, leaf)
+        elif m.group(1) == "icon":
+            _attention(sd, prefix, leaf)
+        else:
+            _dense(sd, prefix, leaf)
+    if "icon_global" in p:
+        _ln(sd, "icon_ln_global", p["icon_ln_global"])
+        _attention(sd, "icon_global", p["icon_global"])
+    if "ce_fc" in p:
+        ce = p["ce_fc"]
+        if "tp" in ce:
+            for k in sorted(ce["tp"], key=lambda k: int(k[2:])):
+                _dense(sd, f"ce_fc.tp.layers.{k[2:]}", ce["tp"][k])
+            sd["ce_fc.center"] = _t(variables["constants"]["ce_fc"]["center"])
+        else:
+            _dense(sd, "ce_fc", ce)
     return sd
 
 

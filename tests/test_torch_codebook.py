@@ -1,7 +1,8 @@
 """The port's codebook stage against the JAX package's on the CPU: each numpy
 function equal (exactly, or within 1e-6 where a float product is involved),
 ``get_codebook`` for every ported method at both ``quantized`` settings, the
-offline text embedder, the cache, and the methods that are not ported."""
+autoencoder binarizers from the reference's initial parameters, the offline
+text embedder, the cache, and the unknown methods."""
 
 import numpy as np
 import pytest
@@ -126,14 +127,46 @@ def test_load_or_create_codebook_round_trips(tmp_path):
     np.testing.assert_array_equal(again, first)
 
 
+def _jax_ae_init(method, n, d, nbit, seed, n_induced):
+    """The reference ``ae_fit``'s initial parameters (its jax.random draws),
+    as numpy arrays in its layout."""
+    import jax
+
+    ks = jax.random.split(jax.random.PRNGKey(seed), 8)
+
+    def dense(k, din, dout):
+        lim = 1.0 / np.sqrt(din)
+        return {"w": np.asarray(jax.random.uniform(k, (din, dout),
+                                                   minval=-lim, maxval=lim)),
+                "b": np.zeros((dout,), np.float32)}
+
+    if method.replace("induced_", "").startswith("non"):
+        p = {"e1": dense(ks[0], d, d), "e2": dense(ks[1], d, nbit),
+             "d1": dense(ks[2], nbit, d), "d2": dense(ks[3], d, d)}
+    else:
+        p = {"e": dense(ks[0], d, nbit), "d": dense(ks[2], nbit, d)}
+    if "induced_" in method:
+        p["queries"] = np.asarray(jax.random.normal(ks[4], (n_induced, d)))
+    return p
+
+
 @pytest.mark.parametrize("method", ["ae", "nonae", "ae_cossim",
                                     "induced_ae_norm_cossim"])
-def test_autoencoder_binarizers_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tcb.binarize_embedding(_emb(), 8, method)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tcb.get_codebook("L", 12, 8, class_names=NAMES, binary_method=method,
-                         text_embedder=lambda n: _emb(len(n)))
+def test_autoencoder_binarizer_matches_jax(method):
+    """200 full-batch Adam iterations at the reference's rate (1e-4) from
+    its initial parameters: the real-valued codes within rtol 1e-4, atol
+    1e-5, and their signs equal; the port's own seeded init runs through
+    ``get_codebook`` to a signed codebook."""
+    x, nbit, kw = _emb(), 8, dict(iters=200, seed=3, n_induced=16)
+    init = _jax_ae_init(method, *x.shape, nbit, kw["seed"], kw["n_induced"])
+    want = jcb.ae_fit(x, nbit, method=method, **kw)
+    got = tcb.ae_fit(x, nbit, method=method, init=init, device="cpu", **kw)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(np.sign(got), np.sign(want))
+    cb = tcb.get_codebook("L", 12, nbit, class_names=NAMES,
+                          binary_method=method, ae_iters=20, device="cpu",
+                          text_embedder=lambda n: _emb(len(n)))
+    assert cb.shape == (12, nbit) and set(np.unique(cb)) <= {-1.0, 1.0}
 
 
 def test_unknown_methods_raise():

@@ -950,3 +950,142 @@ def test_graphed_orthohash_steps_equal_eager_steps(cuda_device, vision):
     if vision:
         assert multi.launches_per_replay == {"attention_cuda": 4,
                                              "ln_matmul_cuda": 8}
+
+
+def _tiny_finegrained(name, vision=None):
+    """A fine-grained head on the tiny trunk (hidden 64, 2 layers, 32^2
+    images in a 4 x 4 patch grid), 16 bits, 10 classes, 4 maps, bf16, adam
+    and csw, the criterion of its configs/model/*.yaml; the adapters'
+    up-projections seeded so they carry signal."""
+    from concepthash_tpu_torch.methods import build_training
+
+    crit = {"a2net_ce": {"gamma": 0, "hash": 1, "decorr": 0.01},
+            "semicon_ce": {"gamma": 0.001, "loss_method": "ce"}}[name]
+    cfg = {
+        "model": {"name": name, "nbit": 16, "nclass": 10, "num_attns": 4,
+                  "has_adapter": True, "adapter_bottleneck_dim": 16},
+        "backbone": {"name": "tiny", "hidden_size": 64,
+                     "intermediate_size": 128, "num_layers": 2,
+                     "num_heads": 4, "patch_size": 8, "image_size": 32,
+                     "projection_dim": 32},
+        "criterion": crit,
+        "optim": {"name": "adam", "lr": 0.001, "weight_decay": 0.00001},
+        "scheduler": {"name": "csw", "warmup_epochs": 2},
+        "epochs": 10, "backbone_lr_scale": 0, "compute_dtype": "bfloat16",
+        "seed": 0,
+    }
+    tr = build_training(cfg, None, 3, device="cuda", vision=vision)
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for layer in tr.model.backbone.tower.layers:
+            for ad in (layer.adapter_attn, layer.adapter_mlp):
+                ad.up.weight.copy_(0.1 * torch.randn(ad.up.weight.shape,
+                                                     generator=g))
+    return tr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["semicon_ce", "a2net_ce"])
+@pytest.mark.parametrize("vision", [None, _KERNELS], ids=["auto", "kernels"])
+def test_graphed_finegrained_steps_equal_eager_steps(cuda_device, name,
+                                                     vision):
+    """Three chunks of K=2 steps of a fine-grained head (a warm-up, then
+    replays; SEMICON-CE's batch-global suppression mask inside the graph)
+    against six eager steps from the same state: losses and parameters bit
+    for bit; with kernels 5 and 6, counted per replay (the heads' own
+    attention takes the einsum path)."""
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    graph = _tiny_finegrained(name, vision)
+    eager = _tiny_finegrained(name, vision)
+    eager.model.load_state_dict(graph.model.state_dict())
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    images = torch.randn(3, 2, 4, 32, 32, 3, generator=gen,
+                         device=cuda_device)
+    labels = torch.nn.functional.one_hot(
+        torch.randint(0, 10, (3, 2, 4), generator=gen, device=cuda_device),
+        10).float()
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    got = torch.cat([multi({"image": images[c], "label": labels[c]})["loss"]
+                     for c in range(3)])
+    want = torch.stack([eager.step({"image": images[c, k],
+                                    "label": labels[c, k]})["loss"]
+                        for c in range(3) for k in range(2)])
+    assert multi.replays == 2 and torch.equal(got, want)
+    assert torch.isfinite(got).all()
+    sg, se = graph.model.state_dict(), eager.model.state_dict()
+    for k in sg:
+        assert torch.equal(sg[k], se[k]), k
+    if vision:
+        assert multi.launches_per_replay == {"attention_cuda": 4,
+                                             "ln_matmul_cuda": 8}
+
+
+@pytest.mark.cuda
+def test_cache_images_run_equals_default_run_bit_for_bit(cuda_device,
+                                                         tmp_path):
+    """``cache_images=true`` keeps the decoded arrays the default run
+    decodes every epoch: the same train records and final parameters, bit
+    for bit, at train_chunk auto."""
+    import json
+
+    main_gpu = _main_gpu()
+    runs = {}
+    for name, extra in (("default", ()), ("cache", ("cache_images=true",))):
+        exp = main_gpu.build_experiment(_card_run(tmp_path, name, *extra))
+        assert (exp.loaders["train"].source._cache is not None) == bool(extra)
+        exp.main()
+        with open(tmp_path / name / "train_history.json") as f:
+            runs[name] = (exp, [{k: v for k, v in r.items() if k != "time"}
+                                for r in json.load(f)])
+    assert runs["default"][1] == runs["cache"][1]
+    sd, sc = (runs[n][0].model.state_dict() for n in ("default", "cache"))
+    for k in sd:
+        assert torch.equal(sd[k], sc[k]), k
+
+
+@pytest.mark.cuda
+def test_dcc_on_card_matches_cpu(cuda_device):
+    """``solve_dcc`` on the card against the CPU from seeded inputs (1,200
+    train rows, a subset of 400, 64 bits): +-1 codes equal on >= 99.9% of
+    entries (a sign whose argument is within rounding of 0 may flip)."""
+    from concepthash_tpu_torch.losses.baselines import soften_sim, solve_dcc
+
+    rng = np.random.default_rng(8)
+    n_train, m, nbit = 1200, 400, 64
+    labels = rng.integers(0, 20, n_train)
+    omega = rng.choice(n_train, m, replace=False)
+    S = soften_sim(torch.tensor((labels[omega][:, None] == labels[None, :])
+                                .astype(np.float32) * 2 - 1))
+    U = torch.tanh(torch.tensor(rng.standard_normal((m, nbit)),
+                                dtype=torch.float32))
+    V = torch.tensor(np.sign(rng.standard_normal((n_train, nbit))),
+                     dtype=torch.float32)
+    want = solve_dcc(V, U, S, omega, 200.0, nbit)
+    got = solve_dcc(V.to(cuda_device), U.to(cuda_device), S.to(cuda_device),
+                    omega, 200.0, nbit)
+    assert got.device.type == "cuda"
+    assert set(got.unique().tolist()) == {-1.0, 1.0}
+    assert (got.cpu() == want).float().mean() >= 0.999
+    assert (want != V).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["ae", "induced_ae_norm_cossim"])
+def test_ae_fit_on_card_matches_cpu(cuda_device, method):
+    """``ae_fit`` on the card (three eager iterations, then one CUDA graph
+    of an iteration replayed) against the CPU's loop from one init: the
+    codes within 1e-3 and their signs equal on >= 99%."""
+    from concepthash_tpu_torch.train.codebook import ae_fit, ae_init
+
+    emb = np.random.default_rng(9).standard_normal((20, 48)).astype(
+        np.float32)
+    init = ae_init(48, 16, method, n_induced=64)
+    kw = dict(iters=300, init=init, n_induced=64)
+    card = ae_fit(emb, 16, method, device=cuda_device, **kw)
+    cpu = ae_fit(emb, 16, method, device="cpu", **kw)
+    assert np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, atol=1e-3)
+    assert (np.sign(card) == np.sign(cpu)).mean() >= 0.99

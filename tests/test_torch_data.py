@@ -86,8 +86,10 @@ def test_load_image_host_equals_reference(tmp_path, size, fmt):
         a, b = jload(path, resize), tload(path, resize)
         assert b.shape == (resize, resize, 3) and b.dtype == np.uint8
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tload(path, 16, use_native=True)
+    # the C++ route: the reference's bytes (PIL's where it cannot build)
+    for resize in (16, 29):
+        np.testing.assert_array_equal(tload(path, resize, use_native=True),
+                                      jload(path, resize, use_native=True))
 
 
 def _batches(loader, epochs):

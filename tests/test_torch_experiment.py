@@ -14,7 +14,9 @@ backbone, 16 bits, batch 8, float32:
 (e) each option that is not ported raises ``NotImplementedError``, and
     each option this round ported (FILIP, DecorrelatedBN, vpt_pe,
     ``backbone.remat``, lars; the orthohash, csq, hashnet with its bank
-    and clip baselines) trains an epoch and evaluates;
+    and clip baselines; the A2-Net-CE and SEMICON-CE heads; the C++
+    decode and the image cache) trains an epoch and evaluates, and the
+    adsh regime (adsh, semicon) runs an epoch to its database codes;
 (f) the eval-only modes: ``exp=validation`` and ``exp=extract`` on the
     reference's run directory (its ``last.msgpack``) against the reference's
     own eval-only runs (codes in sign on >= 99.9% of bits, mAP within 1e-3),
@@ -190,9 +192,9 @@ def test_last_checkpoint_reloads_to_the_same_codes(port_run, workdir):
 
 
 @pytest.mark.parametrize("extra", [
-    ["model=semicon_ce_adapter"], ["model=itq"], ["model=adsh"],
+    ["model=cibhash"], ["model=itq"], ["model=moco"],
     ["model=odc"], ["model=ssdh"],
-    ["native_decode=true"], ["+profile.enabled=true"], ["+debug.nans=true"],
+    ["model=tbh"], ["+profile.enabled=true"], ["+debug.nans=true"],
 ])
 def test_unported_options_raise(workdir, extra):
     logdir = os.path.join(workdir, "unported")
@@ -206,7 +208,9 @@ def test_unported_options_raise(workdir, extra):
     ["model=orthohash_adapter"], ["model=csq_adapter"],
     ["model=hashnet_adapter", "+criterion.keep_train_size=1",
      "save_training_state=true"],
-    ["model=clip_finetune"],
+    ["model=clip_finetune"], ["model=a2net_ce_adapter"],
+    ["model=semicon_ce_adapter"], ["native_decode=true"],
+    ["cache_images=true"],
 ])
 def test_ported_options_run(workdir, extra):
     """One epoch of main_gpu with the option: a finite train record, a test
@@ -214,7 +218,9 @@ def test_ported_options_run(workdir, extra):
     embeddings, offline, at the backbone's projection width, 8 a class;
     the DBN's statistics; vpt_pe's prompts; orthohash's fixed centroids as
     a buffer; csq's Hadamard codebook in its accuracy meter; HashNet's bank
-    of the 24 train images in the train state; clip's logit_scale)."""
+    of the 24 train images in the train state; clip's logit_scale;
+    A2-Net's tied f32 hash layer; SEMICON-CE's maps' LayerNorm over the 36
+    patches; the C++ decode taking every image; the image cache)."""
     logdir = os.path.join(workdir, "ported_" + "".join(
         c if c.isalnum() else "_" for c in extra[0]))
     best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
@@ -250,6 +256,37 @@ def test_ported_options_run(workdir, extra):
     if extra == ["model=clip_finetune"]:
         assert float(sd["logit_scale"]) != 0.0 and "acc" in train[0]
         assert "codebook stage failed" in log
+    if extra == ["model=a2net_ce_adapter"]:
+        assert sd["hash_w"].dtype == torch.float32
+        assert tuple(sd["hash_w"].shape) == (5 * 64, 16)
+        assert {"hash", "decorr", "rec", "acc"} <= set(train[0])
+    if extra == ["model=semicon_ce_adapter"]:
+        assert tuple(sd["sem_norm.0.weight"].shape) == (36,)
+        assert {"hash", "quan", "acc"} <= set(train[0])
+    if extra == ["native_decode=true"]:
+        from concepthash_tpu_torch import native
+
+        assert native.available() and native.counts["native"] > 0
+        assert "C++ decoder" not in log      # no fallback was logged
+
+
+@pytest.mark.parametrize("model", ["adsh", "semicon"])
+def test_adsh_regime_runs(workdir, model):
+    """One epoch of the adsh regime (the csq head, SEMICON): finite train
+    records with the objective's parts, a test record with mAP in [0, 1]
+    scored against V, and V as ``outputs/db_codes.pt``: +-1, one row a
+    train image."""
+    logdir = os.path.join(workdir, f"adsh_{model}")
+    best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
+                          "epochs=1", f"model={model}"])
+    train, test = _history(logdir, "train"), _history(logdir, "test")
+    assert len(train) == len(test) == 1 and np.isfinite(train[0]["loss"])
+    assert {"hash", "quan"} <= set(train[0])
+    assert best == test[0]["mAP"] and 0.0 <= best <= 1.0
+    V = torch.load(os.path.join(logdir, "outputs", "db_codes.pt"))["V"]
+    assert tuple(V.shape) == (24, 16)
+    assert set(V.unique().tolist()) == {-1.0, 1.0}
+    assert os.path.exists(os.path.join(logdir, "models", "best.pt"))
 
 
 def test_self_attn_at_last_needs_a_mapping(workdir):

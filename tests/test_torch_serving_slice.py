@@ -144,7 +144,9 @@ def test_port_imports_nothing_of_jax():
         "data.pipeline", "train.codebook", "utils.meters", "utils.logger",
         "utils.machine_stats", "utils.io", "utils.diagnostics",
         "experiments.hashing", "train.graphs", "utils.hf_local",
-        "models.clip_loader", "models.tokenizer")] + ["main_gpu"]
+        "models.clip_loader", "models.tokenizer", "models.trunk",
+        "models.baselines", "losses.baselines", "train.custom_steps",
+        "models.finegrained", "native")] + ["main_gpu"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'transformers', 'safetensors', "
@@ -357,7 +359,9 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
                                   max_position_embeddings=16,
                                   vocab_size=600, projection_dim=32,
                                   eos_token_id=599),
-                     pretrained_images=6, variant_images=6, filip_tokens=3)
+                     pretrained_images=6, variant_images=6, filip_tokens=3,
+                     adsh_db=12, dcc_split=(60, 24), ae_embedding=(6, 16),
+                     ae_iters=(20, 40))
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
     assert "\nplanted rows found at distance 0: 6/6" in out
@@ -422,19 +426,44 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert out.count(", all steps alike: True") == 4
     # phase 17: every baseline's encode, train steps and graphed chunks
     # (hashnet: one step a dispatch, its bank), and three main_gpu runs
-    assert out.count(f"against ({n}, 0, 0, 0, 0, 0)") == 11
-    assert out.count("sign agreement 1.000000 (limit 0.99)") == 9
+    # (phase 18 (a) and (b) print 4 encodes, 3 step runs and 2 graphed
+    # chunks, (c) 2 validations, in the same words)
+    assert out.count(f"against ({n}, 0, 0, 0, 0, 0)") == 11 + 4
+    assert out.count("sign agreement 1.000000 (limit 0.99)") == 9 + 4
     assert out.count("feature cosine 1.000000 (limit 0.99)") == 2
     assert out.count(f"against (0, 0, 0, {2 * n}, {n}, 0), the same every "
-                     "step: True; frozen backbone unchanged: True") == 11
+                     "step: True; frozen backbone unchanged: True") == 11 + 3
     assert "adapters unchanged: True; " in out
     assert ("the bank's rows equal each batch's detached tanh(beta * "
             "codes) and labels: True") in out
-    assert out.count("bit for bit True (required); replays") == 10
+    assert out.count("bit for bit True (required); replays") == 10 + 2
     for model in ("orthohash_adapter", "hashnet_adapter", "clip_finetune"):
         assert f"{model} run (train_chunk 2)" in out
         assert (f"{model} exp=validation use_last=true" in out)
-    assert out.count("|d| 0 (tolerance 1e-06)") == 3
+    assert out.count("|d| 0 (tolerance 1e-06)") == 3 + 2
+    # phase 18: the fine-grained heads, the adsh regime, DCC, ae_fit, and
+    # the loader (this machine has the headers: the native route)
+    for name in ("a2net_ce", "semicon_ce", "semicon", "adsh"):
+        assert f"fine-grained {name} encode (6 images" in out
+    assert out.count("; logits max |d| / max |ref| ") == 4 + 2
+    assert ("fine-grained a2net_ce train forward and backward, kernels vs "
+            "plain: loss") in out
+    assert "V agrees on 1.000000 of entries" in out
+    assert out.count("signs agree on 1.000000 (limit 0.99)") == 2
+    assert "ae_fit ae, the full 40 iterations on the card" in out
+    for model in ("a2net_ce_adapter", "semicon_ce_adapter"):
+        assert f"{model} run (train_chunk 2)" in out
+        assert f"{model} exp=validation use_last=true" in out
+    # semicon: 9 steps an epoch; 2 layers x (2 x 3 subset + 1 test) batches
+    assert ("semicon run (train_chunk 2): 9 steps of 4 an epoch") in out
+    assert ("graph replays 0 train (expected 0); launches (14, 0, 0, 0, 0, "
+            "0) against (14, 0, 0, 0, 0, 0)") in out
+    assert "semicon: outputs/db_codes.pt (12, 16), values [-1.0, 1.0]" in out
+    assert ("images by the C++ decoder 12, sent to PIL 0; the fallback "
+            "logged: False") in out
+    assert ("models/last.pt equal: bit for bit True (required)") in out
+    assert "phase 18 (d) epoch-2 train img/s" in out
+    assert "native_decode=true flagship train epoch" in out
     assert "clip_finetune: class-text centers (3, 32)" in out
     assert (f"launches per step (0, 0, 0, {4 * n}, {2 * n}, 0), expected "
             f"(0, 0, 0, {4 * n}, {2 * n}, 0)") in out      # remat
