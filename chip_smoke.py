@@ -35,8 +35,8 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    of bits; each kernel was launched (12 layer launches per encode); then
    the same weights at compute dtype float32 (the flagship config's) encode
    the 256 images on the card (the discrete path: the layer kernel takes
-   bf16 only) and on the CPU, and their codes agree in sign on >= 99% of
-   bits with each other and with the bf16 codes;
+   bf16 only) and the first 64 on the CPU, and their codes agree in sign
+   on >= 99% of bits with each other and with the bf16 codes;
 5. timings on the card: encode img/s, int8 serving queries/s through
    ``retrieve_topk`` (which packs the gallery on every call) and through
    ``retrieve_topk_streaming`` over the gallery packed once, each kernel's
@@ -202,13 +202,14 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    bit-unchanged, graphed chunks of the two CE heads bit for bit;
    ``solve_dcc`` at CUB-200's size on the card against the CPU (>= 99.9%
    of entries equal) and timed; ``ae_fit`` (``ae``,
-   ``induced_ae_norm_cossim``) on a (200, 512) embedding, 1,000 iterations
-   card against CPU (signs on >= 99%), then ``ae``'s 10,000 on the card,
-   timed; (c) after phase 17 (c), on phase 15's synthetic set:
+   ``induced_ae_norm_cossim``) on a (200, 512) embedding, 1,000 and 200
+   iterations card against CPU (signs on >= 99%), then ``ae``'s 10,000 on
+   the card, timed; (c) after phase 17 (c), on phase 15's synthetic set:
    ``main_gpu.py model=a2net_ce_adapter`` and ``model=semicon_ce_adapter``
-   at ``train_chunk`` auto with ``exp=validation`` (at the run's batch
-   size) within 1e-6 of the last mAP, and ``model=semicon`` (the adsh
-   regime): finite losses, a +-1 (800, 64) ``outputs/db_codes.pt``, a mAP
+   at ``train_chunk`` auto with ``exp=validation`` (semicon_ce at the
+   run's batch size: its mask is batch-global) within 1e-6 of the last
+   mAP, and ``model=semicon`` (the adsh regime, one step a dispatch):
+   finite losses, a +-1 (800, 64) ``outputs/db_codes.pt``, a mAP
    in [0, 1], counted (kernel 1 in every eval batch), img/s beside the
    chunked flagship's; (d) the loader alone on phase 15's 800 train PNGs,
    PIL against ``native_decode`` (the native route required where the
@@ -290,6 +291,7 @@ class Sizes:
     mins_queries: int = 1024
     mins_codes: int = 1_000_003
     images: int = 256
+    f32_cpu_images: int = 64       # phase 4's f32 CPU reference, the first
     image_side: int = 256          # center-cropped to the model's size
     gallery: int = 1 << 20
     k: int = 100
@@ -322,7 +324,9 @@ class Sizes:
     adsh_db: int = 800                 # phase 18 (b): stored codes V's rows
     dcc_split: tuple = (5994, 2000)    # CUB-200's train rows, num_samples
     ae_embedding: tuple = (200, 512)   # classes x CLIP text width
-    ae_iters: tuple = (1000, 10000)    # card vs CPU; the full fit, timed
+    # card vs CPU, ae and induced_ae_norm_cossim (1,000 induced iterations
+    # took 25-29 s on an 8-core host); ae's full fit, timed
+    ae_iters: tuple = (1000, 200, 10000)
 
 
 def fail(msg: str) -> None:
@@ -374,62 +378,76 @@ def host_us(fn, reps: int) -> float:
     return total / reps * 1e6
 
 
-def _device_us(evt, self_only: bool = True) -> float:
-    kind = "self_" if self_only else ""
-    for name in (f"{kind}device_time_total", f"{kind}cuda_time_total"):
+def _device_us(evt) -> float:
+    """An operator's device time, the kernels of the operators it calls
+    included."""
+    for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
 
 
 def device_breakdown(name: str, fn, wall_s: float, rows: int = 12,
-                     host_rows: int = 0, op_rows: int = 0) -> None:
-    """Trace one call of ``fn``: device time by kernel, and the device's busy
-    share, the summed kernel time over ``wall_s`` (the untraced wall time of
-    one call, as ``host_s`` measured it). Ranges that user annotations put
-    on the device timeline (``Optimizer.step#...``) span kernels already
-    counted and are left out. ``host_rows``: also the host operators with
-    the most self CPU time (inflated by the profiler's own cost).
-    ``op_rows``: also the PyTorch operators, by input shapes, with the most
-    device time of the kernels they launched (inclusive: an operator that
-    calls another counts that one's kernels too)."""
+                     host_rows: int = 0, op_rows: int = 0,
+                     warm: bool = True) -> list:
+    """Trace one call of ``fn`` (after an untraced one where ``warm``):
+    device time by kernel, and the device's busy share, the summed kernel
+    time over ``wall_s`` (the untraced wall time of one call, as ``host_s``
+    measured it). Ranges that user annotations put on the device timeline
+    (``Optimizer.step#...``) span kernels already counted and are left out.
+    The device table comes from the trace's raw events: building the
+    profiler's event objects for every host operator of an eager train
+    epoch took 20-30 s on an 8-core host. ``host_rows``: also the host operators with the
+    most self CPU time (inflated by the profiler's own cost). ``op_rows``:
+    also the PyTorch operators, by input shapes, with the most device time
+    of the kernels they launched (inclusive: an operator that calls
+    another counts that one's kernels too). Host activity is traced only
+    for those two, or where there is no card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=op_rows > 0) as prof:
+    host = host_rows > 0 or op_rows > 0
+    activities = [ProfilerActivity.CUDA] if torch.cuda.is_available() else []
+    if host or not activities:
+        activities.append(ProfilerActivity.CPU)
+    if warm:
         fn()
         torch.cuda.synchronize()
-    averages = prof.key_averages()
-    evts = sorted((e for e in averages
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and _device_us(e) > 0),
-                  key=_device_us, reverse=True)
-    busy_ms = sum(_device_us(e) for e in evts) / 1e3
-    kernels = [(e.key, _device_us(e), e.count) for e in evts]
+    with profile(activities=activities, record_shapes=op_rows > 0) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.duration_ns() <= 0):
+            continue
+        us, count = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (us + e.duration_ns() / 1e3, count + 1)
+    kernels = sorted(((key, us, count) for key, (us, count)
+                      in by_name.items()), key=lambda k: k[1], reverse=True)
+    busy_ms = sum(us for _, us, _ in kernels) / 1e3
     print(f"{name}: device busy {busy_ms:.3f} ms of {wall_s * 1e3:.3f} ms "
           f"wall ({100 * busy_ms / (wall_s * 1e3):.1f}%), "
-          f"{sum(e.count for e in evts)} kernels")
-    for e in evts[:rows]:
-        print(f"  {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x  "
-              f"{e.key[:100]}")
-    host = sorted((e for e in averages if e.device_type == DeviceType.CPU),
-                  key=lambda e: e.self_cpu_time_total, reverse=True)
-    for e in host[:host_rows]:
+          f"{sum(count for _, _, count in kernels)} kernels")
+    for key, us, count in kernels[:rows]:
+        print(f"  {us / 1e3:9.3f} ms {count:6d}x  {key[:100]}")
+    if not host:
+        return kernels
+    averages = prof.key_averages()
+    hosts = sorted((e for e in averages if e.device_type == DeviceType.CPU),
+                   key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in hosts[:host_rows]:
         print(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:90]}")
     if op_rows:
         ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
                       if e.device_type == DeviceType.CPU
                       and e.key.startswith("aten::")
-                      and _device_us(e, self_only=False) > 0),
-                     key=lambda e: _device_us(e, self_only=False),
+                      and _device_us(e) > 0),
+                     key=lambda e: _device_us(e),
                      reverse=True)
         for e in ops[:op_rows]:
-            print(f"  op {_device_us(e, self_only=False) / 1e3:9.3f} ms "
+            print(f"  op {_device_us(e) / 1e3:9.3f} ms "
                   f"{e.count:4d}x  {e.key} {str(e.input_shapes)[:70]}")
     return kernels
 
@@ -666,29 +684,32 @@ def build_model(sizes: Sizes, device, dtype=torch.bfloat16):
 
 def check_f32_encode(sizes: Sizes, images, codes_bf16, device) -> None:
     """The same weights at compute dtype float32 encode ``images`` on the
-    card (the discrete path: the layer kernel takes bf16 only) and on the
-    CPU; the codes are finite, of the bf16 codes' shape, and agree in sign
-    on >= 99% of bits with the CPU's and with the bf16 codes."""
+    card (the discrete path: the layer kernel takes bf16 only) and their
+    first ``sizes.f32_cpu_images`` on the CPU (an image's codes depend on
+    it alone); the codes are finite, of the bf16 codes' shape, and agree
+    in sign on >= 99% of bits with the CPU's and with the bf16 codes."""
     model, _ = build_model(sizes, device, torch.float32)
     with torch.inference_mode():
         sec = host_s(lambda: model(images), 1)
         codes = model(images)["codes"]
     del model
     cpu_model, _ = build_model(sizes, torch.device("cpu"), torch.float32)
+    n_cpu = min(sizes.f32_cpu_images, images.shape[0])
     t0 = time.perf_counter()
     with torch.inference_mode():
-        codes_cpu = cpu_model(images.cpu())["codes"]
+        codes_cpu = cpu_model(images[:n_cpu].cpu())["codes"]
     cpu_s = time.perf_counter() - t0
     del cpu_model
-    vs_cpu = ((codes.cpu() > 0) == (codes_cpu > 0)).float().mean().item()
+    first = codes[:n_cpu].cpu()
+    vs_cpu = ((first > 0) == (codes_cpu > 0)).float().mean().item()
     vs_bf16 = ((codes > 0) == (codes_bf16 > 0)).float().mean().item()
     B = images.shape[0]
     print(f"f32 encode ({B} images, compute dtype float32, the discrete "
           f"path): {B / sec:.1f} img/s on the card ({sec * 1e3:.2f} ms), "
-          f"{cpu_s:.1f} s on the CPU; sign agreement with the CPU's codes "
-          f"{vs_cpu:.6f} (max |d| "
-          f"{(codes.cpu() - codes_cpu).abs().max().item():.4g}), with the "
-          f"bf16 codes {vs_bf16:.6f}")
+          f"the first {n_cpu} in {cpu_s:.1f} s on the CPU; sign agreement "
+          f"with the CPU's codes {vs_cpu:.6f} (max |d| "
+          f"{(first - codes_cpu).abs().max().item():.4g}), with the bf16 "
+          f"codes {vs_bf16:.6f}")
     if (codes.shape != codes_bf16.shape or not torch.isfinite(codes).all()
             or min(vs_cpu, vs_bf16) < MIN_SIGN_AGREEMENT):
         fail(f"f32 encode: codes {tuple(codes.shape)} not finite, or sign "
@@ -1632,7 +1653,7 @@ def run_flagship(sizes: Sizes, device) -> None:
         t0 = time.perf_counter()
         kernels = device_breakdown("flagship train epoch",
                                    lambda: exp.train_one_epoch(2), epoch_s,
-                                   rows=8)
+                                   rows=8, warm=False)
         print(f"flagship: traced epoch took {time.perf_counter() - t0:.1f} s")
         for loader in exp.loaders.values():
             loader.close()
@@ -2222,7 +2243,7 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
         epoch_s = train[1]["time"]
         kernels = device_breakdown("chunked flagship train epoch",
                                    lambda: exp.train_one_epoch(2), epoch_s,
-                                   rows=8)
+                                   rows=8, warm=False)
         img_s = steps * batch / epoch_s
         n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
         eval_s = host_s(lambda: (exp.encode_split("test"),
@@ -2248,9 +2269,12 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
         print(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
         run_variant_runs(sizes, device, tmp, argv, eval_argv, hf_dir,
                          chunked)
-        run_baseline_runs(sizes, device, tmp, argv, eval_argv, hf_dir,
-                          chunked)
-        run_finegrained_runs(sizes, device, tmp, argv, eval_argv, chunked)
+        run_baseline_runs(device, tmp, argv, eval_argv, hf_dir, chunked)
+        run_model_runs("phase 18 (c)", device, tmp, argv, eval_argv,
+                       chunked, (
+                           ("a2net_ce_adapter", {}),
+                           ("semicon_ce_adapter", {"val_at_run_batch": True}),
+                           ("semicon", {"single": True})))
         run_loader(sizes, device, tmp, argv, chunked)
 
 
@@ -2915,29 +2939,34 @@ def run_baselines(sizes: Sizes, device) -> None:
     print(f"phase 17 (a), (b): {time.perf_counter() - t0:.1f} s")
 
 
-def run_baseline_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
-                      hf_dir: str, flagship: dict) -> None:
-    """Phase 17 (c): ``main_gpu.py model=orthohash_adapter``,
-    ``model=hashnet_adapter`` and ``model=clip_finetune`` (its vision
-    tower and class-text centers from phase 15 (d)'s local checkpoint) on
-    phase 15's synthetic set at ``train_chunk`` auto, 2 epochs each,
-    counted (kernel 1 at one launch a layer and eval batch; no other
-    kernel): a run directory, finite records, graph replays (hashnet: one
-    step a dispatch), ``exp=validation use_last=true`` within 1e-6 of the
-    run's last mAP; epoch-2 train and eval img/s beside phase 15's
-    flagship."""
+def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
+                   flagship: dict, runs) -> None:
+    """Phases 17 (c) and 18 (c): ``main_gpu.py model=<config>`` for each of
+    ``runs`` on phase 15's synthetic set at ``train_chunk`` auto, 2 epochs
+    each, counted (kernel 1 at one launch a layer and eval batch, the adsh
+    regime's subset encodes included; no other kernel): finite records and
+    the graph replays (none where ``single``: HashNet's own step and the
+    adsh regime run one step a dispatch, and the log says so). Then, in
+    the sgd regime, ``exp=validation use_last=true`` within 1e-6 of the
+    run's last mAP, at ``configs/val.yaml``'s batch size or, where
+    ``val_at_run_batch`` (SEMICON's batch-global mask), at the run's; in
+    the adsh regime a +-1 (n_train, nbit) ``outputs/db_codes.pt`` and a mAP
+    in [0, 1]. ``check(exp)``: a model's own checks. Epoch-2 train and eval
+    img/s (the adsh regime: its whole run's) beside phase 15's flagship.
+
+    ``runs``: (model, options), options among ``extra`` (overrides),
+    ``single``, ``val_at_run_batch`` and ``check``."""
     import os
 
     import main_gpu
-    from concepthash_tpu_torch.methods import prepare_codebook
 
     t_c = time.perf_counter()
     rows = [("flagship (phase 15)", flagship["train_img_s"],
              flagship["eval_img_s"])]
-    for model, extra in (("orthohash_adapter", ()), ("hashnet_adapter", ()),
-                         ("clip_finetune", (f"backbone.name={hf_dir}",))):
+    for model, opt in runs:
         run = os.path.join(tmp, model)
-        exp = main_gpu.build_experiment(argv(run, f"model={model}", *extra))
+        exp = main_gpu.build_experiment(argv(run, f"model={model}",
+                                             *opt.get("extra", ())))
         torch.cuda.synchronize()
         count_reset()
         t0 = time.perf_counter()
@@ -2951,81 +2980,125 @@ def run_baseline_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
             test = json.load(f)
         with open(os.path.join(run, "log.txt")) as f:
             log = f.read()
-        steps = len(exp.loaders["train"])
+        adsh = exp.method.regime == "adsh"
+        single = opt.get("single", False)
+        steps = exp.steps_per_epoch
         batch = int(exp.config["batch_size"])
         K = exp.train_chunk
         n_layers = exp.model.vision_cfg.num_layers
-        eval_batches = len(exp.loaders["test"]) + len(exp.loaders["db"])
-        want = (2 * n_layers * eval_batches, 0, 0, 0, 0, 0)
+        if adsh:    # the subset's encode each epoch, then the test split
+            per_epoch = -(-exp.adsh_settings["num_samples"] // batch)
+            eval_batches = exp.epochs * per_epoch + len(exp.loaders["test"])
+        else:
+            eval_batches = 2 * (len(exp.loaders["test"])
+                                + len(exp.loaders["db"]))
+        want = (n_layers * eval_batches, 0, 0, 0, 0, 0)
         runner = exp.train_multi_step
         replays = getattr(runner, "replays", 0)
-        want_replays = (0 if model == "hashnet_adapter" or
-                        device.type != "cuda" else 2 * (steps // K) - 1)
+        want_replays = (0 if single or device.type != "cuda"
+                        else 2 * (steps // K) - 1)
         print(f"{model} run (train_chunk {K}): {steps} steps of {batch} an "
               "epoch; train records "
-              + "; ".join(f"ep {r['ep']} loss {r['loss']:.5f} "
-                          f"{r['time']:.2f} s" for r in train)
+              + "; ".join(f"ep {r['ep']} loss {r['loss']:.5f}"
+                          + (f" {r['time']:.2f} s" if "time" in r else "")
+                          for r in train)
               + "; test mAP " + ", ".join(f"{r['mAP']:.6f}" for r in test)
               + f"; graph replays {replays} train (expected "
               f"{want_replays}); launches {launches} against {want}; the "
               f"run {run_s:.1f} s")
-        if len(train) != 2 or len(test) != 2 or not all(
+        if len(train) != 2 or len(test) != (1 if adsh else 2) or not all(
                 math.isfinite(r["loss"]) for r in train):
-            fail(f"{model}: not two finite train records and two test "
+            fail(f"{model}: not two finite train records and the test "
                  "records")
         if launches != want:
             fail(f"{model}: kernel 1 not launched once a layer and eval "
                  "batch, or another kernel launched")
-        if replays != want_replays or (model == "hashnet_adapter"
-                                       and runner is not None):
+        if replays != want_replays or (single and runner is not None):
             fail(f"{model}: {replays} train replays, expected "
                  f"{want_replays}")
-        if model == "hashnet_adapter" and K > 1 and \
-                "does not apply" not in log:
-            fail("hashnet: the log does not say train_chunk does not apply")
-        if model == "clip_finetune":
-            cpu = prepare_codebook(exp.method, exp.config,
-                                   device=torch.device("cpu"))
-            err = float(np.abs(exp.codebook - cpu).max())
-            same = torch.equal(exp.model.text_centers.cpu(),
-                               torch.as_tensor(exp.codebook))
-            print(f"{model}: class-text centers {exp.codebook.shape} from "
-                  f"the local checkpoint's text stage on {device.type}, max "
-                  f"|d| against the CPU's {err:.3g} (tolerance "
-                  f"{TEXT_ATOL}); the model's centers equal: {same}; "
-                  f"logit_scale {exp.model.logit_scale.item():.6f}")
-            if "fallback" in log or "falls back" in log or \
-                    "pretrained weights unavailable" in log or \
-                    err > TEXT_ATOL or not same:
-                fail(f"{model}: the centers did not come from the local "
-                     f"text stage, or differ from the CPU's by {err}")
+        if single and K > 1 and "does not apply" not in log:
+            fail(f"{model}: the log does not say train_chunk does not apply")
+        if "check" in opt:
+            opt["check"](exp)
         n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
         eval_s = host_s(lambda: (exp.encode_split("test"),
                                  exp.encode_split("db")), 1)
-        rows.append((model, steps * batch / train[1]["time"],
-                     n_eval / eval_s))
+        if adsh:
+            V = torch.load(os.path.join(run, "outputs", "db_codes.pt"))["V"]
+            shape = (len(exp.datasets["train"]),
+                     int(exp.config["model"]["nbit"]))
+            print(f"{model}: outputs/db_codes.pt {tuple(V.shape)}, values "
+                  f"{sorted(V.unique().tolist())}; mAP {test[0]['mAP']:.6f}"
+                  f" scored with V as the database")
+            if tuple(V.shape) != shape or set(V.unique().tolist()) != {
+                    -1.0, 1.0} or not 0.0 <= test[0]["mAP"] <= 1.0:
+                fail(f"{model}: db_codes.pt or its mAP is wrong")
+            # whole-run rate: SGD steps with the subset encodes and DCC
+            rows.append((f"{model} (adsh, whole run)",
+                         exp.epochs * steps * batch / run_s, n_eval / eval_s))
+        else:
+            rows.append((model, steps * batch / train[1]["time"],
+                         n_eval / eval_s))
         for loader in exp.loaders.values():
             loader.close()
         del exp
-        # at the run's batch size: SEMICON's suppression mask is
-        # standardized over the batch, so configs/val.yaml's batch of 64
-        # would give other codes (in the reference too)
+        if adsh:
+            continue
+        over = (f"batch_size={batch}",) if opt.get("val_at_run_batch") \
+            else ()
         ev = main_gpu.build_experiment(eval_argv(
-            "exp=validation", f"logdir={run}", "use_last=true",
-            f"batch_size={batch}"))
+            "exp=validation", f"logdir={run}", "use_last=true", *over))
         got = ev.main()
         d_map = abs(got["mAP"] - test[-1]["mAP"])
-        print(f"{model} exp=validation use_last=true: mAP {got['mAP']:.6f} "
-              f"against the run's last {test[-1]['mAP']:.6f}, |d| "
-              f"{d_map:.3g} (tolerance {REPLAY_MAP_ATOL})")
+        print(f"{model} exp=validation use_last=true"
+              + (f" batch_size={batch}" if over else "") + f": mAP "
+              f"{got['mAP']:.6f} against the run's last "
+              f"{test[-1]['mAP']:.6f}, |d| {d_map:.3g} (tolerance "
+              f"{REPLAY_MAP_ATOL})")
         if d_map > REPLAY_MAP_ATOL:
             fail(f"{model}: exp=validation does not reproduce the run")
         del ev
-    print("phase 17 (c) img/s, epoch-2 train and eval encode, train_chunk "
-          "auto: " + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}"
-                               for n, t, e in rows)
+    print(f"{label} img/s, epoch-2 train and eval encode, train_chunk auto: "
+          + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}" for n, t, e in rows)
           + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
-    print(f"phase 17 (c): {time.perf_counter() - t_c:.1f} s")
+    print(f"{label}: {time.perf_counter() - t_c:.1f} s")
+
+
+def run_baseline_runs(device, tmp: str, argv, eval_argv, hf_dir: str,
+                      flagship: dict) -> None:
+    """Phase 17 (c): ``model=orthohash_adapter``, ``model=hashnet_adapter``
+    (one step a dispatch) and ``model=clip_finetune`` (its vision tower and
+    class-text centers from phase 15 (d)'s local checkpoint, the centers
+    from its text stage on the card within ``TEXT_ATOL`` of the CPU's)
+    through ``run_model_runs``."""
+    import os
+
+    from concepthash_tpu_torch.methods import prepare_codebook
+
+    def text_centers(exp):
+        cpu = prepare_codebook(exp.method, exp.config,
+                               device=torch.device("cpu"))
+        err = float(np.abs(exp.codebook - cpu).max())
+        same = torch.equal(exp.model.text_centers.cpu(),
+                           torch.as_tensor(exp.codebook))
+        with open(os.path.join(exp.logdir, "log.txt")) as f:
+            log = f.read()
+        print(f"clip_finetune: class-text centers {exp.codebook.shape} from "
+              f"the local checkpoint's text stage on {device.type}, max |d| "
+              f"against the CPU's {err:.3g} (tolerance {TEXT_ATOL}); the "
+              f"model's centers equal: {same}; logit_scale "
+              f"{exp.model.logit_scale.item():.6f}")
+        if "fallback" in log or "falls back" in log or \
+                "pretrained weights unavailable" in log or \
+                err > TEXT_ATOL or not same:
+            fail(f"clip_finetune: the centers did not come from the local "
+                 f"text stage, or differ from the CPU's by {err}")
+
+    run_model_runs("phase 17 (c)", device, tmp, argv, eval_argv, flagship, (
+        ("orthohash_adapter", {}),
+        ("hashnet_adapter", {"single": True}),
+        ("clip_finetune", {"extra": (f"backbone.name={hf_dir}",),
+                           "check": text_centers})))
 
 
 # ---------------------------------------------------------------------------
@@ -3283,28 +3356,29 @@ def check_dcc(sizes: Sizes, device) -> None:
 
 def check_ae_fit(sizes: Sizes, device) -> None:
     """``ae_fit`` for ``ae`` and ``induced_ae_norm_cossim`` on a seeded
-    (200, 512) embedding to 64 bits, ``sizes.ae_iters[0]`` iterations from
-    one init on the card and on the CPU: signs agree on >= 99%; then
-    ``ae``'s full ``sizes.ae_iters[1]`` iterations on the card, timed."""
+    (200, 512) embedding to 64 bits, ``sizes.ae_iters[0]`` and ``[1]``
+    iterations from one init on the card and on the CPU: signs agree on
+    >= 99%; then ``ae``'s full ``sizes.ae_iters[2]`` iterations on the
+    card, timed."""
     from concepthash_tpu_torch.train.codebook import ae_fit, ae_init
 
     n, d = sizes.ae_embedding
     nbit = sizes.head["nbit"]
-    it_cmp, it_full = sizes.ae_iters
+    *it_cmp, it_full = sizes.ae_iters
     emb = np.random.default_rng(83).standard_normal((n, d)).astype(
         np.float32)
-    for method in ("ae", "induced_ae_norm_cossim"):
+    for method, iters in zip(("ae", "induced_ae_norm_cossim"), it_cmp):
         init = ae_init(d, nbit, method)
         t0 = time.perf_counter()
-        card = ae_fit(emb, nbit, method, iters=it_cmp, init=init,
+        card = ae_fit(emb, nbit, method, iters=iters, init=init,
                       device=device)
         card_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        cpu = ae_fit(emb, nbit, method, iters=it_cmp, init=init,
+        cpu = ae_fit(emb, nbit, method, iters=iters, init=init,
                      device="cpu")
         cpu_s = time.perf_counter() - t0
         agree = float((np.sign(card) == np.sign(cpu)).mean())
-        print(f"ae_fit {method} ({n} x {d} -> {nbit} bits, {it_cmp} "
+        print(f"ae_fit {method} ({n} x {d} -> {nbit} bits, {iters} "
               f"iterations from one init): signs agree on {agree:.6f} (limit "
               f"{MIN_SIGN_AGREEMENT}), max |d| {np.abs(card - cpu).max():.3g};"
               f" {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
@@ -3326,117 +3400,6 @@ def run_finegrained(sizes: Sizes, device) -> None:
     finegrained_forwards(sizes, device)
     finegrained_steps(sizes, device)
     print(f"phase 18 (a), (b): {time.perf_counter() - t0:.1f} s")
-
-
-def run_finegrained_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
-                         flagship: dict) -> None:
-    """Phase 18 (c): ``main_gpu.py model=a2net_ce_adapter`` and
-    ``model=semicon_ce_adapter`` at ``train_chunk`` auto, and
-    ``model=semicon`` (the adsh regime, one step a dispatch) on phase 15's
-    synthetic set, 2 epochs each, counted (kernel 1 at one launch a layer
-    and eval batch, the adsh regime's subset encodes included; no other
-    kernel): finite records; the CE models' graph replays and
-    ``exp=validation use_last=true`` at the run's batch size within 1e-6
-    of the run's last mAP;
-    semicon's +-1 (n_train, nbit) ``outputs/db_codes.pt`` and a mAP in
-    [0, 1]; train and eval img/s beside phase 15's flagship."""
-    import os
-
-    import main_gpu
-
-    t_c = time.perf_counter()
-    rows = [("flagship (phase 15)", flagship["train_img_s"],
-             flagship["eval_img_s"])]
-    for model in ("a2net_ce_adapter", "semicon_ce_adapter", "semicon"):
-        run = os.path.join(tmp, model)
-        exp = main_gpu.build_experiment(argv(run, f"model={model}"))
-        torch.cuda.synchronize()
-        count_reset()
-        t0 = time.perf_counter()
-        exp.main()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = counts()
-        with open(os.path.join(run, "train_history.json")) as f:
-            train = json.load(f)
-        with open(os.path.join(run, "test_history.json")) as f:
-            test = json.load(f)
-        adsh = exp.method.regime == "adsh"
-        steps = exp.steps_per_epoch
-        batch = int(exp.config["batch_size"])
-        K = exp.train_chunk
-        n_layers = exp.model.vision_cfg.num_layers
-        if adsh:    # the subset's encode each epoch, then the test split
-            per_epoch = -(-exp.adsh_settings["num_samples"] // batch)
-            eval_batches = exp.epochs * per_epoch + len(exp.loaders["test"])
-        else:
-            eval_batches = 2 * (len(exp.loaders["test"])
-                                + len(exp.loaders["db"]))
-        want = (n_layers * eval_batches, 0, 0, 0, 0, 0)
-        replays = getattr(exp.train_multi_step, "replays", 0)
-        want_replays = (0 if adsh or device.type != "cuda"
-                        else 2 * (steps // K) - 1)
-        print(f"{model} run (train_chunk {K}): {steps} steps of {batch} an "
-              "epoch; train records "
-              + "; ".join(f"ep {r['ep']} loss {r['loss']:.5f}"
-                          + (f" {r['time']:.2f} s" if "time" in r else "")
-                          for r in train)
-              + "; test mAP " + ", ".join(f"{r['mAP']:.6f}" for r in test)
-              + f"; graph replays {replays} train (expected "
-              f"{want_replays}); launches {launches} against {want}; the "
-              f"run {run_s:.1f} s")
-        if len(train) != 2 or len(test) != (1 if adsh else 2) or not all(
-                math.isfinite(r["loss"]) for r in train):
-            fail(f"{model}: not two finite train records and the test "
-                 "records")
-        if launches != want:
-            fail(f"{model}: kernel 1 not launched once a layer and eval "
-                 "batch, or another kernel launched")
-        if replays != want_replays:
-            fail(f"{model}: {replays} train replays, expected "
-                 f"{want_replays}")
-        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = host_s(lambda: (exp.encode_split("test"),
-                                 exp.encode_split("db")), 1)
-        if adsh:
-            V = torch.load(os.path.join(run, "outputs", "db_codes.pt"))["V"]
-            shape = (len(exp.datasets["train"]),
-                     int(exp.config["model"]["nbit"]))
-            print(f"{model}: outputs/db_codes.pt {tuple(V.shape)}, values "
-                  f"{sorted(V.unique().tolist())}; mAP {test[0]['mAP']:.6f}"
-                  f" scored with V as the database")
-            if tuple(V.shape) != shape or set(V.unique().tolist()) != {
-                    -1.0, 1.0} or not 0.0 <= test[0]["mAP"] <= 1.0:
-                fail(f"{model}: db_codes.pt or its mAP is wrong")
-            # whole-run rate: SGD steps with the subset encodes and DCC
-            rows.append((f"{model} (adsh, whole run)",
-                         exp.epochs * steps * batch / run_s, n_eval / eval_s))
-        else:
-            rows.append((model, steps * batch / train[1]["time"],
-                         n_eval / eval_s))
-        for loader in exp.loaders.values():
-            loader.close()
-        del exp
-        if adsh:
-            continue
-        # at the run's batch size: SEMICON's suppression mask is
-        # standardized over the batch, so configs/val.yaml's batch of 64
-        # would give other codes (in the reference too)
-        ev = main_gpu.build_experiment(eval_argv(
-            "exp=validation", f"logdir={run}", "use_last=true",
-            f"batch_size={batch}"))
-        got = ev.main()
-        d_map = abs(got["mAP"] - test[-1]["mAP"])
-        print(f"{model} exp=validation use_last=true: mAP {got['mAP']:.6f} "
-              f"against the run's last {test[-1]['mAP']:.6f}, |d| "
-              f"{d_map:.3g} (tolerance {REPLAY_MAP_ATOL})")
-        if d_map > REPLAY_MAP_ATOL:
-            fail(f"{model}: exp=validation does not reproduce the run")
-        del ev
-    print("phase 18 (c) img/s, epoch-2 train and eval encode: "
-          + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}" for n, t, e in rows)
-          + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
-    print(f"phase 18 (c): {time.perf_counter() - t_c:.1f} s")
 
 
 def native_headers() -> bool:
@@ -3536,7 +3499,7 @@ def run_loader(sizes: Sizes, device, tmp: str, argv, flagship: dict) -> None:
         steps = len(exp.loaders["train"])
         kernels = device_breakdown(f"{extra} flagship train epoch",
                                    lambda: exp.train_one_epoch(2), epoch_s,
-                                   rows=4)
+                                   rows=4, warm=False)
         rows.append((extra, steps * batch / epoch_s,
                      busy_share(kernels, epoch_s)))
         if extra == "cache_images=true":

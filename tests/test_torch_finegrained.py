@@ -60,12 +60,12 @@ CRITERION = {"a2net_ce": {"gamma": 0, "hash": 1, "decorr": 0.01},
              "semicon": {"gamma": 200, "num_samples": 2000, "max_iters": 3}}
 
 
-def config(method: str) -> dict:
+def config(method: str, layers: int = 2) -> dict:
     return {
         "model": {"name": method, "nbit": NBIT, "nclass": NCLASS,
                   "num_attns": 4, "has_adapter": True,
                   "adapter_bottleneck_dim": 16},
-        "backbone": dict(BACKBONE),
+        "backbone": dict(BACKBONE, num_layers=layers),
         "criterion": dict(CRITERION[method]),
         "optim": {"name": "adam", "lr": 0.001, "weight_decay": 0.00001},
         "scheduler": {"name": "csw", "warmup_epochs": 10},
@@ -96,11 +96,11 @@ def _seed_adapters(tree, rng):
 
 
 @functools.lru_cache(maxsize=None)
-def reference(method: str, centers: bool = False):
+def reference(method: str, centers: bool = False, layers: int = 2):
     """The JAX model of ``method`` (with TempCE's seeded fixed centers when
-    ``centers``), its seeded variables (numpy leaves), and the port's
-    model carrying them."""
-    cfg = config(method)
+    ``centers``) on a trunk of ``layers`` layers, its seeded variables
+    (numpy leaves), and the port's model carrying them."""
+    cfg = config(method, layers)
     cb = (np.random.default_rng(5).standard_normal((NCLASS, CDIM))
           .astype(np.float32) if centers else None)
     jm = jmethods.get_method(method).build_model(cfg, cb)
@@ -334,6 +334,35 @@ def test_three_train_steps_match_jax(method):
         assert torch.equal(got[n], before[n]), n
     assert any(not torch.equal(got[n], before[n])
                for n, p in tr.model.named_parameters() if p.requires_grad)
+
+
+def test_a2net_ce_loss_rises_with_the_reference():
+    """On a 12-layer random trunk the features are large, and A2-Net-CE's
+    reconstruction through its tied hash layer outgrows the hash loss under
+    the config's adam: five steps on one batch raise the total loss in the
+    reference, and the port's losses and parts follow it step by step at
+    rtol 1e-4 (so a card's rising A2-Net-CE loss is the reference's)."""
+    cfg, cb, jm, variables, model = reference("a2net_ce", layers=12)
+    jloss = jmethods.get_method("a2net_ce").build_loss(cfg, cb)
+    tx = jbuild_optimizer(cfg["optim"], cfg["scheduler"], cfg["epochs"], SPE,
+                          variables["params"], backbone_lr_scale=0.0)
+    state = create_train_state(jm, tx, jnp.zeros((BATCH, IMAGE, IMAGE, 3)),
+                               jax.random.PRNGKey(0), variables=variables)
+    jstep = jmake_train_step(jm, jloss, tx, donate=False)
+    tr = tmethods.training_for(cfg, copy.deepcopy(model), tmethods.get_method(
+        "a2net_ce").build_loss(cfg, cb), SPE)
+    b = _batches(4)[0]
+    want, got = [], []
+    for i in range(5):
+        state, jm_ = jstep(state, {k: jnp.asarray(v) for k, v in b.items()})
+        tm = tr.step({k: torch.tensor(v) for k, v in b.items()})
+        for k in ("loss", "hash", "decorr", "rec"):
+            np.testing.assert_allclose(float(tm[k]), float(jm_[k]),
+                                       rtol=TRAIN_RTOL, atol=1e-6,
+                                       err_msg=f"step {i}: {k}")
+        want.append(float(jm_["loss"]))
+        got.append(float(tm["loss"]))
+    assert want[-1] > want[0] and got[-1] > got[0], (want, got)
 
 
 # ---------------------------------------------------------------------------

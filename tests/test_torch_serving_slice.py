@@ -361,7 +361,7 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
                                   eos_token_id=599),
                      pretrained_images=6, variant_images=6, filip_tokens=3,
                      adsh_db=12, dcc_split=(60, 24), ae_embedding=(6, 16),
-                     ae_iters=(20, 40))
+                     ae_iters=(20, 10, 40))
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
     assert "\nplanted rows found at distance 0: 6/6" in out
