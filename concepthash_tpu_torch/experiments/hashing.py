@@ -1,6 +1,7 @@
 """The experiments: train + retrieve, train-only and eval-only (counterpart
-of the ``sgd`` and ``adsh`` regimes of concepthash_tpu/experiments/hashing.py
-``RetrievalExperiment``, ``GeneralExperiment`` and ``RetrievalEvaluation``).
+of the ``sgd``, ``shallow`` and ``adsh`` regimes of
+concepthash_tpu/experiments/hashing.py ``RetrievalExperiment``,
+``GeneralExperiment`` and ``RetrievalEvaluation``).
 
 One run: the codebook stage, the model and its train step
 (``methods.build_training``), the pretrained vision weights when the
@@ -44,6 +45,27 @@ dispatch at any ``train_chunk``, with the batch's dataset indices, and its
 train-state extras (the bank) go into ``optims/*.pt`` with the rest of the
 train state.
 
+A ``two_view`` method (``cibhash``, ``bihalf``, ``nsh``) trains on two
+augmentations of each batch, drawn one after the other from the run's
+augmentation generators and stacked ``[v1; v2]`` (2B rows; a graphed
+chunk stages (K, 2B, ...) images). SSDH (``needs_structure``) first builds
+its pairwise structure from the eval codes of the train split in dataset
+order (``_extract_train_matrix``: an unshuffled loader without
+``drop_last``, rows scattered by the batch's index, the padded tail
+masked), once before its first train epoch (after a resume, from the
+resumed weights); each train batch carries its block ``S[idx, idx]`` as
+``aux``, which a graphed chunk stages as a (K, B, B) buffer.
+
+A method of the ``shallow`` regime (``itq``, ``pca``, ``lsh``, ``sh``) runs
+one pass: the descriptor's features of the train split through the train
+preprocessing (crop, flip and the config's augmentation, from generators
+seeded by the run's seed; the model in eval mode), the host fit of
+``losses/shallow.py`` with the criterion's keys, then the test and
+database splits encoded through the eval pipeline and the fit, scored as
+one test record at epoch 0. The fit goes to ``models/best.pt`` as
+``{"criterion": fit, "epoch": 0}``, which ``load_model_state`` (and so
+``exp=validation``) refuses with a ``ValueError``: it is not a network.
+
 A method of the ``adsh`` regime (``adsh``, ``semicon``) alternates, each
 epoch: ``max_iters`` passes of SGD over a random subset omega of
 ``num_samples`` train rows against the stored database codes V, then a
@@ -58,9 +80,9 @@ against the test codes and writes ``outputs/db_codes.pt``.
 and ``cache_images`` keeps the decoded images in memory (``null`` is off,
 as in the reference's reading of ``configs/train.yaml``).
 
-Not ported, and raising ``NotImplementedError``: the other regimes and
-methods (``methods.get_method``), and the ``profile`` and ``debug``
-diagnostics.
+Not ported, and raising ``NotImplementedError``: the pretraining methods
+and the ``odc`` regime (``methods.get_method``), and the ``profile`` and
+``debug`` diagnostics.
 """
 
 from __future__ import annotations
@@ -186,7 +208,8 @@ class RetrievalExperiment:
         self._build_model(pretrained=trains)
         if not trains:
             return
-        self._build_training()
+        if self.method.regime != "shallow":     # a fit, not an optimizer
+            self._build_training()
         self.tracker = Tracker(config.get("wandb", False), self.logdir)
         self.train_history = HistoryWriter(self.logdir, "train",
                                            tracker=self.tracker)
@@ -247,7 +270,8 @@ class RetrievalExperiment:
         return t.to(self.device, non_blocking=True)
 
     def _stack_chunk(self, items: list) -> dict:
-        """Stack K batches' images and labels into (K, ...) host buffers,
+        """Stack K batches' images, labels and, where they carry it, their
+        ``aux`` (SSDH's structure block) into (K, ...) host buffers,
         reused across chunks: two per key, alternating, pinned on CUDA.
         Fenced: before a buffer is refilled, the copy made from it two
         chunks ago (an event ``_place_chunk`` recorded) must be done; at
@@ -260,7 +284,9 @@ class RetrievalExperiment:
         if event is not None:
             event.synchronize()
         out = {}
-        for k in ("image", "label"):
+        for k in ("image", "label", "aux"):
+            if k not in items[0]:
+                continue
             arrs = [np.asarray(b[k]) for b in items]
             key = (k, len(arrs), arrs[0].shape, arrs[0].dtype.str,
                    self._chunk_flip)
@@ -374,6 +400,7 @@ class RetrievalExperiment:
             loss_fn = self._adsh_loss()
         self.training = tr = training_for(cfg, self.model, loss_fn,
                                           self.steps_per_epoch)
+        self._structure = None      # SSDH's, built before its first epoch
         self.train_step = tr.step
         seed = int(cfg.get("seed", 42))
         # augmentation draws: crops, flips and magnitudes on the device,
@@ -400,7 +427,68 @@ class RetrievalExperiment:
             if self.train_chunk > 1 and not single else None)
 
     # ------------------------------------------------------------------ train
+    def _train_images(self, x: torch.Tensor) -> torch.Tensor:
+        """The train preprocessing of a device batch of uint8 images; a
+        ``two_view`` method's is two augmentations of the same images,
+        drawn one after the other, stacked ``[v1; v2]``."""
+        def view():
+            return preprocess_batch(x, self.aug_generator, crop=self.crop,
+                                    norm=self.norm, train=True,
+                                    augment=self.augment,
+                                    op_generator=self.op_generator)
+
+        if self.method.two_view:
+            return torch.cat([view(), view()])
+        return view()
+
+    def _extract_train_matrix(self, encode_batch) -> np.ndarray:
+        """The (N_train, D) float32 matrix of ``encode_batch(batch)`` (a
+        (B, D) device tensor for a loader batch) in dataset order: an
+        unshuffled loader without ``drop_last``, rows scattered by the
+        batch's index, the padded tail masked by ``n_valid``. One copy to
+        the host at the end."""
+        bs = int(self.config.get("batch_size", 64))
+        loader = Loader(self.datasets["train"], bs, shuffle=False,
+                        drop_last=False, **self._loader_kw)
+        rows, index = [], []
+        try:
+            for batch in loader:
+                nv = batch.pop("n_valid")
+                rows.append(encode_batch(batch)[:nv])
+                index.append(batch["index"][:nv])
+        finally:
+            loader.close()
+        arr = torch.cat(rows).float().cpu().numpy()
+        feats = np.zeros((len(self.datasets["train"]), arr.shape[1]),
+                         np.float32)
+        feats[np.concatenate(index)] = arr
+        return feats
+
+    def _eval_codes_batch(self, batch) -> torch.Tensor:
+        """The eval step's codes of a whole (padded) loader batch."""
+        images = preprocess_batch(self._on_device(batch["image"]),
+                                  crop=self.crop, norm=self.norm,
+                                  train=False)
+        codes, _ = self.eval_step({"image": images,
+                                   "label": self._on_device(batch["label"])})
+        return codes["codes"]
+
+    def _prepare_structure(self):
+        """SSDH's pairwise structure from the current model's eval codes of
+        the train split, in dataset order (the structure is indexed by
+        dataset index), with the criterion's ``alpha``."""
+        from concepthash_tpu_torch.losses.unsupervised import ssdh_structure
+
+        codes = self._extract_train_matrix(self._eval_codes_batch)
+        alpha = float((self.config.get("criterion") or {}).get("alpha", 2.0))
+        self._structure = ssdh_structure(codes, alpha=alpha)
+        logging.info("ssdh structure: %.1f%% positive, %.1f%% negative",
+                     100 * (self._structure > 0).mean(),
+                     100 * (self._structure < 0).mean())
+
     def train_one_epoch(self, ep: int) -> dict:
+        if self.method.needs_structure and self._structure is None:
+            self._prepare_structure()
         meters = MeterBank()
         t0 = time.time()
         pending: list = []          # (batch, n_valid) awaiting a chunk
@@ -408,22 +496,18 @@ class RetrievalExperiment:
         def run_chunk():
             placed = self._place_chunk(self._stack_chunk(
                 [b for b, _ in pending]))
-            images = torch.stack([preprocess_batch(
-                x, self.aug_generator, crop=self.crop, norm=self.norm,
-                train=True, augment=self.augment,
-                op_generator=self.op_generator) for x in placed["image"]])
-            metrics = self.train_multi_step({"image": images,
-                                             "label": placed["label"]})
+            placed["image"] = torch.stack([self._train_images(x)
+                                           for x in placed["image"]])
+            metrics = self.train_multi_step(placed)
             meters.update_device(metrics, [n for _, n in pending])
             pending.clear()
 
         def run_single(batch, n):
-            images = preprocess_batch(
-                self._on_device(batch["image"]), self.aug_generator,
-                crop=self.crop, norm=self.norm, train=True,
-                augment=self.augment, op_generator=self.op_generator)
-            step_batch = {"image": images,
+            step_batch = {"image": self._train_images(
+                              self._on_device(batch["image"])),
                           "label": self._on_device(batch["label"])}
+            if "aux" in batch:
+                step_batch["aux"] = self._on_device(batch["aux"])
             if self.training.custom:    # a method's own step reads the rows
                 step_batch["index"] = self._on_device(batch["index"])
             metrics = self.train_step(step_batch)
@@ -431,6 +515,9 @@ class RetrievalExperiment:
 
         for batch in self.loaders["train"]:
             n = batch.pop("n_valid")
+            if self.method.needs_structure:
+                idx = batch["index"]
+                batch["aux"] = self._structure[np.ix_(idx, idx)]
             if self.train_multi_step is not None:
                 pending.append((batch, n))
                 if len(pending) == self.train_chunk:
@@ -549,8 +636,7 @@ class RetrievalExperiment:
 
             blob = io.load_jax_checkpoint(path)
             if "params" not in blob:
-                raise ValueError(f"{path} is not a network checkpoint (keys: "
-                                 f"{sorted(blob)})")
+                raise _not_a_network(path, blob)
             params = blob["params"]
             bridge = (from_flax if "hash_queries" in params
                       else finegrained_from_flax
@@ -558,6 +644,8 @@ class RetrievalExperiment:
                       else baseline_from_flax)
             return bridge(blob), int(blob.get("epoch", 0))
         blob = io.load_checkpoint(path)
+        if "model" not in blob:
+            raise _not_a_network(path, blob)
         return blob["model"], int(blob.get("epoch", 0))
 
     def load_model_state(self, path: str) -> int:
@@ -623,6 +711,8 @@ class RetrievalExperiment:
 
     # ------------------------------------------------------------------- main
     def main(self):
+        if self.method.regime == "shallow":
+            return self._main_shallow()
         if self.method.regime == "adsh":
             return self._main_adsh()
         cfg = self.config
@@ -671,6 +761,63 @@ class RetrievalExperiment:
         io.fast_save({"codes": db_codes["codes"], "labels": db_labels},
                      os.path.join(self.logdir, "outputs", "db_best.pt"))
 
+
+    # -------------------------------------------------------- shallow regime
+    def _extract_fit_features(self) -> np.ndarray:
+        """The (N_train, D) features the shallow fit takes, through the
+        train preprocessing (random crop, flip and the config's
+        augmentation), the model in eval mode, in dataset order. A fit on
+        center crops locks onto directions the augmentation moves (the
+        reference measured -0.17 mAP for it). The draws come from
+        generators seeded by the run's seed."""
+        seed = int(self.config.get("seed", 42))
+        aug = torch.Generator(device=self.device).manual_seed(seed)
+        ops = torch.Generator().manual_seed(seed + 1)
+
+        def encode(batch):
+            images = preprocess_batch(
+                self._on_device(batch["image"]), aug, crop=self.crop,
+                norm=self.norm, train=True, augment=self.augment,
+                op_generator=ops)
+            codes, _ = self.eval_step({
+                "image": images, "label": self._on_device(batch["label"])})
+            return codes["codes"]
+
+        return self._extract_train_matrix(encode)
+
+    def _main_shallow(self):
+        """The one-pass fit: the train features through the train
+        augmentation, the criterion's fitter on them, the test and database
+        splits encoded with the eval pipeline and the fit, scored."""
+        from concepthash_tpu_torch.losses.shallow import (FITTERS,
+                                                          encode_shallow)
+
+        cfg = self.config
+        name = cfg["model"]["name"]
+        fit_feats = self._extract_fit_features()
+        fit_kwargs = dict(cfg.get("criterion", {}) or {})
+        fit_kwargs.pop("name", None)
+        fit_state = FITTERS[name](fit_feats, int(cfg["model"]["nbit"]),
+                                  **fit_kwargs)
+        io.fast_save({"criterion": fit_state, "epoch": 0},
+                     os.path.join(self.logdir, "models", "best.pt"))
+        test_feats, test_labels, _ = self.encode_split("test")
+        db_feats, db_labels, _ = self.encode_split("db")
+        test_codes, db_codes = (
+            encode_shallow(fit_state, f["codes"].float().cpu().numpy())
+            for f in (test_feats, db_feats))
+        mAP, recalls, precisions = calculate_mAP(
+            db_codes, db_labels, test_codes, test_labels,
+            R=cfg.get("dataset", {}).get("R", -1),
+            PRs=tuple(cfg.get("PRs", (1, 5, 10))), device=self.device)
+        self.test_history.append({"ep": 0, "mAP": mAP, "recalls": recalls,
+                                  "precisions": precisions})
+        self.best_metric = mAP
+        io.join_save_queue()
+        for loader in self.loaders.values():
+            loader.close()
+        logging.info("shallow %s: mAP=%.4f", name, mAP)
+        return mAP
 
     # ----------------------------------------------------------- adsh regime
     def _adsh_loss(self):
@@ -779,6 +926,15 @@ class RetrievalExperiment:
         self.best_metric = mAP
         logging.info("adsh: mAP=%.4f", mAP)
         return mAP
+
+
+def _not_a_network(path: str, blob: dict) -> ValueError:
+    """A checkpoint without a network's weights: a shallow run's holds the
+    fit (``criterion``), which cannot be evaluated as a model."""
+    return ValueError(
+        f"{path} is not a network checkpoint (keys: {sorted(blob)}); "
+        "shallow-method runs (itq/pca/lsh/sh) store the fitted criterion, "
+        "which exp=validation cannot re-evaluate as a model")
 
 
 def _adsh_settings(cfg: dict, n_train: int) -> dict:

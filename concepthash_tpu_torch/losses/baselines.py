@@ -7,7 +7,8 @@ database-code update (``adsh_loss``, ``soften_sim``, ``solve_dcc``).
 Each loss is ``fn(outputs, onehot, **cfg) -> (total, parts)`` over the
 model's output dict (codes and the head's logits), in f32. DTSH's triplets
 are vectorized with masks, as the reference does. ``unsup_greedyhash_loss``
-waits for its regime (ROADMAP Queue 1 item 7).
+is the unsupervised GreedyHash objective, which Bi-half shares
+(``losses/unsupervised.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from concepthash_tpu_torch.losses.common import (
     arc_margin_logits, binary_cross_entropy_with_logits, margin_logits,
     quantization_cosine, soft_cross_entropy)
+from concepthash_tpu_torch.losses.unsupervised import structure_matching
 from concepthash_tpu_torch.ops.hamming import get_hamm_dist
 from concepthash_tpu_torch.ops.retrieval import get_sim, log_trick
 
@@ -187,6 +189,14 @@ def greedyhash_loss(outputs, onehot, alpha: float = 1.0, pow: float = 3.0,
         loss1 = soft_cross_entropy(logits, _row_normalized(onehot))
     loss2 = ((code_logits.abs() - 1.0).abs() ** pow).mean()
     return loss1 + alpha * loss2, {"ce": loss1, "quan": loss2}
+
+
+def unsup_greedyhash_loss(outputs, onehot, alpha: float = 1.0,
+                          pow: float = 3.0, **_):
+    """Unsupervised: the cosine structure between the batch halves'
+    binary codes matched to their features'."""
+    return structure_matching(outputs["features"], outputs["codes"],
+                              outputs["codes_bin"], alpha, pow)
 
 
 def ce_loss(outputs, onehot, multiclass: bool = False, margin: float = 0.0,

@@ -12,13 +12,20 @@ CLIP-adapter trunk (``models/baselines.py``): ``orthohash``,
 ``train/custom_steps.py``), ``dpsh``, ``dtsh``, ``greedyhash``, ``ce``,
 ``descriptor`` (no objective) and ``clip``; the fine-grained heads
 (``models/finegrained.py``) ``a2net_ce`` and ``semicon_ce`` (``sgd``
-regime); and ``adsh`` (the csq head) and ``semicon`` under the ``adsh``
-regime, whose alternating optimization the experiment runs
+regime); the unsupervised ``sgd``-regime methods ``unsup_greedyhash``,
+``cibhash``, ``bihalf`` and ``nsh`` (``two_view``: each train batch is two
+augmentations of its images, ``[v1; v2]``) and ``ssdh`` (``needs_structure``:
+a pairwise structure built once from the train codes, each train batch's
+block of it in ``batch['aux']``; ``losses/unsupervised.py``); ``itq``,
+``pca``, ``lsh`` and ``sh`` on the ``descriptor`` head under the ``shallow``
+regime, whose one-pass fit the experiment runs (``losses/shallow.py``);
+and ``adsh`` (the csq head) and ``semicon`` under the ``adsh`` regime,
+whose alternating optimization the experiment runs
 (``experiments/hashing.py``; their ``build_loss`` gives None). The config
 dicts are main.py's: ``model``, ``backbone``, ``criterion``, ``optim``,
-``scheduler``, ``epochs``, ``backbone_lr_scale``, ``compute_dtype``. Every
-other method of the reference raises ``NotImplementedError`` from
-``get_method``.
+``scheduler``, ``epochs``, ``backbone_lr_scale``, ``compute_dtype``. The
+reference's other methods (``moco``, ``dino``, ``mae``, ``autoencoder``,
+``tbh`` and ``odc``) raise ``NotImplementedError`` from ``get_method``.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from concepthash_tpu_torch import resolve_device
 from concepthash_tpu_torch.losses import baselines as L
+from concepthash_tpu_torch.losses import unsupervised as U
 from concepthash_tpu_torch.losses.concepthash import lgh_loss
 from concepthash_tpu_torch.models.backbone_factory import (
     adapter_config_from_model_cfg, vision_config_from_backbone_cfg)
@@ -134,6 +142,7 @@ def _build_baseline(head: str, config, codebook, *, device=None,
     bcfg = BaselineConfig(nbit=int(m["nbit"]), nclass=int(m["nclass"]),
                           head=head, add_bn=bool(m.get("add_bn", True)),
                           ce_cossim=m.get("m_type", "ce") != "ce",
+                          latent_dim=int(m.get("latent_dim", 128)),
                           bcs=bool(m.get("bcs", False)),
                           hash_bias=bool(m.get("hash_bias", False)))
     return BaselineHashNet(vcfg, bcfg, adapter_config_from_model_cfg(m),
@@ -233,6 +242,13 @@ def _regime_loss(config, codebook) -> None:
     return None
 
 
+def _ssdh_loss(config, codebook) -> Callable:
+    """SSDH's loss against the batch's block of the structure
+    (``batch['aux']``); eval batches carry none, and it is zero there."""
+    return lambda outputs, batch: U.ssdh_loss(outputs, None,
+                                              S_batch=batch.get("aux"))
+
+
 def _null_loss(config, codebook) -> Callable:
     """The loss of a method trained without an objective (descriptor): zero,
     with a zero gradient into everything the codes depend on, as the
@@ -259,7 +275,10 @@ class Method:
     custom_step: Optional[Callable] = None
     # the train state's extras (config, device) -> {name: tensor}
     init_extra: Optional[Callable] = None
-    regime: str = "sgd"     # sgd | adsh (the experiment's loop)
+    regime: str = "sgd"     # sgd | shallow | adsh (the experiment's loop)
+    unsupervised: bool = False
+    two_view: bool = False         # train batches: two augmented views
+    needs_structure: bool = False  # a pairwise structure first (SSDH)
 
 
 def _baseline(head: str) -> Callable:
@@ -284,14 +303,28 @@ _METHODS = {m.name: m for m in (
     Method("dtsh", _baseline("pairwise"), _simple_loss(L.dtsh_loss)),
     Method("greedyhash", _baseline("greedyhash"),
            _simple_loss(L.greedyhash_loss)),
+    Method("unsup_greedyhash", _baseline("unsup_greedyhash"),
+           _simple_loss(L.unsup_greedyhash_loss), unsupervised=True),
     Method("ce", _baseline("ce"), _simple_loss(L.ce_loss)),
     Method("descriptor", _baseline("descriptor"), _null_loss),
     Method("a2net_ce", functools.partial(_build_finegrained, "a2net_ce"),
            _simple_loss(L.a2net_ce_loss)),
     Method("semicon_ce", functools.partial(_build_finegrained, "semicon_ce"),
            _simple_loss(L.semicon_ce_loss)),
+    # the unsupervised family
+    Method("cibhash", _baseline("pairwise"), _simple_loss(U.cibhash_loss),
+           unsupervised=True, two_view=True),
+    Method("bihalf", _baseline("unsup_greedyhash"),
+           _simple_loss(U.bihalf_loss), unsupervised=True, two_view=True),
+    Method("nsh", _baseline("nsh"), _simple_loss(U.nsh_loss),
+           unsupervised=True, two_view=True),
+    Method("ssdh", _baseline("pairwise"), _ssdh_loss, unsupervised=True,
+           needs_structure=True),
     Method("clip", _baseline("clip"), _simple_loss(L.ce_loss),
            codebook="continuous"),
+    # one-pass fits on the descriptor's features
+    *(Method(name, _baseline("descriptor"), _null_loss, regime="shallow")
+      for name in ("itq", "pca", "lsh", "sh")),
     # the csq head's tanh codes, and SEMICON, under the adsh regime
     Method("adsh", _baseline("csq"), _regime_loss, regime="adsh"),
     Method("semicon", functools.partial(_build_finegrained, "semicon"),
@@ -302,8 +335,8 @@ _METHODS = {m.name: m for m in (
 def get_method(name: str) -> Method:
     if name not in _METHODS:
         raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP Queue 1 items 7-8: "
-            "the unsupervised, shallow, pretraining and odc methods); "
+            f"method {name!r} is not ported yet (ROADMAP Queue 1 item 7: "
+            "moco, dino, mae, autoencoder and tbh; item 8: odc); "
             f"ported: {list_methods()}")
     return _METHODS[name]
 

@@ -16,12 +16,16 @@ the method's head. Heads:
   (straight-through);
 - ``descriptor``: the feature itself as the code;
 - ``clip``: the projected CLS feature against the fixed class-text
-  centers, scaled by ``exp(logit_scale)`` (initialised to log(1/0.07)).
+  centers, scaled by ``exp(logit_scale)`` (initialised to log(1/0.07));
+- ``nsh``: a projector MLP (``latent_fc1`` to 2 * latent_dim, ReLU,
+  ``latent_fc2``) to the continuous latents, then a hash layer without
+  bias on them; it returns the feature, the latents and the codes;
+- ``unsup_greedyhash``: a biased hash layer, with the feature and the
+  codes' straight-through sign (``codes_bin``) beside the codes.
 
-The ``nsh`` and ``unsup_greedyhash`` heads are not ported (ROADMAP Queue 1
-item 7). Parameters are float32 on ``device`` (CUDA unless asked
-otherwise); ``dtype`` is the compute dtype; codes and logits come back in
-float32.
+Parameters are float32 on ``device`` (CUDA unless asked otherwise);
+``dtype`` is the compute dtype; codes, latents and logits come back in
+float32 (features in the compute dtype).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from concepthash_tpu_torch.models.trunk import Trunk, trunk_from_config
 from concepthash_tpu_torch.ops.numerics import l2_normalize
 
 HEADS = ("orthohash", "csq", "dpn", "pairwise", "ce", "greedyhash",
-         "descriptor", "clip")
+         "unsup_greedyhash", "nsh", "descriptor", "clip")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +59,7 @@ class BaselineConfig:
     hash_bias: bool = False   # a biased hash layer (always for pairwise,
                               # ce and greedyhash)
     ce_cossim: bool = False   # ce head: cosine classifier, not linear
+    latent_dim: int = 128     # nsh head: the continuous latents' width
     bcs: bool = False         # orthohash: the sign-centroid logits head
 
 
@@ -86,10 +91,6 @@ class BaselineHashNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.head in ("nsh", "unsup_greedyhash"):
-            raise NotImplementedError(
-                f"the {cfg.head} head is not ported yet (ROADMAP Queue 1 "
-                "item 7)")
         if cfg.head not in HEADS:
             raise ValueError(f"unknown head {cfg.head!r}")
         g = generator
@@ -112,9 +113,15 @@ class BaselineHashNet(nn.Module):
             # state dict, as the reference keeps them outside its variables
             self.register_buffer("text_centers", cb.clone(),
                                  persistent=False)
+        elif head == "nsh":
+            D, Z = vcfg.hidden_size, cfg.latent_dim
+            self.latent_fc1 = linear(D, 2 * Z, generator=g)
+            self.latent_fc2 = linear(2 * Z, Z, generator=g)
+            self.hash_fc = linear(Z, cfg.nbit, bias=False, generator=g)
         elif head != "descriptor":
             D = vcfg.hidden_size
-            bias = cfg.hash_bias or head in ("pairwise", "ce", "greedyhash")
+            bias = cfg.hash_bias or head in ("pairwise", "ce", "greedyhash",
+                                             "unsup_greedyhash")
             self.hash_fc = (_torch_default_linear(D, cfg.nbit, g)
                             if head == "pairwise"
                             else linear(D, cfg.nbit, bias=bias, generator=g))
@@ -150,6 +157,11 @@ class BaselineHashNet(nn.Module):
             logits = torch.exp(self.logit_scale) * (
                 l2_normalize(pooled) @ l2_normalize(self.text_centers).t())
             return {"codes": pooled, "logits": logits}
+        if c.head == "nsh":
+            z = torch.relu(dense(self.latent_fc1, feat, dt))
+            z = dense(self.latent_fc2, z, dt).float()
+            return {"features": feat, "latents": z,
+                    "codes": dense(self.hash_fc, z, dt).float()}
         codes = dense(self.hash_fc, feat, dt)
         if self.hash_bn is not None:
             codes = self.hash_bn(codes, train)
@@ -166,4 +178,7 @@ class BaselineHashNet(nn.Module):
             b = sign_ste(codes)
             out["codes_bin"] = b
             out["logits"] = dense(self.ce_fc, b, dt).float()
+        elif c.head == "unsup_greedyhash":
+            out["features"] = feat
+            out["codes_bin"] = sign_ste(codes)
         return out

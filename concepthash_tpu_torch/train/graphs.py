@@ -134,7 +134,8 @@ class _GraphedSteps:
 
 class GraphedTrainSteps(_GraphedSteps):
     """``make_multi_train_step`` on the card: ``step(batches) -> metrics``,
-    batches {'image': (K, B, H, W, C) preprocessed, 'label': (K, B, C)},
+    batches {'image': (K, B, H, W, C) preprocessed, 'label': (K, B, C)} and
+    any other (K, ...) tensors the loss reads (SSDH's (K, B, B) ``aux``),
     each metric (K,). Turns the optimizer capturable when built; its state
     and schedule stay shared with the single step."""
 
@@ -187,13 +188,12 @@ class GraphedTrainSteps(_GraphedSteps):
     def _run(self) -> None:
         from concepthash_tpu_torch.train.state import accuracy_metrics
 
-        images, labels = self.static["image"], self.static["label"]
-        K = images.shape[0]
+        K = self.K
         for k in range(K):
             for g, lr in enumerate(self.lr_tensors):
                 lr.copy_(self.lr_dev[k, g])
             self.lr_used[k].copy_(self.lr_tensors[0])
-            batch = {"image": images[k], "label": labels[k]}
+            batch = {n: v[k] for n, v in self.static.items()}
             out = self.model(batch["image"], train=True,
                              output_attentions=self.output_attentions,
                              generator=self.generator)

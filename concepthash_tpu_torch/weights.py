@@ -195,8 +195,9 @@ def baseline_from_flax(variables: dict) -> dict:
     p = variables["params"]
     sd: dict = {}
     _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
-    if "hash_fc" in p:
-        _dense(sd, "hash_fc", p["hash_fc"])
+    for name in ("latent_fc1", "latent_fc2", "hash_fc"):
+        if name in p:
+            _dense(sd, name, p[name])
     if "hash_bn" in p:
         stats = variables["batch_stats"]["hash_bn"]["bn"]
         sd["hash_bn.weight"] = _t(p["hash_bn"]["bn"]["scale"])

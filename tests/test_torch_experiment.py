@@ -15,8 +15,10 @@ backbone, 16 bits, batch 8, float32:
     each option this round ported (FILIP, DecorrelatedBN, vpt_pe,
     ``backbone.remat``, lars; the orthohash, csq, hashnet with its bank
     and clip baselines; the A2-Net-CE and SEMICON-CE heads; the C++
-    decode and the image cache) trains an epoch and evaluates, and the
-    adsh regime (adsh, semicon) runs an epoch to its database codes;
+    decode and the image cache; the unsupervised cibhash, bihalf, nsh and
+    ssdh) trains an epoch and evaluates, the adsh regime (adsh, semicon)
+    runs an epoch to its database codes, and the shallow regime (itq,
+    pca, lsh, sh) fits and scores;
 (f) the eval-only modes: ``exp=validation`` and ``exp=extract`` on the
     reference's run directory (its ``last.msgpack``) against the reference's
     own eval-only runs (codes in sign on >= 99.9% of bits, mAP within 1e-3),
@@ -192,8 +194,8 @@ def test_last_checkpoint_reloads_to_the_same_codes(port_run, workdir):
 
 
 @pytest.mark.parametrize("extra", [
-    ["model=cibhash"], ["model=itq"], ["model=moco"],
-    ["model=odc"], ["model=ssdh"],
+    ["model=dino"], ["model=mae"], ["model=moco"],
+    ["model=odc"], ["model=autoencoder"],
     ["model=tbh"], ["+profile.enabled=true"], ["+debug.nans=true"],
 ])
 def test_unported_options_raise(workdir, extra):
@@ -210,7 +212,8 @@ def test_unported_options_raise(workdir, extra):
      "save_training_state=true"],
     ["model=clip_finetune"], ["model=a2net_ce_adapter"],
     ["model=semicon_ce_adapter"], ["native_decode=true"],
-    ["cache_images=true"],
+    ["cache_images=true"], ["model=cibhash"], ["model=bihalf"],
+    ["model=nsh"], ["model=ssdh"],
 ])
 def test_ported_options_run(workdir, extra):
     """One epoch of main_gpu with the option: a finite train record, a test
@@ -220,7 +223,9 @@ def test_ported_options_run(workdir, extra):
     a buffer; csq's Hadamard codebook in its accuracy meter; HashNet's bank
     of the 24 train images in the train state; clip's logit_scale;
     A2-Net's tied f32 hash layer; SEMICON-CE's maps' LayerNorm over the 36
-    patches; the C++ decode taking every image; the image cache)."""
+    patches; the C++ decode taking every image; the image cache; the
+    unsupervised objectives' parts, NSH's projector and SSDH's structure,
+    logged)."""
     logdir = os.path.join(workdir, "ported_" + "".join(
         c if c.isalnum() else "_" for c in extra[0]))
     best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
@@ -263,6 +268,17 @@ def test_ported_options_run(workdir, extra):
     if extra == ["model=semicon_ce_adapter"]:
         assert tuple(sd["sem_norm.0.weight"].shape) == (36,)
         assert {"hash", "quan", "acc"} <= set(train[0])
+    parts = {"model=cibhash": {"contrastive", "kl"},
+             "model=bihalf": {"mse", "quan"},
+             "model=nsh": {"sort", "contrastive", "quan"},
+             "model=ssdh": {"pairwise"}}.get(extra[0])
+    if parts is not None:
+        assert parts <= set(train[0]) and "acc" not in train[0]
+    if extra == ["model=nsh"]:
+        assert tuple(sd["latent_fc1.weight"].shape) == (256, 64)
+        assert "hash_fc.bias" not in sd
+    if extra == ["model=ssdh"]:
+        assert "ssdh structure: " in log
     if extra == ["native_decode=true"]:
         from concepthash_tpu_torch import native
 
@@ -287,6 +303,27 @@ def test_adsh_regime_runs(workdir, model):
     assert tuple(V.shape) == (24, 16)
     assert set(V.unique().tolist()) == {-1.0, 1.0}
     assert os.path.exists(os.path.join(logdir, "models", "best.pt"))
+
+
+@pytest.mark.parametrize("model", ["itq", "pca", "lsh", "sh"])
+def test_shallow_regime_runs(workdir, model):
+    """The shallow regime's one pass: one test record at epoch 0 with a
+    mAP in [0, 1] (the run's best), the fit in ``models/best.pt`` as
+    ``criterion``, and ``exp=validation`` on the run raising the
+    ``ValueError`` that names the cause."""
+    logdir = os.path.join(workdir, f"shallow_{model}")
+    best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
+                          f"model={model}"])
+    test = _history(logdir, "test")
+    assert len(test) == 1 and test[0]["ep"] == 0
+    assert best == test[0]["mAP"] and 0.0 <= best <= 1.0
+    assert not os.path.exists(os.path.join(logdir, "train_history.json"))
+    blob = torch.load(os.path.join(logdir, "models", "best.pt"))
+    assert blob["epoch"] == 0 and blob["criterion"]["kind"] == model
+    with pytest.raises(ValueError, match="not a network checkpoint"):
+        main_gpu.main(["--device", "cpu", "exp=validation",
+                       f"logdir={logdir}", f"data_dir={workdir}",
+                       f"eval_logdir={logdir}/val"])
 
 
 def test_self_attn_at_last_needs_a_mapping(workdir):
