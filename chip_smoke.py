@@ -218,6 +218,37 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    losses and ``models/last.pt`` bit for bit the default run's) and, where
    the library builds, ``native_decode=true``: epoch-2 train img/s and
    the busy share beside the default run's.
+19. the unsupervised methods and the shallow regime (the config dicts of
+   configs/model/cibhash, bihalf, nsh, ssdh and itq .yaml at ViT-B/32,
+   adapters 384 (itq: none), 64 bits, 200 classes, bf16, seeded weights;
+   unsup_greedyhash as cibhash's with its own loss): (a) the five heads on
+   one seeded trunk and itq's descriptor on one without adapters encode 64
+   seeded images on the card, counted (kernel 1 at 12 launches an encode,
+   no other kernel), against the same weights at float32 on the CPU:
+   codes agree in sign on >= 99% of bits, nsh's latents and the
+   descriptor's features at mean row cosine >= 0.99; (b) five eager train
+   steps each of cibhash, bihalf, nsh (two views, 2B = 64 image rows),
+   ssdh (its batch's structure from its own eval codes as ``aux``) and
+   unsup_greedyhash at B=32 at the kernel settings, counted (kernels 5
+   and 6 at 12 and 24 a step), the loss finite and, for cibhash, nsh and
+   ssdh, falling, the frozen backbone bit-unchanged, a kernel step against
+   a plain step under sgd (loss within 2%, the update's cosine over all
+   trained tensors >= 0.99; adam's printed; cibhash and bihalf, whose
+   losses take straight-through signs that one rounding moves: the
+   backward of one loss gradient through both, at the same limits);
+   graphed chunks
+   (a warm-up and a replay of 8) of cibhash (two views) and ssdh (a
+   staged (K, B, B) ``aux``) against eager steps, bit for bit;
+   ``ssdh_structure`` and the four shallow fits timed at CUB-200's size
+   (5,994 rows: 64-wide codes, 768-wide features); (c) after phase 18
+   (d), on phase 15's synthetic set: ``main_gpu.py model=cibhash`` and
+   ``model=ssdh`` at ``train_chunk=auto``, 2 epochs, counted (kernel 1
+   in every eval batch and SSDH's structure encode), ``exp=validation``
+   within 1e-6 of the last mAP, SSDH's structure shares printed; then
+   ``model=itq`` (the shallow regime): kernel 1 at 12 launches in every
+   fit-extraction and eval batch, one test record with a mAP in [0, 1],
+   the fit in ``models/best.pt``, ``exp=validation`` raising its
+   ValueError, and the whole run's img/s.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -327,6 +358,10 @@ class Sizes:
     # card vs CPU, ae and induced_ae_norm_cossim (1,000 induced iterations
     # took 25-29 s on an 8-core host); ae's full fit, timed
     ae_iters: tuple = (1000, 200, 10000)
+    # phase 19 (b): CUB-200's train rows, SSDH's code width and the
+    # shallow fits' feature width (ViT-B/32's hidden size)
+    unsup_fit: tuple = (5994, 64, 768)
+    shallow_args: tuple = ()           # phase 19 (c): the itq run's overrides
 
 
 def fail(msg: str) -> None:
@@ -861,6 +896,16 @@ def step_vs_plain(tr, batch: dict) -> tuple:
     generator reseeded for each); the state is restored after each.
     Returns (loss with the kernels, loss plain, {trained tensor: cosine of
     the two updates})."""
+    loss_k, loss_p, upd_k, upd_p = steps_kernels_plain(tr, batch)
+    return loss_k, loss_p, {
+        n: F.cosine_similarity(upd_k[n], upd_p[n], dim=0).item()
+        for n in upd_k}
+
+
+def steps_kernels_plain(tr, batch: dict) -> tuple:
+    """``step_vs_plain``'s two steps: (loss with the kernels, loss plain,
+    {trained tensor: update with the kernels}, {...: update plain}), the
+    updates float64 and flat."""
     model = tr.model
     trained = {n: p for n, p in model.named_parameters() if p.requires_grad}
     snap = (copy.deepcopy(model.state_dict()),
@@ -881,9 +926,7 @@ def step_vs_plain(tr, batch: dict) -> tuple:
     loss_k, upd_k = one_step()
     with plain_kernels():
         loss_p, upd_p = one_step()
-    return loss_k, loss_p, {
-        n: F.cosine_similarity(upd_k[n], upd_p[n], dim=0).item()
-        for n in trained}
+    return loss_k, loss_p, upd_k, upd_p
 
 
 # ---------------------------------------------------------------------------
@@ -1673,25 +1716,31 @@ def busy_share(kernels, wall_s: float) -> float:
 # ---------------------------------------------------------------------------
 
 def stacked_batches(sizes: Sizes, vcfg, nclass: int, chunks: int, device,
-                    seed: int, side: int = 0):
+                    seed: int, side: int = 0, views: int = 1,
+                    aux: bool = False):
     """``chunks`` chunks of ``sizes.graph_chunk`` seeded batches of
-    ``sizes.train_batch`` center-cropped, normalized images and one-hot
-    labels: (the batches, the chunks stacked (K, B, ...))."""
+    ``sizes.train_batch`` center-cropped, normalized images (``views`` times
+    as many image rows: a two-view method's) and one-hot labels, with a
+    seeded (B, B) int8 structure block as ``aux`` where asked: (the
+    batches, the chunks stacked (K, ...))."""
     from concepthash_tpu_torch.data.preprocess import center_crop, normalize
 
     gen = torch.Generator(device=device).manual_seed(seed)
     K, B = sizes.graph_chunk, sizes.train_batch
     batches = []
     for _ in range(chunks * K):
-        raw = torch.randint(0, 256, (B, side or sizes.image_side,
+        raw = torch.randint(0, 256, (views * B, side or sizes.image_side,
                                      side or sizes.image_side, 3),
                             generator=gen, device=device, dtype=torch.uint8)
         y = torch.randint(0, nclass, (B,), generator=gen, device=device)
         batches.append({"image": normalize(center_crop(raw, vcfg.image_size),
                                            3),
                         "label": F.one_hot(y, nclass).float()})
+        if aux:
+            batches[-1]["aux"] = torch.randint(
+                -1, 2, (B, B), generator=gen, device=device).to(torch.int8)
     stacked = [{k: torch.stack([b[k] for b in batches[c * K:(c + 1) * K]])
-                for k in ("image", "label")} for c in range(chunks)]
+                for k in batches[0]} for c in range(chunks)]
     return batches, stacked
 
 
@@ -2276,6 +2325,7 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
                            ("semicon_ce_adapter", {"val_at_run_batch": True}),
                            ("semicon", {"single": True})))
         run_loader(sizes, device, tmp, argv, chunked)
+        run_unsupervised_runs(sizes, device, tmp, argv, eval_argv, chunked)
 
 
 # ---------------------------------------------------------------------------
@@ -2632,13 +2682,13 @@ def baseline_config(sizes: Sizes, name: str) -> dict:
     from concepthash_tpu_torch.config.loader import load_config
 
     root = os.path.dirname(os.path.abspath(__file__))
-    yaml = {**BASELINE_YAML, **FINEGRAINED_YAML}[name]
+    yaml = {**BASELINE_YAML, **FINEGRAINED_YAML, **UNSUP_YAML}[name]
     cfg = load_config(os.path.join(root, "configs"), "train",
                       ["dataset=cub200", f"model={yaml}",
                        "compute_dtype=bfloat16"])
     cfg["model"].update(name=name, nclass=sizes.head["nclass"],
                         nbit=sizes.head["nbit"])
-    if name == "descriptor":
+    if name in ("descriptor", "unsup_greedyhash"):
         cfg["criterion"] = {}
     cfg["backbone"] = ({"name": "cut", **sizes.vision} if sizes.vision
                        else {"name": "openai/clip-vit-base-patch32"})
@@ -2657,6 +2707,14 @@ def baseline_codebook(sizes: Sizes, name: str, cfg: dict):
         return torch.randn(sizes.head["nclass"], proj, generator=torch
                            .Generator().manual_seed(0)).numpy()
     return prepare_codebook(get_method(name), cfg)
+
+
+def row_cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Mean cosine of the rows of ``a`` and ``b`` (float32, on the CPU)."""
+    from concepthash_tpu_torch.ops.numerics import l2_normalize
+
+    return (l2_normalize(a.float().cpu()) * l2_normalize(b.float().cpu())) \
+        .sum(-1).mean().item()
 
 
 def with_trunk(model, trunk):
@@ -2678,10 +2736,12 @@ def baseline_on(sizes: Sizes, name: str, trunk, device, vision=None):
     return cfg, cb, with_trunk(model, trunk), loss_fn
 
 
-def seeded_trunk(sizes: Sizes, device, vision=None, like=None):
+def seeded_trunk(sizes: Sizes, device, vision=None, like=None,
+                 adapters: bool = True):
     """The baselines' shared trunk: ViT-B/32 with adapters at
-    ``sizes.bottleneck``, bf16, seeded weights (the adapters'
-    up-projections too); ``like`` copies another trunk's weights."""
+    ``sizes.bottleneck`` (none without ``adapters``), bf16, seeded weights
+    (the adapters' up-projections too); ``like`` copies another trunk's
+    weights."""
     from concepthash_tpu_torch.models.backbone_factory import \
         vision_config_from_backbone_cfg
     from concepthash_tpu_torch.models.clip import AdapterConfig
@@ -2693,7 +2753,9 @@ def seeded_trunk(sizes: Sizes, device, vision=None, like=None):
         vcfg = dataclasses.replace(vcfg, **vision)
     gen = torch.Generator().manual_seed(5)
     # bf16 on the card, as the configs run; the CPU's reference in f32
-    trunk = Trunk("clip", vcfg, AdapterConfig(bottleneck_dim=sizes.bottleneck),
+    trunk = Trunk("clip", vcfg,
+                  AdapterConfig(bottleneck_dim=sizes.bottleneck)
+                  if adapters else None,
                   torch.bfloat16 if device.type == "cuda" else torch.float32,
                   gen)
     seed_adapters(trunk, gen)
@@ -2711,7 +2773,6 @@ def baseline_forwards(sizes: Sizes, device) -> None:
     0.99), and orthohash's, ce's and clip's logits within LOGIT_RTOL."""
     from concepthash_tpu_torch.data.preprocess import center_crop, normalize
     from concepthash_tpu_torch.methods import build_model
-    from concepthash_tpu_torch.ops.numerics import l2_normalize
 
     t_a = time.perf_counter()
     trunk = seeded_trunk(sizes, device)
@@ -2748,8 +2809,7 @@ def baseline_forwards(sizes: Sizes, device) -> None:
             want = cpu.eval().head(enc_cpu)
         codes, ref = out["codes"].float().cpu(), want["codes"]
         if name in ("descriptor", "clip"):
-            agree = (l2_normalize(codes) * l2_normalize(ref)).sum(-1) \
-                .mean().item()
+            agree = row_cosine(codes, ref)
             limit, what = MIN_FEATURE_COSINE, "feature cosine"
         else:
             agree = ((codes > 0) == (ref > 0)).float().mean().item()
@@ -2892,10 +2952,14 @@ def baseline_steps(sizes: Sizes, device) -> None:
     torch.cuda.empty_cache()
 
 
-def baseline_graph_vs_eager(sizes: Sizes, name: str, trunk, device) -> None:
+def baseline_graph_vs_eager(sizes: Sizes, name: str, trunk, device,
+                            label: str = "baseline", views: int = 1,
+                            aux: bool = False) -> None:
     """Two chunks of ``sizes.graph_chunk`` steps through
     ``make_multi_train_step`` (a warm-up, then a replay) against as many
-    eager steps from the same state, bit for bit."""
+    eager steps from the same state, bit for bit; ``views`` and ``aux`` as
+    ``stacked_batches`` takes them (a two-view method's batches, SSDH's
+    staged structure blocks)."""
     from concepthash_tpu_torch.methods import training_for
     from concepthash_tpu_torch.train.state import make_multi_train_step
 
@@ -2907,7 +2971,7 @@ def baseline_graph_vs_eager(sizes: Sizes, name: str, trunk, device) -> None:
     graph, eager = trs
     nclass = sizes.head["nclass"]
     batches, stacked = stacked_batches(sizes, trunk.tower.cfg, nclass, 2,
-                                       device, 61)
+                                       device, 61, views=views, aux=aux)
     multi = make_multi_train_step(graph.model, graph.loss_fn,
                                   graph.optimizer, graph.scheduler,
                                   generator=graph.generator)
@@ -2919,15 +2983,16 @@ def baseline_graph_vs_eager(sizes: Sizes, name: str, trunk, device) -> None:
     K, n_lay = sizes.graph_chunk, trunk.tower.cfg.num_layers
     want = {"ln_matmul_cuda": 2 * K * n_lay, "attention_cuda": K * n_lay}
     per_replay = getattr(multi, "launches_per_replay", want)
-    print(f"baseline {name} graph vs eager train (K={K}, a warm-up chunk "
-          f"and a replay): losses {g_loss[-1]:.5f} / {e_loss[-1]:.5f} at the "
-          f"last step, state max |d| {d:.3g}: bit for bit {same} "
-          f"(required); replays {getattr(multi, 'replays', 0)}, launches "
-          f"per replay {per_replay}")
+    staged = {k: tuple(v.shape) for k, v in stacked[0].items()}
+    print(f"{label} {name} graph vs eager train (K={K}, a warm-up chunk "
+          f"and a replay, staged {staged}): losses {g_loss[-1]:.5f} / "
+          f"{e_loss[-1]:.5f} at the last step, state max |d| {d:.3g}: bit "
+          f"for bit {same} (required); replays {getattr(multi, 'replays', 0)}"
+          f", launches per replay {per_replay}")
     if not same:
-        fail(f"baseline {name}: graphed steps differ from eager ones")
+        fail(f"{label} {name}: graphed steps differ from eager ones")
     if per_replay != want:
-        fail(f"baseline {name}: launches per replay {per_replay} != {want}")
+        fail(f"{label} {name}: launches per replay {per_replay} != {want}")
     del graph, eager, trs
 
 
@@ -2941,10 +3006,11 @@ def run_baselines(sizes: Sizes, device) -> None:
 
 def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
                    flagship: dict, runs) -> None:
-    """Phases 17 (c) and 18 (c): ``main_gpu.py model=<config>`` for each of
-    ``runs`` on phase 15's synthetic set at ``train_chunk`` auto, 2 epochs
-    each, counted (kernel 1 at one launch a layer and eval batch, the adsh
-    regime's subset encodes included; no other kernel): finite records and
+    """Phases 17 (c), 18 (c) and 19 (c): ``main_gpu.py model=<config>`` for
+    each of ``runs`` on phase 15's synthetic set at ``train_chunk`` auto, 2
+    epochs each, counted (kernel 1 at one launch a layer and eval batch, the
+    adsh regime's subset encodes and SSDH's structure encode included; no
+    other kernel): finite records and
     the graph replays (none where ``single``: HashNet's own step and the
     adsh regime run one step a dispatch, and the log says so). Then, in
     the sgd regime, ``exp=validation use_last=true`` within 1e-6 of the
@@ -2992,6 +3058,8 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
         else:
             eval_batches = 2 * (len(exp.loaders["test"])
                                 + len(exp.loaders["db"]))
+        if exp.method.needs_structure:  # SSDH's train-split encode, once
+            eval_batches += -(-len(exp.datasets["train"]) // batch)
         want = (n_layers * eval_batches, 0, 0, 0, 0, 0)
         runner = exp.train_multi_step
         replays = getattr(runner, "replays", 0)
@@ -3530,6 +3598,435 @@ def run_loader(sizes: Sizes, device, tmp: str, argv, flagship: dict) -> None:
     print(f"phase 18 (d): {time.perf_counter() - t_d:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the unsupervised methods and the shallow regime
+# ---------------------------------------------------------------------------
+
+# each method's configs/model/*.yaml (unsup_greedyhash has none: cibhash's
+# groups, its own loss at its defaults)
+UNSUP_YAML = {"cibhash": "cibhash", "bihalf": "bihalf", "nsh": "nsh",
+              "ssdh": "ssdh", "unsup_greedyhash": "cibhash", "itq": "itq"}
+UNSUP_STEPPED = ("cibhash", "bihalf", "nsh", "ssdh", "unsup_greedyhash")
+# the methods whose loss is held to fall over steps on one repeated batch
+UNSUP_FALLS = ("cibhash", "nsh", "ssdh")
+# the kernels' step against the plain one: sgd without weight decay, whose
+# first update is the gradient. Adam's first update is the gradient's
+# sign: a small gradient component, a scalar adapter scale's for one,
+# turns over at full size (cosine -1) on a rounding.
+UNSUP_SGD = {"name": "sgd", "lr": 0.001, "momentum": 0.9,
+             "weight_decay": 0.0}
+# Losses over straight-through signs taken in the forward: CIBHash's
+# sign(p - 0.5) and Bi-half's sign against the batch median (whose two
+# middle rows sit at the threshold on every bit). One bf16 rounding of the
+# trunk moves codes across it, so the kernels' step and the plain step
+# train on other binary codes (the update cosine over all trained
+# tensors read 0.987 and 0.963, H100). For these the kernels are held on
+# the backward of one loss gradient (``grads_at_one_cotangent``); the
+# whole step's cosine is printed.
+UNSUP_SIGN_DECIDED = ("cibhash", "bihalf")
+
+
+def unsup_forwards(sizes: Sizes, device) -> None:
+    """Phase 19 (a): the five unsupervised heads on one seeded trunk with
+    adapters, and itq's descriptor on one without, each encode
+    ``sizes.variant_images`` seeded images in bf16 on the card, counted
+    (kernel 1 once a layer, no other kernel), against the same weights at
+    float32 on the CPU, whose two trunks run once: codes agree in sign on
+    >= 99% of bits; nsh's latents and the descriptor's features at mean
+    row cosine >= 0.99."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+    from concepthash_tpu_torch.methods import build_model
+
+    t_a = time.perf_counter()
+    trunks = {ad: seeded_trunk(sizes, device, adapters=ad)
+              for ad in (True, False)}
+    vcfg = trunks[True].tower.cfg
+    gen = torch.Generator(device=device).manual_seed(83)
+    raw = torch.randint(0, 256, (sizes.variant_images, sizes.image_side,
+                                 sizes.image_side, 3), generator=gen,
+                        device=device, dtype=torch.uint8)
+    images = normalize(center_crop(raw, vcfg.image_size), 3)
+    enc_cpu = {}
+    for ad, trunk in trunks.items():
+        cpu_trunk = seeded_trunk(sizes, torch.device("cpu"), like=trunk,
+                                 adapters=ad)
+        with torch.inference_mode():
+            enc_cpu[ad] = cpu_trunk(images.float().cpu())
+        del cpu_trunk
+    expect = (vcfg.num_layers, 0, 0, 0, 0, 0)
+    for name in (*UNSUP_STEPPED, "itq"):
+        ad = name != "itq"
+        cfg, cb, model, _ = baseline_on(sizes, name, trunks[ad], device)
+        model.eval()
+        torch.cuda.synchronize()
+        count_reset()
+        with torch.inference_mode():
+            out = model(images)
+        torch.cuda.synchronize()
+        launches = counts()
+        cpu, _ = build_model(dict(cfg, compute_dtype="float32"), cb,
+                             device=torch.device("cpu"),
+                             vision=dict(num_layers=0))
+        cpu.load_state_dict({k: v for k, v in model.state_dict().items()
+                             if not k.startswith("backbone.")}, strict=False)
+        cpu.backbone = GivenTrunk(enc_cpu[ad])
+        with torch.inference_mode():
+            want = cpu.eval()(images.float().cpu())
+        held = {}
+        if name == "itq":
+            held["feature cosine"] = row_cosine(out["codes"], want["codes"])
+        else:
+            held["sign agreement"] = ((out["codes"].float().cpu() > 0)
+                                      == (want["codes"] > 0)).float() \
+                .mean().item()
+        if name == "nsh":
+            held["latent cosine"] = row_cosine(out["latents"],
+                                               want["latents"])
+        finite = all(torch.isfinite(v).all() for v in out.values())
+        width = vcfg.hidden_size if name == "itq" else sizes.head["nbit"]
+        print(f"unsupervised {name} encode ({sizes.variant_images} images, "
+              f"bf16 on the card against f32 on the CPU"
+              f"{'' if ad else ', no adapters'}): codes "
+              f"{tuple(out['codes'].shape)}, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in held.items())
+              + f" (limit {MIN_SIGN_AGREEMENT}); launches {launches} "
+              f"against {expect}")
+        if not finite or tuple(out["codes"].shape) != (
+                sizes.variant_images, width):
+            fail(f"unsupervised {name}: outputs not finite or of a wrong "
+                 "shape")
+        if any(v < MIN_SIGN_AGREEMENT for v in held.values()):
+            fail(f"unsupervised {name}: {held} below {MIN_SIGN_AGREEMENT}")
+        if launches != expect:
+            fail(f"unsupervised {name}: launches {launches} != {expect}")
+        del model, cpu, out, want
+    print(f"phase 19 (a): {time.perf_counter() - t_a:.1f} s")
+    del trunks
+    torch.cuda.empty_cache()
+
+
+def grads_at_one_cotangent(model, loss_fn, batch: dict) -> tuple:
+    """The train forward with the kernels, the loss's gradient into the
+    model's outputs, then that one cotangent back through the forward with
+    the kernels and through one with their plain versions: (loss with the
+    kernels, loss plain, the cosine of the two gradients over all trained
+    tensors, {trained tensor: cosine})."""
+    trained = {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+    def forward():
+        out = model(batch["image"], train=True)
+        keys = [k for k, v in out.items()
+                if torch.is_tensor(v) and v.requires_grad]
+        return out, keys
+
+    out, keys = forward()
+    total, _ = loss_fn(out, batch)
+    cot = torch.autograd.grad(total, [out[k] for k in keys],
+                              retain_graph=True, allow_unused=True)
+    used = [(k, c) for k, c in zip(keys, cot) if c is not None]
+
+    def grads(out):
+        return torch.autograd.grad([out[k] for k, _ in used],
+                                   list(trained.values()),
+                                   grad_outputs=[c for _, c in used])
+
+    g_k = grads(out)
+    with plain_kernels():
+        out_p, _ = forward()
+        loss_p = float(loss_fn(out_p, batch)[0])
+        g_p = grads(out_p)
+    flat = [torch.cat([g.double().flatten() for g in gs]) for gs in (g_k,
+                                                                     g_p)]
+    return float(total), loss_p, \
+        F.cosine_similarity(flat[0], flat[1], dim=0).item(), {
+            n: F.cosine_similarity(a.double().flatten(), b.double().flatten(),
+                                   dim=0).item()
+            for n, a, b in zip(trained, g_k, g_p)}
+
+
+def unsup_images(sizes: Sizes, vcfg, device, seed: int) -> tuple:
+    """A seeded batch of ``sizes.train_batch`` images: its two train views
+    (crop, flip, TrivialAugment, drawn one after the other) and one-hot
+    labels."""
+    from concepthash_tpu_torch.data.preprocess import preprocess_batch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ops = torch.Generator().manual_seed(seed)
+    B, nclass = sizes.train_batch, sizes.head["nclass"]
+    raw = torch.randint(0, 256, (B, sizes.image_side, sizes.image_side, 3),
+                        generator=gen, device=device, dtype=torch.uint8)
+    views = [preprocess_batch(raw, gen, crop=vcfg.image_size, norm=3,
+                              train=True, augment="trivial",
+                              op_generator=ops) for _ in range(2)]
+    y = torch.randint(0, nclass, (B,), generator=gen, device=device)
+    return views, F.one_hot(y, nclass).float()
+
+
+def unsup_steps(sizes: Sizes, device) -> None:
+    """Phase 19 (b): five eager train steps each of cibhash, bihalf, nsh
+    (two views: 2B = 64 image rows), ssdh (its structure block of the batch
+    from the model's own eval codes as ``aux``) and unsup_greedyhash at
+    B=32 at the kernel settings on one seeded batch, counted per step
+    (kernels 5 and 6 once and twice a layer); the loss finite and, for
+    cibhash, nsh and ssdh, falling; the frozen backbone bit-unchanged; a
+    kernel step against a plain step under ``UNSUP_SGD``: loss within
+    ``TRAIN_LOSS_RTOL``, the update's cosine over all trained tensors >=
+    ``MIN_UPDATE_COSINE`` (adam's printed; for ``UNSUP_SIGN_DECIDED``
+    printed, and the backward of one loss gradient held instead). Then
+    graphed chunks of cibhash
+    (two views) and ssdh (staged ``aux``) against eager steps, bit for
+    bit; ``ssdh_structure`` and the four shallow fits timed at CUB-200's
+    size."""
+    from concepthash_tpu_torch.losses.unsupervised import ssdh_structure
+    from concepthash_tpu_torch.methods import get_method, training_for
+
+    t_b = time.perf_counter()
+    trunk = seeded_trunk(sizes, device, TRAIN_VISION)
+    vcfg = trunk.tower.cfg
+    n_lay = vcfg.num_layers
+    B, steps = sizes.train_batch, sizes.train_steps
+    views, labels = unsup_images(sizes, vcfg, device, 89)
+    frozen = {k: v.clone() for k, v in trunk.state_dict().items()
+              if "adapter" not in k}
+    expect = (0, 0, 0, 2 * n_lay, n_lay, 0)
+    for name in UNSUP_STEPPED:
+        t_m = time.perf_counter()
+        cfg, cb, model, loss_fn = baseline_on(
+            sizes, name, copy.deepcopy(trunk), device, TRAIN_VISION)
+        two = get_method(name).two_view
+        b = {"image": torch.cat(views) if two else views[0],
+             "label": labels}
+        extra = ""
+        if name == "ssdh":
+            model.eval()
+            with torch.inference_mode():
+                codes = model(views[0])["codes"].float().cpu().numpy()
+            S = ssdh_structure(codes, alpha=float(cfg["criterion"]["alpha"]))
+            b["aux"] = torch.from_numpy(S).to(device)
+            extra = (f"; the batch's structure {100 * (S > 0).mean():.1f}% "
+                     f"positive, {100 * (S < 0).mean():.1f}% negative")
+        # the kernels' step against the plain one under sgd (no weight
+        # decay: the update is the gradient), whose update cosine over all
+        # trained tensors is held (UNSUP_SIGN_DECIDED: printed); adam's is
+        # printed
+        held = {}
+        for opt, optim in (("adam", cfg["optim"]), ("sgd", UNSUP_SGD)):
+            t = training_for(dict(cfg, optim=optim), model, loss_fn,
+                             sizes.steps_per_epoch)
+            loss_k, loss_p, upd_k, upd_p = steps_kernels_plain(t, b)
+            cos = {n: F.cosine_similarity(upd_k[n], upd_p[n], dim=0).item()
+                   for n in upd_k}
+            worst = min(cos, key=cos.get)
+            whole = F.cosine_similarity(torch.cat(list(upd_k.values())),
+                                        torch.cat(list(upd_p.values())),
+                                        dim=0).item()
+            held[opt] = (loss_k, loss_p, whole)
+            print(f"unsupervised {name} train step under {opt}, kernels vs "
+                  f"plain: loss {loss_k:.6f} vs {loss_p:.6f}; update cosine "
+                  f"over all trained tensors {whole:.6f}, per tensor min "
+                  f"{cos[worst]:.6f} ({worst}), mean "
+                  f"{sum(cos.values()) / len(cos):.6f}")
+            del t
+        loss_k, loss_p, whole = held["sgd"]
+        if name in UNSUP_SIGN_DECIDED:
+            loss_k, loss_p, whole, cos = grads_at_one_cotangent(model,
+                                                                loss_fn, b)
+            worst = min(cos, key=cos.get)
+            print(f"unsupervised {name} train backward from one loss "
+                  f"gradient, kernels vs plain: loss {loss_k:.6f} vs "
+                  f"{loss_p:.6f}; gradient cosine over all trained tensors "
+                  f"{whole:.6f}, per tensor min {cos[worst]:.6f} ({worst})")
+        if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+                whole < MIN_UPDATE_COSINE:
+            fail(f"unsupervised {name}: the kernels' step differs from its "
+                 "plain version's")
+        tr = training_for(cfg, model, loss_fn, sizes.steps_per_epoch)
+        torch.cuda.synchronize()
+        count_reset()
+        losses, per_step, parts = [], [], []
+        for i in range(steps):
+            if i == 1:
+                t0 = time.perf_counter()
+            before = counts()
+            m = tr.step(b)
+            losses.append(float(m["loss"]))
+            parts.append({k: float(v) for k, v in m.items() if k != "loss"})
+            per_step.append(tuple(a - c for a, c in zip(counts(), before)))
+        step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+        sd = model.backbone.state_dict()
+        moved_frozen = [k for k, v in frozen.items()
+                        if not torch.equal(sd[k], v)]
+        print(f"unsupervised {name} train steps (B={B}, "
+              f"{b['image'].shape[0]} image rows, kernels 5 and 6): loss "
+              + ", ".join(f"{x:.5f}" for x in losses) + " ("
+              + ", ".join(f"{k} {parts[0][k]:.4g} -> {parts[-1][k]:.4g}"
+                          for k in parts[0])
+              + f"); launches per step {per_step[0]} against {expect}, the "
+              f"same every step: {len(set(per_step)) == 1}; frozen backbone "
+              f"unchanged: {not moved_frozen}{extra}; {step_ms:.1f} ms a "
+              "step after the first (host clock, eager)")
+        if any(p != expect for p in per_step):
+            fail(f"unsupervised {name}: launches per step {per_step}")
+        if moved_frozen:
+            fail(f"unsupervised {name}: frozen parameters moved: "
+                 f"{moved_frozen[:3]}")
+        falls = name not in UNSUP_FALLS or losses[-1] < losses[0]
+        if not all(math.isfinite(x) for x in losses) or not falls:
+            fail(f"unsupervised {name}: loss {losses} not finite or not "
+                 "falling")
+        del tr, model
+        if name in ("cibhash", "ssdh"):
+            baseline_graph_vs_eager(sizes, name, trunk, device,
+                                    "unsupervised", views=1 + two,
+                                    aux=name == "ssdh")
+        print(f"unsupervised {name}: {time.perf_counter() - t_m:.1f} s")
+    del trunk
+    torch.cuda.empty_cache()
+    unsup_fits(sizes)
+    print(f"phase 19 (b): {time.perf_counter() - t_b:.1f} s")
+
+
+def unsup_fits(sizes: Sizes) -> None:
+    """``ssdh_structure`` over CUB-200's 5,994 train rows of 64-wide codes,
+    and the four shallow fits (and their encode of the same rows) over
+    5,994 768-wide features, host float64 as the reference's: seeded
+    clustered rows, timed on the host clock."""
+    from concepthash_tpu_torch.losses.shallow import FITTERS, encode_shallow
+    from concepthash_tpu_torch.losses.unsupervised import ssdh_structure
+
+    n, code_w, feat_w = sizes.unsup_fit
+    nbit, nclass = sizes.head["nbit"], sizes.head["nclass"]
+    rng = np.random.default_rng(101)
+    cls = rng.integers(0, nclass, n)
+
+    def clustered(width):
+        return (rng.standard_normal((nclass, width))[cls]
+                + rng.standard_normal((n, width))).astype(np.float32)
+
+    codes, feats = clustered(code_w), clustered(feat_w)
+    t0 = time.perf_counter()
+    S = ssdh_structure(codes)
+    s_s = time.perf_counter() - t0
+    print(f"ssdh_structure ({n} x {code_w} codes, float64 on the host): "
+          f"{s_s:.3f} s; {100 * (S > 0).mean():.2f}% positive, "
+          f"{100 * (S < 0).mean():.2f}% negative; int8 {S.nbytes / 1e6:.1f} "
+          f"MB, its float64 cosines {8 * n * n / 1e6:.1f} MB")
+    if S.shape != (n, n) or not (np.diag(S) == 1).all() or \
+            not (S < 0).any():
+        fail("ssdh_structure: wrong shape, diagonal or no negatives")
+    del S
+    rows = []
+    for name, fit in FITTERS.items():
+        t0 = time.perf_counter()
+        st = fit(feats, nbit)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = encode_shallow(st, feats)
+        enc_s = time.perf_counter() - t0
+        rows.append(f"{name} fit {fit_s:.3f} s, encode {enc_s:.3f} s")
+        if out.shape != (n, nbit) or not np.isfinite(out).all():
+            fail(f"shallow {name}: codes not finite of shape {(n, nbit)}")
+    print(f"shallow fits ({n} x {feat_w} features to {nbit} bits, float64 "
+          "on the host): " + "; ".join(rows))
+
+
+def run_unsupervised(sizes: Sizes, device) -> None:
+    """Phase 19 (a) and (b)."""
+    t0 = time.perf_counter()
+    unsup_forwards(sizes, device)
+    unsup_steps(sizes, device)
+    print(f"phase 19 (a), (b): {time.perf_counter() - t0:.1f} s")
+
+
+def run_unsupervised_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
+                          flagship: dict) -> None:
+    """Phase 19 (c): ``model=cibhash`` (two views a step) and
+    ``model=ssdh`` (its structure's shares printed) through
+    ``run_model_runs``; then ``model=itq``, the shallow regime: kernel 1
+    once a layer in every fit-extraction and eval batch, one test record
+    with a mAP in [0, 1], the fit in ``models/best.pt`` and
+    ``exp=validation`` raising its ValueError; the whole run's img/s."""
+    import os
+
+    import main_gpu
+
+    t_c = time.perf_counter()
+
+    def structure(exp):
+        S = exp._structure
+        n = len(exp.datasets["train"])
+        print(f"ssdh structure over the {n} train images (int8): "
+              f"{100 * (S > 0).mean():.2f}% positive, "
+              f"{100 * (S < 0).mean():.2f}% negative, "
+              f"{100 * (S == 0).mean():.2f}% ignored")
+        if S.shape != (n, n) or S.dtype != np.int8 or \
+                not (np.diag(S) == 1).all():
+            fail("ssdh: the structure is not an int8 (n, n) matrix with a "
+                 "unit diagonal")
+
+    run_model_runs("phase 19 (c)", device, tmp, argv, eval_argv, flagship, (
+        ("cibhash", {}), ("ssdh", {"check": structure})))
+    print("phase 19 (c): cibhash's train img/s counts images; each takes "
+          "two views through the trunk")
+
+    run = os.path.join(tmp, "itq")
+    exp = main_gpu.build_experiment(argv(run, "model=itq",
+                                         *sizes.shallow_args))
+    torch.cuda.synchronize()
+    count_reset()
+    t0 = time.perf_counter()
+    best = exp.main()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    bs = int(exp.config["batch_size"])
+    n_train = len(exp.datasets["train"])
+    fit_batches = -(-n_train // bs)
+    batches = fit_batches + len(exp.loaders["test"]) + len(exp.loaders["db"])
+    want = (exp.model.vision_cfg.num_layers * batches, 0, 0, 0, 0, 0)
+    with open(os.path.join(run, "test_history.json")) as f:
+        test = json.load(f)
+    blob = torch.load(os.path.join(run, "models", "best.pt"))
+    fit = blob["criterion"]
+    nbit = int(exp.config["model"]["nbit"])
+    n_images = n_train + len(exp.datasets["test"]) + len(exp.datasets["db"])
+    try:
+        main_gpu.build_experiment(eval_argv("exp=validation",
+                                            f"logdir={run}"))
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    adapters = any("adapter" in k for k in exp.model.state_dict())
+    print(f"itq run (the shallow regime, batch {bs}, adapters "
+          f"{adapters}): "
+          f"{fit_batches} fit-extraction batches through the train "
+          f"augmentation, then the test and database encodes; launches "
+          f"{launches} against {want}; test records {len(test)} at ep "
+          f"{test[0]['ep']}, mAP {test[0]['mAP']:.6f}; models/best.pt "
+          f"{{criterion: {fit['kind']}, r {tuple(fit['r'].shape)}}}, epoch "
+          f"{blob['epoch']}; exp=validation raises ValueError: "
+          f"{'not a network checkpoint' in raised}; the whole run "
+          f"{run_s:.2f} s, {n_images / run_s:.1f} img/s ({n_images} images "
+          f"through the trunk: {n_train} fit, the test and database "
+          f"splits); {card_line() if device.type == 'cuda' else 'the CPU'}")
+    if launches != want:
+        fail("itq: kernel 1 not launched once a layer in every fit and "
+             "eval batch, or another kernel launched")
+    if len(test) != 1 or test[0]["ep"] != 0 or best != test[0]["mAP"] or \
+            not 0.0 <= best <= 1.0:
+        fail(f"itq: test records {test}")
+    if fit["kind"] != "itq" or tuple(fit["r"].shape) != (nbit, nbit) or \
+            blob["epoch"] != 0:
+        fail("itq: models/best.pt does not hold the fit")
+    if adapters:
+        fail("itq: the descriptor's trunk has adapters")
+    if "not a network checkpoint" not in raised:
+        fail("itq: exp=validation on the shallow run did not raise its "
+             "ValueError")
+    del exp
+    print(f"phase 19 (c): {time.perf_counter() - t_c:.1f} s")
+
+
 def _flatten(x):
     if isinstance(x, (list, tuple)):
         return [y for item in x for y in _flatten(item)]
@@ -3760,6 +4257,7 @@ def run(sizes: Sizes, device) -> dict:
     run_variants(sizes, device)
     run_baselines(sizes, device)
     run_finegrained(sizes, device)
+    run_unsupervised(sizes, device)
     run_graphs(sizes, device, flagship)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",

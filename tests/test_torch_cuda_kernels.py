@@ -1089,3 +1089,92 @@ def test_ae_fit_on_card_matches_cpu(cuda_device, method):
     assert np.isfinite(card).all()
     np.testing.assert_allclose(card, cpu, atol=1e-3)
     assert (np.sign(card) == np.sign(cpu)).mean() >= 0.99
+
+
+def _tiny_unsupervised(name, vision=None):
+    """An unsupervised method on the tiny trunk (hidden 64, 2 layers, 32^2
+    images), 16 bits, adam and csw as configs/model/*.yaml have them, the
+    adapters' up-projections seeded so they carry signal."""
+    from concepthash_tpu_torch.methods import build_training
+
+    crit = {"cibhash": {"temperature": 0.3, "beta": 0.001},
+            "ssdh": {"alpha": 2.0}}[name]
+    cfg = {
+        "model": {"name": name, "nbit": 16, "nclass": 10,
+                  "has_adapter": True, "adapter_bottleneck_dim": 16},
+        "backbone": {"name": "tiny", "hidden_size": 64,
+                     "intermediate_size": 128, "num_layers": 2,
+                     "num_heads": 4, "patch_size": 8, "image_size": 32,
+                     "projection_dim": 32},
+        "criterion": crit,
+        "optim": {"name": "adam", "lr": 0.001, "weight_decay": 0.00001},
+        "scheduler": {"name": "csw", "warmup_epochs": 2},
+        "epochs": 10, "backbone_lr_scale": 0, "compute_dtype": "bfloat16",
+        "seed": 0,
+    }
+    tr = build_training(cfg, None, 3, device="cuda", vision=vision)
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for layer in tr.model.backbone.tower.layers:
+            for ad in (layer.adapter_attn, layer.adapter_mlp):
+                ad.up.weight.copy_(0.1 * torch.randn(ad.up.weight.shape,
+                                                     generator=g))
+    return tr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cibhash", "ssdh"])
+@pytest.mark.parametrize("vision", [None, _KERNELS], ids=["auto", "kernels"])
+def test_graphed_unsupervised_steps_equal_eager_steps(cuda_device, name,
+                                                      vision):
+    """Three chunks of K=2 steps (a warm-up, then replays) against six
+    eager steps from the same state, losses and parameters bit for bit:
+    CIBHash on two-view batches (2B = 8 image rows, 4 labels), SSDH with
+    each step's (B, B) structure block staged as a (K, B, B) ``aux``
+    buffer that every replay reads."""
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    graph = _tiny_unsupervised(name, vision)
+    eager = _tiny_unsupervised(name, vision)
+    eager.model.load_state_dict(graph.model.state_dict())
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    rows = 8 if name == "cibhash" else 4
+    chunks = {"image": torch.randn(3, 2, rows, 32, 32, 3, generator=gen,
+                                   device=cuda_device),
+              "label": torch.nn.functional.one_hot(torch.randint(
+                  0, 10, (3, 2, 4), generator=gen, device=cuda_device),
+                  10).float()}
+    if name == "ssdh":
+        chunks["aux"] = torch.randint(-1, 2, (3, 2, 4, 4), generator=gen,
+                                      device=cuda_device).to(torch.int8)
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    got = torch.cat([multi({k: v[c] for k, v in chunks.items()})["loss"]
+                     for c in range(3)])
+    want = torch.stack([eager.step({k: v[c, j] for k, v in chunks.items()})
+                        ["loss"] for c in range(3) for j in range(2)])
+    assert multi.replays == 2 and torch.equal(got, want)
+    assert len(set(got.tolist())) == 6      # every step saw its own batch
+    sg, se = graph.model.state_dict(), eager.model.state_dict()
+    for k in sg:
+        assert torch.equal(sg[k], se[k]), k
+    if vision:
+        assert multi.launches_per_replay == {"attention_cuda": 4,
+                                             "ln_matmul_cuda": 8}
+
+
+@pytest.mark.cuda
+def test_bihalf_binarize_on_card_equals_cpu(cuda_device):
+    """Bi-half's per-bit median threshold (the mean of the middle two at an
+    even batch) and its proxy gradient on the card equal the CPU's."""
+    from concepthash_tpu_torch.losses.unsupervised import bihalf_binarize
+
+    h = torch.randn(64, 64, generator=torch.Generator().manual_seed(4))
+    cpu = bihalf_binarize(h, 6.0)
+    hc = h.to(cuda_device).requires_grad_()
+    card = bihalf_binarize(hc, 6.0)
+    card.sum().backward()
+    assert torch.equal(card.detach().cpu(), cpu)
+    assert ((card > 0).sum(0) == 32).all()
+    assert torch.equal(hc.grad, torch.full_like(hc, 6.0))

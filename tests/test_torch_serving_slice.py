@@ -146,7 +146,8 @@ def test_port_imports_nothing_of_jax():
         "experiments.hashing", "train.graphs", "utils.hf_local",
         "models.clip_loader", "models.tokenizer", "models.trunk",
         "models.baselines", "losses.baselines", "train.custom_steps",
-        "models.finegrained", "native")] + ["main_gpu"]
+        "models.finegrained", "native", "losses.unsupervised",
+        "losses.shallow")] + ["main_gpu"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'transformers', 'safetensors', "
@@ -261,7 +262,9 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     path launches 2 LN -> matmul and 1 attention per layer and step, phase
     15 (several steps per call, the eval-only modes, resume, a local CLIP
     checkpoint) passes its checks, phase 17 (the supervised baselines'
-    encodes, train steps, graphed chunks and runs) passes its checks, and
+    encodes, train steps, graphed chunks and runs), phase 18 and phase 19
+    (the unsupervised methods' encodes, steps, two-view and ``aux``
+    chunks and runs, and the shallow regime) pass their checks, and
     the kernels' JSON line has every key the card run prints, for all six
     TPU kernels."""
     import importlib.util
@@ -361,7 +364,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
                                   eos_token_id=599),
                      pretrained_images=6, variant_images=6, filip_tokens=3,
                      adsh_db=12, dcc_split=(60, 24), ae_embedding=(6, 16),
-                     ae_iters=(20, 10, 40))
+                     ae_iters=(20, 10, 40), unsup_fit=(80, 64, 96),
+                     shallow_args=("model.nbit=8",))
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
     assert "\nplanted rows found at distance 0: 6/6" in out
@@ -427,20 +431,22 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     # phase 17: every baseline's encode, train steps and graphed chunks
     # (hashnet: one step a dispatch, its bank), and three main_gpu runs
     # (phase 18 (a) and (b) print 4 encodes, 3 step runs and 2 graphed
-    # chunks, (c) 2 validations, in the same words)
-    assert out.count(f"against ({n}, 0, 0, 0, 0, 0)") == 11 + 4
+    # chunks, (c) 2 validations, and phase 19 (a) and (b) 6 encodes, 5
+    # step runs and 2 graphed chunks, (c) 2 validations, in the same words)
+    assert out.count(f"against ({n}, 0, 0, 0, 0, 0)") == 11 + 4 + 6
     assert out.count("sign agreement 1.000000 (limit 0.99)") == 9 + 4
-    assert out.count("feature cosine 1.000000 (limit 0.99)") == 2
+    assert out.count("feature cosine 1.000000 (limit 0.99)") == 2 + 1
     assert out.count(f"against (0, 0, 0, {2 * n}, {n}, 0), the same every "
-                     "step: True; frozen backbone unchanged: True") == 11 + 3
+                     "step: True; frozen backbone unchanged: True") == \
+        11 + 3 + 5
     assert "adapters unchanged: True; " in out
     assert ("the bank's rows equal each batch's detached tanh(beta * "
             "codes) and labels: True") in out
-    assert out.count("bit for bit True (required); replays") == 10 + 2
+    assert out.count("bit for bit True (required); replays") == 10 + 2 + 2
     for model in ("orthohash_adapter", "hashnet_adapter", "clip_finetune"):
         assert f"{model} run (train_chunk 2)" in out
         assert (f"{model} exp=validation use_last=true" in out)
-    assert out.count("|d| 0 (tolerance 1e-06)") == 3 + 2
+    assert out.count("|d| 0 (tolerance 1e-06)") == 3 + 2 + 2
     # phase 18: the fine-grained heads, the adsh regime, DCC, ae_fit, and
     # the loader (this machine has the headers: the native route)
     for name in ("a2net_ce", "semicon_ce", "semicon", "adsh"):
@@ -480,6 +486,39 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
             "the CPU's 0 (tolerance 0.0001); the model's buffer equal: "
             "True") in out
     assert "phase 16 (c) img/s" in out
+    # phase 19: the unsupervised heads' and itq's encodes, the steps (two
+    # views: 8 image rows), graphed chunks with two views and staged aux,
+    # the host fits, and the cibhash, ssdh and itq runs
+    for name in ("cibhash", "bihalf", "nsh", "ssdh", "unsup_greedyhash"):
+        assert f"unsupervised {name} encode (6 images" in out
+        for opt in ("adam", "sgd"):
+            assert (f"unsupervised {name} train step under {opt}, kernels "
+                    "vs plain") in out
+    for name in ("cibhash", "bihalf"):
+        assert (f"unsupervised {name} train backward from one loss gradient, "
+                "kernels vs plain") in out
+    assert "latent cosine 1.000000" in out or "latent cosine 0.99" in out
+    assert "no adapters): codes (6, 64), feature cosine 1.000000" in out
+    for name in ("cibhash", "bihalf", "nsh"):
+        assert f"unsupervised {name} train steps (B=4, 8 image rows" in out
+    assert "unsupervised ssdh train steps (B=4, 4 image rows" in out
+    assert "'image': (2, 8, 32, 32, 3), 'label': (2, 4, 10)}" in out
+    assert "'aux': (2, 4, 4)}" in out
+    assert "ssdh_structure (80 x 64 codes" in out
+    assert "shallow fits (80 x 96 features to 64 bits" in out
+    for model in ("cibhash", "ssdh"):
+        assert f"{model} run (train_chunk 2): 3 steps of 4 an epoch" in out
+        assert f"{model} exp=validation use_last=true" in out
+    # ssdh: 2 layers x (2 x (1 test + 3 database) + 3 structure) batches
+    assert ("graph replays 0 train (expected 0); launches (22, 0, 0, 0, 0, "
+            "0) against (22, 0, 0, 0, 0, 0)") in out
+    assert "ssdh structure over the 12 train images (int8)" in out
+    # itq: 2 layers x (3 fit + 1 test + 3 database) batches
+    assert ("itq run (the shallow regime, batch 4, adapters False): 3 "
+            "fit-extraction batches") in out
+    assert ("launches (14, 0, 0, 0, 0, 0) against (14, 0, 0, 0, 0, 0); "
+            "test records 1 at ep 0") in out
+    assert "exp=validation raises ValueError: True" in out
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
