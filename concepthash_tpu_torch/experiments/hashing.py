@@ -40,10 +40,11 @@ on the disk, the reference's deterministic pseudo-tokens (loudly logged);
 the model keeps them as its ``token_embeds`` buffer, which its checkpoints
 carry.
 
-A method with a train step of its own (HashNet) takes it one step per
-dispatch at any ``train_chunk``, with the batch's dataset indices, and its
-train-state extras (the bank) go into ``optims/*.pt`` with the rest of the
-train state.
+A method with a train step of its own (HashNet, MoCo, DINO, TBH, ODC)
+takes it one step per dispatch at any ``train_chunk``, with the batch's
+dataset indices, and its train-state extras (HashNet's bank, the EMA
+teacher, DINO's center, TBH's discriminator and its Adam, ODC's memory) go
+into ``optims/*.pt`` with the rest of the train state.
 
 A ``two_view`` method (``cibhash``, ``bihalf``, ``nsh``) trains on two
 augmentations of each batch, drawn one after the other from the run's
@@ -80,8 +81,20 @@ against the test codes and writes ``outputs/db_codes.pt``.
 and ``cache_images`` keeps the decoded images in memory (``null`` is off,
 as in the reference's reading of ``configs/train.yaml``).
 
-Not ported, and raising ``NotImplementedError``: the pretraining methods
-and the ``odc`` regime (``methods.get_method``), and the ``profile`` and
+The pretraining methods (``moco``, ``dino``, ``mae``, ``autoencoder``)
+run ``exp=general`` as their configs say; ``moco`` and ``dino`` are
+``two_view``.
+
+A method of the ``odc`` regime (``odc``) trains with its own step over a
+memory of the train codes. Before its first train epoch (unless a resume
+restored the memory) the train split's eval codes, in dataset order and
+L2-normalized, are clustered into ``model.nclass`` clusters
+(``train/kmeans.py``, seeded by the run's seed) to seed the memory, the
+pseudo-labels, the centroids and the weights. Each evaluation adds
+``test_nmi`` and ``db_nmi``: the NMI between the true classes and each
+split's nearest-centroid labels of its L2-normalized codes.
+
+Not ported, and raising ``NotImplementedError``: the ``profile`` and
 ``debug`` diagnostics.
 """
 
@@ -108,7 +121,8 @@ from concepthash_tpu_torch.methods import (build_model, get_method,
 from concepthash_tpu_torch.models.backbone_factory import \
     maybe_load_pretrained_vision
 from concepthash_tpu_torch.ops.retrieval import (calculate_mAP,
-                                                 calculate_pr_curve, get_sim)
+                                                 calculate_pr_curve, get_sim,
+                                                 normalized_mutual_info)
 from concepthash_tpu_torch.train.optim import current_lr
 from concepthash_tpu_torch.train.state import (create_train_state,
                                                make_eval_step,
@@ -401,6 +415,7 @@ class RetrievalExperiment:
         self.training = tr = training_for(cfg, self.model, loss_fn,
                                           self.steps_per_epoch)
         self._structure = None      # SSDH's, built before its first epoch
+        self._odc_ready = False     # ODC's memory, seeded before it
         self.train_step = tr.step
         seed = int(cfg.get("seed", 42))
         # augmentation draws: crops, flips and magnitudes on the device,
@@ -486,9 +501,38 @@ class RetrievalExperiment:
                      100 * (self._structure > 0).mean(),
                      100 * (self._structure < 0).mean())
 
+    def _odc_setup(self):
+        """ODC's memory from a k-means of the train split's L2-normalized
+        eval codes in dataset order, on the run's device: the codes, the
+        cluster labels, the centroids, and the weights N_c^-0.5 normalized
+        to mean 1 over the non-empty clusters, into the train state's
+        extras."""
+        from concepthash_tpu_torch.train.custom_steps import odc_init_weights
+        from concepthash_tpu_torch.train.kmeans import kmeans
+
+        extra = self.training.extra
+        k = extra["centroids"].shape[0]
+        feats = torch.from_numpy(self._extract_train_matrix(
+            self._eval_codes_batch)).to(self.device)
+        feats = feats / torch.linalg.vector_norm(
+            feats, dim=1, keepdim=True).clamp_min(1e-12)
+        labels, centers, _ = kmeans(feats, k, int(self.config.get("seed",
+                                                                  42)))
+        counts = torch.bincount(labels, minlength=k).float()
+        extra["features"].copy_(feats)
+        extra["labels"].copy_(labels)
+        extra["centroids"].copy_(centers)
+        extra["weights"].copy_(odc_init_weights(counts))
+        self._odc_ready = True
+        logging.info("odc: initial k-means into %d clusters (largest "
+                     "%.1f%%)", k, 100 * float(counts.max())
+                     / max(len(feats), 1))
+
     def train_one_epoch(self, ep: int) -> dict:
         if self.method.needs_structure and self._structure is None:
             self._prepare_structure()
+        if self.method.regime == "odc" and not self._odc_ready:
+            self._odc_setup()
         meters = MeterBank()
         t0 = time.time()
         pending: list = []          # (batch, n_valid) awaiting a chunk
@@ -612,8 +656,25 @@ class RetrievalExperiment:
             res["mAP" + postfix] = mAP
             res["recalls" + postfix] = recalls
             res["precisions" + postfix] = precisions
+        if self.method.regime == "odc" and self._odc_ready:
+            self._odc_nmi(res, (("test", test_codes, test_labels),
+                                ("db", db_codes, db_labels)))
         logging.info("ep %d eval: mAP=%s", ep, res.get("mAP"))
         return res, (test_codes, test_labels, db_codes, db_labels)
+
+    def _odc_nmi(self, res: dict, splits) -> None:
+        """``<split>_nmi``: the NMI between each split's true classes and
+        the nearest-centroid labels of its L2-normalized codes (float32 on
+        the host, as the reference scores them)."""
+        cents = self.training.extra["centroids"].float().cpu().numpy()
+        for name, codes, labels in splits:
+            c = codes["codes"].float().cpu().numpy()
+            c /= np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-12)
+            d2 = ((c ** 2).sum(1, keepdims=True) - 2.0 * c @ cents.T
+                  + (cents ** 2).sum(1))
+            gt = labels.argmax(1) if labels.ndim > 1 else labels
+            res[f"{name}_nmi"] = normalized_mutual_info(gt, d2.argmin(1))
+            logging.info("%s NMI: %.4f", name, res[f"{name}_nmi"])
 
     # ------------------------------------------------------------- checkpoint
     def model_state_blob(self, ep: int) -> dict:
@@ -632,7 +693,10 @@ class RetrievalExperiment:
         if path.endswith(".msgpack"):
             from concepthash_tpu_torch.weights import (baseline_from_flax,
                                                        finegrained_from_flax,
-                                                       from_flax)
+                                                       from_flax,
+                                                       mae_from_flax,
+                                                       pretrain_from_flax,
+                                                       tbh_from_flax)
 
             blob = io.load_jax_checkpoint(path)
             if "params" not in blob:
@@ -641,6 +705,9 @@ class RetrievalExperiment:
             bridge = (from_flax if "hash_queries" in params
                       else finegrained_from_flax
                       if {"attn_conv", "sem_attn_0"} & set(params)
+                      else mae_from_flax if "enc_pos" in params
+                      else tbh_from_flax if "enc_b" in params
+                      else pretrain_from_flax if "proj_fc1" in params
                       else baseline_from_flax)
             return bridge(blob), int(blob.get("epoch", 0))
         blob = io.load_checkpoint(path)
@@ -693,7 +760,9 @@ class RetrievalExperiment:
         ep = self.load_model_state(last)
         opt = os.path.join(resume_logdir, "optims", "last.pt")
         if os.path.exists(opt):
-            self.state.load_state_dict(io.load_checkpoint(opt))
+            blob = io.load_checkpoint(opt)
+            self.state.load_state_dict(blob)
+            self._odc_ready = "extra" in blob
         for h in (self.train_history, self.test_history):
             src = os.path.join(resume_logdir, os.path.basename(h.path))
             if os.path.exists(src):

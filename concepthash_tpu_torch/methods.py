@@ -19,13 +19,20 @@ a pairwise structure built once from the train codes, each train batch's
 block of it in ``batch['aux']``; ``losses/unsupervised.py``); ``itq``,
 ``pca``, ``lsh`` and ``sh`` on the ``descriptor`` head under the ``shallow``
 regime, whose one-pass fit the experiment runs (``losses/shallow.py``);
-and ``adsh`` (the csq head) and ``semicon`` under the ``adsh`` regime,
+``adsh`` (the csq head) and ``semicon`` under the ``adsh`` regime,
 whose alternating optimization the experiment runs
-(``experiments/hashing.py``; their ``build_loss`` gives None). The config
-dicts are main.py's: ``model``, ``backbone``, ``criterion``, ``optim``,
-``scheduler``, ``epochs``, ``backbone_lr_scale``, ``compute_dtype``. The
-reference's other methods (``moco``, ``dino``, ``mae``, ``autoencoder``,
-``tbh`` and ``odc``) raise ``NotImplementedError`` from ``get_method``.
+(``experiments/hashing.py``; their ``build_loss`` gives None); the
+pretraining methods ``moco`` (``models/pretrain.py`` with the predictor)
+and ``dino`` (without), two-view, with an EMA teacher in the train state
+(``train/pretrain_steps.py``), ``mae`` and ``autoencoder`` (``models/mae.py``,
+the latter at ``mask_ratio`` 0 over every patch) and ``tbh``
+(``models/tbh.py``, its discriminator and that one's Adam in the train
+state); and ``odc`` on the ``ce`` head under the ``odc`` regime (a train
+step of its own over a memory of the train codes, which the experiment
+seeds with a k-means). The config dicts are main.py's: ``model``,
+``backbone``, ``criterion``, ``optim``, ``scheduler``, ``epochs``,
+``backbone_lr_scale``, ``compute_dtype``. All 31 of the reference's
+methods are registered.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from concepthash_tpu_torch.losses import unsupervised as U
 from concepthash_tpu_torch.losses.concepthash import lgh_loss
 from concepthash_tpu_torch.models.backbone_factory import (
     adapter_config_from_model_cfg, vision_config_from_backbone_cfg)
+from concepthash_tpu_torch.models.clip import ClipVisionConfig
 from concepthash_tpu_torch.models.baselines import (BaselineConfig,
                                                     BaselineHashNet)
 from concepthash_tpu_torch.models.concepthash import (ConceptHash,
@@ -53,8 +61,10 @@ from concepthash_tpu_torch.models.finegrained import HEADS as FINEGRAINED
 from concepthash_tpu_torch.models.finegrained import FineGrainedConfig
 from concepthash_tpu_torch.train.optim import (build_optimizer,
                                                make_capturable)
+from concepthash_tpu_torch.train import pretrain_steps as P
 from concepthash_tpu_torch.train.custom_steps import (hashnet_extra,
-                                                      hashnet_step)
+                                                      hashnet_step, odc_extra,
+                                                      odc_step)
 from concepthash_tpu_torch.train.state import make_train_step
 
 
@@ -85,6 +95,12 @@ def _self_attn_last_config(sa) -> Optional[SelfAttnLastConfig]:
         f.name: type(f.default)(sa.get(f.name, f.default)) for f in fields})
 
 
+def _vision_config(config, vision: Optional[dict]) -> ClipVisionConfig:
+    """The backbone group's ClipVisionConfig with ``vision``'s fields."""
+    vcfg = vision_config_from_backbone_cfg(config.get("backbone", {}) or {})
+    return dataclasses.replace(vcfg, **vision) if vision else vcfg
+
+
 def _build_concepthash(config, codebook, *, device=None,
                        generator: Optional[torch.Generator] = None,
                        vision: Optional[dict] = None) -> ConceptHash:
@@ -96,9 +112,7 @@ def _build_concepthash(config, codebook, *, device=None,
     experiment's FILIP stage puts them there)."""
     m = config["model"]
     upt = m.get("upt_config", {}) or {}
-    vcfg = vision_config_from_backbone_cfg(config.get("backbone", {}) or {})
-    if vision:
-        vcfg = dataclasses.replace(vcfg, **vision)
+    vcfg = _vision_config(config, vision)
     acfg = adapter_config_from_model_cfg(m)
     ccfg = ConceptHashConfig(
         nbit=int(m["nbit"]),
@@ -136,9 +150,7 @@ def _build_baseline(head: str, config, codebook, *, device=None,
     is orthohash's fixed signed codebook or clip's class-text centers.
     ``vision`` overrides fields of the backbone's ClipVisionConfig."""
     m = config["model"]
-    vcfg = vision_config_from_backbone_cfg(config.get("backbone", {}) or {})
-    if vision:
-        vcfg = dataclasses.replace(vcfg, **vision)
+    vcfg = _vision_config(config, vision)
     bcfg = BaselineConfig(nbit=int(m["nbit"]), nclass=int(m["nclass"]),
                           head=head, add_bn=bool(m.get("add_bn", True)),
                           ce_cossim=m.get("m_type", "ce") != "ce",
@@ -160,9 +172,7 @@ def _build_finegrained(head: str, config, codebook, *, device=None,
     fixed centers. ``vision`` overrides fields of the backbone's
     ClipVisionConfig."""
     m = config["model"]
-    vcfg = vision_config_from_backbone_cfg(config.get("backbone", {}) or {})
-    if vision:
-        vcfg = dataclasses.replace(vcfg, **vision)
+    vcfg = _vision_config(config, vision)
     fcfg = FineGrainedConfig(
         nbit=int(m["nbit"]), nclass=int(m["nclass"]),
         num_attns=int(m.get("num_attns", m.get("nattns", 4))),
@@ -179,6 +189,70 @@ def _build_orthohash_bcs(config, codebook, **kw) -> BaselineHashNet:
     """orthohash with the second, sign-centroid logits head (model.bcs)."""
     config = {**config, "model": {**dict(config["model"]), "bcs": True}}
     return _build_baseline("orthohash", config, codebook, **kw)
+
+
+def _build_pretrain(with_predictor: bool, config, codebook, *, device=None,
+                    generator: Optional[torch.Generator] = None,
+                    vision: Optional[dict] = None) -> torch.nn.Module:
+    """moco's (``with_predictor``) or dino's ProjectorNet from ``config``;
+    the projection's width is ``model.proj_dim``, else ``model.nbit``."""
+    from concepthash_tpu_torch.models.pretrain import (PretrainConfig,
+                                                       ProjectorNet)
+
+    m = config["model"]
+    pcfg = PretrainConfig(proj_dim=int(m.get("proj_dim", m.get("nbit", 64))),
+                          hidden_dim=int(m.get("hidden_dim", 256)),
+                          with_predictor=with_predictor)
+    return ProjectorNet(_vision_config(config, vision), pcfg,
+                        adapter_config_from_model_cfg(m),
+                        backbone_cfg=config.get("backbone"),
+                        dtype=_compute_dtype(config), device=device,
+                        generator=generator)
+
+
+def _build_mae(config, codebook, *, device=None,
+               generator: Optional[torch.Generator] = None,
+               vision: Optional[dict] = None) -> torch.nn.Module:
+    """The MAE of ``config``: the encoder's geometry from the backbone
+    group (ViT-B/16 at the dataset's crop when it has none), the decoder's
+    and the mask ratio from the model's keys. It has no CLIP tower:
+    ``vision`` must be empty."""
+    from concepthash_tpu_torch.models.mae import MAE, MAEConfig
+
+    if vision:
+        raise ValueError(f"the MAE takes no vision override {vision}")
+    m = config["model"]
+    b = config.get("backbone", {}) or {}
+    mcfg = MAEConfig(
+        image_size=int(b.get("image_size", (config.get("dataset", {}) or {})
+                             .get("crop", 224))),
+        patch_size=int(b.get("patch_size", 16)),
+        enc_dim=int(b.get("hidden_size", 768)),
+        enc_layers=int(b.get("num_layers", 12)),
+        enc_heads=int(b.get("num_heads", 12)),
+        dec_dim=int(m.get("dec_dim", 256)),
+        dec_layers=int(m.get("dec_layers", 4)),
+        dec_heads=int(m.get("dec_heads", 8)),
+        mask_ratio=float(m.get("mask_ratio", 0.75)))
+    return MAE(mcfg, dtype=_compute_dtype(config), device=device,
+               generator=generator)
+
+
+def _build_tbh(config, codebook, *, device=None,
+               generator: Optional[torch.Generator] = None,
+               vision: Optional[dict] = None) -> torch.nn.Module:
+    """TBHNet from ``config``: ``model.zdim`` (else nbit) continuous units,
+    ``model.hidden_dim`` hidden."""
+    from concepthash_tpu_torch.models.tbh import TBHConfig, TBHNet
+
+    m = config["model"]
+    tcfg = TBHConfig(nbit=int(m["nbit"]), zdim=int(m.get("zdim", m["nbit"])),
+                     hidden=int(m.get("hidden_dim", 256)))
+    return TBHNet(_vision_config(config, vision), tcfg,
+                  adapter_config_from_model_cfg(m),
+                  backbone_cfg=config.get("backbone"),
+                  dtype=_compute_dtype(config), device=device,
+                  generator=generator)
 
 
 def _criterion_kwargs(config) -> dict:
@@ -257,6 +331,19 @@ def _null_loss(config, codebook) -> Callable:
     return lambda outputs, batch: (0.0 * outputs["codes"].sum(), {})
 
 
+def _mae_loss(config, codebook) -> Callable:
+    from concepthash_tpu_torch.models.mae import mae_loss
+
+    return lambda outputs, batch: mae_loss(outputs)
+
+
+def _autoencoder_loss(config, codebook) -> Callable:
+    """The reconstruction over every patch (the MAE net at mask_ratio 0)."""
+    from concepthash_tpu_torch.models.mae import autoencoder_loss
+
+    return lambda outputs, batch: autoencoder_loss(outputs)
+
+
 def _needs_attentions(config) -> bool:
     return ((config.get("criterion", {}) or {}).get("loss_scales", {})
             or {}).get("attn_div_loss", 0) != 0
@@ -273,9 +360,10 @@ class Method:
     # (model, config, optimizer, scheduler, generator, steps_per_epoch,
     #  extra) -> step(batch) -> metrics
     custom_step: Optional[Callable] = None
-    # the train state's extras (config, device) -> {name: tensor}
+    # the train state's extras (config, model) -> {name: tensor, module or
+    # optimizer}
     init_extra: Optional[Callable] = None
-    regime: str = "sgd"     # sgd | shallow | adsh (the experiment's loop)
+    regime: str = "sgd"     # sgd | shallow | adsh | odc (the experiment's)
     unsupervised: bool = False
     two_view: bool = False         # train batches: two augmented views
     needs_structure: bool = False  # a pairwise structure first (SSDH)
@@ -329,15 +417,27 @@ _METHODS = {m.name: m for m in (
     Method("adsh", _baseline("csq"), _regime_loss, regime="adsh"),
     Method("semicon", functools.partial(_build_finegrained, "semicon"),
            _regime_loss, regime="adsh"),
+    # pretraining: EMA-teacher steps, masked and plain autoencoding, TBH's
+    # adversarial step, and online deep clustering
+    Method("moco", functools.partial(_build_pretrain, True), _null_loss,
+           custom_step=P.moco_step, init_extra=P.teacher_extra,
+           unsupervised=True, two_view=True),
+    Method("dino", functools.partial(_build_pretrain, False), _null_loss,
+           custom_step=P.dino_step, init_extra=P.dino_extra,
+           unsupervised=True, two_view=True),
+    Method("mae", _build_mae, _mae_loss, unsupervised=True),
+    Method("autoencoder", _build_mae, _autoencoder_loss, unsupervised=True),
+    Method("tbh", _build_tbh, _null_loss, custom_step=P.tbh_step,
+           init_extra=P.tbh_extra, unsupervised=True),
+    Method("odc", _baseline("ce"), _simple_loss(L.ce_loss),
+           custom_step=odc_step, init_extra=odc_extra, regime="odc",
+           unsupervised=True),
 )}
 
 
 def get_method(name: str) -> Method:
     if name not in _METHODS:
-        raise NotImplementedError(
-            f"method {name!r} is not ported yet (ROADMAP Queue 1 item 7: "
-            "moco, dino, mae, autoencoder and tbh; item 8: odc); "
-            f"ported: {list_methods()}")
+        raise KeyError(f"unknown method {name!r}; known: {list_methods()}")
     return _METHODS[name]
 
 
@@ -426,7 +526,7 @@ def training_for(config: dict, model: torch.nn.Module, loss_fn: Callable,
         make_capturable(optimizer)
     generator = torch.Generator(device=dev).manual_seed(
         int(config.get("seed", 42)) + 1)
-    extra = method.init_extra(config, dev) if method.init_extra else {}
+    extra = method.init_extra(config, model) if method.init_extra else {}
     if method.custom_step is not None:
         step = method.custom_step(model, config, optimizer, scheduler,
                                   generator, max(steps_per_epoch, 1), extra)

@@ -43,7 +43,7 @@ from concepthash_tpu_torch.models.clip import (AdapterConfig,
                                                check_kernel_dtype)
 from concepthash_tpu_torch.models.layers import (CodeBatchNorm, CosSim,
                                                  dense, linear, sign_ste)
-from concepthash_tpu_torch.models.trunk import Trunk, trunk_from_config
+from concepthash_tpu_torch.models.trunk import model_trunk
 from concepthash_tpu_torch.ops.numerics import l2_normalize
 
 HEADS = ("orthohash", "csq", "dpn", "pairwise", "ce", "greedyhash",
@@ -94,12 +94,8 @@ class BaselineHashNet(nn.Module):
         if cfg.head not in HEADS:
             raise ValueError(f"unknown head {cfg.head!r}")
         g = generator
-        if backbone_cfg is not None and \
-                backbone_cfg.get("family", "clip") != "clip":
-            self.backbone = trunk_from_config(backbone_cfg, adapters, dtype,
-                                              g)
-        else:
-            self.backbone = Trunk("clip", vision_cfg, adapters, dtype, g)
+        self.backbone = model_trunk(vision_cfg, adapters, backbone_cfg, dtype,
+                                    g)
         self.vision_cfg = vcfg = self.backbone.tower.cfg
         check_kernel_dtype(vcfg, dtype, dev.type)
         self.cfg, self.dtype = cfg, dtype

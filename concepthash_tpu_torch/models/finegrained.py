@@ -49,7 +49,7 @@ from concepthash_tpu_torch.models.clip import (AdapterConfig,
                                                check_kernel_dtype)
 from concepthash_tpu_torch.models.layers import (MLP, dense, layer_norm,
                                                  linear, normal_)
-from concepthash_tpu_torch.models.trunk import Trunk, trunk_from_config
+from concepthash_tpu_torch.models.trunk import model_trunk
 from concepthash_tpu_torch.ops.numerics import l2_normalize
 
 # flax LayerNorm's default epsilon, which the heads' LayerNorms keep
@@ -106,13 +106,8 @@ class _FineGrained(nn.Module):
                  generator):
         super().__init__()
         dev = resolve_device(device)
-        if backbone_cfg is not None and \
-                backbone_cfg.get("family", "clip") != "clip":
-            self.backbone = trunk_from_config(backbone_cfg, adapters, dtype,
-                                              generator)
-        else:
-            self.backbone = Trunk("clip", vision_cfg, adapters, dtype,
-                                  generator)
+        self.backbone = model_trunk(vision_cfg, adapters, backbone_cfg, dtype,
+                                    generator)
         self.vision_cfg = vcfg = self.backbone.tower.cfg
         check_kernel_dtype(vcfg, dtype, dev.type)
         self.cfg, self.dtype, self._device = cfg, dtype, dev

@@ -63,3 +63,16 @@ def trunk_from_config(backbone_cfg: dict, adapters=None, dtype=torch.float32,
         raise _unported_family(family)
     return Trunk("clip", vision_config_from_backbone_cfg(backbone_cfg),
                  adapters, dtype, generator)
+
+
+def model_trunk(vision_cfg: Optional[ClipVisionConfig],
+                adapters: Optional[AdapterConfig],
+                backbone_cfg: Optional[dict], dtype=torch.float32,
+                generator=None) -> Trunk:
+    """A model's trunk: the backbone group's when it names a family other
+    than clip (``trunk_from_config``), else the clip trunk of
+    ``vision_cfg``."""
+    if backbone_cfg is not None and \
+            backbone_cfg.get("family", "clip") != "clip":
+        return trunk_from_config(backbone_cfg, adapters, dtype, generator)
+    return Trunk("clip", vision_cfg, adapters, dtype, generator)

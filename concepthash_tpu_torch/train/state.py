@@ -37,10 +37,11 @@ class TrainState:
     (``generators``: dropout, the augmentation's draws on the card, the
     op-index draws on the host), plus the train loader, whose shuffle order
     is a function of its epoch, and a method's own extras (``extra``:
-    tensors its train step updates in place, HashNet's bank). ``state_dict``
-    / ``load_state_dict`` carry
-    everything but the model's own weights (``model.state_dict()``), which
-    checkpoints keep apart, as the reference keeps ``params`` apart from
+    tensors, modules and optimizers its train step updates in place:
+    HashNet's bank, ODC's memory, an EMA teacher, TBH's discriminator and
+    its optimizer). ``state_dict`` / ``load_state_dict`` carry everything
+    but the model's own weights (``model.state_dict()``), which checkpoints
+    keep apart, as the reference keeps ``params`` apart from
     ``opt_state``."""
 
     model: nn.Module
@@ -64,33 +65,15 @@ class TrainState:
         if self.loader is not None:
             sd["loader_epoch"] = int(self.loader.epoch)
         if self.extra:
-            sd["extra"] = {k: v.detach().cpu() for k, v in self.extra.items()}
+            sd["extra"] = {k: (v.detach().cpu() if torch.is_tensor(v)
+                               else v.state_dict())
+                           for k, v in self.extra.items()}
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
-        """Restore what ``state_dict`` wrote, keeping this optimizer's own
-        form: a capturable optimizer (``optim.make_capturable``) keeps its
-        device ``lr`` tensors and step counters on the device."""
-        own = [(g["lr"], g.get("capturable"))
-               for g in self.optimizer.param_groups]
-        # load_state_dict replaces the group dicts: the new ones take this
-        # optimizer's own lr tensors back (a graph and its runner hold them)
-        self.optimizer.load_state_dict(sd["optimizer"])
-        for g, (lr, capturable) in zip(self.optimizer.param_groups, own):
-            loaded = g["lr"]
-            if torch.is_tensor(lr):
-                lr.fill_(float(loaded))
-                g["lr"] = lr
-            else:
-                g["lr"] = float(loaded)
-            if capturable is None:      # sgd: no flag, no step counter
-                continue
-            g["capturable"] = capturable
-            for p in g["params"]:
-                st = self.optimizer.state.get(p)
-                if st and "step" in st:
-                    st["step"] = st["step"].to(
-                        p.device if capturable else "cpu", torch.float32)
+        """Restore what ``state_dict`` wrote, keeping each optimizer's own
+        form (``load_optimizer_state``)."""
+        load_optimizer_state(self.optimizer, sd["optimizer"])
         self.scheduler.load_state_dict(sd["scheduler"])
         if int(self.scheduler.last_epoch) != int(sd["step"]):
             raise ValueError(f"train state: schedule at step "
@@ -101,7 +84,38 @@ class TrainState:
         if self.loader is not None and "loader_epoch" in sd:
             self.loader.epoch = int(sd["loader_epoch"])
         for k, v in sd.get("extra", {}).items():
-            self.extra[k].copy_(v)
+            own = self.extra[k]
+            if torch.is_tensor(own):
+                own.copy_(v)
+            elif isinstance(own, torch.optim.Optimizer):
+                load_optimizer_state(own, v)
+            else:
+                own.load_state_dict(v)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, sd: dict) -> None:
+    """``optimizer.load_state_dict(sd)``, keeping the optimizer's own form:
+    a capturable optimizer (``optim.make_capturable``) keeps its device
+    ``lr`` tensors and step counters on the device."""
+    own = [(g["lr"], g.get("capturable")) for g in optimizer.param_groups]
+    # load_state_dict replaces the group dicts: the new ones take this
+    # optimizer's own lr tensors back (a graph and its runner hold them)
+    optimizer.load_state_dict(sd)
+    for g, (lr, capturable) in zip(optimizer.param_groups, own):
+        loaded = g["lr"]
+        if torch.is_tensor(lr):
+            lr.fill_(float(loaded))
+            g["lr"] = lr
+        else:
+            g["lr"] = float(loaded)
+        if capturable is None:      # sgd: no flag, no step counter
+            continue
+        g["capturable"] = capturable
+        for p in g["params"]:
+            st = optimizer.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(
+                    p.device if capturable else "cpu", torch.float32)
 
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,

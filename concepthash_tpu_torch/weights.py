@@ -38,6 +38,16 @@ f32 ``hash_w`` (kept (in, out)); ``sem_attn_i``, ``sem_norm_i``,
 ``ce_fc`` a Dense or TempCE, whose ``tp/fc{i}`` become ``tp.layers.{i}``
 and whose ``constants/ce_fc/center`` becomes the ``ce_fc.center`` buffer.
 
+``pretrain_from_flax(variables)`` does the same for a pretraining
+``models.pretrain.ProjectorNet``: the trunk as above and ``proj_fc*`` (and
+the predictor's ``pred_fc*``). ``tbh_from_flax(variables)`` for a
+``models.tbh.TBHNet``: the trunk, ``enc_fc``, ``enc_b``, ``enc_z``, ``gcn``
+and ``dec``; ``discriminator_from_flax(params)`` for its
+``Discriminator`` (``fc1``, ``fc2``). ``mae_from_flax(variables)`` for a
+``models.mae.MAE``: ``patch_embed``, ``enc_pos``, the encoder layers
+``enc_{i}`` into ``enc.{i}``, ``enc_norm``, ``dec_embed``, ``mask_token``,
+``dec_pos``, ``dec_{i}``, ``dec_norm`` and ``dec_pred``.
+
 ``text_from_flax(params)`` does the same for the CLIP text tower
 (``models.clip.ClipTextTower``), whose q, k and v projections stay separate.
 """
@@ -249,6 +259,57 @@ def finegrained_from_flax(variables: dict) -> dict:
             sd["ce_fc.center"] = _t(variables["constants"]["ce_fc"]["center"])
         else:
             _dense(sd, "ce_fc", ce)
+    return sd
+
+
+def _dense_heads(sd: dict, p: dict, names) -> None:
+    for name in names:
+        if name in p:
+            _dense(sd, name, p[name])
+
+
+def pretrain_from_flax(variables: dict) -> dict:
+    """State dict of the port's ProjectorNet from the reference's variables
+    (numpy leaves); load it with ``strict=True``."""
+    p = variables["params"]
+    sd: dict = {}
+    _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
+    _dense_heads(sd, p, ("proj_fc1", "proj_fc2", "pred_fc1", "pred_fc2"))
+    return sd
+
+
+def tbh_from_flax(variables: dict) -> dict:
+    """State dict of the port's TBHNet from the reference's variables
+    (numpy leaves); load it with ``strict=True``."""
+    p = variables["params"]
+    sd: dict = {}
+    _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
+    _dense_heads(sd, p, ("enc_fc", "enc_b", "enc_z", "gcn", "dec"))
+    return sd
+
+
+def discriminator_from_flax(params: dict) -> dict:
+    """State dict of the port's TBH Discriminator from the reference's
+    discriminator ``params`` (numpy leaves)."""
+    sd: dict = {}
+    _dense_heads(sd, params, ("fc1", "fc2"))
+    return sd
+
+
+def mae_from_flax(variables: dict) -> dict:
+    """State dict of the port's MAE from the reference's variables (numpy
+    leaves); load it with ``strict=True``."""
+    p = variables["params"]
+    sd: dict = {}
+    _dense_heads(sd, p, ("patch_embed", "dec_embed", "dec_pred"))
+    for name in ("enc_pos", "mask_token", "dec_pos"):
+        sd[name] = _t(p[name])
+    for name in ("enc_norm", "dec_norm"):
+        _ln(sd, name, p[name])
+    for k in p:
+        m = re.fullmatch(r"(enc|dec)_(\d+)", k)
+        if m is not None:
+            _encoder_layer(sd, f"{m.group(1)}.{m.group(2)}", p[k])
     return sd
 
 

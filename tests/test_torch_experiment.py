@@ -11,14 +11,17 @@ backbone, 16 bits, batch 8, float32:
     the reference's keys and its ``lr`` values equal the reference's;
 (c) without ``--device`` and without CUDA it raises;
 (d) ``models/last.pt`` reloads to the same codes, bit for bit;
-(e) each option that is not ported raises ``NotImplementedError``, and
-    each option this round ported (FILIP, DecorrelatedBN, vpt_pe,
-    ``backbone.remat``, lars; the orthohash, csq, hashnet with its bank
-    and clip baselines; the A2-Net-CE and SEMICON-CE heads; the C++
-    decode and the image cache; the unsupervised cibhash, bihalf, nsh and
-    ssdh) trains an epoch and evaluates, the adsh regime (adsh, semicon)
-    runs an epoch to its database codes, and the shallow regime (itq,
-    pca, lsh, sh) fits and scores;
+(e) each option that is not ported (``profile``, ``debug``) raises
+    ``NotImplementedError``, and each option this round ported (FILIP,
+    DecorrelatedBN, vpt_pe, ``backbone.remat``, lars; the orthohash, csq,
+    hashnet with its bank and clip baselines; the A2-Net-CE and SEMICON-CE
+    heads; the C++ decode and the image cache; the unsupervised cibhash,
+    bihalf, nsh and ssdh; tbh, and odc with its k-means and NMI) trains an
+    epoch and evaluates, the adsh regime (adsh, semicon) runs an epoch to
+    its database codes, the shallow regime (itq, pca, lsh, sh) fits and
+    scores, the pretraining configs (moco, dino, mae, autoencoder) train
+    an epoch under ``exp=general``, and a moco run resumes to the
+    uninterrupted run bit for bit;
 (f) the eval-only modes: ``exp=validation`` and ``exp=extract`` on the
     reference's run directory (its ``last.msgpack``) against the reference's
     own eval-only runs (codes in sign on >= 99.9% of bits, mAP within 1e-3),
@@ -194,9 +197,7 @@ def test_last_checkpoint_reloads_to_the_same_codes(port_run, workdir):
 
 
 @pytest.mark.parametrize("extra", [
-    ["model=dino"], ["model=mae"], ["model=moco"],
-    ["model=odc"], ["model=autoencoder"],
-    ["model=tbh"], ["+profile.enabled=true"], ["+debug.nans=true"],
+    ["+profile.enabled=true"], ["+debug.nans=true"],
 ])
 def test_unported_options_raise(workdir, extra):
     logdir = os.path.join(workdir, "unported")
@@ -213,7 +214,7 @@ def test_unported_options_raise(workdir, extra):
     ["model=clip_finetune"], ["model=a2net_ce_adapter"],
     ["model=semicon_ce_adapter"], ["native_decode=true"],
     ["cache_images=true"], ["model=cibhash"], ["model=bihalf"],
-    ["model=nsh"], ["model=ssdh"],
+    ["model=nsh"], ["model=ssdh"], ["model=tbh"], ["model=odc"],
 ])
 def test_ported_options_run(workdir, extra):
     """One epoch of main_gpu with the option: a finite train record, a test
@@ -225,7 +226,8 @@ def test_ported_options_run(workdir, extra):
     A2-Net's tied f32 hash layer; SEMICON-CE's maps' LayerNorm over the 36
     patches; the C++ decode taking every image; the image cache; the
     unsupervised objectives' parts, NSH's projector and SSDH's structure,
-    logged)."""
+    logged; TBH's actor and critic parts and its 16 codes a bit; ODC's
+    k-means logged and the NMI of both splits in its test record)."""
     logdir = os.path.join(workdir, "ported_" + "".join(
         c if c.isalnum() else "_" for c in extra[0]))
     best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
@@ -279,11 +281,84 @@ def test_ported_options_run(workdir, extra):
         assert "hash_fc.bias" not in sd
     if extra == ["model=ssdh"]:
         assert "ssdh structure: " in log
+    if extra == ["model=tbh"]:
+        assert {"rec", "adv", "disc"} <= set(train[0])
+        assert tuple(sd["enc_b.weight"].shape) == (16, 256)
+    if extra == ["model=odc"]:
+        assert "odc: initial k-means into 3 clusters" in log
+        assert 0.0 <= test[0]["test_nmi"] <= 1.0
+        assert 0.0 <= test[0]["db_nmi"] <= 1.0
+        assert "test NMI" in log and "acc" in train[0]
     if extra == ["native_decode=true"]:
         from concepthash_tpu_torch import native
 
         assert native.available() and native.counts["native"] > 0
         assert "C++ decoder" not in log      # no fallback was logged
+
+
+@pytest.mark.parametrize("model", ["moco", "dino", "mae", "autoencoder"])
+def test_pretraining_runs(workdir, model):
+    """One epoch of each pretraining config (``exp: general``): a finite
+    train record, a test record whose ``test_loss`` is the run's best (0 for
+    all four: their eval forward carries no objective, as in the
+    reference), and what the method keeps beside the model: moco's and
+    dino's EMA teacher (dino's center too) in ``optims/last.pt``, the MAE's
+    decoder in ``models/last.pt``."""
+    logdir = os.path.join(workdir, f"pretrain_{model}")
+    best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
+                          "epochs=1", f"model={model}",
+                          "save_training_state=true"])
+    train, test = _history(logdir, "train"), _history(logdir, "test")
+    assert len(train) == len(test) == 1 and np.isfinite(train[0]["loss"])
+    assert best == test[0]["test_loss"] == 0.0
+    sd = torch.load(os.path.join(logdir, "models", "last.pt"))["model"]
+    extra = torch.load(os.path.join(logdir, "optims",
+                                    "last.pt")).get("extra", {})
+    if model in ("moco", "dino"):
+        teacher = extra["teacher"]
+        assert set(teacher) == set(sd)
+        assert ("pred_fc2.weight" in sd) == (model == "moco")
+        assert train[0]["loss"] > 0
+        if model == "moco":
+            assert 0.99 <= train[0]["momentum"] < 1.0
+        else:
+            assert tuple(extra["center"].shape) == (16,)
+            assert extra["center"].abs().max() > 0
+    else:
+        assert not extra
+        assert {"recon_mse"} <= set(train[0])
+        assert tuple(sd["dec_pred.weight"].shape) == (8 * 8 * 3, 256)
+        assert tuple(sd["mask_token"].shape) == (1, 1, 256)
+
+
+def test_moco_run_resumes_to_the_uninterrupted_run(workdir):
+    """A moco run stopped after epoch 1 and resumed equals the
+    uninterrupted 2-epoch run: the epoch-2 train record, the parameters
+    and the EMA teacher restored from ``optims/last.pt``, bit for bit."""
+    runs = {}
+    for name in ("whole", "first", "resumed"):
+        extra = ["model=moco", "save_training_state=true",
+                 "eval_interval=2"]
+        if name == "resumed":
+            extra.append(f"resume_logdir={runs['first']}")
+        logdir = os.path.join(workdir, f"moco_{name}")
+        exp = main_gpu.build_experiment(["--device", "cpu",
+                                         *_args(workdir, logdir), *extra])
+        if name == "first":
+            exp.epochs = 1
+        exp.main()
+        runs[name] = logdir
+    whole, resumed = (_history(runs[n], "train") for n in ("whole",
+                                                          "resumed"))
+    assert len(whole) == len(resumed) == 2
+    assert whole[1]["loss"] == resumed[1]["loss"]
+    assert whole[1]["momentum"] == resumed[1]["momentum"]
+    for kind, key in (("models", "model"), ("optims", "extra")):
+        a, b = (torch.load(os.path.join(runs[n], kind, "last.pt"))[key]
+                for n in ("whole", "resumed"))
+        if kind == "optims":
+            a, b = a["teacher"], b["teacher"]
+        assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
 
 
 @pytest.mark.parametrize("model", ["adsh", "semicon"])
