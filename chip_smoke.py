@@ -249,6 +249,26 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    fit-extraction and eval batch, one test record with a mAP in [0, 1],
    the fit in ``models/best.pt``, ``exp=validation`` raising its
    ValueError, and the whole run's img/s.
+20. the pretraining methods, TBH and the odc regime: (a) after phase 19
+   (b), the heads of moco, dino, tbh and odc on one seeded trunk with
+   adapters, and the MAE net of mae and autoencoder (ViT-B/16 at 224^2,
+   one seed), each encode 64 images in bf16, counted (kernel 1 once a
+   layer), against the CPU's f32 (tbh's and odc's codes in sign on >= 99%
+   of bits, the projections and the MAE's features at cosine >= 0.99);
+   kernel 1 against its plain version at the MAE's shape (B=64, L=196,
+   D=768, exact GELU, no adapters), timed; (b) five counted steps of each
+   at B=32 (mae and autoencoder at their config's 64) at the kernel
+   settings for the trunk's four (kernels 5 and 6 at 48 and 96 a step for
+   moco and dino, 12 and 24 for tbh and odc), a kernel step against a
+   plain one under sgd, the teacher's EMA at each step's momentum, DINO's
+   center, TBH's discriminator under its own Adam, ODC's memory rows
+   outside the batch and its refresh boundary; the port's k-means at
+   CUB-200's size on the card against the CPU; (c) after phase 19 (c), on
+   phase 15's synthetic set: ``main_gpu.py model=moco`` (and a resume
+   after epoch 1, bit for bit) and ``model=mae`` (``exp=general``), then
+   ``model=tbh`` and ``model=odc`` (its k-means encode counted, its NMI
+   checked) with ``exp=validation`` within 1e-6, their img/s beside the
+   flagship's.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -580,10 +600,11 @@ def check_layer(sizes: Sizes, vcfg, device) -> float:
     return worst
 
 
-def layer_library(x, w, a1, a2, num_heads, eps):
+def layer_library(x, w, a1, a2, num_heads, eps, act="quick_gelu"):
     """The same layer as a composition of PyTorch's own bf16 operators
     (F.layer_norm, F.linear, scaled_dot_product_attention): the timing
-    yardstick, never called by the port. Weights all in bf16."""
+    yardstick, never called by the port. Weights all in bf16; ``act``
+    quick_gelu or the exact gelu."""
     B, L, D = x.shape
     hd = D // num_heads
 
@@ -603,7 +624,8 @@ def layer_library(x, w, a1, a2, num_heads, eps):
     x = x + h
     h = F.linear(F.layer_norm(x, (D,), w.ln2_scale, w.ln2_bias, eps),
                  w.w_fc1, w.b_fc1)
-    h = F.linear(h * torch.sigmoid(1.702 * h), w.w_fc2, w.b_fc2)
+    h = h * torch.sigmoid(1.702 * h) if act == "quick_gelu" else F.gelu(h)
+    h = F.linear(h, w.w_fc2, w.b_fc2)
     if a2 is not None:
         h = h + adapter(h, a2)
     return x + h
@@ -2117,12 +2139,13 @@ def run_pretrained(sizes: Sizes, device, tmp: str, argv) -> str:
 
 
 def eval_only_and_resume(label: str, tmp: str, run: str, train: list,
-                         test: list, argv, eval_argv, *extra) -> None:
+                         test: list, argv, eval_argv, *extra,
+                         resume: bool = True) -> None:
     """Phase 15 (c) and 16 (c): on a finished 2-epoch run directory,
     ``exp=validation use_last=true`` reproduces the run's last mAP,
-    ``exp=extract`` writes its best test codes bit for bit, and a run
-    stopped after epoch 1 and resumed reaches the epoch-2 train loss and
-    the last parameters bit for bit."""
+    ``exp=extract`` writes its best test codes bit for bit, and, with
+    ``resume``, a run stopped after epoch 1 and resumed reaches the
+    epoch-2 train loss and the last parameters bit for bit."""
     import os
 
     import main_gpu
@@ -2143,6 +2166,8 @@ def eval_only_and_resume(label: str, tmp: str, run: str, train: list,
           f"bit: {same}")
     if d_map > REPLAY_MAP_ATOL or not same:
         fail(f"{label}: the eval-only modes do not reproduce the run")
+    if not resume:
+        return
 
     first_dir = os.path.join(tmp, os.path.basename(run) + "_first")
     res_dir = os.path.join(tmp, os.path.basename(run) + "_resumed")
@@ -2323,9 +2348,13 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
                        chunked, (
                            ("a2net_ce_adapter", {}),
                            ("semicon_ce_adapter", {"val_at_run_batch": True}),
-                           ("semicon", {"single": True})))
+                           # one SGD pass over the subset an epoch (the
+                           # config's max_iters 3 cut for the script's time)
+                           ("semicon", {"single": True,
+                                        "extra": ("criterion.max_iters=1",)})))
         run_loader(sizes, device, tmp, argv, chunked)
         run_unsupervised_runs(sizes, device, tmp, argv, eval_argv, chunked)
+        run_pretrain_runs(sizes, device, tmp, argv, eval_argv, chunked)
 
 
 # ---------------------------------------------------------------------------
@@ -2558,8 +2587,11 @@ def run_variant_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
     ``train_chunk`` auto, 2 epochs each, the launch counts from zero
     (kernel 1 at one launch a layer and eval batch, replays included; no
     other kernel); FILIP's class-text token embeddings from phase 15 (d)'s
-    local checkpoint, within ``TEXT_ATOL`` of the CPU's; the eval-only
-    modes and a resume; train and eval img/s beside phase 15's flagship."""
+    local checkpoint, within ``TEXT_ATOL`` of the CPU's; on FILIP's run
+    (its token embeddings in the checkpoint) the eval-only modes (the
+    resume of a run, and SA's run's eval-only modes, take the flagship's
+    code path, which phase 15 (c) holds); train and eval img/s beside
+    phase 15's flagship."""
     import os
 
     import main_gpu
@@ -2637,8 +2669,9 @@ def run_variant_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
         for loader in exp.loaders.values():
             loader.close()
         del exp
-        eval_only_and_resume(model, tmp, run, train, test, argv, eval_argv,
-                             *extra)
+        if model == "concepthash_filip":
+            eval_only_and_resume(model, tmp, run, train, test, argv,
+                                 eval_argv, *extra, resume=False)
     print("phase 16 (c) img/s, epoch-2 train and eval encode, train_chunk "
           "auto: " + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}"
                                for n, t, e in rows)
@@ -2667,6 +2700,12 @@ BASELINE_YAML = {
     "greedyhash": "sgh_adapter", "ce": "ce_adapter",
     "descriptor": "ce_adapter", "clip": "clip_finetune",
 }
+# the heads whose graphed chunks phase 17 (b) holds against eager steps,
+# one of each kind of state a step carries: the code BatchNorm's running
+# statistics and fixed centroids, a linear hash layer and codebook, a
+# straight-through sign, a learned logit scale over fixed centers (the
+# other heads are these layers recombined; hashnet steps one a dispatch)
+BASELINE_GRAPHED = ("orthohash", "csq", "greedyhash", "clip")
 # bf16 card logits against the CPU's f32: max |d| <= LOGIT_RTOL * max |ref|
 LOGIT_RTOL = 0.05
 # descriptor's and clip's features: mean row cosine against the CPU's
@@ -2682,7 +2721,8 @@ def baseline_config(sizes: Sizes, name: str) -> dict:
     from concepthash_tpu_torch.config.loader import load_config
 
     root = os.path.dirname(os.path.abspath(__file__))
-    yaml = {**BASELINE_YAML, **FINEGRAINED_YAML, **UNSUP_YAML}[name]
+    yaml = {**BASELINE_YAML, **FINEGRAINED_YAML, **UNSUP_YAML,
+            **PRETRAIN_YAML}[name]
     cfg = load_config(os.path.join(root, "configs"), "train",
                       ["dataset=cub200", f"model={yaml}",
                        "compute_dtype=bfloat16"])
@@ -2853,11 +2893,10 @@ def baseline_steps(sizes: Sizes, device) -> None:
     weight decay alone, as in the reference); hashnet with
     ``keep_train_size``: each step's bank rows equal to its batch's
     detached tanh(beta * codes) and labels after every step (the batch at
-    dataset rows 0..B-1 of 2B, the other rows untouched). Then, for every
-    method but
-    hashnet (one step a dispatch), a graphed chunk against eager steps:
-    a warm-up chunk and a replay, losses, parameters and BatchNorm
-    statistics bit for bit."""
+    dataset rows 0..B-1 of 2B, the other rows untouched). Then, for the
+    heads of ``BASELINE_GRAPHED``, a graphed chunk against eager steps: a
+    warm-up chunk and a replay, losses, parameters and BatchNorm statistics
+    bit for bit."""
     from concepthash_tpu_torch.data.preprocess import center_crop, normalize
     from concepthash_tpu_torch.methods import training_for
     from concepthash_tpu_torch.train.custom_steps import hashnet_beta
@@ -2944,7 +2983,7 @@ def baseline_steps(sizes: Sizes, device) -> None:
         if name == "hashnet" and not bank_ok:
             fail("hashnet: the bank's rows differ from their batches'")
         del tr, model
-        if name != "hashnet":
+        if name in BASELINE_GRAPHED:
             baseline_graph_vs_eager(sizes, name, trunk, device)
         print(f"baseline {name}: {time.perf_counter() - t_m:.1f} s")
     print(f"phase 17 (b): {time.perf_counter() - t_b:.1f} s")
@@ -3006,12 +3045,12 @@ def run_baselines(sizes: Sizes, device) -> None:
 
 def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
                    flagship: dict, runs) -> None:
-    """Phases 17 (c), 18 (c) and 19 (c): ``main_gpu.py model=<config>`` for
-    each of ``runs`` on phase 15's synthetic set at ``train_chunk`` auto, 2
-    epochs each, counted (kernel 1 at one launch a layer and eval batch, the
-    adsh regime's subset encodes and SSDH's structure encode included; no
-    other kernel): finite records and
-    the graph replays (none where ``single``: HashNet's own step and the
+    """Phases 17 (c) to 20 (c): ``main_gpu.py model=<config>`` for each of
+    ``runs`` on phase 15's synthetic set at ``train_chunk`` auto, 2 epochs
+    each, counted (kernel 1 at one launch a layer and eval batch, the adsh
+    regime's subset encodes, SSDH's structure encode and ODC's k-means
+    encode included; no other kernel): finite records and
+    the graph replays (none where ``single``: a method's own step and the
     adsh regime run one step a dispatch, and the log says so). Then, in
     the sgd regime, ``exp=validation use_last=true`` within 1e-6 of the
     run's last mAP, at ``configs/val.yaml``'s batch size or, where
@@ -3058,7 +3097,8 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
         else:
             eval_batches = 2 * (len(exp.loaders["test"])
                                 + len(exp.loaders["db"]))
-        if exp.method.needs_structure:  # SSDH's train-split encode, once
+        if exp.method.needs_structure or exp.method.regime == "odc":
+            # SSDH's structure and ODC's k-means: the train split's encode
             eval_batches += -(-len(exp.datasets["train"]) // batch)
         want = (n_layers * eval_batches, 0, 0, 0, 0, 0)
         runner = exp.train_multi_step
@@ -4027,6 +4067,584 @@ def run_unsupervised_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
     print(f"phase 19 (c): {time.perf_counter() - t_c:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the pretraining methods, TBH's adversarial step and the odc
+# regime
+# ---------------------------------------------------------------------------
+
+# each method's configs/model/*.yaml
+PRETRAIN_YAML = {"moco": "moco", "dino": "dino", "tbh": "tbh", "odc": "odc",
+                 "mae": "mae", "autoencoder": "autoencoder"}
+# the methods on the CLIP-adapter trunk (the others are the MAE net)
+PRETRAIN_TRUNK = ("moco", "dino", "tbh", "odc")
+# ODC's k-means at CUB-200's size (its memory's rows too): rows, code
+# width and clusters
+ODC_SIZE = (5994, 64, 200)
+
+
+def mae_config(sizes: Sizes, name: str) -> dict:
+    """The config dicts of configs/model/{mae,autoencoder}.yaml with
+    dataset=cub200, in bf16: its encoder ViT-B/16 at 224^2 (``backbone:
+    null``), or ``sizes.vision``'s geometry where given."""
+    import os
+
+    from concepthash_tpu_torch.config.loader import load_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, "configs"), "train",
+                      ["dataset=cub200", f"model={PRETRAIN_YAML[name]}",
+                       "compute_dtype=bfloat16"])
+    if sizes.vision:
+        cfg["backbone"] = {"name": "cut", **sizes.vision}
+    cfg["seed"] = 0
+    return cfg
+
+
+def pretrain_images(sizes: Sizes, side: int, device, n: int, seed: int):
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    raw = torch.randint(0, 256, (n, sizes.image_side, sizes.image_side, 3),
+                        generator=gen, device=device, dtype=torch.uint8)
+    return normalize(center_crop(raw, side), 3)
+
+
+def pretrain_forwards(sizes: Sizes, device) -> None:
+    """Phase 20 (a): moco's, dino's, tbh's and odc's heads on one seeded
+    trunk with adapters, and the MAE net of mae and autoencoder, each
+    encode ``sizes.variant_images`` seeded images in bf16 on the card,
+    counted (kernel 1 once a layer, no other kernel), against the same
+    weights at float32 on the CPU: tbh's and odc's codes agree in sign on
+    >= 99% of bits, moco's and dino's projections (moco's predictions too)
+    and the MAE's features at mean row cosine >= 0.99. Then kernel 1
+    against its plain version at the MAE's shape (B=64, L=196, exact GELU,
+    no adapters), timed."""
+    from concepthash_tpu_torch.methods import build_model
+
+    t_a = time.perf_counter()
+    trunk = seeded_trunk(sizes, device)
+    vcfg = trunk.tower.cfg
+    images = pretrain_images(sizes, vcfg.image_size, device,
+                             sizes.variant_images, 97)
+    cpu_trunk = seeded_trunk(sizes, torch.device("cpu"), like=trunk)
+    with torch.inference_mode():
+        enc_cpu = cpu_trunk(images.float().cpu())
+    del cpu_trunk
+
+    def held_line(label, out, held, launches, expect):
+        finite = all(torch.isfinite(v).all() for v in out.values()
+                     if torch.is_tensor(v))
+        print(f"pretrain {label} encode ({sizes.variant_images} images, "
+              f"bf16 on the card against f32 on the CPU): codes "
+              f"{tuple(out['codes'].shape)}, "
+              + ", ".join(f"{k} {v:.6f}" for k, v in held.items())
+              + f" (at least {MIN_SIGN_AGREEMENT}); kernel launches "
+              f"{launches} (want {expect})")
+        if not finite:
+            fail(f"pretrain {label}: outputs not finite")
+        if any(v < MIN_SIGN_AGREEMENT for v in held.values()):
+            fail(f"pretrain {label}: {held} below {MIN_SIGN_AGREEMENT}")
+        if launches != expect:
+            fail(f"pretrain {label}: launches {launches} != {expect}")
+
+    expect = (vcfg.num_layers, 0, 0, 0, 0, 0)
+    for name in PRETRAIN_TRUNK:
+        cfg, cb, model, _ = baseline_on(sizes, name, trunk, device)
+        torch.cuda.synchronize()
+        count_reset()
+        with torch.inference_mode():
+            out = model(images)
+        torch.cuda.synchronize()
+        launches = counts()
+        cpu, _ = build_model(dict(cfg, compute_dtype="float32"), cb,
+                             device=torch.device("cpu"),
+                             vision=dict(num_layers=0))
+        cpu.load_state_dict({k: v for k, v in model.state_dict().items()
+                             if not k.startswith("backbone.")}, strict=False)
+        cpu.backbone = GivenTrunk(enc_cpu)
+        with torch.inference_mode():
+            want = cpu(images.float().cpu())
+        if name in ("tbh", "odc"):
+            held = {"sign agreement": ((out["codes"].float().cpu() > 0)
+                                       == (want["codes"] > 0)).float()
+                    .mean().item()}
+        else:
+            held = {k + " cosine": row_cosine(out[k], want[k])
+                    for k in ("proj", "pred") if k in out}
+        held_line(name, out, held, launches, expect)
+        del model, cpu, out, want
+    del trunk, enc_cpu
+    torch.cuda.empty_cache()
+
+    # the MAE net: mae and autoencoder build it from one seed, alike
+    models = {}
+    for name in ("mae", "autoencoder"):
+        cfg = mae_config(sizes, name)
+        models[name], _ = build_model(cfg, None, device=device)
+    sd = models["mae"].state_dict()
+    same = all(torch.equal(sd[k], v)
+               for k, v in models["autoencoder"].state_dict().items())
+    mcfg = models["mae"].cfg
+    images = pretrain_images(sizes, mcfg.image_size, device,
+                             sizes.variant_images, 98)
+    cpu, _ = build_model(dict(mae_config(sizes, "mae"),
+                              compute_dtype="float32"), None,
+                         device=torch.device("cpu"))
+    cpu.load_state_dict({k: v.cpu() for k, v in sd.items()})
+    with torch.inference_mode():
+        want = cpu(images.float().cpu())
+    del cpu
+    expect = (mcfg.enc_layers, 0, 0, 0, 0, 0)
+    print(f"MAE net (encoder {mcfg.enc_dim} x {mcfg.enc_layers} layers x "
+          f"{mcfg.enc_heads} heads over {mcfg.num_patches} patches of "
+          f"{mcfg.patch_size}^2, decoder {mcfg.dec_dim} x "
+          f"{mcfg.dec_layers} x {mcfg.dec_heads}): mae's and autoencoder's "
+          f"seeded weights equal: {same}")
+    if not same:
+        fail("mae and autoencoder: one seed gives two MAE nets")
+    for name, model in models.items():
+        torch.cuda.synchronize()
+        count_reset()
+        with torch.inference_mode():
+            out = model(images)
+        torch.cuda.synchronize()
+        held_line(name, out,
+                  {"feature cosine": row_cosine(out["features"],
+                                                want["features"])},
+                  counts(), expect)
+    del models, images, want
+    torch.cuda.empty_cache()
+    check_mae_layer(sizes, mcfg, device)
+    print(f"phase 20 (a): {time.perf_counter() - t_a:.1f} s")
+
+
+def check_mae_layer(sizes: Sizes, mcfg, device) -> dict:
+    """Kernel 1 at the MAE encoder's shape (B = ``sizes.variant_images``,
+    L = the patches, D, F = 4D, exact GELU, no adapters) against its
+    plain version within ``LAYER_ATOL + LAYER_RTOL |ref|``; timed with its
+    plain version and the library composition, beside its bound."""
+    from concepthash_tpu_torch.ops import fused_layer as fl
+
+    gen = torch.Generator().manual_seed(23)
+    B, L, D = sizes.variant_images, mcfg.num_patches, mcfg.enc_dim
+    F_, H = 4 * D, mcfg.enc_heads
+    w, _, _ = random_layer(gen, D, F_, 0, False, device)
+    x = torch.randn(B, L, D, generator=gen).to(device, torch.bfloat16)
+    kw = dict(num_heads=H, eps=1e-5, act="gelu")
+    got = fl.encoder_layer_cuda(x, w, **kw).float()
+    torch.cuda.synchronize()
+    want = fl.layer_reference(x, w, **kw).float()
+    err = (got - want).abs()
+    excess = (err - (LAYER_ATOL + LAYER_RTOL * want.abs())).max().item()
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: fl.encoder_layer_cuda(x, w, **kw), sizes.reps)
+        plain_ms = cuda_ms(lambda: fl.layer_reference(x, w, **kw), 3)
+        lib_w = fl.LayerWeights(*(t.to(torch.bfloat16) for t in w))
+        lib_ms = cuda_ms(lambda: layer_library(x, lib_w, None, None, H,
+                                               1e-5, act="gelu"), sizes.reps)
+    flops, nbytes = layer_flops_bytes(B, L, D, F_, 0, 0, w, ())
+    bound = max(flops / BF16_PEAK, nbytes / HBM_RATE) * 1e3
+    by = "operations" if flops / BF16_PEAK >= nbytes / HBM_RATE else "bytes"
+    print(f"kernel 1 at the MAE encoder's shape against its plain version, "
+          f"B={B} L={L} D={D} F={F_} H={H} gelu, no adapters: max |d| "
+          f"{err.max().item():.6g}, mean |d| {err.mean().item():.3g}, max "
+          f"|ref| {want.abs().max().item():.4g}; kernel {ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP), plain "
+          f"{plain_ms:.4f} ms, library (F.linear + SDPA) {lib_ms:.4f} ms; "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; "
+          f"{card_line() if device.type == 'cuda' else 'the CPU'}")
+    if not torch.isfinite(got).all() or excess > 0:
+        fail(f"layer kernel at the MAE shape outside |d| <= {LAYER_ATOL} + "
+             f"{LAYER_RTOL}|ref|")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound}
+
+
+def pretrain_state(tr):
+    """A record of ``tr``'s whole train state (the model, the optimizer,
+    the schedule, the generator and the method's extras) to restore it."""
+    from concepthash_tpu_torch.train.state import create_train_state
+
+    st = create_train_state(tr.model, tr.optimizer, tr.scheduler,
+                            {"dropout": tr.generator}, extra=tr.extra)
+    return st, copy.deepcopy((tr.model.state_dict(), st.state_dict()))
+
+
+def pretrain_kernels_plain(tr, batch: dict) -> tuple:
+    """One step of ``tr`` with the kernels and one from the same state (the
+    method's extras included) with their plain versions: (loss with the
+    kernels, loss plain, the update's cosine over all trained tensors)."""
+    trained = {n: p for n, p in tr.model.named_parameters()
+               if p.requires_grad}
+    st, snap = pretrain_state(tr)
+    start = {n: p.detach().clone() for n, p in trained.items()}
+
+    def one_step():
+        tr.generator.manual_seed(1)
+        loss = float(tr.step(batch)["loss"])
+        upd = torch.cat([(p.detach() - start[n]).double().flatten()
+                         for n, p in trained.items()])
+        tr.model.load_state_dict(snap[0])
+        st.load_state_dict(copy.deepcopy(snap[1]))
+        return loss, upd
+
+    loss_k, upd_k = one_step()
+    with plain_kernels():
+        loss_p, upd_p = one_step()
+    return loss_k, loss_p, F.cosine_similarity(upd_k, upd_p, dim=0).item()
+
+
+def odc_memory(n: int, nbit: int, k: int, device, seed: int) -> dict:
+    """ODC's memory at ``n`` rows: clustered L2-normalized codes, their
+    seeded labels, the clusters' means and unit weights."""
+    gen = torch.Generator().manual_seed(seed)
+    labels = torch.randint(0, k, (n,), generator=gen)
+    feats = torch.randn(k, nbit, generator=gen)[labels] \
+        + 0.5 * torch.randn(n, nbit, generator=gen)
+    feats = feats / feats.norm(dim=1, keepdim=True)
+    cents = torch.zeros(k, nbit).index_add_(0, labels, feats) / \
+        torch.bincount(labels, minlength=k).clamp_min(1)[:, None]
+    return {"features": feats.to(device), "labels": labels.to(device),
+            "centroids": cents.to(device),
+            "weights": torch.ones(k, device=device)}
+
+
+def pretrain_steps(sizes: Sizes, device) -> None:
+    """Phase 20 (b): five counted eager steps each of moco, dino (two views,
+    2B = 64 image rows), tbh and odc at B=32 at the kernel settings on one
+    seeded batch (kernels 5 and 6: 2 and 4 trunk forwards a step for the
+    teacher methods, 1 for tbh and odc), and of mae and autoencoder at the
+    config's B=64 (no kernel in their train forward); the loss finite; the
+    frozen backbone bit-unchanged; for the trunk's four a kernel step
+    against a plain step under ``UNSUP_SGD`` (loss within
+    ``TRAIN_LOSS_RTOL``, the update's cosine over all trained tensors >=
+    ``MIN_UPDATE_COSINE``; adam turns rounding-sized gradients into
+    full-size updates, 0.971-0.992 on the H100). Held besides: moco's teacher
+    at the schedule's momentum after each step (dino's at its constant
+    one) and dino's center moving; tbh's discriminator moving with its own
+    Adam's step count; odc's memory rows outside the batch bit-unchanged
+    and the refresh on the steps whose count is a multiple of the
+    interval. Then the port's k-means at CUB-200's size on the card
+    against the CPU's run of the same code."""
+    from concepthash_tpu_torch.methods import (build_model, get_method,
+                                               training_for)
+    from concepthash_tpu_torch.train.pretrain_steps import cosine_momentum
+
+    t_b = time.perf_counter()
+    trunk = seeded_trunk(sizes, device, TRAIN_VISION)
+    vcfg = trunk.tower.cfg
+    n_lay = vcfg.num_layers
+    B, steps = sizes.train_batch, sizes.train_steps
+    views, labels = unsup_images(sizes, vcfg, device, 91)
+    frozen = {k: v.clone() for k, v in trunk.state_dict().items()
+              if "adapter" not in k}
+    n_odc, k_odc = ODC_SIZE[0], sizes.head["nclass"]
+    for name in (*PRETRAIN_TRUNK, "mae", "autoencoder"):
+        t_m = time.perf_counter()
+        on_trunk = name in PRETRAIN_TRUNK
+        if on_trunk:
+            cfg, cb, model, loss_fn = baseline_on(
+                sizes, name, copy.deepcopy(trunk), device, TRAIN_VISION)
+            cfg["_train_size_"] = n_odc
+            two = get_method(name).two_view
+            b = {"image": torch.cat(views) if two else views[0],
+                 "label": labels}
+            forwards = 4 if two else 1
+            expect = (0, 0, 0, 2 * n_lay * forwards, n_lay * forwards, 0)
+        else:
+            cfg = mae_config(sizes, name)
+            model, loss_fn = build_model(cfg, None, device=device)
+            mb = int(cfg["batch_size"])
+            b = {"image": pretrain_images(sizes, model.cfg.image_size,
+                                          device, mb, 92),
+                 "label": labels[:1].expand(mb, -1)}
+            expect = (0, 0, 0, 0, 0, 0)
+        if name == "odc":
+            gen = torch.Generator().manual_seed(3)
+            b["index"] = torch.randperm(n_odc, generator=gen)[:B].to(device)
+        memory = (odc_memory(n_odc, sizes.head["nbit"], k_odc, device, 5)
+                  if name == "odc" else None)
+
+        def fresh(optim=None):
+            t = training_for(dict(cfg, optim=optim or cfg["optim"]), model,
+                             loss_fn, sizes.steps_per_epoch)
+            for key, v in (memory or {}).items():
+                t.extra[key].copy_(v)
+            return t
+
+        if on_trunk:
+            loss_k, loss_p, whole = pretrain_kernels_plain(fresh(UNSUP_SGD),
+                                                           b)
+            print(f"pretrain {name} train step under sgd, kernels vs plain: "
+                  f"loss {loss_k:.6f} vs {loss_p:.6f}; update cosine over "
+                  f"all trained tensors {whole:.6f}")
+            if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+                    whole < MIN_UPDATE_COSINE:
+                fail(f"pretrain {name}: the kernels' step differs from its "
+                     "plain version's")
+        tr = fresh()
+        ex = tr.extra
+        disc0 = ({k: v.clone() for k, v in ex["disc"].state_dict().items()}
+                 if "disc" in ex else None)
+        torch.cuda.synchronize()
+        count_reset()
+        losses, per_step, notes = [], [], []
+        total = int(cfg["epochs"]) * sizes.steps_per_epoch
+        for i in range(steps):
+            if i == 1:
+                t0 = time.perf_counter()
+            before = counts()
+            if "teacher" in ex:
+                t_before = [p.detach().clone()
+                            for p in ex["teacher"].parameters()]
+            if name == "odc":
+                mem_before = ex["features"].clone()
+                cents_before = ex["centroids"].clone()
+            m = tr.step(b)
+            losses.append(float(m["loss"]))
+            per_step.append(tuple(a - c for a, c in zip(counts(), before)))
+            if "teacher" in ex:
+                mom = (cosine_momentum(i, total,
+                                       float(cfg["criterion"]["momentum"]))
+                       if name == "moco"
+                       else float(cfg["criterion"]["momentum"]))
+                with torch.no_grad():
+                    d = max((t * mom + s * (1.0 - mom) - p).abs().max().item()
+                            for t, s, p in zip(t_before,
+                                               tr.model.parameters(),
+                                               ex["teacher"].parameters()))
+                notes.append(d)
+            if name == "odc":
+                rest = torch.ones(n_odc, dtype=torch.bool, device=device)
+                rest[b["index"]] = False
+                kept = torch.equal(ex["features"][rest], mem_before[rest])
+                refreshed = not torch.equal(ex["centroids"], cents_before)
+                interval = int(cfg["criterion"].get(
+                    "update_interval", cfg["criterion"].get(
+                        "cluster_interval", 10)))
+                notes.append((kept, refreshed, i % interval == 0))
+        step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+        extra = ""
+        if "teacher" in ex:
+            extra = (f"; the teacher equals teacher * m + student * (1 - m) "
+                     f"at each step's momentum within "
+                     f"{max(notes):.3g}")
+            if max(notes) > 1e-6:
+                fail(f"pretrain {name}: the teacher did not move by the "
+                     "momentum")
+        if name == "dino":
+            moved = ex["center"].abs().max().item()
+            extra += f"; center max |c| {moved:.4g}"
+            if not moved > 0:
+                fail("dino: the center did not move")
+        if name == "tbh":
+            moved = max((v - disc0[k]).abs().max().item()
+                        for k, v in ex["disc"].state_dict().items())
+            d_steps = {int(s["step"]) for s in
+                       ex["disc_opt"].state_dict()["state"].values()}
+            extra += (f"; the discriminator moved max |d| {moved:.4g} from "
+                      f"its seeded init, its Adam at step {d_steps}")
+            if not moved > 0 or d_steps != {steps}:
+                fail("tbh: the discriminator did not take its own steps")
+        if name == "odc":
+            kept = all(k for k, _, _ in notes)
+            fired = [r for _, r, _ in notes]
+            due = [d for _, _, d in notes]
+            extra += (f"; memory rows outside the batch bit-unchanged: "
+                      f"{kept}; refresh fired {fired}, due {due}")
+            if not kept or fired != due:
+                fail("odc: the memory or the refresh is wrong")
+        if on_trunk:
+            sd = tr.model.backbone.state_dict()
+            moved_frozen = [k for k, v in frozen.items()
+                            if not torch.equal(sd[k], v)]
+        else:
+            moved_frozen = []
+        print(f"pretrain {name} train steps (B={b['image'].shape[0]} image "
+              f"rows): loss " + ", ".join(f"{x:.5f}" for x in losses)
+              + f"; kernel launches a step {per_step[0]} (want {expect}), "
+              f"alike every step: {len(set(per_step)) == 1}; frozen "
+              f"backbone unchanged: {not moved_frozen}{extra}; "
+              f"{step_ms:.1f} ms a step after the first (host clock, "
+              "eager)")
+        if any(p != expect for p in per_step):
+            fail(f"pretrain {name}: launches per step {per_step}")
+        if moved_frozen or not all(math.isfinite(x) for x in losses):
+            fail(f"pretrain {name}: frozen parameters moved or the loss is "
+                 "not finite")
+        del tr, model
+        print(f"pretrain {name}: {time.perf_counter() - t_m:.1f} s")
+    del trunk
+    torch.cuda.empty_cache()
+    check_kmeans(device)
+    print(f"phase 20 (b): {time.perf_counter() - t_b:.1f} s")
+
+
+
+def check_kmeans(device) -> None:
+    """The port's k-means (k-means++ and Lloyd's, the best of 3) at
+    ``ODC_SIZE`` (CUB-200's train rows, 64-wide codes, 200 clusters) on
+    seeded clustered unit rows, on the card against the CPU's run of the
+    same code, which draws its seeds on the host: labels equal on >= 99%
+    of rows, both timed."""
+    from concepthash_tpu_torch.train.kmeans import kmeans
+
+    n, nbit, k = ODC_SIZE
+    x = odc_memory(n, nbit, k, torch.device("cpu"), 7)["features"]
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels, cents, inertia = kmeans(x.to(dev), k, seed=0)
+        torch.cuda.synchronize()
+        runs[dev.type] = (labels.cpu(), inertia, time.perf_counter() - t0)
+    (lc, ic, sc), (lh, ih, sh) = runs[device.type], runs["cpu"]
+    agree = (lc == lh).float().mean().item()
+    print(f"k-means ({n} x {nbit} unit rows, {k} clusters, 3 inits, "
+          f"float64) on {device.type}: {sc:.3f} s, inertia {ic:.6f}; on the "
+          f"CPU {sh:.3f} s, inertia {ih:.6f}; equal labels on {agree:.6f} "
+          f"of rows (limit {MIN_SIGN_AGREEMENT}); "
+          f"{card_line() if device.type == 'cuda' else 'the CPU'}")
+    if agree < MIN_SIGN_AGREEMENT or len(lc.unique()) != k:
+        fail("k-means: the card's labels differ from the CPU's")
+
+
+def run_pretrain(sizes: Sizes, device) -> None:
+    """Phase 20 (a) and (b)."""
+    t0 = time.perf_counter()
+    pretrain_forwards(sizes, device)
+    pretrain_steps(sizes, device)
+    print(f"phase 20 (a), (b): {time.perf_counter() - t0:.1f} s")
+
+
+def run_pretrain_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
+                      flagship: dict) -> None:
+    """Phase 20 (c): ``main_gpu.py model=moco`` and ``model=mae`` (exp
+    general: kernel 1 once a layer in every test batch of both evaluations,
+    no other kernel; two finite train records and two test records with
+    their ``test_loss``) and a moco run resumed after epoch 1 equal to the
+    uninterrupted one bit for bit (the parameters and the teacher); then
+    ``model=tbh`` and ``model=odc`` through ``run_model_runs`` (odc's
+    k-means encode of the train split counted, its NMI lines and test
+    records checked). Epoch-2 train and eval img/s beside phase 15's
+    flagship."""
+    import os
+
+    import main_gpu
+
+    t_c = time.perf_counter()
+    rows = [("flagship (phase 15)", flagship["train_img_s"],
+             flagship["eval_img_s"])]
+    for model in ("moco", "mae"):
+        run = os.path.join(tmp, model)
+        exp = main_gpu.build_experiment(argv(run, f"model={model}"))
+        torch.cuda.synchronize()
+        count_reset()
+        t0 = time.perf_counter()
+        exp.main()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()
+        with open(os.path.join(run, "train_history.json")) as f:
+            train = json.load(f)
+        with open(os.path.join(run, "test_history.json")) as f:
+            test = json.load(f)
+        n_layers = (exp.model.cfg.enc_layers if model == "mae"
+                    else exp.model.vision_cfg.num_layers)
+        want = (n_layers * 2 * len(exp.loaders["test"]), 0, 0, 0, 0, 0)
+        steps, batch = exp.steps_per_epoch, int(exp.config["batch_size"])
+        rows_a_step = batch * (2 if exp.method.two_view else 1)
+        print(f"{model} run (exp {exp.config['exp']}, train_chunk "
+              f"{exp.train_chunk}, {steps} steps of {batch} images, "
+              f"{rows_a_step} image rows a step): train records "
+              + "; ".join(f"ep {r['ep']} loss {r['loss']:.5f} "
+                          f"{r['time']:.2f} s" for r in train)
+              + "; test_loss " + ", ".join(f"{r['test_loss']:.4g}"
+                                          for r in test)
+              + f"; graph replays "
+              f"{getattr(exp.train_multi_step, 'replays', 0)} train; "
+              f"launches {launches} against {want}; the run {run_s:.1f} s")
+        if len(train) != 2 or len(test) != 2 or not all(
+                math.isfinite(r["loss"]) for r in train) or any(
+                "test_loss" not in r for r in test):
+            fail(f"{model}: not two finite train records and two test "
+                 "records with test_loss")
+        if launches != want:
+            fail(f"{model}: kernel 1 not launched once a layer and test "
+                 "batch, or another kernel launched")
+        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
+        eval_s = host_s(lambda: (exp.encode_split("test"),
+                                 exp.encode_split("db")), 1)
+        rows.append((model, steps * batch / train[1]["time"],
+                     n_eval / eval_s))
+        for loader in exp.loaders.values():
+            loader.close()
+        del exp
+        if model == "moco":
+            pretrain_resume(tmp, run, train, argv)
+    print("phase 20 (c): moco's train img/s counts images; each takes two "
+          "views through the student and the teacher")
+
+    def nmi(exp):
+        with open(os.path.join(exp.logdir, "test_history.json")) as f:
+            test = json.load(f)
+        with open(os.path.join(exp.logdir, "log.txt")) as f:
+            log = f.read()
+        vals = [(r["test_nmi"], r["db_nmi"]) for r in test]
+        print(f"odc: the k-means logged: {'initial k-means' in log}; NMI "
+              f"(test, db) by evaluation {vals}")
+        if "initial k-means" not in log or "test NMI" not in log or \
+                not all(0.0 <= v <= 1.0 for pair in vals for v in pair):
+            fail("odc: no k-means or NMI in the run")
+
+    run_model_runs("phase 20 (c), tbh and odc", device, tmp, argv,
+                   eval_argv, flagship, (
+                       ("tbh", {"single": True}),
+                       ("odc", {"single": True, "check": nmi})))
+    print("phase 20 (c) img/s, epoch-2 train and eval encode, train_chunk "
+          "auto: " + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}"
+                               for n, t, e in rows)
+          + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
+    print(f"phase 20 (c): {time.perf_counter() - t_c:.1f} s")
+
+
+def pretrain_resume(tmp: str, run: str, train: list, argv) -> None:
+    """A moco run stopped after epoch 1 and resumed reaches the
+    uninterrupted run's epoch-2 loss, parameters and teacher bit for
+    bit."""
+    import os
+
+    import main_gpu
+
+    first_dir, res_dir = run + "_first", run + "_resumed"
+    first = main_gpu.build_experiment(argv(first_dir, "model=moco"))
+    first.epochs = 1
+    first.main()
+    resumed = main_gpu.build_experiment(argv(res_dir, "model=moco",
+                                             f"resume_logdir={first_dir}"))
+    resumed.main()
+    with open(os.path.join(res_dir, "train_history.json")) as f:
+        res_train = json.load(f)
+    d = {}
+    for kind, key in (("models", "model"), ("optims", "extra")):
+        a, b = (torch.load(os.path.join(r, kind, "last.pt"))[key]
+                for r in (run, res_dir))
+        if kind == "optims":
+            a, b = a["teacher"], b["teacher"]
+        d[kind] = max((a[k].float() - b[k].float()).abs().max().item()
+                      for k in a)
+    same = res_train[-1]["loss"] == train[-1]["loss"] and \
+        d["models"] == 0 and d["optims"] == 0
+    print(f"moco resumed after epoch 1: epoch-2 train loss "
+          f"{res_train[-1]['loss']:.6f} against the uninterrupted "
+          f"{train[-1]['loss']:.6f}, last parameters max |d| "
+          f"{d['models']:.3g}, teacher max |d| {d['optims']:.3g}: bit for "
+          f"bit {same} (required); records {len(res_train)}")
+    if len(res_train) != 2 or not same:
+        fail("moco: the resumed run does not reach the uninterrupted one "
+             "bit for bit")
+
+
 def _flatten(x):
     if isinstance(x, (list, tuple)):
         return [y for item in x for y in _flatten(item)]
@@ -4258,6 +4876,7 @@ def run(sizes: Sizes, device) -> dict:
     run_baselines(sizes, device)
     run_finegrained(sizes, device)
     run_unsupervised(sizes, device)
+    run_pretrain(sizes, device)
     run_graphs(sizes, device, flagship)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",

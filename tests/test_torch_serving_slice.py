@@ -133,7 +133,7 @@ def test_retrieval_on_slice_codes_matches_jax(models):
 
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter that imports every port module has loaded no
-    jax, flax, transformers or concepthash_tpu module."""
+    jax, flax, transformers, sklearn or concepthash_tpu module."""
     mods = [f"concepthash_tpu_torch.{m}" for m in (
         "_build", "weights", "data.preprocess", "ops.numerics",
         "ops.fused_layer", "ops.hamming", "ops.topk_select", "ops.retrieval",
@@ -147,11 +147,12 @@ def test_port_imports_nothing_of_jax():
         "models.clip_loader", "models.tokenizer", "models.trunk",
         "models.baselines", "losses.baselines", "train.custom_steps",
         "models.finegrained", "native", "losses.unsupervised",
-        "losses.shallow")] + ["main_gpu"]
+        "losses.shallow", "models.pretrain", "models.mae", "models.tbh",
+        "train.pretrain_steps", "train.kmeans")] + ["main_gpu"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'transformers', 'safetensors', "
-            "'concepthash_tpu'))\nprint(bad)\n")
+            "'sklearn', 'concepthash_tpu'))\nprint(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]", out.stdout
@@ -264,7 +265,9 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     checkpoint) passes its checks, phase 17 (the supervised baselines'
     encodes, train steps, graphed chunks and runs), phase 18 and phase 19
     (the unsupervised methods' encodes, steps, two-view and ``aux``
-    chunks and runs, and the shallow regime) pass their checks, and
+    chunks and runs, and the shallow regime) and phase 20 (the
+    pretraining methods', TBH's and ODC's encodes, steps and runs, kernel
+    1 at the MAE's shape, k-means) pass their checks, and
     the kernels' JSON line has every key the card run prints, for all six
     TPU kernels."""
     import importlib.util
@@ -413,10 +416,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert "codes equal bit for bit: True, losses: True" in out
     assert ("chunked flagship run (train_chunk 2): 12 train images, 3 steps "
             "of 4 an epoch (1 chunks of 2 and 1 single steps)") in out
-    assert out.count("(|d| 0, tolerance 1e-06)") == 3
-    assert out.count("best test codes (3, 16) bit for bit: True") == 3
+    assert out.count("(|d| 0, tolerance 1e-06)") == 2       # flagship, FILIP
+    assert out.count("best test codes (3, 16) bit for bit: True") == 2
     assert out.count("(rel 0), last parameters max |d| 0: bit for bit True "
-                     "(required); records 2") == 3
+                     "(required); records 2") == 1      # the flagship's
     assert "at train_chunk 1 on the same 3 steps" in out
     assert ("vision tower equal to the written one bit for bit: True; 6 "
             "images encode to the source model's codes bit for bit: True; "
@@ -424,12 +427,14 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
             "max |d| against the CPU's 0") in out
     # phase 16: each option's encode (kernel 1 once a layer, none with
     # q/k/v/out adapters), train steps, remat, and the two models' runs
+    # (the eval-only modes on FILIP's)
     assert out.count(f"expected ({n}, 0, 0, 0, 0, 0)") == 6
     assert "variant qkvo: 6 images" in out
     assert "launches (0, 0, 0, 0, 0, 0), expected (0, 0, 0, 0, 0, 0)" in out
     assert out.count(", all steps alike: True") == 4
-    # phase 17: every baseline's encode, train steps and graphed chunks
-    # (hashnet: one step a dispatch, its bank), and three main_gpu runs
+    # phase 17: every baseline's encode and train steps (hashnet: one step
+    # a dispatch, its bank), graphed chunks of four heads (orthohash, csq,
+    # greedyhash, clip), and three main_gpu runs
     # (phase 18 (a) and (b) print 4 encodes, 3 step runs and 2 graphed
     # chunks, (c) 2 validations, and phase 19 (a) and (b) 6 encodes, 5
     # step runs and 2 graphed chunks, (c) 2 validations, in the same words)
@@ -442,11 +447,12 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert "adapters unchanged: True; " in out
     assert ("the bank's rows equal each batch's detached tanh(beta * "
             "codes) and labels: True") in out
-    assert out.count("bit for bit True (required); replays") == 10 + 2 + 2
+    assert out.count("bit for bit True (required); replays") == 4 + 2 + 2
     for model in ("orthohash_adapter", "hashnet_adapter", "clip_finetune"):
         assert f"{model} run (train_chunk 2)" in out
         assert (f"{model} exp=validation use_last=true" in out)
-    assert out.count("|d| 0 (tolerance 1e-06)") == 3 + 2 + 2
+    # phases 17 (c), 18 (c), 19 (c) and 20 (c)'s tbh and odc runs
+    assert out.count("|d| 0 (tolerance 1e-06)") == 3 + 2 + 2 + 2
     # phase 18: the fine-grained heads, the adsh regime, DCC, ae_fit, and
     # the loader (this machine has the headers: the native route)
     for name in ("a2net_ce", "semicon_ce", "semicon", "adsh"):
@@ -460,8 +466,9 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     for model in ("a2net_ce_adapter", "semicon_ce_adapter"):
         assert f"{model} run (train_chunk 2)" in out
         assert f"{model} exp=validation use_last=true" in out
-    # semicon: 9 steps an epoch; 2 layers x (2 x 3 subset + 1 test) batches
-    assert ("semicon run (train_chunk 2): 9 steps of 4 an epoch") in out
+    # semicon at max_iters 1: 3 steps an epoch; 2 layers x (2 x 3 subset + 1
+    # test) batches
+    assert ("semicon run (train_chunk 2): 3 steps of 4 an epoch") in out
     assert ("graph replays 0 train (expected 0); launches (14, 0, 0, 0, 0, "
             "0) against (14, 0, 0, 0, 0, 0)") in out
     assert "semicon: outputs/db_codes.pt (12, 16), values [-1.0, 1.0]" in out
@@ -519,6 +526,52 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert ("launches (14, 0, 0, 0, 0, 0) against (14, 0, 0, 0, 0, 0); "
             "test records 1 at ep 0") in out
     assert "exp=validation raises ValueError: True" in out
+    # phase 20: the pretraining heads' and the MAE's encodes (kernel 1 once
+    # a layer), kernel 1 at the MAE's shape, the steps (moco and dino: 4
+    # trunk forwards a step over two views of 4), the teacher, center,
+    # discriminator and memory checks, k-means, and the CLI runs
+    for name in ("moco", "dino", "tbh", "odc", "mae", "autoencoder"):
+        assert (f"pretrain {name} encode (6 images, bf16 on the card "
+                "against f32 on the CPU)") in out
+        assert f"pretrain {name} train steps (B=" in out
+    assert out.count(f"kernel launches ({n}, 0, 0, 0, 0, 0) (want ({n}, 0, "
+                     "0, 0, 0, 0))\n") == 6
+    assert "mae's and autoencoder's seeded weights equal: True" in out
+    assert ("kernel 1 at the MAE encoder's shape against its plain version, "
+            "B=6 L=16 D=64 F=256 H=4 gelu, no adapters: max |d| 0") in out
+    for name in ("moco", "dino", "tbh", "odc"):
+        assert f"pretrain {name} train step under sgd, kernels vs plain" in out
+    for name in ("moco", "dino"):
+        assert (f"pretrain {name} train steps (B=8 image rows): loss") in out
+    assert out.count(f"kernel launches a step (0, 0, 0, {8 * n}, {4 * n}, 0) "
+                     f"(want (0, 0, 0, {8 * n}, {4 * n}, 0)), alike every "
+                     "step: True; frozen backbone unchanged: True") == 2
+    assert out.count("the teacher equals teacher * m + student * (1 - m) at "
+                     "each step's momentum within 0;") == 2
+    assert out.count(f"kernel launches a step (0, 0, 0, {2 * n}, {n}, 0) "
+                     f"(want (0, 0, 0, {2 * n}, {n}, 0)), alike every step: "
+                     "True; frozen backbone unchanged: True") == 2
+    assert "its Adam at step {5}" in out
+    assert ("memory rows outside the batch bit-unchanged: True; refresh "
+            "fired [True, False, False, False, False], due [True, False, "
+            "False, False, False]") in out
+    assert out.count("kernel launches a step (0, 0, 0, 0, 0, 0) (want (0, "
+                     "0, 0, 0, 0, 0)), alike every step: True") == 2
+    assert ("k-means (5994 x 64 unit rows, 200 clusters, 3 inits, float64) "
+            "on cpu") in out
+    assert "equal labels on 1.000000 of rows" in out
+    for model in ("moco", "mae"):
+        assert f"{model} run (exp general, train_chunk 2, 3 steps of 4" in out
+    assert ("moco resumed after epoch 1: epoch-2 train loss") in out
+    assert ("teacher max |d| 0: bit for bit True (required); records 2") in out
+    for model in ("tbh", "odc"):
+        assert f"{model} run (train_chunk 2): 3 steps of 4 an epoch" in out
+        assert f"{model} exp=validation use_last=true" in out
+    # odc: 2 layers x (2 x (1 test + 3 database) + 3 k-means) batches
+    assert ("graph replays 0 train (expected 0); launches (22, 0, 0, 0, 0, "
+            "0) against (22, 0, 0, 0, 0, 0)") in out
+    assert "odc: the k-means logged: True; NMI (test, db)" in out
+    assert "phase 20 (c) img/s, epoch-2 train and eval encode" in out
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
