@@ -418,6 +418,18 @@ def host_s(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps
 
 
+def run_eval_s(exp) -> float:
+    """Wall seconds of one test and database encode of a finished run's
+    experiment, ending in a device synchronize (the run's own evaluations
+    have warmed its eval steps and graphs)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp.encode_split("test")
+    exp.encode_split("db")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def host_us(fn, reps: int) -> float:
     """Mean host microseconds to issue one call of ``fn`` (wrapper checks,
     tensor-map encoding, launches): each call timed alone on an idle device,
@@ -2320,8 +2332,7 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
                                    rows=8, warm=False)
         img_s = steps * batch / epoch_s
         n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = host_s(lambda: (exp.encode_split("test"),
-                                 exp.encode_split("db")), 1)
+        eval_s = run_eval_s(exp)
         chunked = {"train_img_s": img_s, "eval_img_s": n_eval / eval_s,
                    "busy": busy_share(kernels, epoch_s), "batch": batch,
                    "resize": int(exp.config["dataset"]["resize"])}
@@ -2662,8 +2673,7 @@ def run_variant_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
                 fail(f"{model}: the token embeddings did not come from the "
                      f"local text stage, or differ from the CPU's by {err}")
         n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = host_s(lambda: (exp.encode_split("test"),
-                                 exp.encode_split("db")), 1)
+        eval_s = run_eval_s(exp)
         rows.append((model, steps * batch / train[1]["time"],
                      n_eval / eval_s))
         for loader in exp.loaders.values():
@@ -3129,8 +3139,7 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
         if "check" in opt:
             opt["check"](exp)
         n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = host_s(lambda: (exp.encode_split("test"),
-                                 exp.encode_split("db")), 1)
+        eval_s = run_eval_s(exp)
         if adsh:
             V = torch.load(os.path.join(run, "outputs", "db_codes.pt"))["V"]
             shape = (len(exp.datasets["train"]),
@@ -4573,8 +4582,7 @@ def run_pretrain_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
             fail(f"{model}: kernel 1 not launched once a layer and test "
                  "batch, or another kernel launched")
         n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = host_s(lambda: (exp.encode_split("test"),
-                                 exp.encode_split("db")), 1)
+        eval_s = run_eval_s(exp)
         rows.append((model, steps * batch / train[1]["time"],
                      n_eval / eval_s))
         for loader in exp.loaders.values():
