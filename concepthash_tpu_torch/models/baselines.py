@@ -42,7 +42,8 @@ from concepthash_tpu_torch.models.clip import (AdapterConfig,
                                                ClipVisionConfig,
                                                check_kernel_dtype)
 from concepthash_tpu_torch.models.layers import (CodeBatchNorm, CosSim,
-                                                 dense, linear, sign_ste)
+                                                 dense, empty_linear, linear,
+                                                 sign_ste)
 from concepthash_tpu_torch.models.trunk import model_trunk
 from concepthash_tpu_torch.ops.numerics import l2_normalize
 
@@ -66,7 +67,7 @@ class BaselineConfig:
 def _torch_default_linear(fan_in: int, fan_out: int, generator) -> nn.Linear:
     """nn.Linear with torch's default init drawn from ``generator``:
     U(+-1/sqrt(fan_in)) for the weight and the bias."""
-    lin = nn.Linear(fan_in, fan_out)
+    lin = empty_linear(fan_in, fan_out)
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         for t in (lin.weight, lin.bias):

@@ -42,8 +42,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from concepthash_tpu_torch import resolve_device
-from concepthash_tpu_torch.models.layers import (dense, layer_norm, linear,
-                                                 normal_)
+from concepthash_tpu_torch.models.layers import (dense, empty_linear,
+                                                 layer_norm, linear, normal_)
 from concepthash_tpu_torch.ops.attention import attention
 from concepthash_tpu_torch.ops.fused_layer import (AdapterWeights,
                                                    LayerWeights, activation,
@@ -201,7 +201,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.dtype = dtype
         self.attention_impl = attention_impl
-        self.qkv_proj = nn.Linear(dim, 3 * dim)
+        self.qkv_proj = empty_linear(dim, 3 * dim)
         with torch.no_grad():
             normal_(self.qkv_proj.weight, 1.0 / math.sqrt(dim), generator)
             self.qkv_proj.bias.zero_()

@@ -21,15 +21,31 @@ from concepthash_tpu_torch.ops.numerics import l2_normalize
 
 
 def normal_(t: torch.Tensor, std: float, generator=None) -> torch.Tensor:
+    """``t`` set to ``torch.randn(t.shape, generator=generator) * std``; in
+    place where ``t`` is a contiguous float32 CPU tensor (the same draws:
+    ``randn`` is ``normal_(0, 1)`` of a fresh tensor)."""
     with torch.no_grad():
+        if (t.device.type == "cpu" and t.dtype == torch.float32
+                and t.is_contiguous() and (generator is None
+                                           or generator.device.type == "cpu")):
+            return t.normal_(0.0, 1.0, generator=generator).mul_(std)
         return t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+def empty_linear(in_features: int, out_features: int,
+                 bias: bool = True) -> nn.Linear:
+    """nn.Linear on the CPU with its values left unset, for callers that set
+    every one: torch's default init would draw them from the global
+    generator only to be overwritten."""
+    return nn.Linear(in_features, out_features, bias=bias,
+                     device="meta").to_empty(device="cpu")
 
 
 def linear(in_features: int, out_features: int, bias: bool = True,
            generator=None, zero: bool = False) -> nn.Linear:
     """nn.Linear with flax Dense's initial scale: lecun-normal weights
     (std 1/sqrt(fan_in)), zero bias; ``zero`` zero-inits the weights."""
-    lin = nn.Linear(in_features, out_features, bias=bias)
+    lin = empty_linear(in_features, out_features, bias=bias)
     with torch.no_grad():
         if zero:
             lin.weight.zero_()

@@ -1,5 +1,6 @@
 """Pieces of the port's train slice on their own, against the JAX package
-where it has a counterpart: the flax-style dropout (rate, mask shape and
+where it has a counterpart: the seeded init (its draws and nothing of the
+global generator), the flax-style dropout (rate, mask shape and
 broadcast, a fixed generator repeats), the train-mode code BatchNorm against
 flax's ``nn.BatchNorm`` (output and running statistics), the accuracies,
 ``from_flax`` on the discrete path's parameter tree, and the config-dict
@@ -27,7 +28,8 @@ from concepthash_tpu_torch.models import backbone_factory as tfactory
 from concepthash_tpu_torch.models.clip import AdapterConfig, ClipVisionConfig
 from concepthash_tpu_torch.models.concepthash import (ConceptHash,
                                                       ConceptHashConfig)
-from concepthash_tpu_torch.models.layers import CodeBatchNorm, dropout
+from concepthash_tpu_torch.models.layers import (CodeBatchNorm, dropout,
+                                                 linear, normal_)
 from concepthash_tpu_torch.train.state import accuracy_metrics
 from concepthash_tpu_torch.weights import from_flax
 
@@ -54,6 +56,25 @@ def test_dropout_rate_shape_and_broadcast():
     assert not dropout(x, 1.0, torch.Generator()).any()
     with pytest.raises(ValueError):
         dropout(x, 0.1, None)
+
+
+def test_seeded_init_draws_only_from_its_generator():
+    """``linear`` and ``normal_`` set ``torch.randn(shape, generator) * std``
+    bit for bit, in place or (a non-contiguous or bfloat16 tensor) through a
+    copy; a whole model's build leaves the global generator untouched."""
+    lin = linear(40, 24, generator=torch.Generator().manual_seed(5))
+    want = torch.randn((24, 40), generator=torch.Generator().manual_seed(5))
+    assert torch.equal(lin.weight, want * (1.0 / 40 ** 0.5))
+    assert torch.equal(lin.bias, torch.zeros(24))
+    for t in (torch.empty(7, 5).t(), torch.empty(5, 7, dtype=torch.bfloat16)):
+        normal_(t, 0.02, torch.Generator().manual_seed(6))
+        want = torch.randn(t.shape, generator=torch.Generator().manual_seed(6))
+        assert torch.equal(t, (want * 0.02).to(t.dtype))
+    before = torch.get_rng_state()
+    ConceptHash(ClipVisionConfig(**VISION), ConceptHashConfig(**HEAD),
+                AdapterConfig(bottleneck_dim=16), device="cpu",
+                generator=torch.Generator().manual_seed(0))
+    assert torch.equal(torch.get_rng_state(), before)
 
 
 def test_dropout_fixed_generator_repeats():
