@@ -126,9 +126,9 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    printed beside it; (b) the multi eval step's codes at B=32 equal the
    eager eval step's bit for bit, kernel 1 at 96 launches a replay; (c) the
    flagship run at ``train_chunk=auto`` (8) with ``save_training_state``
-   on 200 classes x 4 train images (25 steps an epoch: 3 chunks of 8 and a
-   single step), counted: kernel 1 at 12 launches an eval batch, replays
-   included; ``exp=validation use_last=true`` reproduces the run's last
+   on phase 14's set (200 classes x 2 train images: 12 steps an epoch, a
+   chunk of 8 and 4 single steps), counted: kernel 1 at 12 launches an
+   eval batch, replays included; ``exp=validation use_last=true`` reproduces the run's last
    mAP within 1e-6, ``exp=extract`` writes the run's best test codes bit
    for bit, a run stopped after epoch 1 and resumed reaches the epoch-2
    train loss and the last parameters bit for bit; a ``train_chunk=1`` run
@@ -154,7 +154,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    per step (kernels 5 and 6 at 12 and 24, q/k/v/out adapters 12 and 0,
    remat twice that: the checkpointed forward runs again in the backward),
    the loss finite and falling; a remat step against a stored-activation
-   step, and graphed chunks (K=8) of SA + DBN, FILIP and lars against eager
+   step, and graphed chunks (K=4) of SA + DBN, FILIP and lars against eager
    steps, bit for bit; (c) after phase 15, on its synthetic set:
    ``main_gpu.py model=concepthash_sa`` and ``model=concepthash_filip``
    (FILIP's class-text token embeddings from phase 15 (d)'s local
@@ -179,7 +179,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    unchanged at weight decay 0), the frozen backbone bit-unchanged,
    hashnet's ``keep_train_size`` bank equal to its batch's detached
    tanh(beta * codes), and for every method but hashnet a graphed chunk
-   (a warm-up and a replay of 8) against eager steps bit for bit; (c)
+   (a warm-up and a replay of 4) against eager steps bit for bit; (c)
    after phase 16 (c), on phase 15's synthetic set: ``main_gpu.py
    model=orthohash_adapter``, ``model=hashnet_adapter`` (one step a
    dispatch) and ``model=clip_finetune`` (vision tower and class-text
@@ -209,9 +209,9 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    at ``train_chunk`` auto with ``exp=validation`` (semicon_ce at the
    run's batch size: its mask is batch-global) within 1e-6 of the last
    mAP, and ``model=semicon`` (the adsh regime, one step a dispatch):
-   finite losses, a +-1 (800, 64) ``outputs/db_codes.pt``, a mAP
+   finite losses, a +-1 (400, 64) ``outputs/db_codes.pt``, a mAP
    in [0, 1], counted (kernel 1 in every eval batch), img/s beside the
-   chunked flagship's; (d) the loader alone on phase 15's 800 train PNGs,
+   chunked flagship's; (d) the loader alone on phase 15's 400 train PNGs,
    PIL against ``native_decode`` (the native route required where the
    library builds; where it cannot, every image to PIL with the WARNING),
    then the chunked flagship again with ``cache_images=true`` (epoch
@@ -237,7 +237,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    losses take straight-through signs that one rounding moves: the
    backward of one loss gradient through both, at the same limits);
    graphed chunks
-   (a warm-up and a replay of 8) of cibhash (two views) and ssdh (a
+   (a warm-up and a replay of 4) of cibhash (two views) and ssdh (a
    staged (K, B, B) ``aux``) against eager steps, bit for bit;
    ``ssdh_structure`` and the four shallow fits timed at CUB-200's size
    (5,994 rows: 64-wide codes, 768-wide features); (c) after phase 18
@@ -262,8 +262,10 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    moco and dino, 12 and 24 for tbh and odc), a kernel step against a
    plain one under sgd, the teacher's EMA at each step's momentum, DINO's
    center, TBH's discriminator under its own Adam, ODC's memory rows
-   outside the batch and its refresh boundary; the port's k-means at
-   CUB-200's size on the card against the CPU; (c) after phase 19 (c), on
+   outside the batch and its refresh boundary; the MAE's graphed chunk
+   (its mask drawn inside the graph) against eager steps bit for bit,
+   the generator's state included; the port's k-means at CUB-200's size
+   on the card against the CPU; (c) after phase 19 (c), on
    phase 15's synthetic set: ``main_gpu.py model=moco`` (and a resume
    after epoch 1, bit for bit) and ``model=mae`` (``exp=general``), then
    ``model=tbh`` and ``model=odc`` (its k-means encode counted, its NMI
@@ -367,7 +369,11 @@ class Sizes:
     flagship_image: int = 256          # written at dataset.resize square
     flagship_args: tuple = ()          # overrides after the flagship's own
     graph_chunk: int = 8               # train_chunk 'auto' on the card
-    graph_per_class: tuple = (4, 1)    # phase 15: 25 steps of 32 an epoch
+    # phases 16 (b)-19 (b): steps a chunk in the graph-vs-eager checks
+    check_chunk: int = 4
+    # phases 15 (c) to 20 (c): 12 steps of 32 an epoch (a chunk of 8 and 4
+    # single steps; mae's 6 of 64 are single), phase 14's set
+    graph_per_class: tuple = (2, 1)
     hf_text: dict = dataclasses.field(default_factory=dict)  # CLIP B/32 text
     pretrained_images: int = 256
     variant_images: int = 64           # phase 16 (a): each option's encode
@@ -382,6 +388,14 @@ class Sizes:
     # shallow fits' feature width (ViT-B/32's hidden size)
     unsup_fit: tuple = (5994, 64, 768)
     shallow_args: tuple = ()           # phase 19 (c): the itq run's overrides
+
+
+def check_sizes(sizes: Sizes) -> Sizes:
+    """``sizes`` with ``graph_chunk`` at ``check_chunk``: the graph-vs-eager
+    checks of phases 16 (b) to 19 (b) capture and replay chunks of that many
+    steps (the capture and replay of the card's chunk of 8, in half the
+    steps; phases 15 (a) and 20 (b) keep 8)."""
+    return dataclasses.replace(sizes, graph_chunk=sizes.check_chunk)
 
 
 def fail(msg: str) -> None:
@@ -419,15 +433,45 @@ def host_s(fn, reps: int) -> float:
 
 
 def run_eval_s(exp) -> float:
-    """Wall seconds of one test and database encode of a finished run's
-    experiment, ending in a device synchronize (the run's own evaluations
-    have warmed its eval steps and graphs)."""
+    """Wall seconds of one more test-split encode of a finished run's
+    experiment, ending in a device synchronize: the adsh regime's, whose
+    run encodes its test split once, at its end (``eval_img_s`` reads the
+    other runs' own second evaluation)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     exp.encode_split("test")
-    exp.encode_split("db")
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def time_encodes(exp) -> dict:
+    """Wraps ``exp.encode_split`` so that the wall seconds of each split's
+    last encode, from a device synchronize to one, are kept by split: after
+    a 2-epoch run, those of its second evaluation, with no encode of their
+    own."""
+    secs = {}
+    encode = exp.encode_split
+
+    def timed(split, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(split, *args, **kw)
+        torch.cuda.synchronize()
+        secs[split] = time.perf_counter() - t0
+        return out
+
+    exp.encode_split = timed
+    return secs
+
+
+def eval_img_s(exp, secs: dict) -> tuple:
+    """(images, img/s) of the test split's encode in the run's second
+    evaluation, which ``time_encodes`` kept: warm, as the first evaluation
+    ran the same eval batches, and free of graph captures (200 test images
+    are fewer full batches than a chunk, so they run one a dispatch; the
+    database's one chunk is captured in the second evaluation)."""
+    n = len(exp.datasets["test"])
+    return n, n / secs["test"]
 
 
 def host_us(fn, reps: int) -> float:
@@ -2150,14 +2194,10 @@ def run_pretrained(sizes: Sizes, device, tmp: str, argv) -> str:
     return hf_dir
 
 
-def eval_only_and_resume(label: str, tmp: str, run: str, train: list,
-                         test: list, argv, eval_argv, *extra,
-                         resume: bool = True) -> None:
+def eval_only_modes(label: str, run: str, test: list, eval_argv) -> None:
     """Phase 15 (c) and 16 (c): on a finished 2-epoch run directory,
-    ``exp=validation use_last=true`` reproduces the run's last mAP,
-    ``exp=extract`` writes its best test codes bit for bit, and, with
-    ``resume``, a run stopped after epoch 1 and resumed reaches the
-    epoch-2 train loss and the last parameters bit for bit."""
+    ``exp=validation use_last=true`` reproduces the run's last mAP and
+    ``exp=extract`` writes its best test codes bit for bit."""
     import os
 
     import main_gpu
@@ -2178,8 +2218,18 @@ def eval_only_and_resume(label: str, tmp: str, run: str, train: list,
           f"bit: {same}")
     if d_map > REPLAY_MAP_ATOL or not same:
         fail(f"{label}: the eval-only modes do not reproduce the run")
-    if not resume:
-        return
+
+
+def check_resume(label: str, tmp: str, run: str, train: list, argv, *extra,
+                 extras: tuple = ()) -> None:
+    """Phases 15 (c), 16 (c) and 20 (c): a run stopped after epoch 1 and
+    resumed reaches the finished 2-epoch run's epoch-2 train loss, its last
+    parameters and the method's ``extras`` (named entries of the train
+    state's ``extra`` in ``optims/last.pt``, as moco's teacher) bit for
+    bit."""
+    import os
+
+    import main_gpu
 
     first_dir = os.path.join(tmp, os.path.basename(run) + "_first")
     res_dir = os.path.join(tmp, os.path.basename(run) + "_resumed")
@@ -2193,16 +2243,24 @@ def eval_only_and_resume(label: str, tmp: str, run: str, train: list,
         res_train = json.load(f)
     rel = abs(res_train[-1]["loss"] - train[-1]["loss"]) / abs(
         train[-1]["loss"])
-    whole_sd = torch.load(os.path.join(run, "models", "last.pt"))["model"]
-    res_sd = torch.load(os.path.join(res_dir, "models", "last.pt"))["model"]
-    d_param = max((whole_sd[k].float() - res_sd[k].float()).abs().max()
-                  .item() for k in whole_sd)
-    same = res_train[-1]["loss"] == train[-1]["loss"] and d_param == 0
+
+    def max_d(kind, key, name=None):
+        a, b = (torch.load(os.path.join(r, kind, "last.pt"))[key]
+                for r in (run, res_dir))
+        if name is not None:
+            a, b = a[name], b[name]
+        return max((a[k].float() - b[k].float()).abs().max().item()
+                   for k in a)
+
+    d = {"last parameters": max_d("models", "model"),
+         **{name: max_d("optims", "extra", name) for name in extras}}
+    same = res_train[-1]["loss"] == train[-1]["loss"] and \
+        all(v == 0 for v in d.values())
     print(f"{label} resumed after epoch 1: epoch-2 train loss "
           f"{res_train[-1]['loss']:.6f} against the uninterrupted "
-          f"{train[-1]['loss']:.6f} (rel {rel:.3g}), last parameters max "
-          f"|d| {d_param:.3g}: bit for bit {same} (required); records "
-          f"{len(res_train)}")
+          f"{train[-1]['loss']:.6f} (rel {rel:.3g}), "
+          + ", ".join(f"{k} max |d| {v:.3g}" for k, v in d.items())
+          + f": bit for bit {same} (required); records {len(res_train)}")
     if len(res_train) != 2 or not same:
         fail(f"{label}: the resumed run does not reach the uninterrupted "
              "one bit for bit")
@@ -2253,6 +2311,7 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
 
         run = os.path.join(tmp, "run")
         exp = main_gpu.build_experiment(argv(run))
+        secs = time_encodes(exp)
         graph_vs_eager_eval(sizes, device, exp.training)
         # the main path of the phase, with the launch counts from zero
         torch.cuda.synchronize()
@@ -2297,8 +2356,8 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
                  f"expected {2 * (steps // K) - 1}")
 
         # ---- the eval-only modes and a resume on the run directory ----
-        eval_only_and_resume("flagship", tmp, run, train, test, argv,
-                             eval_argv)
+        eval_only_modes("flagship", run, test, eval_argv)
+        check_resume("flagship", tmp, run, train, argv)
 
         # ---- one step a dispatch on the same set: the same run (F2) ----
         one = main_gpu.build_experiment(argv(os.path.join(tmp, "one"),
@@ -2331,13 +2390,13 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
                                    lambda: exp.train_one_epoch(2), epoch_s,
                                    rows=8, warm=False)
         img_s = steps * batch / epoch_s
-        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = run_eval_s(exp)
-        chunked = {"train_img_s": img_s, "eval_img_s": n_eval / eval_s,
+        n_eval, eval_rate = eval_img_s(exp, secs)
+        chunked = {"train_img_s": img_s, "eval_img_s": eval_rate,
                    "busy": busy_share(kernels, epoch_s), "batch": batch,
                    "resize": int(exp.config["dataset"]["resize"])}
         print(f"flagship eval encode at train_chunk {K}: "
-              f"{chunked['eval_img_s']:.1f} img/s ({n_eval} images)")
+              f"{chunked['eval_img_s']:.1f} img/s (the second evaluation's "
+              f"{n_eval} test images)")
         print(f"flagship train img/s in epoch 2: {img_s:.1f} at train_chunk "
               f"{K} against {steps * batch / one_s:.1f} at train_chunk 1 on "
               f"the same {steps} steps, and {flagship['train_img_s']:.1f} at "
@@ -2583,11 +2642,12 @@ def variant_steps(sizes: Sizes, device) -> None:
     torch.cuda.empty_cache()
 
     # ---- graphed chunks against eager steps ----
-    graph_vs_eager_train(sizes, device, TRAIN_VISION,
+    checked = check_sizes(sizes)
+    graph_vs_eager_train(checked, device, TRAIN_VISION,
                          over=variants["sa+dbn"], label="sa+dbn")
-    graph_vs_eager_train(sizes, device, TRAIN_VISION,
+    graph_vs_eager_train(checked, device, TRAIN_VISION,
                          over=variants["filip"], label="filip")
-    graph_vs_eager_train(sizes, device, TRAIN_VISION, LARS_OPTIM)
+    graph_vs_eager_train(checked, device, TRAIN_VISION, LARS_OPTIM)
     torch.cuda.empty_cache()
 
 
@@ -2598,11 +2658,9 @@ def run_variant_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
     ``train_chunk`` auto, 2 epochs each, the launch counts from zero
     (kernel 1 at one launch a layer and eval batch, replays included; no
     other kernel); FILIP's class-text token embeddings from phase 15 (d)'s
-    local checkpoint, within ``TEXT_ATOL`` of the CPU's; on FILIP's run
-    (its token embeddings in the checkpoint) the eval-only modes (the
-    resume of a run, and SA's run's eval-only modes, take the flagship's
-    code path, which phase 15 (c) holds); train and eval img/s beside
-    phase 15's flagship."""
+    local checkpoint, within ``TEXT_ATOL`` of the CPU's; the eval-only
+    modes and a resume; train and eval img/s beside phase 15's
+    flagship."""
     import os
 
     import main_gpu
@@ -2617,6 +2675,7 @@ def run_variant_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
         extra = (f"model={model}", *extra)
         run = os.path.join(tmp, model)
         exp = main_gpu.build_experiment(argv(run, *extra))
+        secs = time_encodes(exp)
         torch.cuda.synchronize()
         count_reset()
         t0 = time.perf_counter()
@@ -2672,16 +2731,13 @@ def run_variant_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
                     not torch.equal(buf.cpu(), torch.as_tensor(got)):
                 fail(f"{model}: the token embeddings did not come from the "
                      f"local text stage, or differ from the CPU's by {err}")
-        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = run_eval_s(exp)
         rows.append((model, steps * batch / train[1]["time"],
-                     n_eval / eval_s))
+                     eval_img_s(exp, secs)[1]))
         for loader in exp.loaders.values():
             loader.close()
         del exp
-        if model == "concepthash_filip":
-            eval_only_and_resume(model, tmp, run, train, test, argv,
-                                 eval_argv, *extra, resume=False)
+        eval_only_modes(model, run, test, eval_argv)
+        check_resume(model, tmp, run, train, argv, *extra)
     print("phase 16 (c) img/s, epoch-2 train and eval encode, train_chunk "
           "auto: " + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}"
                                for n, t, e in rows)
@@ -2710,12 +2766,6 @@ BASELINE_YAML = {
     "greedyhash": "sgh_adapter", "ce": "ce_adapter",
     "descriptor": "ce_adapter", "clip": "clip_finetune",
 }
-# the heads whose graphed chunks phase 17 (b) holds against eager steps,
-# one of each kind of state a step carries: the code BatchNorm's running
-# statistics and fixed centroids, a linear hash layer and codebook, a
-# straight-through sign, a learned logit scale over fixed centers (the
-# other heads are these layers recombined; hashnet steps one a dispatch)
-BASELINE_GRAPHED = ("orthohash", "csq", "greedyhash", "clip")
 # bf16 card logits against the CPU's f32: max |d| <= LOGIT_RTOL * max |ref|
 LOGIT_RTOL = 0.05
 # descriptor's and clip's features: mean row cosine against the CPU's
@@ -2903,10 +2953,11 @@ def baseline_steps(sizes: Sizes, device) -> None:
     weight decay alone, as in the reference); hashnet with
     ``keep_train_size``: each step's bank rows equal to its batch's
     detached tanh(beta * codes) and labels after every step (the batch at
-    dataset rows 0..B-1 of 2B, the other rows untouched). Then, for the
-    heads of ``BASELINE_GRAPHED``, a graphed chunk against eager steps: a
-    warm-up chunk and a replay, losses, parameters and BatchNorm statistics
-    bit for bit."""
+    dataset rows 0..B-1 of 2B, the other rows untouched). Then, for every
+    method but
+    hashnet (one step a dispatch), a graphed chunk against eager steps:
+    a warm-up chunk and a replay, losses, parameters and BatchNorm
+    statistics bit for bit."""
     from concepthash_tpu_torch.data.preprocess import center_crop, normalize
     from concepthash_tpu_torch.methods import training_for
     from concepthash_tpu_torch.train.custom_steps import hashnet_beta
@@ -2993,7 +3044,7 @@ def baseline_steps(sizes: Sizes, device) -> None:
         if name == "hashnet" and not bank_ok:
             fail("hashnet: the bank's rows differ from their batches'")
         del tr, model
-        if name in BASELINE_GRAPHED:
+        if name != "hashnet":
             baseline_graph_vs_eager(sizes, name, trunk, device)
         print(f"baseline {name}: {time.perf_counter() - t_m:.1f} s")
     print(f"phase 17 (b): {time.perf_counter() - t_b:.1f} s")
@@ -3004,7 +3055,7 @@ def baseline_steps(sizes: Sizes, device) -> None:
 def baseline_graph_vs_eager(sizes: Sizes, name: str, trunk, device,
                             label: str = "baseline", views: int = 1,
                             aux: bool = False) -> None:
-    """Two chunks of ``sizes.graph_chunk`` steps through
+    """Two chunks of ``sizes.check_chunk`` steps through
     ``make_multi_train_step`` (a warm-up, then a replay) against as many
     eager steps from the same state, bit for bit; ``views`` and ``aux`` as
     ``stacked_batches`` takes them (a two-view method's batches, SSDH's
@@ -3012,6 +3063,7 @@ def baseline_graph_vs_eager(sizes: Sizes, name: str, trunk, device,
     from concepthash_tpu_torch.methods import training_for
     from concepthash_tpu_torch.train.state import make_multi_train_step
 
+    sizes = check_sizes(sizes)
     trs = []
     for _ in range(2):
         cfg, cb, model, loss_fn = baseline_on(
@@ -3082,6 +3134,7 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
         run = os.path.join(tmp, model)
         exp = main_gpu.build_experiment(argv(run, f"model={model}",
                                              *opt.get("extra", ())))
+        secs = time_encodes(exp)
         torch.cuda.synchronize()
         count_reset()
         t0 = time.perf_counter()
@@ -3138,8 +3191,10 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
             fail(f"{model}: the log does not say train_chunk does not apply")
         if "check" in opt:
             opt["check"](exp)
-        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = run_eval_s(exp)
+        if adsh:    # one test encode at the end: time a warm one
+            eval_rate = len(exp.datasets["test"]) / run_eval_s(exp)
+        else:
+            eval_rate = eval_img_s(exp, secs)[1]
         if adsh:
             V = torch.load(os.path.join(run, "outputs", "db_codes.pt"))["V"]
             shape = (len(exp.datasets["train"]),
@@ -3152,10 +3207,10 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
                 fail(f"{model}: db_codes.pt or its mAP is wrong")
             # whole-run rate: SGD steps with the subset encodes and DCC
             rows.append((f"{model} (adsh, whole run)",
-                         exp.epochs * steps * batch / run_s, n_eval / eval_s))
+                         exp.epochs * steps * batch / run_s, eval_rate))
         else:
             rows.append((model, steps * batch / train[1]["time"],
-                         n_eval / eval_s))
+                         eval_rate))
         for loader in exp.loaders.values():
             loader.close()
         del exp
@@ -4485,8 +4540,60 @@ def pretrain_steps(sizes: Sizes, device) -> None:
         print(f"pretrain {name}: {time.perf_counter() - t_m:.1f} s")
     del trunk
     torch.cuda.empty_cache()
+    mae_graph_vs_eager(sizes, device)
     check_kmeans(device)
     print(f"phase 20 (b): {time.perf_counter() - t_b:.1f} s")
+
+
+def mae_graph_vs_eager(sizes: Sizes, device) -> None:
+    """Phase 20 (b): the MAE at its config's B=64, whose mask is a uniform
+    draw from the run's generator inside the step, in two chunks of
+    ``sizes.graph_chunk`` steps through ``make_multi_train_step`` (a
+    warm-up, then a replay) against as many eager steps of a twin built
+    from the same seed, bit for bit: the losses, the parameters and the
+    generator's state. A replay that drew one mask again, or left the
+    generator where the capture found it, would differ in both."""
+    from concepthash_tpu_torch.methods import build_model, training_for
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    t0 = time.perf_counter()
+    cfg = mae_config(sizes, "mae")
+    trs = []
+    for _ in range(2):
+        model, loss_fn = build_model(cfg, None, device=device)
+        trs.append(training_for(cfg, model, loss_fn, sizes.steps_per_epoch))
+    graph, eager = trs
+    K, mb = sizes.graph_chunk, int(cfg["batch_size"])
+    side = graph.model.cfg.image_size
+    label = torch.zeros(mb, sizes.head["nclass"], device=device)
+    batches = [{"image": pretrain_images(sizes, side, device, mb, 100 + i),
+                "label": label} for i in range(2 * K)]
+    stacked = [{k: torch.stack([b[k] for b in batches[c * K:(c + 1) * K]])
+                for k in batches[0]} for c in range(2)]
+    start = graph.generator.get_state()
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    g_loss = [x for chunk in stacked for x in multi(chunk)["loss"].tolist()]
+    e_loss = [float(eager.step(b)["loss"]) for b in batches]
+    gs, es = graph.model.state_dict(), eager.model.state_dict()
+    d = max((gs[k].float() - es[k].float()).abs().max().item() for k in gs)
+    g_state = graph.generator.get_state()
+    same_gen = torch.equal(g_state, eager.generator.get_state()) and \
+        not torch.equal(g_state, start)
+    same = g_loss == e_loss and d == 0.0 and same_gen
+    print(f"mae graph vs eager train (K={K}, B={mb}, a warm-up chunk and a "
+          f"replay, the mask drawn in the step): losses "
+          + ", ".join(f"{x:.5f}" for x in g_loss[K:]) + " / "
+          + ", ".join(f"{x:.5f}" for x in e_loss[K:])
+          + f" (the replay's), parameters max |d| {d:.3g}, the generator "
+          f"advanced to the eager twin's state: {same_gen}: bit for bit "
+          f"{same} (required) with {getattr(multi, 'replays', 0)} replays; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        fail("mae: the graphed chunk differs from eager steps (losses, "
+             "parameters or the mask generator)")
+    del graph, eager, trs, batches, stacked
 
 
 
@@ -4547,6 +4654,7 @@ def run_pretrain_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
     for model in ("moco", "mae"):
         run = os.path.join(tmp, model)
         exp = main_gpu.build_experiment(argv(run, f"model={model}"))
+        secs = time_encodes(exp)
         torch.cuda.synchronize()
         count_reset()
         t0 = time.perf_counter()
@@ -4581,15 +4689,14 @@ def run_pretrain_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
         if launches != want:
             fail(f"{model}: kernel 1 not launched once a layer and test "
                  "batch, or another kernel launched")
-        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        eval_s = run_eval_s(exp)
         rows.append((model, steps * batch / train[1]["time"],
-                     n_eval / eval_s))
+                     eval_img_s(exp, secs)[1]))
         for loader in exp.loaders.values():
             loader.close()
         del exp
         if model == "moco":
-            pretrain_resume(tmp, run, train, argv)
+            check_resume(model, tmp, run, train, argv, "model=moco",
+                         extras=("teacher",))
     print("phase 20 (c): moco's train img/s counts images; each takes two "
           "views through the student and the teacher")
 
@@ -4614,43 +4721,6 @@ def run_pretrain_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
                                for n, t, e in rows)
           + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
     print(f"phase 20 (c): {time.perf_counter() - t_c:.1f} s")
-
-
-def pretrain_resume(tmp: str, run: str, train: list, argv) -> None:
-    """A moco run stopped after epoch 1 and resumed reaches the
-    uninterrupted run's epoch-2 loss, parameters and teacher bit for
-    bit."""
-    import os
-
-    import main_gpu
-
-    first_dir, res_dir = run + "_first", run + "_resumed"
-    first = main_gpu.build_experiment(argv(first_dir, "model=moco"))
-    first.epochs = 1
-    first.main()
-    resumed = main_gpu.build_experiment(argv(res_dir, "model=moco",
-                                             f"resume_logdir={first_dir}"))
-    resumed.main()
-    with open(os.path.join(res_dir, "train_history.json")) as f:
-        res_train = json.load(f)
-    d = {}
-    for kind, key in (("models", "model"), ("optims", "extra")):
-        a, b = (torch.load(os.path.join(r, kind, "last.pt"))[key]
-                for r in (run, res_dir))
-        if kind == "optims":
-            a, b = a["teacher"], b["teacher"]
-        d[kind] = max((a[k].float() - b[k].float()).abs().max().item()
-                      for k in a)
-    same = res_train[-1]["loss"] == train[-1]["loss"] and \
-        d["models"] == 0 and d["optims"] == 0
-    print(f"moco resumed after epoch 1: epoch-2 train loss "
-          f"{res_train[-1]['loss']:.6f} against the uninterrupted "
-          f"{train[-1]['loss']:.6f}, last parameters max |d| "
-          f"{d['models']:.3g}, teacher max |d| {d['optims']:.3g}: bit for "
-          f"bit {same} (required); records {len(res_train)}")
-    if len(res_train) != 2 or not same:
-        fail("moco: the resumed run does not reach the uninterrupted one "
-             "bit for bit")
 
 
 def _flatten(x):

@@ -359,7 +359,7 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
                                     "model.text_projection_dims=[32]",
                                     "batch_size=4", "dataset.nclass=3",
                                     "dataset.resize=64", "dataset.crop=48"),
-                     graph_chunk=2, graph_per_class=(4, 1),
+                     graph_chunk=2, check_chunk=2, graph_per_class=(4, 1),
                      hf_text=dict(hidden_size=32, intermediate_size=64,
                                   num_layers=2, num_heads=4,
                                   max_position_embeddings=16,
@@ -416,10 +416,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert "codes equal bit for bit: True, losses: True" in out
     assert ("chunked flagship run (train_chunk 2): 12 train images, 3 steps "
             "of 4 an epoch (1 chunks of 2 and 1 single steps)") in out
-    assert out.count("(|d| 0, tolerance 1e-06)") == 2       # flagship, FILIP
-    assert out.count("best test codes (3, 16) bit for bit: True") == 2
+    assert out.count("(|d| 0, tolerance 1e-06)") == 3
+    assert out.count("best test codes (3, 16) bit for bit: True") == 3
     assert out.count("(rel 0), last parameters max |d| 0: bit for bit True "
-                     "(required); records 2") == 1      # the flagship's
+                     "(required); records 2") == 3
     assert "at train_chunk 1 on the same 3 steps" in out
     assert ("vision tower equal to the written one bit for bit: True; 6 "
             "images encode to the source model's codes bit for bit: True; "
@@ -427,14 +427,12 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
             "max |d| against the CPU's 0") in out
     # phase 16: each option's encode (kernel 1 once a layer, none with
     # q/k/v/out adapters), train steps, remat, and the two models' runs
-    # (the eval-only modes on FILIP's)
     assert out.count(f"expected ({n}, 0, 0, 0, 0, 0)") == 6
     assert "variant qkvo: 6 images" in out
     assert "launches (0, 0, 0, 0, 0, 0), expected (0, 0, 0, 0, 0, 0)" in out
     assert out.count(", all steps alike: True") == 4
-    # phase 17: every baseline's encode and train steps (hashnet: one step
-    # a dispatch, its bank), graphed chunks of four heads (orthohash, csq,
-    # greedyhash, clip), and three main_gpu runs
+    # phase 17: every baseline's encode, train steps and graphed chunks
+    # (hashnet: one step a dispatch, its bank), and three main_gpu runs
     # (phase 18 (a) and (b) print 4 encodes, 3 step runs and 2 graphed
     # chunks, (c) 2 validations, and phase 19 (a) and (b) 6 encodes, 5
     # step runs and 2 graphed chunks, (c) 2 validations, in the same words)
@@ -447,7 +445,7 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert "adapters unchanged: True; " in out
     assert ("the bank's rows equal each batch's detached tanh(beta * "
             "codes) and labels: True") in out
-    assert out.count("bit for bit True (required); replays") == 4 + 2 + 2
+    assert out.count("bit for bit True (required); replays") == 10 + 2 + 2
     for model in ("orthohash_adapter", "hashnet_adapter", "clip_finetune"):
         assert f"{model} run (train_chunk 2)" in out
         assert (f"{model} exp=validation use_last=true" in out)
@@ -557,6 +555,10 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
             "False, False, False]") in out
     assert out.count("kernel launches a step (0, 0, 0, 0, 0, 0) (want (0, "
                      "0, 0, 0, 0, 0)), alike every step: True") == 2
+    assert ("mae graph vs eager train (K=2, B=64, a warm-up chunk and a "
+            "replay, the mask drawn in the step)") in out
+    assert ("parameters max |d| 0, the generator advanced to the eager "
+            "twin's state: True: bit for bit True (required)") in out
     assert ("k-means (5994 x 64 unit rows, 200 clusters, 3 inits, float64) "
             "on cpu") in out
     assert "equal labels on 1.000000 of rows" in out
