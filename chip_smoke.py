@@ -271,6 +271,37 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    ``model=tbh`` and ``model=odc`` (its k-means encode counted, its NMI
    checked) with ``exp=validation`` within 1e-6, their img/s beside the
    flagship's.
+21. the non-CLIP trunks (``configs/backbone/``'s groups under
+   configs/model/orthohash_adapter.yaml's head: 64 bits, 200 classes,
+   adapters 384 on the vit towers, bf16, seeded weights): (a) after phase
+   20 (b), resnet18 (frozen_bn), resnet50, resnet101, swin_tiny,
+   swin_base, alexnet, vgg16, vit_s16 and vit_b16, and a2net_ce on
+   resnet50's grid, each encode 64 seeded images at 224^2 on the card,
+   counted (kernel 1 at 12 launches a vit encode, none otherwise), against
+   the same weights at f32 on the CPU (the first 16 images): codes in sign
+   on >= 99% of bits, features at cosine >= 0.99, logits within 5% of the
+   largest; kernel 1 against its plain version at the two vit shapes
+   (B=64, L=197, D=384 and 768, exact GELU, both adapters), timed beside
+   F.linear + SDPA; (b) five counted steps at B=32 of resnet18, resnet50,
+   vgg16, vit_b16 (kernels 5 and 6 at 24 + 12 a step) and swin_base, the
+   loss finite and (but vgg16's, under dropout) falling: resnet50's
+   first-step running statistics against 0.9 r + 0.1 (batch mean, biased
+   variance) within 1e-5 and ``num_batches_tracked`` counting steps,
+   resnet18's frozen buffers bit-unchanged, vgg16's dropout replayed from
+   the run's generator, vit_b16's kernel step against a plain one under
+   sgd; graphed chunks of 4 of resnet50, vgg16 and vit_b16 against eager
+   steps bit for bit, buffers and the generator included; (c) after phase
+   20 (c), on phase 15's set: ``main_gpu.py model=orthohash_adapter
+   backbone=resnet50`` (with a resume bit for bit) and ``csq_adapter
+   backbone=swin_base`` at ``train_chunk=auto``, ``exp=validation`` at the
+   run's batch within 1e-6; ``dpsh_adapter backbone=vit_b16`` at
+   ``train_chunk=1`` with ``profile`` over the first evaluation (the trace
+   names kernel 1's kernels) and its first epoch again under
+   ``debug.disable_jit`` bit for bit; (d) a seeded orthohash-on-resnet50
+   state renamed into the reference's layout, through
+   ``scripts/import_reference_checkpoint_torch.py`` and
+   ``exp=validation``: the imported state and test codes equal the seeded
+   model's bit for bit.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -327,6 +358,11 @@ TEXT_ATOL = 1e-4
 REPLAY_MAP_ATOL = 1e-6
 TRAIN_VISION = dict(attention_impl="pallas", fused_ln="pallas")
 XLA_VISION = dict(attention_impl="xla", fused_ln="xla")
+# phase 21 (a)'s trunks, (b)'s trained ones and those of them held graphed
+TRUNK_GROUPS = ("resnet18", "resnet50", "resnet101", "swin_tiny", "swin_base",
+                "alexnet", "vgg16", "vit_s16", "vit_b16")
+TRUNK_TRAINED = ("resnet18", "resnet50", "vgg16", "vit_b16", "swin_base")
+TRUNK_GRAPHED = ("resnet50", "vgg16", "vit_b16")
 # configs/optim/sgd.yaml with nesterov: phase 15 graphs sgd's step too
 SGD_OPTIM = {"name": "sgd", "lr": 0.001, "momentum": 0.9,
              "weight_decay": 0.0005, "nesterov": True}
@@ -388,6 +424,16 @@ class Sizes:
     # shallow fits' feature width (ViT-B/32's hidden size)
     unsup_fit: tuple = (5994, 64, 768)
     shallow_args: tuple = ()           # phase 19 (c): the itq run's overrides
+    # phase 21: the backbone groups encoded (a); images a trunk encodes
+    # and the CPU's share of them; the train batch; overrides for every
+    # trunk config and by group
+    trunk_groups: tuple = TRUNK_GROUPS
+    trunk_images: int = 64
+    trunk_side: int = 256              # the seeded images' side, cropped
+    trunk_cpu_images: int = 16
+    trunk_batch: int = 32
+    trunk_args: tuple = ()
+    trunk_over: tuple = ()
 
 
 def check_sizes(sizes: Sizes) -> Sizes:
@@ -2425,6 +2471,7 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
         run_loader(sizes, device, tmp, argv, chunked)
         run_unsupervised_runs(sizes, device, tmp, argv, eval_argv, chunked)
         run_pretrain_runs(sizes, device, tmp, argv, eval_argv, chunked)
+        run_trunk_runs(sizes, device, tmp, argv, eval_argv, chunked)
 
 
 # ---------------------------------------------------------------------------
@@ -2845,7 +2892,7 @@ def seeded_trunk(sizes: Sizes, device, vision=None, like=None,
     from concepthash_tpu_torch.models.backbone_factory import \
         vision_config_from_backbone_cfg
     from concepthash_tpu_torch.models.clip import AdapterConfig
-    from concepthash_tpu_torch.models.trunk import Trunk
+    from concepthash_tpu_torch.models.trunk import clip_trunk
 
     vcfg = vision_config_from_backbone_cfg(
         baseline_config(sizes, "orthohash")["backbone"])
@@ -2853,11 +2900,11 @@ def seeded_trunk(sizes: Sizes, device, vision=None, like=None,
         vcfg = dataclasses.replace(vcfg, **vision)
     gen = torch.Generator().manual_seed(5)
     # bf16 on the card, as the configs run; the CPU's reference in f32
-    trunk = Trunk("clip", vcfg,
-                  AdapterConfig(bottleneck_dim=sizes.bottleneck)
-                  if adapters else None,
-                  torch.bfloat16 if device.type == "cuda" else torch.float32,
-                  gen)
+    trunk = clip_trunk(vcfg,
+                       AdapterConfig(bottleneck_dim=sizes.bottleneck)
+                       if adapters else None,
+                       torch.bfloat16 if device.type == "cuda"
+                       else torch.float32, gen)
     seed_adapters(trunk, gen)
     if like is not None:
         trunk.load_state_dict(like.state_dict())
@@ -3116,13 +3163,16 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
     adsh regime run one step a dispatch, and the log says so). Then, in
     the sgd regime, ``exp=validation use_last=true`` within 1e-6 of the
     run's last mAP, at ``configs/val.yaml``'s batch size or, where
-    ``val_at_run_batch`` (SEMICON's batch-global mask), at the run's; in
+    ``val_at_run_batch`` (SEMICON's batch-global mask, a CNN's cuDNN
+    convolutions), at the run's; in
     the adsh regime a +-1 (n_train, nbit) ``outputs/db_codes.pt`` and a mAP
     in [0, 1]. ``check(exp)``: a model's own checks. Epoch-2 train and eval
     img/s (the adsh regime: its whole run's) beside phase 15's flagship.
 
     ``runs``: (model, options), options among ``extra`` (overrides),
-    ``single``, ``val_at_run_batch`` and ``check``."""
+    ``single``, ``val_at_run_batch``, ``check``, ``name`` (the run
+    directory's, the model's by default) and ``resume`` (a run stopped
+    after epoch 1 and resumed, held by ``check_resume``)."""
     import os
 
     import main_gpu
@@ -3131,7 +3181,7 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
     rows = [("flagship (phase 15)", flagship["train_img_s"],
              flagship["eval_img_s"])]
     for model, opt in runs:
-        run = os.path.join(tmp, model)
+        run = os.path.join(tmp, opt.get("name", model))
         exp = main_gpu.build_experiment(argv(run, f"model={model}",
                                              *opt.get("extra", ())))
         secs = time_encodes(exp)
@@ -3153,7 +3203,8 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
         steps = exp.steps_per_epoch
         batch = int(exp.config["batch_size"])
         K = exp.train_chunk
-        n_layers = exp.model.vision_cfg.num_layers
+        vcfg = exp.model.vision_cfg     # None: a trunk without kernel 1
+        n_layers = vcfg.num_layers if vcfg is not None else 0
         if adsh:    # the subset's encode each epoch, then the test split
             per_epoch = -(-exp.adsh_settings["num_samples"] // batch)
             eval_batches = exp.epochs * per_epoch + len(exp.loaders["test"])
@@ -3230,6 +3281,9 @@ def run_model_runs(label: str, device, tmp: str, argv, eval_argv,
         if d_map > REPLAY_MAP_ATOL:
             fail(f"{model}: exp=validation does not reproduce the run")
         del ev
+        if opt.get("resume"):
+            check_resume(opt.get("name", model), tmp, run, train, argv,
+                         f"model={model}", *opt.get("extra", ()))
     print(f"{label} img/s, epoch-2 train and eval encode, train_chunk auto: "
           + "; ".join(f"{n} train {t:.1f}, eval {e:.1f}" for n, t, e in rows)
           + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
@@ -3297,7 +3351,7 @@ class GivenTrunk(torch.nn.Module):
         self.enc = enc
 
     def forward(self, images, train: bool = False,
-                output_attentions: bool = False) -> dict:
+                output_attentions: bool = False, generator=None) -> dict:
         return self.enc
 
 
@@ -4723,6 +4777,767 @@ def run_pretrain_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
     print(f"phase 20 (c): {time.perf_counter() - t_c:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the non-CLIP trunks, reference-checkpoint import, profile, debug
+# ---------------------------------------------------------------------------
+
+# a train step's running statistics against a recomputation from the batch
+BN_STATS_ATOL = 1e-5
+# the port's kernel names in a trace (csrc/fused_layer.cu, attention.cu)
+PORT_KERNEL_NAMES = ("gemm_kernel", "attention_mma_kernel",
+                     "layernorm_kernel")
+
+
+def trunk_config(sizes: Sizes, group: str, yaml: str = "orthohash_adapter",
+                 name: str | None = None) -> dict:
+    """The config dicts of ``configs/model/<yaml>.yaml`` on the backbone
+    ``group`` (dataset=cub200: 224^2 crops) at ``sizes``' nbit and nclass,
+    in bf16, seed 0, with ``sizes.trunk_args`` and the group's
+    ``sizes.trunk_over`` overrides (the CPU rehearsal's cuts)."""
+    import os
+
+    from concepthash_tpu_torch.config.loader import load_config
+
+    over = dict(sizes.trunk_over).get(group, ())
+    cfg = load_config(
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs"),
+        "train", ["dataset=cub200", f"model={yaml}", f"backbone={group}",
+                  "compute_dtype=bfloat16", *sizes.trunk_args, *over])
+    cfg["model"].update(nclass=sizes.head["nclass"], nbit=sizes.head["nbit"])
+    if name is not None:
+        cfg["model"]["name"] = name
+    cfg["seed"] = 0
+    return cfg
+
+
+def trunk_model(cfg: dict, device, vision=None) -> tuple:
+    """(codebook, the config's seeded model on ``device``, its loss)."""
+    from concepthash_tpu_torch.methods import (build_model, get_method,
+                                               prepare_codebook)
+
+    cb = prepare_codebook(get_method(cfg["model"]["name"]), cfg)
+    model, loss_fn = build_model(cfg, cb, device=device, vision=vision)
+    return cb, model, loss_fn
+
+
+def trunk_models(cfg: dict, device) -> tuple:
+    """(the config's seeded model on ``device``, the same weights at
+    float32 on the CPU)."""
+    from concepthash_tpu_torch.methods import build_model
+
+    cb, model, _ = trunk_model(cfg, device)
+    cpu, _ = build_model(dict(cfg, compute_dtype="float32"), cb,
+                         device=torch.device("cpu"))
+    cpu.load_state_dict(model.state_dict())
+    return model, cpu
+
+
+def trunk_images(sizes: Sizes, cfg: dict, n: int, device, seed: int):
+    """``n`` seeded uint8 images at ``sizes.trunk_side``, center-cropped to
+    the config's crop and normalized by its ``norm``."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    raw = torch.randint(0, 256, (n, sizes.trunk_side, sizes.trunk_side, 3),
+                        generator=gen, device=device, dtype=torch.uint8)
+    ds = cfg["dataset"]
+    return normalize(center_crop(raw, int(ds["crop"])), int(ds["norm"]))
+
+
+def trunk_layers(model) -> int:
+    """Kernel 1's launches an encode: a vit trunk's layers, else none."""
+    vcfg = model.backbone.vision_cfg
+    return vcfg.num_layers if vcfg is not None else 0
+
+
+def trunk_encode(sizes: Sizes, group: str, device, yaml="orthohash_adapter",
+                 name=None) -> dict:
+    """One trunk's encode of ``sizes.trunk_images`` images, bf16 on the card
+    against f32 on the CPU (the first ``sizes.trunk_cpu_images``), counted;
+    returns its row of numbers."""
+    cfg = trunk_config(sizes, group, yaml, name)
+    t0 = time.perf_counter()
+    model, cpu = trunk_models(cfg, device)
+    build_s = time.perf_counter() - t0
+    images = trunk_images(sizes, cfg, sizes.trunk_images, device, 71)
+    n_cpu = min(sizes.trunk_cpu_images, sizes.trunk_images)
+    model.eval()
+    cpu.eval()
+    torch.cuda.synchronize()
+    count_reset()
+    with torch.inference_mode():
+        out = model(images)
+    torch.cuda.synchronize()
+    launches = counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu(images[:n_cpu].float().cpu())
+        feats_c = cpu.backbone(images[:n_cpu].float().cpu())["features"]
+    cpu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        feats = model.backbone(images[:n_cpu])["features"]
+    codes, ref = out["codes"][:n_cpu].float().cpu(), want["codes"]
+    agree = ((codes > 0) == (ref > 0)).float().mean().item()
+    cos = row_cosine(feats, feats_c)
+    logit_err = {k: ((out[k][:n_cpu].float().cpu() - want[k]).abs().max()
+                     / want[k].abs().max()).item()
+                 for k in ("logits",) if k in want}
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(images), sizes.reps)
+    expect = (trunk_layers(model), 0, 0, 0, 0, 0)
+    finite = all(torch.isfinite(v).all() for v in out.values())
+    label = name or group
+    print(f"trunk {label} encode ({sizes.trunk_images} images at "
+          f"{images.shape[1]}^2, bf16 on the card; the first {n_cpu} "
+          f"against f32 on the CPU): codes {tuple(out['codes'].shape)}, "
+          f"bits agreeing {agree:.6f} (limit {MIN_SIGN_AGREEMENT}), "
+          f"features {tuple(feats.shape)} at cosine {cos:.6f} "
+          f"(limit {MIN_FEATURE_COSINE}); "
+          + "".join(f"{k} within {v:.4g} of the largest (limit "
+                    f"{LOGIT_RTOL}); " for k, v in logit_err.items())
+          + f"launches {launches} against {expect}; {ms:.3f} ms an encode "
+          f"({sizes.trunk_images / ms * 1e3:.1f} img/s); built in "
+          f"{build_s:.1f} s, the CPU's f32 encode {cpu_s:.1f} s")
+    if not finite or codes.shape[0] != n_cpu:
+        fail(f"trunk {label}: outputs not finite")
+    if agree < MIN_SIGN_AGREEMENT or cos < MIN_FEATURE_COSINE:
+        fail(f"trunk {label}: bits agree {agree:.4f}, features cosine "
+             f"{cos:.4f}")
+    if any(v > LOGIT_RTOL for v in logit_err.values()):
+        fail(f"trunk {label}: logits {logit_err} beyond {LOGIT_RTOL}")
+    if launches != expect:
+        fail(f"trunk {label}: launches {launches} != {expect}")
+    return {"group": label, "img_s": sizes.trunk_images / ms * 1e3,
+            "agree": agree, "cos": cos}
+
+
+def check_layer_at(sizes: Sizes, label: str, B: int, L: int, D: int, F_: int,
+                   H: int, device) -> dict:
+    """Kernel 1 against its plain version at a vit trunk's shape (exact
+    GELU, eps 1e-6, both adapters at ``sizes.bottleneck``), then timed
+    beside its plain version and ``layer_library`` (F.linear + SDPA)."""
+    from concepthash_tpu_torch.ops import fused_layer as fl
+
+    gen = torch.Generator().manual_seed(17)
+    w, a1, a2 = random_layer(gen, D, F_, sizes.bottleneck, True, device)
+    x = torch.randn(B, L, D, generator=gen).to(device, torch.bfloat16)
+    kw = dict(num_heads=H, eps=1e-6, act="gelu", adapter_attn=a1,
+              adapter_mlp=a2)
+    with torch.inference_mode():
+        got = fl.encoder_layer_cuda(x, w, **kw)
+        torch.cuda.synchronize()
+        want = fl.layer_reference(x, w, **kw)
+    err = check_close(f"layer kernel at the {label} trunk's shape, B={B} "
+                      f"L={L} D={D} F={F_} H={H} gelu, both adapters "
+                      f"({sizes.bottleneck})", got, want, LAYER_ATOL,
+                      LAYER_RTOL)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: fl.encoder_layer_cuda(x, w, **kw), sizes.reps)
+        plain_ms = cuda_ms(lambda: fl.layer_reference(x, w, **kw), 3)
+        lw = fl.LayerWeights(*(t.to(torch.bfloat16) for t in w))
+        la = [fl.AdapterWeights(*(t.to(torch.bfloat16) for t in a))
+              for a in (a1, a2)]
+        lib_ms = cuda_ms(lambda: layer_library(x, lw, *la, H, 1e-6,
+                                               act="gelu"), sizes.reps)
+    flops, nbytes = layer_flops_bytes(B, L, D, F_, sizes.bottleneck, 2, w,
+                                      (a1, a2))
+    bound = max(flops / BF16_PEAK, nbytes / HBM_RATE) * 1e3
+    print(f"encoder_layer at the {label} trunk's shape (B={B}, L={L}, "
+          f"D={D}, both adapters): kernel {ms:.4f} ms, bound {bound:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, library (F.linear + SDPA) "
+          f"{lib_ms:.4f} ms; "
+          f"{card_line() if device.type == 'cuda' else 'the CPU'}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound}
+
+
+def trunk_forwards(sizes: Sizes, device) -> None:
+    """Phase 21 (a): each trunk of ``sizes.trunk_groups`` under orthohash's
+    head, and a2net_ce on resnet50's grid; kernel 1 at the vit trunks' two
+    new shapes."""
+    t_a = time.perf_counter()
+    rows = [trunk_encode(sizes, g, device) for g in sizes.trunk_groups]
+    rows.append(trunk_encode(sizes, "resnet50", device, "a2net_ce_adapter",
+                             "a2net_ce"))
+    for group in ("vit_s16", "vit_b16"):
+        if group not in sizes.trunk_groups:
+            continue
+        cfg = trunk_config(sizes, group)
+        b = cfg["backbone"]
+        L = (int(b["image_size"]) // int(b["patch_size"])) ** 2 + 1
+        check_layer_at(sizes, group, sizes.trunk_images, L,
+                       int(b["hidden_size"]), int(b["intermediate_size"]),
+                       int(b["num_heads"]), device)
+    print("phase 21 (a) encode img/s, bf16, orthohash's head: "
+          + "; ".join(f"{r['group']} {r['img_s']:.1f}" for r in rows)
+          + f"; {card_line() if device.type == 'cuda' else 'the CPU'}")
+    print(f"phase 21 (a): {time.perf_counter() - t_a:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def bn_inputs(model) -> tuple:
+    """Forward pre-hooks on every BatchNorm of the trunk that keep, in the
+    next train forward, each one's running statistics before it and the
+    biased batch statistics of its input (float64, two passes): (the
+    hooks, {name: (mean0, var0, mean, var)})."""
+    from concepthash_tpu_torch.models.layers import CodeBatchNorm
+
+    seen, hooks = {}, []
+    for n, m in model.backbone.named_modules():
+        if not isinstance(m, CodeBatchNorm):
+            continue
+
+        def hook(mod, args, n=n):
+            x = args[0].double()
+            dims = [d for d in range(x.dim()) if d != 1]
+            seen[n] = (mod.running_mean.clone(), mod.running_var.clone(),
+                       x.mean(dims), x.var(dims, correction=0))
+        hooks.append(m.register_forward_pre_hook(hook))
+    return hooks, seen
+
+
+def trunk_steps(sizes: Sizes, device) -> None:
+    """Phase 21 (b): five eager steps of orthohash on each trunk of
+    ``TRUNK_TRAINED`` at ``sizes.trunk_batch`` (vit at the kernel
+    settings, kernels 5 and 6 counted), the loss finite and falling (vgg16:
+    finite; its dropout masks differ every step); the
+    BatchNorm statistics of the first step against a recomputation from
+    the batch; resnet18's frozen BatchNorm bit-unchanged; vgg16's dropout
+    from the run's generator; vit's kernel step against a plain one under
+    sgd; then graphed chunks of ``TRUNK_GRAPHED`` against eager
+    steps bit for bit, buffers included."""
+    from concepthash_tpu_torch.methods import training_for
+
+    t_b = time.perf_counter()
+    nclass = sizes.head["nclass"]
+    B = sizes.trunk_batch
+    for group in TRUNK_TRAINED:
+        t_m = time.perf_counter()
+        cfg = trunk_config(sizes, group)
+        vit = cfg["backbone"]["family"] == "vit"
+        _, model, loss_fn = trunk_model(cfg, device,
+                                        TRAIN_VISION if vit else None)
+        dgen = torch.Generator(device=device).manual_seed(73)
+        y = torch.randint(0, nclass, (B,), generator=dgen, device=device)
+        batch = {"image": trunk_images(sizes, cfg, B, device, 74),
+                 "label": F.one_hot(y, nclass).float()}
+        n_lay = trunk_layers(model)
+        expect = (0, 0, 0, 2 * n_lay, n_lay, 0)
+        extra = ""
+        if vit:     # the kernels' step against the plain one under sgd
+            t = training_for(dict(cfg, optim=UNSUP_SGD), model, loss_fn,
+                             sizes.steps_per_epoch)
+            loss_k, loss_p, upd_k, upd_p = steps_kernels_plain(t, batch)
+            whole = F.cosine_similarity(torch.cat(list(upd_k.values())),
+                                        torch.cat(list(upd_p.values())),
+                                        dim=0).item()
+            print(f"trunk {group} train step under sgd, kernels vs plain: "
+                  f"loss {loss_k:.6f} vs {loss_p:.6f}; update cosine over "
+                  f"all trained tensors {whole:.6f}")
+            if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+                    whole < MIN_UPDATE_COSINE:
+                fail(f"trunk {group}: the kernels' step differs from its "
+                     "plain version's")
+            del t
+        tr = training_for(cfg, model, loss_fn, sizes.steps_per_epoch)
+        replay = None
+        if cfg["backbone"]["family"] == "vgg16":
+            replay = dropout_replay(tr, batch)
+        buffers = {k: v.clone() for k, v in model.backbone.named_buffers()}
+        frozen = {k: v.clone() for k, v in model.backbone.named_parameters()
+                  if not v.requires_grad}
+        hooks, seen = bn_inputs(model)
+        torch.cuda.synchronize()
+        count_reset()
+        losses, per_step, gen_states = [], [], [tr.generator.get_state()]
+        for i in range(sizes.train_steps):
+            if i == 1:
+                t0 = time.perf_counter()
+            before = counts()
+            losses.append(float(tr.step(batch)["loss"]))
+            per_step.append(tuple(a - c for a, c in zip(counts(), before)))
+            gen_states.append(tr.generator.get_state())
+            if i == 0:
+                for h in hooks:
+                    h.remove()
+                stats_d = bn_stats_d(model, seen)
+        step_ms = (time.perf_counter() - t0) / (sizes.train_steps - 1) * 1e3
+        after = dict(model.backbone.named_buffers())
+        params = dict(model.backbone.named_parameters())
+        moved = [k for k, v in frozen.items() if not torch.equal(params[k], v)]
+        if cfg["backbone"].get("frozen_bn"):
+            same = all(torch.equal(after[k], v) for k, v in buffers.items())
+            extra = (f"; frozen BatchNorm buffers (num_batches_tracked "
+                     f"included) bit-unchanged after {len(losses)} steps: "
+                     f"{same}")
+            if not same:
+                fail(f"trunk {group}: frozen_bn moved a buffer")
+        elif seen:
+            counted = {int(v) for k, v in after.items()
+                       if k.endswith("num_batches_tracked")}
+            extra = (f"; the first step's running statistics against 0.9 r "
+                     f"+ 0.1 (batch mean, biased variance): max |d| "
+                     f"{stats_d:.3g} (limit {BN_STATS_ATOL}) over "
+                     f"{len(seen)} BatchNorms; num_batches_tracked "
+                     f"{sorted(counted)}")
+            if stats_d > BN_STATS_ATOL or counted != {len(losses)}:
+                fail(f"trunk {group}: running statistics {stats_d} off, or "
+                     f"num_batches_tracked {counted}")
+        if replay is not None:
+            advanced = all(not torch.equal(a, b)
+                           for a, b in zip(gen_states, gen_states[1:]))
+            extra += (f"; dropout from the run's generator: it advanced "
+                      f"every step {advanced}, a step replayed from one "
+                      f"state alike and from another not: {replay}")
+            if not advanced or not replay:
+                fail(f"trunk {group}: dropout not drawn from the run's "
+                     "generator")
+        print(f"trunk {group} train steps (B={B}"
+              + (", kernels 5 and 6" if vit else "") + "): loss "
+              + ", ".join(f"{x:.5f}" for x in losses)
+              + f"; launches per step {per_step[0]} against {expect}, the "
+              f"same every step: {len(set(per_step)) == 1}; frozen "
+              f"parameters unchanged: {not moved}{extra}; {step_ms:.1f} ms "
+              "a step after the first (host clock, eager)")
+        if any(p != expect for p in per_step):
+            fail(f"trunk {group}: launches per step {per_step}")
+        # a dropout trunk's loss moves with its masks (rate 0.5 at fc6 and
+        # fc7), so only its finiteness is held
+        falls = replay is not None or losses[-1] < losses[0]
+        if moved or not all(math.isfinite(x) for x in losses) or not falls:
+            fail(f"trunk {group}: loss {losses} not finite or not falling, "
+                 f"or frozen parameters moved {moved[:3]}")
+        del tr, model
+        if group in TRUNK_GRAPHED:
+            trunk_graph_vs_eager(sizes, group, device)
+        print(f"trunk {group}: {time.perf_counter() - t_m:.1f} s")
+    print(f"phase 21 (b): {time.perf_counter() - t_b:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def bn_stats_d(model, seen: dict) -> float:
+    """The largest |d| between each BatchNorm's running statistics and
+    0.9 r0 + 0.1 (batch mean, biased batch variance) of what ``seen``
+    kept in the last train forward."""
+    mods = dict(model.backbone.named_modules())
+    worst = 0.0
+    for n, (m0, v0, mean, var) in seen.items():
+        m = mods[n]
+        worst = max(worst, (m.running_mean.double() - (
+            0.9 * m0.double() + 0.1 * mean)).abs().max().item(),
+            (m.running_var.double() - (0.9 * v0.double() + 0.1 * var))
+            .abs().max().item())
+    return worst
+
+
+def dropout_replay(tr, batch: dict) -> bool:
+    """One step of ``tr`` from one dropout generator state twice gives one
+    loss, and from another state another (the state restored after
+    each)."""
+    model = tr.model
+    snap = (copy.deepcopy(model.state_dict()),
+            copy.deepcopy(tr.optimizer.state_dict()),
+            copy.deepcopy(tr.scheduler.state_dict()),
+            tr.generator.get_state())
+    losses = []
+    for seed in (1, 1, 2):
+        tr.generator.manual_seed(seed)
+        losses.append(float(tr.step(batch)["loss"]))
+        model.load_state_dict(snap[0])
+        tr.optimizer.load_state_dict(snap[1])
+        tr.scheduler.load_state_dict(snap[2])
+    tr.generator.set_state(snap[3])
+    return losses[0] == losses[1] != losses[2]
+
+
+def trunk_graph_vs_eager(sizes: Sizes, group: str, device) -> None:
+    """Two chunks of ``sizes.check_chunk`` orthohash steps on the trunk
+    through ``make_multi_train_step`` (a warm-up, then a replay) against
+    as many eager steps of a twin from the same seed: losses, parameters
+    and buffers (BatchNorm statistics, ``num_batches_tracked``) bit for
+    bit, and the dropout generator's state."""
+    from concepthash_tpu_torch.methods import training_for
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    sizes = check_sizes(sizes)
+    cfg = trunk_config(sizes, group)
+    vit = cfg["backbone"]["family"] == "vit"
+    trs = []
+    for _ in range(2):
+        _, model, loss_fn = trunk_model(cfg, device,
+                                        TRAIN_VISION if vit else None)
+        trs.append(training_for(cfg, model, loss_fn, sizes.steps_per_epoch))
+    graph, eager = trs
+    K, B, nclass = sizes.graph_chunk, sizes.trunk_batch, sizes.head["nclass"]
+    dgen = torch.Generator(device=device).manual_seed(75)
+    batches = []
+    for i in range(2 * K):
+        y = torch.randint(0, nclass, (B,), generator=dgen, device=device)
+        batches.append({"image": trunk_images(sizes, cfg, B, device, 80 + i),
+                        "label": F.one_hot(y, nclass).float()})
+    stacked = [{k: torch.stack([b[k] for b in batches[c * K:(c + 1) * K]])
+                for k in batches[0]} for c in range(2)]
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    g_loss = [x for chunk in stacked for x in multi(chunk)["loss"].tolist()]
+    e_loss = [float(eager.step(b)["loss"]) for b in batches]
+    gs, es = graph.model.state_dict(), eager.model.state_dict()
+    d = max((gs[k].double() - es[k].double()).abs().max().item() for k in gs)
+    n_buf = sum(1 for k, _ in graph.model.named_buffers())
+    same_gen = torch.equal(graph.generator.get_state(),
+                           eager.generator.get_state())
+    same = g_loss == e_loss and d == 0.0 and same_gen
+    n_lay = trunk_layers(graph.model)
+    want = ({"ln_matmul_cuda": 2 * K * n_lay, "attention_cuda": K * n_lay}
+            if n_lay else {})
+    per_replay = getattr(multi, "launches_per_replay", want)
+    print(f"trunk {group} graph vs eager train (K={K}, a warm-up chunk and "
+          f"a replay): losses {g_loss[-1]:.5f} / {e_loss[-1]:.5f} at the "
+          f"last step, state max |d| {d:.3g} over the parameters and "
+          f"{n_buf} buffers, the dropout generator alike {same_gen}: "
+          f"graphed steps alike bit for bit: {same} (required), "
+          f"{getattr(multi, 'replays', 0)} replays, launches per replay "
+          f"{per_replay}")
+    if not same:
+        fail(f"trunk {group}: graphed steps differ from eager ones")
+    if per_replay != want:
+        fail(f"trunk {group}: launches per replay {per_replay} != {want}")
+    del graph, eager, trs
+
+
+def run_trunks(sizes: Sizes, device) -> None:
+    """Phase 21 (a) and (b)."""
+    t0 = time.perf_counter()
+    trunk_forwards(sizes, device)
+    trunk_steps(sizes, device)
+    print(f"phase 21 (a), (b): {time.perf_counter() - t0:.1f} s")
+
+
+def reference_layout(sd: dict) -> dict:
+    """A port orthohash-on-ResNet state dict renamed into the reference's
+    layout: the trunk under ``backbone.model.``, the hash layer and its
+    BatchNorm as ``hash_fc.0`` / ``hash_fc.1``, the centroids and the
+    codebook buffer."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("backbone.tower."):
+            out["backbone.model." + k[len("backbone.tower."):]] = v
+        elif k.startswith("hash_bn."):
+            out["hash_fc.1." + k[len("hash_bn."):]] = v
+        elif k == "hash_fc.weight":
+            out["hash_fc.0.weight"] = v
+        else:
+            out[k] = v
+    out["hash_fc.1.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    out["codebook"] = sd["ce_fc.centroids"]
+    return out
+
+
+# the calls whose algorithm a library picks by the operands' shapes
+LIBRARY_CALLS = ("conv2d", "linear", "matmul", "bmm", "baddbmm", "addmm",
+                 "mm", "einsum", "scaled_dot_product_attention")
+
+
+def batch_variant_call(model, images: torch.Tensor, n: int) -> tuple:
+    """Eval forwards of the first ``n`` rows of ``images`` and of all B,
+    compared call by call: every torch call's tensor result, in order. A
+    result that leads with n and B times one factor (batch-major, as Swin's
+    windows are) is held on the n images' rows, one of the same shape
+    whole; any other is not held. Returns (results held equal before the
+    first that differs, that call's name or None, its max |d|, the small
+    pass's codes, the big pass's codes)."""
+    from torch.overrides import TorchFunctionMode
+
+    B = images.shape[0]
+    kept: list = []
+    state = {"i": 0, "held": 0, "first": None, "d": 0.0}
+
+    class Calls(TorchFunctionMode):
+        def __init__(self, keep: bool):
+            super().__init__()
+            self.keep = keep
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = getattr(func, "__name__", repr(func))
+            if not isinstance(out, torch.Tensor) or name.startswith(
+                    ("empty", "new_empty")):    # contents not yet written
+                return out
+            if self.keep:
+                kept.append(out.detach().clone())
+                return out
+            i = state["i"]
+            state["i"] += 1
+            if state["first"] is not None or i >= len(kept):
+                return out
+            ref, kept[i] = kept[i], None      # freed as the pass goes
+            if out.shape == ref.shape:
+                got = out
+            elif out.dim() and out.shape[1:] == ref.shape[1:] and \
+                    out.shape[0] * n == ref.shape[0] * B:
+                got = out[:ref.shape[0]]
+            else:
+                return out
+            if torch.equal(got, ref):
+                state["held"] += 1
+            else:
+                state["first"] = name
+                state["d"] = (got.float() - ref.float()).abs().max().item()
+                kept.clear()
+            return out
+
+    head = images[:n]
+    with torch.inference_mode():
+        with Calls(True):
+            small = model(head, train=False)["codes"].float()
+        with Calls(False):
+            big = model(images, train=False)["codes"].float()[:n]
+    return state["held"], state["first"], state["d"], small, big
+
+
+def batch_shape_witness(label: str, run: str, eval_argv, device,
+                        hold: bool = False) -> None:
+    """Phase 21 (c): why a CNN run's ``exp=validation`` at
+    configs/val.yaml's batch may not give back the mAP the run scored at
+    its own: the run's last model encodes the first test rows inside a
+    batch of half val.yaml's (the run's 32 on the card) and inside one of
+    val.yaml's. Held: that half batch encoded twice gives the same codes
+    bit for bit, and the first call whose rows differ between the two
+    shapes is a library's (``LIBRARY_CALLS``: cuDNN's convolutions,
+    cuBLAS's products), every call of the port's own before it equal.
+    Read, not held: the codes that flip sign and how near 0 they were, the
+    same with cuDNN held to deterministic algorithms (benchmark off), and
+    the validation's mAP at val.yaml's batch against the run's, which
+    ``hold`` holds within 1e-6."""
+    import os
+
+    import main_gpu
+    from concepthash_tpu_torch.data.preprocess import preprocess_batch
+
+    ev = main_gpu.build_experiment(eval_argv(
+        "exp=validation", f"logdir={run}", "use_last=true"))
+    exp = ev.exp
+    batch = next(iter(exp.loaders["test"]))
+    images = preprocess_batch(
+        torch.from_numpy(np.asarray(batch["image"][:batch["n_valid"]])).to(
+            device), crop=exp.crop, norm=exp.norm, train=False)
+    B = images.shape[0]
+    n = max(1, B // 2)
+    with torch.inference_mode():
+        once = exp.model(images[:n], train=False)["codes"]
+        twice = exp.model(images[:n], train=False)["codes"]
+    repeat = torch.equal(once, twice)
+    readings = {}
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    for mode, det in (("default", False), ("cudnn deterministic", True)):
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            (det, False) if det else flags
+        held, first, d, small, big = batch_variant_call(exp.model, images, n)
+        flip = torch.sign(small) != torch.sign(big)
+        near = small.abs()[flip]
+        readings[mode] = first
+        print(f"{label} batch shapes ({mode}): {n} test rows inside a batch "
+              f"of {n} and of {B}: {held} call results equal, then "
+              + (f"{first} differs (max |d| {d:.3g})" if first else
+                 "none differs")
+              + f"; codes max |d| {(small - big).abs().max().item():.3g}, "
+              f"{int(flip.sum())} of {flip.numel()} signs flip, at |code| "
+              f"<= {near.max().item() if near.numel() else 0.0:.3g} "
+              f"(median |code| {small.abs().median().item():.3g})")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    with open(os.path.join(run, "test_history.json")) as f:
+        run_map = json.load(f)[-1]["mAP"]
+    got = ev.main()
+    for loader in exp.loaders.values():
+        loader.close()
+    d_map = abs(got["mAP"] - run_map)
+    print(f"{label} exp=validation use_last=true at val.yaml's batch of "
+          f"{int(exp.config['batch_size'])}: mAP {got['mAP']:.6f} against "
+          f"the run's {run_map:.6f}, |d| {d_map:.3g} "
+          + (f"(limit {REPLAY_MAP_ATOL})" if hold else "(read, not held)")
+          + f"; the half batch twice bit for bit: {repeat} (required); the "
+          "first call that differs a library's: "
+          f"{readings['default'] in (None, *LIBRARY_CALLS)} (required)")
+    if not repeat or readings["default"] not in (None, *LIBRARY_CALLS):
+        fail(f"{label}: the codes follow the batch's shape through the "
+             f"port's own code ({readings['default']}), or a batch encoded "
+             "twice differs")
+    if hold and d_map > REPLAY_MAP_ATOL:
+        fail(f"{label}: exp=validation does not reproduce the run")
+    del ev, exp
+
+
+def run_trunk_runs(sizes: Sizes, device, tmp: str, argv, eval_argv,
+                   flagship: dict) -> None:
+    """Phase 21 (c) and (d) on phase 15's synthetic set."""
+    import os
+
+    import main_gpu
+
+    t_c = time.perf_counter()
+    ortho, dpsh, csq = "orthohash_adapter", "dpsh_adapter", "csq_adapter"
+    r50, vit, swin = "resnet50", "vit_b16", "swin_base"
+    vit_over = dict(sizes.trunk_over).get(vit, ())
+    # resnet50 validates at the run's batch size: cuDNN picks its
+    # convolutions' algorithms by the batch's shape, and with them the
+    # codes' last bits (batch_shape_witness shows it); swin_base at
+    # val.yaml's, as its witness finds no call that follows the shape
+    run_model_runs("phase 21 (c)", device, tmp, argv, eval_argv, flagship, (
+        (ortho, {"name": f"{ortho}_{r50}",
+                 "extra": (f"backbone={r50}",
+                           *dict(sizes.trunk_over).get(r50, ())),
+                 "resume": True, "val_at_run_batch": True}),
+        (csq, {"name": f"{csq}_{swin}",
+               "extra": (f"backbone={swin}",
+                         *dict(sizes.trunk_over).get(swin, ()))})))
+    for name in (f"{ortho}_{r50}", f"{csq}_{swin}"):
+        batch_shape_witness(name, os.path.join(tmp, name), eval_argv,
+                            device)
+    def counted_run(label: str, *extra) -> dict:
+        run = os.path.join(tmp, f"{dpsh}_{vit}_{label}")
+        exp = main_gpu.build_experiment(argv(run, f"model={dpsh}",
+                                             f"backbone={vit}", *vit_over,
+                                             *extra))
+        if label == "profiled":     # the window: the epoch's last step,
+            steps = exp.steps_per_epoch     # the evaluation, the next step
+            exp.profiler.start_step = steps - 1
+            exp.profiler.num_steps = 2
+        secs = time_encodes(exp)
+        torch.cuda.synchronize()
+        count_reset()
+        exp.main()
+        torch.cuda.synchronize()
+        launches = counts()
+        with open(os.path.join(run, "train_history.json")) as f:
+            train = json.load(f)
+        with open(os.path.join(run, "test_history.json")) as f:
+            test = json.load(f)
+        n_eval = exp.epochs * (len(exp.loaders["test"])
+                               + len(exp.loaders["db"]))
+        want = (trunk_layers(exp.model) * n_eval, 0, 0, 0, 0, 0)
+        batch = int(exp.config["batch_size"])
+        out = {"run": run, "train": train, "test": test,
+               "profiler": exp.profiler,
+               "eval_img_s": eval_img_s(exp, secs)[1],
+               "train_img_s": (exp.steps_per_epoch * batch / train[-1]["time"])}
+        print(f"{dpsh} on {vit} run ({label}, train_chunk "
+              f"{exp.train_chunk}): train records "
+              + "; ".join(f"ep {r['ep']} loss {r['loss']:.6f}" for r in train)
+              + "; test mAP " + ", ".join(f"{r['mAP']:.6f}" for r in test)
+              + f"; graph replays "
+              f"{getattr(exp.train_multi_step, 'replays', 0)} train, "
+              f"{getattr(exp.eval_multi_step, 'replays', 0)} eval; launches "
+              f"{launches} against {want}")
+        if not len(train) == len(test) == exp.epochs or launches != want:
+            fail(f"{dpsh} on {vit} ({label}): records or launches wrong")
+        if exp.train_chunk != 1 or exp.train_multi_step is not None \
+                or exp.eval_multi_step is not None:
+            fail(f"{dpsh} on {vit} ({label}): something was captured")
+        for loader in exp.loaders.values():
+            loader.close()
+        return out
+
+    # one step a dispatch, traced over the first evaluation (models/ep1.pt
+    # kept), then its first epoch again under debug.disable_jit
+    profiled = counted_run("profiled", "train_chunk=1", "save_interval=1",
+                           "+profile.enabled=true")
+    eager = counted_run("disable_jit", "epochs=1", "+debug.disable_jit=true")
+    prof = profiled["profiler"]
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    port = sorted({k for k in PORT_KERNEL_NAMES
+                   if any(k in n for n in names)})
+    print(f"profile: the trace {os.path.basename(prof.trace_path)} of "
+          f"dispatches {prof.start_step}-{prof.start_step + prof.num_steps - 1}"
+          f" ({len(events)} events) names the port's kernels {port}; "
+          f"{len(prof.step_times)} dispatches timed")
+    if not events or (device.type == "cuda" and not port):
+        fail("profile: no trace, or no kernel of the port in it")
+    r1 = profiled["run"]
+    a = torch.load(os.path.join(r1, "models", "ep1.pt"))["model"]
+    b = torch.load(os.path.join(eager["run"], "models", "last.pt"))["model"]
+    d = max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+    same = profiled["train"][0]["loss"] == eager["train"][0]["loss"] and \
+        d == 0.0 and set(a) == set(b)
+    print(f"debug.disable_jit run against the train_chunk=1 run's first "
+          f"epoch: its loss and models/ep1.pt max |d| {d:.3g}: bit for bit "
+          f"{same} (required)")
+    if not same:
+        fail("debug.disable_jit: the run differs from its train_chunk=1 run")
+    print(f"{dpsh} on {vit}: epoch-2 train {profiled['train_img_s']:.1f} "
+          f"img/s at train_chunk 1, eval {profiled['eval_img_s']:.1f} img/s;"
+          f" {card_line() if device.type == 'cuda' else 'the CPU'}")
+    # validated at val.yaml's batch: kernel 1 gives a row the same bits in
+    # any batch (the witness finds no call that follows the shape)
+    batch_shape_witness(f"{dpsh} on {vit}", r1, eval_argv, device, hold=True)
+    import_reference_run(device, tmp, argv, eval_argv, ortho, r50,
+                         dict(sizes.trunk_over).get(r50, ()))
+    print(f"phase 21 (c), (d): {time.perf_counter() - t_c:.1f} s")
+
+
+def import_reference_run(device, tmp: str, argv, eval_argv, model: str,
+                         group: str, over: tuple = ()) -> None:
+    """Phase 21 (d): a seeded port ``model`` on ``group`` renamed into the
+    reference's layout (``reference_layout``), saved as a ``.pth``, through
+    ``scripts/import_reference_checkpoint_torch.py`` and ``exp=validation``:
+    the imported state and the test split's codes equal the seeded model's
+    bit for bit."""
+    import os
+    import sys
+
+    import main_gpu
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    try:
+        import import_reference_checkpoint_torch as script
+    finally:
+        sys.path.pop(0)
+    from concepthash_tpu_torch.config.loader import load_config
+    from concepthash_tpu_torch.methods import (build_model, get_method,
+                                               prepare_codebook)
+
+    t0 = time.perf_counter()
+    over = (f"backbone={group}", *over)
+    args = [a for a in argv("unused", f"model={model}", *over)
+            if not a.startswith(("--device", "logdir="))
+            and a != str(device)]
+    out = os.path.join(tmp, "imported")
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "configs"), "train", [*args, f"logdir={out}"])
+    cb = prepare_codebook(get_method(cfg["model"]["name"]), cfg)
+    seeded = build_model(cfg, cb, device=torch.device("cpu"))[0].state_dict()
+    pth = os.path.join(tmp, "reference_best.pth")
+    torch.save(reference_layout(seeded), pth)
+    res = script.main(["--pth", pth, "--outdir", out, *args])
+    report = res["report"]
+    imported = torch.load(os.path.join(out, "models", "best.pt"))["model"]
+    same_sd = set(imported) == set(seeded) and all(
+        torch.equal(imported[k], seeded[k]) for k in seeded)
+    ev = main_gpu.build_experiment(eval_argv("exp=validation",
+                                             f"logdir={out}"))
+    res_map = ev.main()["mAP"]
+    codes = ev.exp.encode_split("test")[0]["codes"]
+    ev.exp.model.load_state_dict(seeded)
+    want = ev.exp.encode_split("test")[0]["codes"]
+    same = torch.equal(codes, want)
+    print(f"reference-layout import ({len(seeded)} tensors of {model} on "
+          f"{group} renamed into the reference's keys): {len(report.written)}"
+          f" written, unused {report.unused}, missing {report.missing}; the "
+          f"imported state equal to the seeded one: {same_sd}; "
+          f"exp=validation mAP {res_map:.6f}, test codes "
+          f"{tuple(codes.shape)} equal to the seeded model's bit for bit: "
+          f"{same} (required); {time.perf_counter() - t0:.1f} s")
+    if report.unused or report.missing or not same_sd or not same:
+        fail("the reference-layout import does not reproduce the seeded "
+             "model")
+    for loader in ev.exp.loaders.values():
+        loader.close()
+    del ev
+
+
 def _flatten(x):
     if isinstance(x, (list, tuple)):
         return [y for item in x for y in _flatten(item)]
@@ -4955,6 +5770,7 @@ def run(sizes: Sizes, device) -> dict:
     run_finegrained(sizes, device)
     run_unsupervised(sizes, device)
     run_pretrain(sizes, device)
+    run_trunks(sizes, device)
     run_graphs(sizes, device, flagship)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",

@@ -10,9 +10,11 @@ One deliberate difference: the decode pool is the ``ImageSource``'s, and
 ``Loader.close()`` or abandoning an epoch mid-way shuts it down (the
 reference leaves its threads running). ``native_decode`` decodes with the
 C++ library (``native``), falling back to PIL per image as the reference
-does. Not ported: the per-process shards of a multi-host run,
-``ArrayDataset``, ``array_loader``, the ``dataloader`` alias (callers build
-a ``Loader``) and the ``workers`` and ``prefetch`` knobs (the pool's width follows the cores; the prefetch depth is
+does. ``ArrayDataset`` and ``array_loader`` batch in-memory feature rows
+(the ``identity`` backbone's input) under the same batch contract. Not
+ported: the per-process shards of a multi-host run, the ``dataloader``
+alias (callers build a ``Loader``) and the ``workers`` and ``prefetch``
+knobs (the pool's width follows the cores; the prefetch depth is
 ``PREFETCH``).
 """
 
@@ -236,3 +238,46 @@ def seeding(seed: int):
 
     np.random.seed(seed)
     random.seed(seed)
+
+
+class ArrayDataset:
+    """In-memory (features, labels) dataset (the reference's
+    ``engine.tensor_to_dataset(s)``), for precomputed features and the
+    identity backbone. ``labels``: class indices or (N, C) multi-hot."""
+
+    def __init__(self, features: np.ndarray, labels: np.ndarray,
+                 num_classes: int = 0):
+        if len(features) != len(labels):
+            raise ValueError(f"{len(features)} feature rows but "
+                             f"{len(labels)} labels")
+        self.features = np.asarray(features)
+        self.labels = np.asarray(labels)
+        self.num_classes = num_classes or (
+            self.labels.shape[1] if self.labels.ndim == 2
+            else int(self.labels.max()) + 1)
+
+    def __len__(self):
+        return len(self.features)
+
+    def onehot_labels(self) -> np.ndarray:
+        if self.labels.ndim == 2:
+            return self.labels.astype(np.float32)
+        return np.eye(self.num_classes, dtype=np.float32)[self.labels]
+
+
+def array_loader(dataset: ArrayDataset, batch_size: int,
+                 shuffle: bool = False, drop_last: bool = False,
+                 seed: int = 0) -> Iterator[dict]:
+    """Batches of an ArrayDataset under the ``Loader`` contract (``image``
+    carries the feature rows; the tail zero-padded, its rows at index -1);
+    ``shuffle`` permutes with ``np.random.default_rng(seed)``."""
+    n = len(dataset)
+    idxs = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idxs)
+    onehot = dataset.onehot_labels()
+    nb = n // batch_size if drop_last else -(-n // batch_size)
+    for b in range(nb):
+        sel = idxs[b * batch_size:(b + 1) * batch_size]
+        yield _finish_batch(dataset.features[sel], onehot[sel], sel,
+                            batch_size)

@@ -101,6 +101,20 @@ def _vision_config(config, vision: Optional[dict]) -> ClipVisionConfig:
     return dataclasses.replace(vcfg, **vision) if vision else vcfg
 
 
+def backbone_group(config) -> Optional[dict]:
+    """The backbone group as the trunk reads it: a ResNet, Swin, AlexNet or
+    VGG16 group at the dataset's crop (``image_size``), the size its images
+    come in, which fixes the token count and Swin's windows (the reference
+    reads them off the images)."""
+    from concepthash_tpu_torch.models.trunk import IMAGE_FAMILIES
+
+    b = config.get("backbone")
+    crop = (config.get("dataset", {}) or {}).get("crop")
+    if b and b.get("family", "clip") in IMAGE_FAMILIES and crop:
+        b = {**dict(b), "image_size": int(crop)}
+    return b
+
+
 def _build_concepthash(config, codebook, *, device=None,
                        generator: Optional[torch.Generator] = None,
                        vision: Optional[dict] = None) -> ConceptHash:
@@ -159,7 +173,7 @@ def _build_baseline(head: str, config, codebook, *, device=None,
                           hash_bias=bool(m.get("hash_bias", False)))
     return BaselineHashNet(vcfg, bcfg, adapter_config_from_model_cfg(m),
                            codebook=codebook,
-                           backbone_cfg=config.get("backbone"),
+                           backbone_cfg=backbone_group(config),
                            dtype=_compute_dtype(config), device=device,
                            generator=generator)
 
@@ -180,7 +194,7 @@ def _build_finegrained(head: str, config, codebook, *, device=None,
         temp=float(m.get("temp", 10.0)))
     return FINEGRAINED[head](vcfg, fcfg, adapter_config_from_model_cfg(m),
                              fixed_center=codebook,
-                             backbone_cfg=config.get("backbone"),
+                             backbone_cfg=backbone_group(config),
                              dtype=_compute_dtype(config), device=device,
                              generator=generator)
 
@@ -205,7 +219,7 @@ def _build_pretrain(with_predictor: bool, config, codebook, *, device=None,
                           with_predictor=with_predictor)
     return ProjectorNet(_vision_config(config, vision), pcfg,
                         adapter_config_from_model_cfg(m),
-                        backbone_cfg=config.get("backbone"),
+                        backbone_cfg=backbone_group(config),
                         dtype=_compute_dtype(config), device=device,
                         generator=generator)
 
@@ -250,7 +264,7 @@ def _build_tbh(config, codebook, *, device=None,
                      hidden=int(m.get("hidden_dim", 256)))
     return TBHNet(_vision_config(config, vision), tcfg,
                   adapter_config_from_model_cfg(m),
-                  backbone_cfg=config.get("backbone"),
+                  backbone_cfg=backbone_group(config),
                   dtype=_compute_dtype(config), device=device,
                   generator=generator)
 

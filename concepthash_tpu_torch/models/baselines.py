@@ -1,9 +1,9 @@
-"""The supervised baselines over the CLIP-adapter trunk (counterpart of
+"""The supervised baselines over a backbone trunk (counterpart of
 concepthash_tpu/models/baselines.py).
 
 Every baseline has one shape: the trunk's feature (the post-LayerNorm CLS
-token of the adapter-tuned CLIP tower) -> a linear hash layer ->
-the method's head. Heads:
+token of the adapter-tuned CLIP tower, or another family's feature,
+``models/trunk.py``) -> a linear hash layer -> the method's head. Heads:
 
 - ``orthohash``: the code BatchNorm (``hash_bn``) and a cosine classifier
   against the fixed signed codebook (``ce_fc.centroids``, a buffer), with
@@ -44,7 +44,8 @@ from concepthash_tpu_torch.models.clip import (AdapterConfig,
 from concepthash_tpu_torch.models.layers import (CodeBatchNorm, CosSim,
                                                  dense, empty_linear, linear,
                                                  sign_ste)
-from concepthash_tpu_torch.models.trunk import model_trunk
+from concepthash_tpu_torch.models.trunk import (model_trunk,
+                                                trunk_features_size)
 from concepthash_tpu_torch.ops.numerics import l2_normalize
 
 HEADS = ("orthohash", "csq", "dpn", "pairwise", "ce", "greedyhash",
@@ -82,7 +83,8 @@ class BaselineHashNet(nn.Module):
     ``logits2``, ``codes_bin``). ``codebook``: the fixed (nclass, nbit)
     signed codebook of orthohash, or the (nclass, proj) class-text centers
     of clip. ``backbone_cfg``: the backbone group, whose ``family`` picks
-    the trunk (clip only here)."""
+    the trunk (``models/trunk.py``); the hash layer is sized by the
+    trunk's feature width."""
 
     def __init__(self, vision_cfg: Optional[ClipVisionConfig],
                  cfg: BaselineConfig = BaselineConfig(),
@@ -97,8 +99,9 @@ class BaselineHashNet(nn.Module):
         g = generator
         self.backbone = model_trunk(vision_cfg, adapters, backbone_cfg, dtype,
                                     g)
-        self.vision_cfg = vcfg = self.backbone.tower.cfg
-        check_kernel_dtype(vcfg, dtype, dev.type)
+        self.vision_cfg = vcfg = self.backbone.vision_cfg
+        if vcfg is not None:
+            check_kernel_dtype(vcfg, dtype, dev.type)
         self.cfg, self.dtype = cfg, dtype
         head = cfg.head
         cb = (torch.as_tensor(codebook, dtype=torch.float32)
@@ -111,12 +114,12 @@ class BaselineHashNet(nn.Module):
             self.register_buffer("text_centers", cb.clone(),
                                  persistent=False)
         elif head == "nsh":
-            D, Z = vcfg.hidden_size, cfg.latent_dim
+            D, Z = trunk_features_size(self.backbone), cfg.latent_dim
             self.latent_fc1 = linear(D, 2 * Z, generator=g)
             self.latent_fc2 = linear(2 * Z, Z, generator=g)
             self.hash_fc = linear(Z, cfg.nbit, bias=False, generator=g)
         elif head != "descriptor":
-            D = vcfg.hidden_size
+            D = trunk_features_size(self.backbone)
             bias = cfg.hash_bias or head in ("pairwise", "ce", "greedyhash",
                                              "unsup_greedyhash")
             self.hash_fc = (_torch_default_linear(D, cfg.nbit, g)
@@ -136,11 +139,12 @@ class BaselineHashNet(nn.Module):
     def forward(self, images: torch.Tensor, train: bool = False,
                 output_attentions: bool = False,
                 generator: Optional[torch.Generator] = None) -> dict:
-        """``train=True``: batch statistics in orthohash's code BatchNorm,
-        whose running statistics it updates. No baseline draws dropout, so
-        ``generator`` is not read."""
+        """``train=True``: batch statistics in orthohash's code BatchNorm
+        (and a ResNet trunk's), whose running statistics it updates; an
+        AlexNet or VGG16 trunk draws its dropout from ``generator``."""
         return self.head(self.backbone(images, train=train,
-                                       output_attentions=output_attentions),
+                                       output_attentions=output_attentions,
+                                       generator=generator),
                          train)
 
     def head(self, enc: dict, train: bool = False) -> dict:

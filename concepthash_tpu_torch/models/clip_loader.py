@@ -20,6 +20,7 @@ raises on a shape that differs; what the checkpoint lacks (the adapters,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from concepthash_tpu_torch.models.clip import (ClipTextConfig, ClipTextTower,
@@ -93,6 +94,8 @@ def text_config_from_hf(hf_cfg: dict) -> ClipTextConfig:
 
 
 def _f32(t) -> torch.Tensor:
+    if not torch.is_tensor(t):      # a numpy array (a reference checkpoint)
+        t = torch.from_numpy(np.asarray(t))
     return t.detach().to("cpu", torch.float32).clone()
 
 

@@ -1,5 +1,6 @@
-"""The fine-grained local + global hashing heads over the CLIP-adapter
-trunk's patch tokens (counterpart of concepthash_tpu/models/finegrained.py):
+"""The fine-grained local + global hashing heads over a trunk's
+tokens (the CLIP-adapter tower's patch tokens, or another family's grid;
+counterpart of concepthash_tpu/models/finegrained.py):
 
 - ``A2NetCE``: A attention maps gate the tokens into part descriptors;
   [parts; global] -> one tied f32 hash layer (``hash_w``: codes =
@@ -22,14 +23,15 @@ The suppression mask standardizes the softmax map by the population std
 of the whole batch, so a batch's codes depend on every row in it: the
 experiment encodes each batch as the reference does. The maps' LayerNorm
 (``sem_norm_i``) normalizes over the P patch tokens with a scale and a
-bias of length P, the vision config's patch grid. The heads' attention
+bias of length P, the trunk's token count. The heads' attention
 (head width D / 4 = 192 at ViT-B) takes the einsum path, as the
 reference's ``auto`` does; kernels 1, 5 and 6 run in the trunk.
 
 Parameters are float32 on ``device`` (CUDA unless asked otherwise);
 ``dtype`` is the compute dtype; codes, logits and the A2-Net features come
-back in float32. The non-CLIP trunk families are not ported (ROADMAP
-Queue 1 item 4).
+back in float32. The heads are sized by the trunk's tokens (their width
+and count); a trunk without tokens (alexnet, identity) raises the
+reference's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -108,10 +110,16 @@ class _FineGrained(nn.Module):
         dev = resolve_device(device)
         self.backbone = model_trunk(vision_cfg, adapters, backbone_cfg, dtype,
                                     generator)
-        self.vision_cfg = vcfg = self.backbone.tower.cfg
-        check_kernel_dtype(vcfg, dtype, dev.type)
+        if self.backbone.tokens_size is None:
+            raise ValueError("fine-grained heads need a token/feature-map "
+                             f"trunk (got family {backbone_cfg})")
+        self.vision_cfg = vcfg = self.backbone.vision_cfg
+        if vcfg is not None:
+            check_kernel_dtype(vcfg, dtype, dev.type)
         self.cfg, self.dtype, self._device = cfg, dtype, dev
-        self.num_patches = (vcfg.image_size // vcfg.patch_size) ** 2
+        # the tokens' width and count (SEMICON's map LayerNorm is over P)
+        self.token_dim = self.backbone.tokens_size
+        self.num_patches = self.backbone.num_tokens
 
     def _classifier(self, fixed_center, generator) -> nn.Module:
         c = self.cfg
@@ -125,9 +133,12 @@ class _FineGrained(nn.Module):
             return self.ce_fc(x)
         return dense(self.ce_fc, x, self.dtype).float()
 
-    def tokens(self, images: torch.Tensor, train: bool) -> torch.Tensor:
-        """(B, P, D) patch tokens of the trunk, in the compute dtype."""
-        return self.backbone(images, train=train)["tokens"]
+    def tokens(self, images: torch.Tensor, train: bool,
+               generator=None) -> torch.Tensor:
+        """(B, P, D) tokens of the trunk, in the compute dtype (a VGG16
+        trunk draws its dropout from ``generator``)."""
+        return self.backbone(images, train=train,
+                             generator=generator)["tokens"]
 
 
 class A2NetCE(_FineGrained):
@@ -144,7 +155,7 @@ class A2NetCE(_FineGrained):
                  generator: Optional[torch.Generator] = None):
         super().__init__(vision_cfg, cfg, adapters, fixed_center,
                          backbone_cfg, dtype, device, generator)
-        g, D, A = generator, self.vision_cfg.hidden_size, cfg.num_attns
+        g, D, A = generator, self.token_dim, cfg.num_attns
         self.attn_conv = linear(D, A, generator=g)
         self.local_conv = linear(D, D, generator=g)
         self.global_conv = linear(D, D, generator=g)
@@ -157,9 +168,8 @@ class A2NetCE(_FineGrained):
     def forward(self, images: torch.Tensor, train: bool = False,
                 output_attentions: bool = False,
                 generator: Optional[torch.Generator] = None) -> dict:
-        """No dropout is drawn: ``generator`` is not read."""
         dt = self.dtype
-        tokens = self.tokens(images, train)                    # (B, P, D)
+        tokens = self.tokens(images, train, generator)         # (B, P, D)
         B = tokens.shape[0]
         attn = dense(self.attn_conv, tokens, dt)               # (B, P, A)
         if self.cfg.with_softplus:
@@ -186,7 +196,7 @@ class _SemiconBranches(_FineGrained):
                  dtype, device, generator):
         super().__init__(vision_cfg, cfg, adapters, fixed_center,
                          backbone_cfg, dtype, device, generator)
-        g, D, A, P = (generator, self.vision_cfg.hidden_size, cfg.num_attns,
+        g, D, A, P = (generator, self.token_dim, cfg.num_attns,
                       self.num_patches)
         local_bits = cfg.nbit // (2 * A)
         self.sem_attn = nn.ModuleList(linear(D, 1, bias=False, generator=g)
@@ -242,7 +252,7 @@ class Semicon(_SemiconBranches):
                 output_attentions: bool = False,
                 generator: Optional[torch.Generator] = None) -> dict:
         A = self.cfg.num_attns
-        tokens = self.tokens(images, train)
+        tokens = self.tokens(images, train, generator)
         # the maps come from an erased running copy; the branches gate the
         # original tokens with each map
         x, maps, suppressions = tokens, [], []
@@ -285,7 +295,7 @@ class SemiconCE(_SemiconBranches):
                 output_attentions: bool = False,
                 generator: Optional[torch.Generator] = None) -> dict:
         A = self.cfg.num_attns
-        tokens = self.tokens(images, train)
+        tokens = self.tokens(images, train, generator)
         B, P = tokens.shape[:2]
         x, subs, maps = tokens, [], []
         suppress = torch.ones(B, P, dtype=self.dtype, device=tokens.device)

@@ -117,36 +117,53 @@ def sign_ste(x: torch.Tensor) -> torch.Tensor:
 
 
 class CodeBatchNorm(nn.Module):
-    """BatchNorm over hash codes with flax ``nn.BatchNorm``'s semantics
-    (momentum 0.9, eps 1e-5), not torch's.
+    """BatchNorm with flax ``nn.BatchNorm``'s semantics (momentum 0.9, eps
+    1e-5), not torch's, over (B, C) codes or (B, C, H, W) feature maps: the
+    statistics are per channel (dim 1), over every other dim.
 
     Eval uses the running statistics. Training normalizes with the batch
     mean and the biased batch variance, both in f32 and the variance as
     flax takes it (``max(0, E[x^2] - E[x]^2)``), and updates the running
-    statistics as ``r = 0.9 r + 0.1 batch_stat`` with that biased variance
-    (``F.batch_norm(training=True)`` would store the unbiased one)."""
+    statistics in place as ``r = 0.9 r + 0.1 batch_stat`` with that biased
+    variance (``F.batch_norm(training=True)`` would store the unbiased one).
+    ``track_batches`` adds torch's ``num_batches_tracked`` counter (the
+    CNN trunks keep torchvision's buffers), which a train forward
+    increments in place."""
 
-    def __init__(self, num_features: int, dtype=torch.float32):
+    def __init__(self, num_features: int, dtype=torch.float32,
+                 track_batches: bool = False):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        if track_batches:
+            self.register_buffer("num_batches_tracked",
+                                 torch.zeros((), dtype=torch.long))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        # statistics in at least float32, as flax's
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not train:
-            return F.batch_norm(x.float(), self.running_mean,
-                                self.running_var, self.weight, self.bias,
-                                training=False, eps=1e-5).to(self.dtype)
-        xf = x.float()
-        mean = xf.mean(dim=0)
-        var = torch.clamp_min((xf * xf).mean(dim=0) - mean * mean, 0.0)
+            return F.batch_norm(xf, self.running_mean.to(xf.dtype),
+                                self.running_var.to(xf.dtype),
+                                self.weight.to(xf.dtype),
+                                self.bias.to(xf.dtype), training=False,
+                                eps=1e-5).to(self.dtype)
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = xf.mean(dim=dims)
+        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
         with torch.no_grad():
             m = 0.9
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        y = (xf - mean) * (torch.rsqrt(var + 1e-5) * self.weight) + self.bias
+            if hasattr(self, "num_batches_tracked"):
+                self.num_batches_tracked.add_(1)
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        y = ((xf - mean.view(view))
+             * (torch.rsqrt(var + 1e-5) * self.weight).view(view)
+             + self.bias.view(view))
         return y.to(self.dtype)
 
 

@@ -25,7 +25,8 @@ from concepthash_tpu_torch.models.clip import (AdapterConfig,
                                                ClipVisionConfig,
                                                check_kernel_dtype)
 from concepthash_tpu_torch.models.layers import dense, linear
-from concepthash_tpu_torch.models.trunk import model_trunk
+from concepthash_tpu_torch.models.trunk import (model_trunk,
+                                                trunk_features_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,10 +56,11 @@ class ProjectorNet(nn.Module):
         g = generator
         self.backbone = model_trunk(vision_cfg, adapters, backbone_cfg, dtype,
                                     g)
-        self.vision_cfg = vcfg = self.backbone.tower.cfg
-        check_kernel_dtype(vcfg, dtype, dev.type)
+        self.vision_cfg = vcfg = self.backbone.vision_cfg
+        if vcfg is not None:
+            check_kernel_dtype(vcfg, dtype, dev.type)
         self.cfg, self.dtype = cfg, dtype
-        D = vcfg.hidden_size
+        D = trunk_features_size(self.backbone)
         self.proj_fc1 = linear(D, cfg.hidden_dim, generator=g)
         self.proj_fc2 = linear(cfg.hidden_dim, cfg.proj_dim, generator=g)
         if cfg.with_predictor:
@@ -69,11 +71,12 @@ class ProjectorNet(nn.Module):
     def forward(self, images: torch.Tensor, train: bool = False,
                 output_attentions: bool = False,
                 generator: Optional[torch.Generator] = None) -> dict:
-        """No part of the net draws random numbers; ``generator`` is not
-        read."""
+        """Only an AlexNet or VGG16 trunk draws random numbers (its
+        dropout, from ``generator``)."""
         dt = self.dtype
         feat = self.backbone(images, train=train,
-                             output_attentions=output_attentions)["features"]
+                             output_attentions=output_attentions,
+                             generator=generator)["features"]
         h = gelu_tanh(dense(self.proj_fc1, feat, dt))
         proj = dense(self.proj_fc2, h, dt).float()
         out = {"features": feat, "proj": proj, "codes": proj}

@@ -28,7 +28,8 @@ from concepthash_tpu_torch.models.clip import (AdapterConfig,
                                                check_kernel_dtype)
 from concepthash_tpu_torch.models.layers import dense, linear
 from concepthash_tpu_torch.models.pretrain import gelu_tanh
-from concepthash_tpu_torch.models.trunk import model_trunk
+from concepthash_tpu_torch.models.trunk import (model_trunk,
+                                                trunk_features_size)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,10 +54,11 @@ class TBHNet(nn.Module):
         g = generator
         self.backbone = model_trunk(vision_cfg, adapters, backbone_cfg, dtype,
                                     g)
-        self.vision_cfg = vcfg = self.backbone.tower.cfg
-        check_kernel_dtype(vcfg, dtype, dev.type)
+        self.vision_cfg = vcfg = self.backbone.vision_cfg
+        if vcfg is not None:
+            check_kernel_dtype(vcfg, dtype, dev.type)
         self.cfg, self.dtype = cfg, dtype
-        D = vcfg.hidden_size
+        D = trunk_features_size(self.backbone)
         self.enc_fc = linear(D, cfg.hidden, generator=g)
         self.enc_b = linear(cfg.hidden, cfg.nbit, generator=g)
         self.enc_z = linear(cfg.hidden, cfg.zdim, generator=g)
@@ -67,11 +69,12 @@ class TBHNet(nn.Module):
     def forward(self, images: torch.Tensor, train: bool = False,
                 output_attentions: bool = False,
                 generator: Optional[torch.Generator] = None) -> dict:
-        """No part of the net draws random numbers; ``generator`` is not
-        read."""
+        """Only an AlexNet or VGG16 trunk draws random numbers (its
+        dropout, from ``generator``)."""
         c, dt = self.cfg, self.dtype
         feat = self.backbone(images, train=train,
-                             output_attentions=output_attentions)["features"]
+                             output_attentions=output_attentions,
+                             generator=generator)["features"]
         h = gelu_tanh(dense(self.enc_fc, feat, dt))
         b_logits = dense(self.enc_b, h, dt).float()
         p = torch.sigmoid(b_logits)

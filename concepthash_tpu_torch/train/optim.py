@@ -304,10 +304,12 @@ def make_capturable(optimizer: torch.optim.Optimizer) -> list:
     captured step reads the tensor, not a Python float. Idempotent."""
     adam = isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW))
     if not adam and not isinstance(optimizer, (CapturableSGD, Lars)):
+        # a guard: build_optimizer builds none but these four
         raise NotImplementedError(
             f"several steps per dispatch on the card take adam, adamw, sgd "
-            f"or lars; {type(optimizer).__name__} has no capturable step "
-            "here (ROADMAP Queue 1 item 5)")
+            f"or lars as build_optimizer builds them; a stock "
+            f"{type(optimizer).__name__} has no capturable step (ROADMAP, "
+            "the deliberate differences: CapturableSGD)")
     lrs = []
     for group in optimizer.param_groups:
         dev = group["params"][0].device
@@ -339,6 +341,21 @@ def follow_schedule(optimizer: torch.optim.Optimizer, scheduler) -> None:
     rates = scheduled_lrs(scheduler, int(scheduler.last_epoch), 1)[0]
     for group, lr in zip(groups, rates):
         group["lr"].fill_(float(lr))
+
+
+def set_schedule_step(optimizer: torch.optim.Optimizer, scheduler,
+                      step: int) -> None:
+    """Put an ``EpochLambdaLR`` schedule at optimizer step ``step`` (a
+    resumed JAX run's count) and its rates into the groups, float or
+    device tensor."""
+    scheduler.last_epoch = int(step)
+    rates = scheduler.get_lr()
+    for group, lr in zip(optimizer.param_groups, rates):
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+    scheduler._last_lr = rates
 
 
 def current_lr(optim_cfg: dict, scheduler_cfg: dict | None, epochs: int,

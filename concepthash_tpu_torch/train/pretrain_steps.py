@@ -119,10 +119,10 @@ def moco_step(model: nn.Module, config: dict,
         m = cosine_momentum(int(scheduler.last_epoch), total, base_m)
         v1, v2 = _views(batch)
         with torch.no_grad():
-            t1 = teacher(v1, train=True)["proj"]
-            t2 = teacher(v2, train=True)["proj"]
-        s1 = model(v1, train=True)["pred"]
-        s2 = model(v2, train=True)["pred"]
+            t1 = teacher(v1, train=True, generator=generator)["proj"]
+            t2 = teacher(v2, train=True, generator=generator)["proj"]
+        s1 = model(v1, train=True, generator=generator)["pred"]
+        s2 = model(v2, train=True, generator=generator)["pred"]
         loss = 0.5 * (info_nce(s1, t2, temperature)
                       + info_nce(s2, t1, temperature))
         _update(loss, optimizer, scheduler)
@@ -149,12 +149,12 @@ def dino_step(model: nn.Module, config: dict,
     def step(batch: dict) -> dict:
         v1, v2 = _views(batch)
         with torch.no_grad():
-            t1 = teacher(v1, train=True)["proj"]
-            t2 = teacher(v2, train=True)["proj"]
+            t1 = teacher(v1, train=True, generator=generator)["proj"]
+            t2 = teacher(v2, train=True, generator=generator)["proj"]
             pt1 = torch.softmax((t1 - center) / tau_t, dim=-1)
             pt2 = torch.softmax((t2 - center) / tau_t, dim=-1)
-        s1 = model(v1, train=True)["proj"]
-        s2 = model(v2, train=True)["proj"]
+        s1 = model(v1, train=True, generator=generator)["proj"]
+        s2 = model(v2, train=True, generator=generator)["proj"]
         l12 = -(pt1 * torch.log_softmax(s2 / tau_s, -1)).sum(-1).mean()
         l21 = -(pt2 * torch.log_softmax(s1 / tau_s, -1)).sum(-1).mean()
         loss = 0.5 * (l12 + l21)
@@ -209,7 +209,7 @@ def tbh_step(model: nn.Module, config: dict,
     disc, disc_opt = extra["disc"], extra["disc_opt"]
 
     def step(batch: dict) -> dict:
-        out = model(batch["image"], train=True)
+        out = model(batch["image"], train=True, generator=generator)
         rec = ((out["recon"] - out["features"].detach()) ** 2).mean()
         adv = _bce(disc(out["z"]), 1.0)
         loss = rec + adv_weight * adv

@@ -48,6 +48,18 @@ and ``dec``; ``discriminator_from_flax(params)`` for its
 ``enc_{i}`` into ``enc.{i}``, ``enc_norm``, ``dec_embed``, ``mask_token``,
 ``dec_pos``, ``dec_{i}``, ``dec_norm`` and ``dec_pred``.
 
+The trunk (``backbone/tower``) of each of these is the CLIP / ViT tower
+above or, by its family, a ResNet (``stem_conv``, ``stem_bn``,
+``stage{i}_block{j}/{conv,bn}{k}``, ``down_conv``, ``down_bn`` into
+torchvision's ``conv1``, ``bn1``, ``layer{i+1}.{j}.*``, ``downsample.{0,1}``,
+with ``batch_stats/backbone/tower``'s ``mean`` and ``var`` as the running
+statistics), a Swin (timm's names: ``stage{s}_block{b}`` into
+``layers.{s}.blocks.{b}``, ``merge{s}_*`` into ``layers.{s}.downsample``),
+AlexNet or VGG16 (``conv{i}`` / ``conv{s}_{c}`` at torchvision's
+``features`` indices, ``fc6``, ``fc7``); flax Conv kernels (kh, kw, I, O)
+become torch's (O, I, kh, kw). An identity trunk has none.
+``trunk_from_flax(variables)`` carries a bare ``Trunk``.
+
 ``text_from_flax(params)`` does the same for the CLIP text tower
 (``models.clip.ClipTextTower``), whose q, k and v projections stay separate.
 """
@@ -129,6 +141,117 @@ def _vision_tower(sd: dict, prefix: str, p: dict) -> None:
     _dense(sd, f"{prefix}.visual_projection", p["visual_projection"])
 
 
+def _conv(sd: dict, prefix: str, p: dict) -> None:
+    """A flax Conv's (kh, kw, I, O) kernel as torch's (O, I, kh, kw)."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _bn(sd: dict, prefix: str, p: dict, stats: dict) -> None:
+    """A flax BatchNorm's scale, bias and ``batch_stats`` mean and var as a
+    torchvision BatchNorm's tensors (the step counter at 0: flax keeps
+    none)."""
+    _ln(sd, prefix, p)
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+    sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+
+
+def _resnet(sd: dict, prefix: str, p: dict, stats: dict) -> None:
+    _conv(sd, f"{prefix}.conv1", p["stem_conv"])
+    _bn(sd, f"{prefix}.bn1", p["stem_bn"], stats["stem_bn"])
+    for name, block in p.items():
+        m = re.fullmatch(r"stage(\d+)_block(\d+)", name)
+        if m is None:
+            continue
+        t = f"{prefix}.layer{int(m.group(1)) + 1}.{m.group(2)}"
+        bs = stats[name]
+        for k in (1, 2, 3):
+            if f"conv{k}" in block:
+                _conv(sd, f"{t}.conv{k}", block[f"conv{k}"])
+                _bn(sd, f"{t}.bn{k}", block[f"bn{k}"], bs[f"bn{k}"])
+        if "down_conv" in block:
+            _conv(sd, f"{t}.downsample.0", block["down_conv"])
+            _bn(sd, f"{t}.downsample.1", block["down_bn"], bs["down_bn"])
+
+
+def _swin(sd: dict, prefix: str, p: dict) -> None:
+    _conv(sd, f"{prefix}.patch_embed.proj", p["patch_embed"])
+    _ln(sd, f"{prefix}.patch_embed.norm", p["embed_norm"])
+    _ln(sd, f"{prefix}.norm", p["norm"])
+    for name, leaf in p.items():
+        m = re.fullmatch(r"merge(\d+)_(norm|reduce)", name)
+        if m is not None:
+            t = f"{prefix}.layers.{m.group(1)}.downsample"
+            if m.group(2) == "norm":
+                _ln(sd, f"{t}.norm", leaf)
+            else:
+                _dense(sd, f"{t}.reduction", leaf)
+            continue
+        m = re.fullmatch(r"stage(\d+)_block(\d+)", name)
+        if m is None:
+            continue
+        t = f"{prefix}.layers.{m.group(1)}.blocks.{m.group(2)}"
+        _ln(sd, f"{t}.norm1", leaf["norm1"])
+        _ln(sd, f"{t}.norm2", leaf["norm2"])
+        _dense(sd, f"{t}.attn.qkv", leaf["attn"]["qkv"])
+        _dense(sd, f"{t}.attn.proj", leaf["attn"]["proj"])
+        sd[f"{t}.attn.relative_position_bias_table"] = _t(
+            leaf["attn"]["rel_bias_table"])
+        _dense(sd, f"{t}.mlp.fc1", leaf["fc1"])
+        _dense(sd, f"{t}.mlp.fc2", leaf["fc2"])
+
+
+def _convnet(sd: dict, prefix: str, p: dict) -> None:
+    """AlexNet's ``conv{i}`` or VGG16's ``conv{s}_{c}`` at torchvision's
+    ``features`` indices, and fc6, fc7."""
+    from concepthash_tpu_torch.models.convnets import (ALEXNET_CONVS,
+                                                       VGG16_CONVS,
+                                                       VGG16_STAGES)
+
+    if "conv0_0" in p:
+        names = [f"conv{si}_{ci}" for si, stage in enumerate(VGG16_STAGES)
+                 for ci in range(len(stage))]
+        idx = VGG16_CONVS
+    else:
+        names, idx = [f"conv{i}" for i in range(5)], ALEXNET_CONVS
+    for name, i in zip(names, idx):
+        _conv(sd, f"{prefix}.features.{i}", p[name])
+    for name in ("fc6", "fc7"):
+        _dense(sd, f"{prefix}.{name}", p[name])
+
+
+def _trunk(sd: dict, prefix: str, variables: dict, path: tuple) -> None:
+    """The trunk's tower at ``path`` of the reference's variables, by its
+    family: ResNet (with its ``batch_stats``), Swin, AlexNet, VGG16 or
+    the CLIP / ViT tower; identity has no tower and no weights."""
+    p = variables["params"]
+    stats = variables.get("batch_stats", {})
+    for k in path:
+        p = p.get(k) if isinstance(p, dict) else None
+        stats = stats.get(k, {}) if isinstance(stats, dict) else {}
+    if p is None:
+        return
+    if "stem_conv" in p:
+        _resnet(sd, prefix, p, stats)
+    elif "embed_norm" in p:
+        _swin(sd, prefix, p)
+    elif "conv0" in p or "conv0_0" in p:
+        _convnet(sd, prefix, p)
+    else:
+        _vision_tower(sd, prefix, p)
+
+
+def trunk_from_flax(variables: dict) -> dict:
+    """State dict of the port's ``models.trunk.Trunk`` from the reference's
+    ``Trunk`` variables (numpy leaves: ``params/tower`` and, for a ResNet,
+    ``batch_stats/tower``); load it with ``strict=True``."""
+    sd: dict = {}
+    _trunk(sd, "tower", variables, ("tower",))
+    return sd
+
+
 def _hash_query_block(sd: dict, prefix: str, p: dict) -> None:
     for n in ("query", "key", "value"):
         q = p["sa"][n]
@@ -204,7 +327,7 @@ def baseline_from_flax(variables: dict) -> dict:
     variables (numpy leaves); load it with ``strict=True``."""
     p = variables["params"]
     sd: dict = {}
-    _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
+    _trunk(sd, "backbone.tower", variables, ("backbone", "tower"))
     for name in ("latent_fc1", "latent_fc2", "hash_fc"):
         if name in p:
             _dense(sd, name, p[name])
@@ -230,7 +353,7 @@ def finegrained_from_flax(variables: dict) -> dict:
     reference's variables (numpy leaves); load it with ``strict=True``."""
     p = variables["params"]
     sd: dict = {}
-    _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
+    _trunk(sd, "backbone.tower", variables, ("backbone", "tower"))
     for name in ("attn_conv", "local_conv", "global_conv", "hash_fc_global"):
         if name in p:
             _dense(sd, name, p[name])
@@ -273,7 +396,7 @@ def pretrain_from_flax(variables: dict) -> dict:
     (numpy leaves); load it with ``strict=True``."""
     p = variables["params"]
     sd: dict = {}
-    _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
+    _trunk(sd, "backbone.tower", variables, ("backbone", "tower"))
     _dense_heads(sd, p, ("proj_fc1", "proj_fc2", "pred_fc1", "pred_fc2"))
     return sd
 
@@ -283,7 +406,7 @@ def tbh_from_flax(variables: dict) -> dict:
     (numpy leaves); load it with ``strict=True``."""
     p = variables["params"]
     sd: dict = {}
-    _vision_tower(sd, "backbone.tower", p["backbone"]["tower"])
+    _trunk(sd, "backbone.tower", variables, ("backbone", "tower"))
     _dense_heads(sd, p, ("enc_fc", "enc_b", "enc_z", "gcn", "dec"))
     return sd
 

@@ -11,8 +11,9 @@ backbone, 16 bits, batch 8, float32:
     the reference's keys and its ``lr`` values equal the reference's;
 (c) without ``--device`` and without CUDA it raises;
 (d) ``models/last.pt`` reloads to the same codes, bit for bit;
-(e) each option that is not ported (``profile``, ``debug``) raises
-    ``NotImplementedError``, and each option this round ported (FILIP,
+(e) ``profile`` writes its trace and ``debug.nans`` raises
+    ``FloatingPointError`` on a NaN in both packages, and each option this
+    round ported (FILIP,
     DecorrelatedBN, vpt_pe, ``backbone.remat``, lars; the orthohash, csq,
     hashnet with its bank and clip baselines; the A2-Net-CE and SEMICON-CE
     heads; the C++ decode and the image cache; the unsupervised cibhash,
@@ -21,7 +22,9 @@ backbone, 16 bits, batch 8, float32:
     its database codes, the shallow regime (itq, pca, lsh, sh) fits and
     scores, the pretraining configs (moco, dino, mae, autoencoder) train
     an epoch under ``exp=general``, and a moco run resumes to the
-    uninterrupted run bit for bit;
+    uninterrupted run bit for bit; the non-CLIP backbones (resnet18 with
+    its frozen BatchNorm, a Swin, vgg16, a2net_ce on resnet18's grid,
+    tbh on alexnet) and ``debug.disable_jit`` train an epoch too;
 (f) the eval-only modes: ``exp=validation`` and ``exp=extract`` on the
     reference's run directory (its ``last.msgpack``) against the reference's
     own eval-only runs (codes in sign on >= 99.9% of bits, mAP within 1e-3),
@@ -200,9 +203,41 @@ def test_last_checkpoint_reloads_to_the_same_codes(port_run, workdir):
     ["+profile.enabled=true"], ["+debug.nans=true"],
 ])
 def test_unported_options_raise(workdir, extra):
-    logdir = os.path.join(workdir, "unported")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main_gpu.main(["--device", "cpu", *_args(workdir, logdir), *extra])
+    """The two diagnostics the port once refused, now working (the test's
+    name kept): ``profile`` writes a Chrome trace of the chosen train
+    dispatches (here step 1 of 3 an epoch) and keeps every dispatch's host
+    time; ``debug.nans`` on an orthohash run fed a NaN (``criterion.s=.nan``:
+    the loss's logits scaled by NaN) raises ``FloatingPointError`` in both
+    packages."""
+    logdir = os.path.join(workdir, "diag_" + extra[0][1:6])
+    if extra[0].startswith("+profile"):
+        exp = main_gpu.build_experiment(
+            ["--device", "cpu", *_args(workdir, logdir), "epochs=1", *extra,
+             "profile.start_step=1", "profile.num_steps=1"])
+        exp.main()
+        trace = os.path.join(logdir, "profile", "steps_1-1.json")
+        assert exp.profiler.trace_path == trace
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        assert any(n.startswith("aten::") for n in names)
+        assert len(exp.profiler.step_times) == exp.steps_per_epoch == 3
+        with open(os.path.join(logdir, "log.txt")) as f:
+            assert "profiler trace stopped at step 2" in f.read()
+        return
+    import jax
+
+    args = [*_args(workdir, logdir), "epochs=1", "model=orthohash_adapter",
+            "criterion.s=.nan", *extra]
+    with pytest.raises(FloatingPointError, match="debug.nans"):
+        main_gpu.main(["--device", "cpu", *args])
+    cfg = jloader.load_config(str(ROOT / "configs"), "train",
+                              [*args, f"logdir={logdir}_jax"])
+    try:
+        with pytest.raises(FloatingPointError):
+            JExperiment(cfg).main()
+    finally:
+        jax.config.update("jax_debug_nans", False)
 
 
 @pytest.mark.parametrize("extra", [
@@ -215,6 +250,13 @@ def test_unported_options_raise(workdir, extra):
     ["model=semicon_ce_adapter"], ["native_decode=true"],
     ["cache_images=true"], ["model=cibhash"], ["model=bihalf"],
     ["model=nsh"], ["model=ssdh"], ["model=tbh"], ["model=odc"],
+    ["model=orthohash_adapter", "backbone=resnet18"],
+    ["model=csq_adapter", "backbone=swin_tiny", "backbone.variant=test",
+     "backbone.window_size=4", "dataset.crop=32"],
+    ["model=dpsh_adapter", "backbone=vgg16"],
+    ["model=a2net_ce_adapter", "backbone=resnet18"],
+    ["model=tbh", "backbone=alexnet", "dataset.crop=64"],
+    ["+debug.disable_jit=true"],
 ])
 def test_ported_options_run(workdir, extra):
     """One epoch of main_gpu with the option: a finite train record, a test
@@ -229,7 +271,7 @@ def test_ported_options_run(workdir, extra):
     logged; TBH's actor and critic parts and its 16 codes a bit; ODC's
     k-means logged and the NMI of both splits in its test record)."""
     logdir = os.path.join(workdir, "ported_" + "".join(
-        c if c.isalnum() else "_" for c in extra[0]))
+        c if c.isalnum() else "_" for c in "_".join(extra)))
     best = main_gpu.main(["--device", "cpu", *_args(workdir, logdir),
                           "epochs=1", *extra])
     assert best is not None and 0.0 <= best <= 1.0

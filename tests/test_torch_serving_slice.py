@@ -148,7 +148,9 @@ def test_port_imports_nothing_of_jax():
         "models.baselines", "losses.baselines", "train.custom_steps",
         "models.finegrained", "native", "losses.unsupervised",
         "losses.shallow", "models.pretrain", "models.mae", "models.tbh",
-        "train.pretrain_steps", "train.kmeans")] + ["main_gpu"]
+        "train.pretrain_steps", "train.kmeans", "models.resnet",
+        "models.convnets", "models.swin", "models.cnn_loader",
+        "utils.torch_import", "train.optax_state")] + ["main_gpu"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'transformers', 'safetensors', "
@@ -267,9 +269,11 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     (the unsupervised methods' encodes, steps, two-view and ``aux``
     chunks and runs, and the shallow regime) and phase 20 (the
     pretraining methods', TBH's and ODC's encodes, steps and runs, kernel
-    1 at the MAE's shape, k-means) pass their checks, and
-    the kernels' JSON line has every key the card run prints, for all six
-    TPU kernels."""
+    1 at the MAE's shape, k-means) and phase 21 (the non-CLIP trunks'
+    encodes, steps and graphed chunks with their BatchNorm buffers, their
+    CLI runs, profile, disable_jit and the reference-layout import) pass
+    their checks, and the kernels' JSON line has every key the card run
+    prints, for all six TPU kernels."""
     import importlib.util
     import json
     import time
@@ -339,6 +343,15 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(tts, "_mins_bitplane", bp_mins)
     # the 10^8-code phase's hierarchical selection, at a tiny size
     monkeypatch.setattr(tts, "_INNER_DIRECT_MAX", 64)
+    # phase 21's trunks at a tiny size: Swin's test variant at 32^2, a
+    # 2-layer ViT at 48^2, AlexNet at 64^2 (the rest full width at 32^2)
+    SWIN_TEST = ("backbone.variant=test", "backbone.window_size=4",
+                 "dataset.crop=32")
+    TINY_VIT = ("backbone.hidden_size=64", "backbone.intermediate_size=128",
+                f"backbone.num_layers={VISION['num_layers']}",
+                "backbone.num_heads=4", "backbone.patch_size=8",
+                "backbone.image_size=48", "backbone.projection_dim=64",
+                "dataset.crop=48")
     sizes = cs.Sizes(vision=VISION, head=dict(HEAD, text_projection_dims=(32,)),
                      bottleneck=BOTTLENECK, layer_batch=2,
                      layer_batch_big=3, layer_batches_eval=(4, 1),
@@ -368,7 +381,15 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
                      pretrained_images=6, variant_images=6, filip_tokens=3,
                      adsh_db=12, dcc_split=(60, 24), ae_embedding=(6, 16),
                      ae_iters=(20, 10, 40), unsup_fit=(80, 64, 96),
-                     shallow_args=("model.nbit=8",))
+                     shallow_args=("model.nbit=8",),
+                     trunk_groups=("resnet18", "resnet50", "swin_base",
+                                   "alexnet", "vgg16", "vit_b16"),
+                     trunk_images=8, trunk_side=64, trunk_cpu_images=8,
+                     trunk_batch=4,
+                     trunk_args=("dataset.crop=32",),
+                     trunk_over=(("swin_base", SWIN_TEST),
+                                 ("vit_b16", TINY_VIT),
+                                 ("alexnet", ("dataset.crop=64",))))
     result = cs.run(sizes, torch.device("cpu"))
     out = capsys.readouterr().out
     assert "\nplanted rows found at distance 0: 6/6" in out
@@ -419,7 +440,7 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert out.count("(|d| 0, tolerance 1e-06)") == 3
     assert out.count("best test codes (3, 16) bit for bit: True") == 3
     assert out.count("(rel 0), last parameters max |d| 0: bit for bit True "
-                     "(required); records 2") == 3
+                     "(required); records 2") == 3 + 1     # 21 (c): resnet50
     assert "at train_chunk 1 on the same 3 steps" in out
     assert ("vision tower equal to the written one bit for bit: True; 6 "
             "images encode to the source model's codes bit for bit: True; "
@@ -436,7 +457,7 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     # (phase 18 (a) and (b) print 4 encodes, 3 step runs and 2 graphed
     # chunks, (c) 2 validations, and phase 19 (a) and (b) 6 encodes, 5
     # step runs and 2 graphed chunks, (c) 2 validations, in the same words)
-    assert out.count(f"against ({n}, 0, 0, 0, 0, 0)") == 11 + 4 + 6
+    assert out.count(f"against ({n}, 0, 0, 0, 0, 0)") == 11 + 4 + 6 + 1
     assert out.count("sign agreement 1.000000 (limit 0.99)") == 9 + 4
     assert out.count("feature cosine 1.000000 (limit 0.99)") == 2 + 1
     assert out.count(f"against (0, 0, 0, {2 * n}, {n}, 0), the same every "
@@ -449,8 +470,9 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     for model in ("orthohash_adapter", "hashnet_adapter", "clip_finetune"):
         assert f"{model} run (train_chunk 2)" in out
         assert (f"{model} exp=validation use_last=true" in out)
-    # phases 17 (c), 18 (c), 19 (c) and 20 (c)'s tbh and odc runs
-    assert out.count("|d| 0 (tolerance 1e-06)") == 3 + 2 + 2 + 2
+    # phases 17 (c), 18 (c), 19 (c), 20 (c)'s tbh and odc runs and 21 (c)'s
+    # resnet50 and swin runs
+    assert out.count("|d| 0 (tolerance 1e-06)") == 3 + 2 + 2 + 2 + 2
     # phase 18: the fine-grained heads, the adsh regime, DCC, ae_fit, and
     # the loader (this machine has the headers: the native route)
     for name in ("a2net_ce", "semicon_ce", "semicon", "adsh"):
@@ -574,6 +596,52 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
             "0) against (22, 0, 0, 0, 0, 0)") in out
     assert "odc: the k-means logged: True; NMI (test, db)" in out
     assert "phase 20 (c) img/s, epoch-2 train and eval encode" in out
+    # phase 21: each trunk's encode, kernel 1 at the vit trunk's shape, the
+    # steps (BatchNorm statistics, frozen BatchNorm, dropout, kernels 5 and
+    # 6), graphed chunks with buffers, the CLI runs, profile, disable_jit,
+    # and the reference-layout import
+    for name in ("resnet18", "resnet50", "swin_base", "alexnet", "vgg16",
+                 "vit_b16", "a2net_ce"):
+        assert (f"trunk {name} encode (8 images at") in out
+    assert out.count("(limit 0.99), features (8, ") == 7
+    assert (f"launches ({n}, 0, 0, 0, 0, 0) against ({n}, 0, 0, 0, 0, 0); "
+            in out)
+    assert ("layer kernel at the vit_b16 trunk's shape, B=8 L=37 D=64 "
+            "F=128 H=4 gelu, both adapters (32): max |d| 0,") in out
+    assert ("over 53 BatchNorms; num_batches_tracked [5]") in out
+    assert ("frozen BatchNorm buffers (num_batches_tracked included) "
+            "bit-unchanged after 5 steps: True") in out
+    assert ("dropout from the run's generator: it advanced every step "
+            "True, a step replayed from one state alike and from another "
+            "not: True") in out
+    assert "trunk vit_b16 train step under sgd, kernels vs plain" in out
+    assert (f"launches per step (0, 0, 0, {2 * n}, {n}, 0) against (0, 0, "
+            f"0, {2 * n}, {n}, 0), the same every step: True; frozen "
+            "parameters unchanged: True") in out
+    assert out.count("graphed steps alike bit for bit: True (required)") \
+        == 3
+    assert "swin_base train steps (B=4): loss" in out
+    for run in ("orthohash_adapter", "csq_adapter"):
+        assert f"{run} run (train_chunk 2)" in out
+    assert "orthohash_adapter_resnet50 resumed after epoch 1" in out
+    for run in ("orthohash_adapter_resnet50", "csq_adapter_swin_base",
+                "dpsh_adapter on vit_b16"):
+        for mode in ("default", "cudnn deterministic"):
+            assert f"{run} batch shapes ({mode}): 1 test rows inside" in out
+    assert out.count("the half batch twice bit for bit: True (required); "
+                     "the first call that differs a library's: True "
+                     "(required)") == 3
+    assert out.count("dpsh_adapter on vit_b16 run (") == 2
+    assert "profile: the trace steps_2-3.json of dispatches 2-3" in out
+    assert ("debug.disable_jit run against the train_chunk=1 run's first "
+            "epoch: its loss and models/ep1.pt max |d| 0: bit for bit "
+            "True") in out
+    assert ("dpsh_adapter on vit_b16 exp=validation use_last=true at "
+            "val.yaml's batch of 64: mAP") in out
+    assert "|d| 0 (limit 1e-06); the half batch twice" in out
+    assert ("unused [], missing []; the imported state equal to the "
+            "seeded one: True") in out
+    assert ("equal to the seeded model's bit for bit: True (required)") in out
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
