@@ -18,8 +18,10 @@ sequences (or as dicts keyed '0', '1', ...). The chains:
   trace.
 
 ``mu`` / ``nu`` / ``count`` become torch Adam's ``exp_avg`` /
-``exp_avg_sq`` / ``step``; sgd's and lars's ``trace`` the momentum buffer
-(``CapturableSGD``, ``Lars``). Each tree of moments is a tree of the
+``exp_avg_sq`` / ``step``; sgd's ``trace`` the momentum buffer of
+``CapturableSGD`` as it is, and lars's that of ``Lars`` negated: lars
+scales by the learning rate (times -lr) before its ``trace``, so that
+sums -lr * u, where ``Lars``'s buffer sums +lr * u and is subtracted. Each tree of moments is a tree of the
 parameters' shape, so the model's flax -> torch bridge carries it across
 (transposes and the q|k|v concatenation act element by element).
 """
@@ -113,7 +115,8 @@ def load_optax_state(optimizer: torch.optim.Optimizer,
             by_name[n] = {"exp_avg": mu[n], "exp_avg_sq": nu[n]}
     elif "trace" in slots:
         tr = moments(lambda s: _seq(s[slots["trace"]])[0])
-        by_name = {n: {"momentum_buffer": v} for n, v in tr.items()}
+        sign = -1.0 if optim_cfg.get("name") == "lars" else 1.0
+        by_name = {n: {"momentum_buffer": sign * v} for n, v in tr.items()}
     names = {p: n for n, p in model.named_parameters()}
     for group in optimizer.param_groups:
         capturable = bool(group.get("capturable", False))

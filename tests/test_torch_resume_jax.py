@@ -2,8 +2,9 @@
 ``main.py`` experiment trains one epoch of ``model=orthohash_adapter
 backbone=tiny_test`` (16 bits, batch 8, 3 steps; a frozen backbone, so its
 optax state is a ``multi_transform`` with a ``set_to_zero`` label) with
-``save_training_state=true`` under adam and under sgd, and
-``main_gpu.py --device cpu resume_logdir=<that run>`` resumes it.
+``save_training_state=true`` under adam, sgd and lars (``optim=sgd
+optim.name=lars``), and ``main_gpu.py --device cpu resume_logdir=<that
+run>`` resumes it.
 
 Held:
 
@@ -13,12 +14,15 @@ Held:
   same bridge from the live optax state (named tuples read by attribute,
   not through the checkpoint's serialized form): adam's ``mu``, ``nu`` and
   ``count`` as ``exp_avg``, ``exp_avg_sq`` and ``step``, sgd's ``trace``
-  as the momentum buffer; frozen parameters hold none;
+  as the momentum buffer, and lars's ``trace`` negated (optax.lars
+  scales by -lr before its trace; the port's ``Lars`` buffer holds +lr
+  times the update); frozen parameters hold none;
 - the schedule stands at the reference's step count and the train loader
   at the next epoch;
 - one train step from there (a fixed batch, no augmentation) equals the
-  reference's ``make_train_step`` from its state within 1e-5: the loss,
-  every parameter and the running statistics.
+  reference's ``make_train_step`` from its state within
+  1e-5 + 1e-5 |ref|: the loss, every parameter and the running
+  statistics.
 """
 
 import copy
@@ -46,11 +50,17 @@ import main_gpu  # noqa: E402
 TOL = 1e-5
 
 
+# lars has no file in configs/optim: sgd's group with lars's name
+OPTIM_ARGS = {"adam": ("optim=adam",), "sgd": ("optim=sgd",),
+              "lars": ("optim=sgd", "optim.name=lars")}
+
+
 def _args(wd, logdir, optim, *extra):
     return ["dataset=synthetic", "model=orthohash_adapter",
             "backbone=tiny_test", "model.nbit=16", "batch_size=8",
             "eval_interval=1", f"data_dir={wd}", f"logdir={logdir}",
-            "seed=7", f"optim={optim}", "save_training_state=true", *extra]
+            "seed=7", *OPTIM_ARGS[optim], "save_training_state=true",
+            *extra]
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +91,7 @@ def _moments(jexp, pick) -> dict:
     return baseline_from_flax({**v, "params": tree})
 
 
-@pytest.mark.parametrize("optim", ["adam", "sgd"])
+@pytest.mark.parametrize("optim", ["adam", "sgd", "lars"])
 def test_port_resumes_a_jax_run(workdir, optim):
     ref = os.path.join(workdir, f"jax_{optim}")
     cfg = jloader.load_config(str(ROOT / "configs"), "train",
@@ -111,8 +121,11 @@ def test_port_resumes_a_jax_run(workdir, optim):
         nus = _moments(jexp, lambda s: s[1].nu)
         count = float(adam.count)
         assert count == steps
-    else:
+    elif optim == "sgd":
         traces = _moments(jexp, lambda s: s[1].trace)
+    else:                          # lars: the trace after the rate, slot 3
+        traces = {n: -t for n, t in
+                  _moments(jexp, lambda s: s[3].trace).items()}
     held = 0
     for name, p in port.model.named_parameters():
         st = tr.optimizer.state.get(p, {})
