@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from concepthash_tpu_torch.losses.baselines import pairwise_exp_loss
-from concepthash_tpu_torch.train.optim import follow_schedule
+from concepthash_tpu_torch.train.optim import (follow_schedule,
+                                               zero_missing_grads)
 
 
 def hashnet_beta(step: int, steps_per_epoch: int,
@@ -79,6 +80,7 @@ def hashnet_step(model: nn.Module, config: dict,
             loss = pairwise_exp_loss(u, y, u, y, alpha)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        zero_missing_grads(optimizer)
         follow_schedule(optimizer, scheduler)
         optimizer.step()
         scheduler.step()
@@ -167,6 +169,7 @@ def odc_step(model: nn.Module, config: dict,
         loss = (ce * w).sum() / w.sum().clamp_min(1e-12)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        zero_missing_grads(optimizer)
         follow_schedule(optimizer, scheduler)
         optimizer.step()
         scheduler.step()

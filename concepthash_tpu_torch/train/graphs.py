@@ -20,7 +20,11 @@ What keeps a captured step equal to an eager one:
   each call;
 - the dropout generator is registered with the graph, so each replay draws
   new masks and the generator's state advances as K eager steps advance it;
-- the step waits on nothing: no host read, no shape that depends on data.
+- the step waits on nothing: no host read, no shape that depends on data;
+- every trained parameter has a gradient before the optimizer's step
+  (``optim.zero_missing_grads``, zeros from the graph's pool where the
+  backward leaves none), so the captured step updates the parameters an
+  eager step updates.
 
 Kernel wrappers count their launches in Python, which a replay does not
 run: the graph records what its capture launched, and each replay adds that
@@ -35,7 +39,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from concepthash_tpu_torch.train.optim import make_capturable, scheduled_lrs
+from concepthash_tpu_torch.train.optim import (make_capturable, scheduled_lrs,
+                                               zero_missing_grads)
 
 
 def _counted_wrappers() -> tuple:
@@ -200,6 +205,7 @@ class GraphedTrainSteps(_GraphedSteps):
             total, parts = self.loss_fn(out, batch)
             self.optimizer.zero_grad(set_to_none=True)
             total.backward()
+            zero_missing_grads(self.optimizer)
             self.optimizer.step()
             with torch.no_grad():
                 metrics = {"loss": total.detach(),

@@ -25,7 +25,10 @@ is ``optax.lars`` (``Lars``). All four can be made capturable
 whose name starts with ``backbone.`` and contains no ``adapter`` is frozen
 when the scale is 0 (``requires_grad=False`` and no optimizer state, so no
 gradient is computed for it), and runs in its own group at ``lr * scale``
-otherwise.
+otherwise. Every step first gives each parameter of its groups that the
+backward left without a gradient a zero one (``zero_missing_grads``): optax
+updates every leaf of a trained label, so such a parameter still decays and
+takes its moments, where torch's optimizers would skip it.
 """
 
 from __future__ import annotations
@@ -278,6 +281,19 @@ def build_optimizer(optim_cfg: dict, scheduler_cfg: dict | None, epochs: int,
     mult = epoch_multiplier(scheduler_cfg, epochs)
     spe = max(steps_per_epoch, 1)
     return optimizer, EpochLambdaLR(optimizer, mult, spe)
+
+
+def zero_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """Give every parameter of ``optimizer``'s groups whose ``.grad`` the
+    backward left None a zero gradient, so that its step treats it as
+    optax treats every leaf of a trained label: weight decay and momentum
+    still move it. Frozen parameters are in no group and stay as they are.
+    Call it between the backward and the step; inside a captured chunk the
+    zeros are the graph's own."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
 
 
 def scheduled_lrs(scheduler, start: int, count: int) -> np.ndarray:

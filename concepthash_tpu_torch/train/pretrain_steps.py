@@ -46,7 +46,8 @@ from torch import nn
 
 from concepthash_tpu_torch.models.tbh import Discriminator
 from concepthash_tpu_torch.ops.numerics import l2_normalize
-from concepthash_tpu_torch.train.optim import follow_schedule, make_capturable
+from concepthash_tpu_torch.train.optim import (follow_schedule, make_capturable,
+                                               zero_missing_grads)
 
 
 def cosine_momentum(step: int, total_steps: int, base_m: float) -> float:
@@ -98,6 +99,7 @@ def _views(batch: dict) -> tuple:
 def _update(loss, optimizer, scheduler) -> None:
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    zero_missing_grads(optimizer)
     follow_schedule(optimizer, scheduler)
     optimizer.step()
     scheduler.step()

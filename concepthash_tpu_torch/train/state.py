@@ -27,7 +27,8 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from concepthash_tpu_torch.train.optim import follow_schedule
+from concepthash_tpu_torch.train.optim import (follow_schedule,
+                                               zero_missing_grads)
 
 
 @dataclasses.dataclass
@@ -149,6 +150,7 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
         total, parts = loss_fn(out, batch)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        zero_missing_grads(optimizer)
         follow_schedule(optimizer, scheduler)
         optimizer.step()
         if scheduler is not None:
