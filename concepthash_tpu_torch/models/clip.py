@@ -9,11 +9,14 @@ the reference. ``EncoderLayer`` dispatches as the reference does:
   on the card, its plain version on the CPU) for inference forwards under
   ``fused_ln='auto'`` (the port's counterpart of the reference's "auto on
   TPU"; on the card only at bfloat16, the one dtype the kernel takes), and
-  under 'pallas_layer', whenever the adapters take a LayerNorm on their
-  input, are not per-projection (q/k/v/out) adapters, and no attention
-  probabilities are asked for (``whole_layer_route``);
-- otherwise the discrete path (training forwards, attention maps, q/k/v/out
-  adapters): separate LayerNorm, attention, MLP and adapter modules, where
+  under 'pallas_layer' in inference and in training (its backward
+  recomputes the layer in plain PyTorch, as the reference's does in XLA),
+  whenever the adapters take a LayerNorm on their input, are not
+  per-projection (q/k/v/out) adapters, and no attention probabilities are
+  asked for (``whole_layer_route``);
+- otherwise the discrete path (training forwards but under 'pallas_layer',
+  attention maps, q/k/v/out adapters): separate LayerNorm, attention, MLP
+  and adapter modules, where
   ``fused_ln='pallas'`` runs LN1 -> q|k|v and LN2 -> fc1 through
   ``ops.fused_ln.ln_matmul`` (not in a layer with q/k/v/out adapters, which
   read the normalized input, as in the reference) and
@@ -22,7 +25,8 @@ the reference. ``EncoderLayer`` dispatches as the reference does:
 
 The tower also takes per-layer position prompts on its trailing tokens
 (``vpt_tokens``) and, with ``remat``, recomputes each layer's activations in
-the backward (``torch.utils.checkpoint``).
+the backward (``torch.utils.checkpoint``; a whole-layer forward recomputes
+in its own backward already and takes no checkpoint).
 
 The CUDA kernels take bfloat16 only: on the card the explicit kernel
 settings at another compute dtype raise when the model is built
@@ -86,8 +90,9 @@ def whole_layer_route(fused_ln: str, train: bool, fusable: bool,
                       dtype: torch.dtype, device_type: str) -> bool:
     """Whether an encoder layer's forward takes the whole-layer function
     (``ops.fused_layer.encoder_layer``) rather than the discrete path.
-    'pallas_layer' asks for it (in training that raises: its backward is not
-    ported). 'auto' takes it for inference forwards: on the card at bfloat16
+    'pallas_layer' asks for it, in inference and in training (the backward
+    of ``ops.fused_layer.EncoderLayerFn`` recomputes the layer from its
+    inputs). 'auto' takes it for inference forwards: on the card at bfloat16
     only, the one dtype its kernel takes, and the discrete path computes the
     same layer at any other; on the CPU its plain version at any dtype, as
     the tests hold it against the reference. A layer whose adapters take no
@@ -283,16 +288,16 @@ class EncoderLayer(nn.Module):
             self.fc1.weight, self.fc1.bias, self.fc2.weight,
             self.fc2.bias).cast(dtype)
 
+    def takes_whole_layer(self, train: bool, device_type: str,
+                          output_attentions: bool = False) -> bool:
+        """Whether this forward goes through ``encoder_layer`` (see
+        ``whole_layer_route``); attention maps take the discrete path."""
+        return not output_attentions and whole_layer_route(
+            self.fused_ln, train, self.fusable, self.dtype, device_type)
+
     def forward(self, x: torch.Tensor, output_attentions: bool = False,
                 train: bool = False):
-        whole = whole_layer_route(self.fused_ln, train, self.fusable,
-                                  self.dtype, x.device.type)
-        if whole and not output_attentions:
-            if train:
-                raise NotImplementedError(
-                    "fused_ln='pallas_layer' in training needs the backward "
-                    "of the whole-layer kernel, which is not ported yet "
-                    "(ROADMAP Queue 2 item 4)")
+        if self.takes_whole_layer(train, x.device.type, output_attentions):
             out = encoder_layer(
                 x, self.layer_weights(self.dtype), num_heads=self.num_heads,
                 eps=self.eps, act=self.act,
@@ -377,10 +382,13 @@ class ClipVisionTower(nn.Module):
     ``vpt_tokens`` T > 0: before every encoder layer, a learned position
     prompt ``vpt_pe[i]`` (1, T, D) is added to the last T positions.
     ``cfg.remat``: in a forward that records gradients and asks for no
-    attention maps, each encoder layer runs under
+    attention maps, each encoder layer on the discrete path runs under
     ``torch.utils.checkpoint`` (non-reentrant), its activations recomputed
     in the backward; the layers draw no random numbers, so no generator
-    state is saved (a CUDA graph captures it as it is)."""
+    state is saved (a CUDA graph captures it as it is). A layer on the
+    whole-layer route runs as it is: ``EncoderLayerFn`` saves only its
+    inputs and recomputes in its backward, so a checkpoint would only run
+    its forward, and the kernel, a second time."""
 
     def __init__(self, cfg: ClipVisionConfig,
                  adapters: Optional[AdapterConfig] = None,
@@ -440,7 +448,7 @@ class ClipVisionTower(nn.Module):
             if T:
                 x = torch.cat([x[:, :-T], x[:, -T:] + self.vpt_pe[i].to(dt)],
                               dim=1)
-            if remat:
+            if remat and not layer.takes_whole_layer(train, x.device.type):
                 x, probs = checkpoint(layer, x, False, train,
                                       use_reentrant=False,
                                       preserve_rng_state=False)

@@ -1,13 +1,27 @@
-"""One whole pre-LN encoder layer forward: the CUDA kernel of
-``csrc/fused_layer.cu`` and its plain PyTorch version.
+"""One whole pre-LN encoder layer: the forward CUDA kernel of
+``csrc/fused_layer.cu``, its plain PyTorch version and the autograd rule
+that trains through it.
 
 Counterpart of concepthash_tpu/ops/fused_layer.py (the Pallas
-``_layer_kernel``). ``encoder_layer`` takes the kernel for a CUDA tensor and
-the plain version for a CPU tensor. The plain version, ``layer_reference``,
-rounds where the kernel rounds (LN statistics in f32, activations cast to the
-compute dtype before each product, products accumulated in f32, the attention
-branch and the MLP branch kept in f32, x2 stored in the compute dtype); in
-float32 it is the XLA composition ``_xla_layer`` of the reference.
+``_layer_kernel`` and its ``custom_vjp``). Two plain versions, each rounding
+where its model rounds:
+
+- ``layer_reference`` rounds where the kernel rounds (LN statistics in f32,
+  activations cast to the compute dtype before each product, products
+  accumulated in f32, the attention branch and the MLP branch kept in f32,
+  x2 stored in the compute dtype): the forward on a CPU tensor, and what
+  the kernel is checked against. In float32 it is the reference's XLA
+  composition.
+- ``layer_xla`` rounds where the reference's XLA composition ``_xla_layer``
+  rounds (every product and bias add in the compute dtype, LN statistics
+  and the softmax in f32 and cast back): the backward's recompute.
+
+``encoder_layer`` takes the kernel for a CUDA tensor and ``layer_reference``
+for a CPU tensor. When a gradient is asked for, it goes through
+``EncoderLayerFn``, whose forward is that same dispatch and whose backward
+recomputes the layer as ``layer_xla`` from the saved inputs and takes its
+gradient, as the reference's ``_fused_bwd`` takes ``jax.vjp`` of
+``_xla_layer``: nothing but the inputs is saved.
 
 Weight matrices are in torch ``nn.Linear`` layout, (out_features,
 in_features); the reference's flax kernels are the transposes.
@@ -105,8 +119,10 @@ def layer_reference(x: torch.Tensor, w: LayerWeights,
                     adapter_mlp: Optional[AdapterWeights] = None, *,
                     num_heads: int, eps: float = 1e-5,
                     act: str = "quick_gelu") -> torch.Tensor:
-    """Plain PyTorch version of the layer kernel, rounding where it rounds.
-    x: (B, L, D) in the compute dtype; returns (B, L, D) in that dtype."""
+    """Plain PyTorch version of the layer kernel, rounding where it rounds:
+    the forward on a CPU tensor and the kernel's check (the backward
+    recomputes ``layer_xla`` instead). x: (B, L, D) in the compute dtype;
+    returns (B, L, D) in that dtype."""
     B, L, D = x.shape
     H = num_heads
     hd = D // H
@@ -133,6 +149,110 @@ def layer_reference(x: torch.Tensor, w: LayerWeights,
     return (x2 + branch).to(dt)
 
 
+def _adapter_xla(h, a: AdapterWeights, dt):
+    """The adapter on ``h`` (dt) as the reference's ``_adapter_xla``."""
+    z = _ln_f32(h.float(), a.ln_scale, a.ln_bias, 1e-5).to(dt)
+    d = F.gelu(z @ a.w_down.to(dt).t() + a.b_down.to(dt))
+    u = d @ a.w_up.to(dt).t() + a.b_up.to(dt)
+    return u * a.scale.to(dt)
+
+
+def layer_xla(x: torch.Tensor, w: LayerWeights,
+              adapter_attn: Optional[AdapterWeights] = None,
+              adapter_mlp: Optional[AdapterWeights] = None, *,
+              num_heads: int, eps: float = 1e-5,
+              act: str = "quick_gelu") -> torch.Tensor:
+    """Plain PyTorch twin of the reference's ``_xla_layer`` (with
+    ``_adapter_xla``), rounding where it rounds: biases cast to the compute
+    dtype before each add, LN statistics and the softmax in f32 and cast
+    back, every product and ``x2 = x + h`` in the compute dtype. The
+    backward of ``EncoderLayerFn`` differentiates it; the forward follows
+    the kernel instead (``layer_reference``). x: (B, L, D) in the compute
+    dtype; returns (B, L, D) in that dtype."""
+    B, L, D = x.shape
+    H = num_heads
+    hd = D // H
+    dt = x.dtype
+    xn1 = _ln_f32(x.float(), w.ln1_scale, w.ln1_bias, eps).to(dt)
+    qkv = xn1 @ w.w_qkv.to(dt).t() + w.b_qkv.to(dt)
+    q, k, v = (t.reshape(B, L, H, hd) for t in qkv.split(D, dim=-1))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * hd ** -0.5, k)
+    probs = torch.softmax(logits.float(), dim=-1).to(dt)
+    o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, D)
+    h = o @ w.w_out.to(dt).t() + w.b_out.to(dt)
+    if adapter_attn is not None:
+        h = h + _adapter_xla(h, adapter_attn, dt)
+    x2 = x + h
+    xn2 = _ln_f32(x2.float(), w.ln2_scale, w.ln2_bias, eps).to(dt)
+    h = activation(act, xn2 @ w.w_fc1.to(dt).t() + w.b_fc1.to(dt))
+    h = h @ w.w_fc2.to(dt).t() + w.b_fc2.to(dt)
+    if adapter_mlp is not None:
+        h = h + _adapter_xla(h, adapter_mlp, dt)
+    return x2 + h
+
+
+def _forward(x, weights, adapter_attn, adapter_mlp, num_heads, eps, act):
+    """The layer forward: the kernel for a CUDA tensor, ``layer_reference``
+    for a CPU tensor."""
+    if x.device.type == "cpu":
+        return layer_reference(x, weights, adapter_attn, adapter_mlp,
+                               num_heads=num_heads, eps=eps, act=act)
+    return encoder_layer_cuda(x, weights, num_heads=num_heads, eps=eps,
+                              act=act, adapter_attn=adapter_attn,
+                              adapter_mlp=adapter_mlp)
+
+
+_N_LAYER = len(LayerWeights._fields)
+_N_ADAPTER = len(AdapterWeights._fields)
+
+
+def _unflatten(tensors, has_attn: bool, has_mlp: bool) -> tuple:
+    """(LayerWeights, adapter_attn or None, adapter_mlp or None) from the
+    flat tensors ``EncoderLayerFn`` takes."""
+    w = LayerWeights(*tensors[:_N_LAYER])
+    rest = list(tensors[_N_LAYER:])
+    a1 = AdapterWeights(*rest[:_N_ADAPTER]) if has_attn else None
+    a2 = (AdapterWeights(*rest[_N_ADAPTER * has_attn:][:_N_ADAPTER])
+          if has_mlp else None)
+    return w, a1, a2
+
+
+class EncoderLayerFn(torch.autograd.Function):
+    """The layer with the kernel (on the CPU its plain version) as forward
+    and the reference's recomputing backward (``_fused_bwd``). The weight
+    and adapter tensors come flat after x, as ``LayerWeights.cast`` and
+    ``AdapterWeights.cast`` give them, so that each gets its gradient (the
+    f32 master parameters take theirs through those casts). Only x and the
+    weights are saved; the backward recomputes the layer as ``layer_xla``
+    and takes the gradients that ``ctx.needs_input_grad`` asks for (with a
+    frozen tower, x's and the adapters'). The backward waits on nothing on
+    the host, so a CUDA graph captures it."""
+
+    @staticmethod
+    def forward(ctx, x, num_heads: int, eps: float, act: str,
+                has_attn: bool, has_mlp: bool, *tensors):
+        ctx.save_for_backward(x, *tensors)
+        ctx.layer = (num_heads, eps, act, has_attn, has_mlp)
+        w, a1, a2 = _unflatten(tensors, has_attn, has_mlp)
+        return _forward(x, w, a1, a2, num_heads, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, eps, act, has_attn, has_mlp = ctx.layer
+        saved = ctx.saved_tensors
+        needs = (ctx.needs_input_grad[0], *ctx.needs_input_grad[6:])
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip(saved, needs)]
+            w, a1, a2 = _unflatten(leaves[1:], has_attn, has_mlp)
+            y = layer_xla(leaves[0], w, a1, a2, num_heads=num_heads,
+                          eps=eps, act=act)
+            grads = iter(torch.autograd.grad(
+                y, [t for t, n in zip(leaves, needs) if n], g))
+        dx, *dtensors = (next(grads) if n else None for n in needs)
+        return (dx, None, None, None, None, None, *dtensors)
+
+
 def encoder_layer(x: torch.Tensor, weights: LayerWeights, *, num_heads: int,
                   eps: float = 1e-5, act: str = "quick_gelu",
                   adapter_attn: Optional[AdapterWeights] = None,
@@ -141,14 +261,18 @@ def encoder_layer(x: torch.Tensor, weights: LayerWeights, *, num_heads: int,
     """One full pre-LN encoder layer, x: (B, L, D) -> (B, L, D).
 
     A CUDA tensor goes through the kernel (``encoder_layer_cuda``), a CPU
-    tensor through ``layer_reference``. ``adapter_attn`` / ``adapter_mlp``
-    are the parallel adapters on the attention / MLP branch outputs."""
-    if x.device.type == "cpu":
-        return layer_reference(x, weights, adapter_attn, adapter_mlp,
-                               num_heads=num_heads, eps=eps, act=act)
-    return encoder_layer_cuda(x, weights, num_heads=num_heads, eps=eps,
-                              act=act, adapter_attn=adapter_attn,
-                              adapter_mlp=adapter_mlp)
+    tensor through ``layer_reference``. With grad mode on and an input that
+    requires a gradient, through ``EncoderLayerFn``, whose backward
+    recomputes the layer. ``adapter_attn`` / ``adapter_mlp`` are the
+    parallel adapters on the attention / MLP branch outputs."""
+    tensors = (*weights, *(adapter_attn or ()), *(adapter_mlp or ()))
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, *tensors)):
+        return EncoderLayerFn.apply(x, num_heads, float(eps), act,
+                                    adapter_attn is not None,
+                                    adapter_mlp is not None, *tensors)
+    return _forward(x, weights, adapter_attn, adapter_mlp, num_heads, eps,
+                    act)
 
 
 def _lib():
