@@ -69,6 +69,13 @@ def layer_norm(mod: nn.LayerNorm, x: torch.Tensor,
                         mod.bias.float(), mod.eps).to(dtype)
 
 
+def _group_normalize(v: torch.Tensor, group: int) -> torch.Tensor:
+    """L2-normalize each of ``group`` contiguous sub-groups of the last dim,
+    then flatten back."""
+    g = v.reshape(*v.shape[:-1], group, -1)
+    return l2_normalize(g).reshape(v.shape)
+
+
 class CosSim(nn.Module):
     """Cosine-similarity classifier: normalize(x) @ normalize(centroids)^T,
     f32 logits. ``x`` keeps its own dtype (the reference normalizes it as
@@ -78,20 +85,21 @@ class CosSim(nn.Module):
     from N(0, 1)); ``learn_cent`` False keeps them as the ``centroids``
     buffer (the reference's ``constants`` collection) instead of a
     parameter. ``forward(x, sign_centroids=True)`` scores against the
-    centroids' signs (orthohash_bcs's second head). ``group``,
-    ``single_quan`` and ``input_group``, which no module or config of the
-    reference reaches, are not ported (ROADMAP Queue 1 item 1, what
-    remains)."""
+    centroids' signs (orthohash_bcs's second head). As in the reference:
+    ``group`` scores per sub-code (both sides normalized per group, the
+    logits divided by ``group``); ``single_quan`` averages those logits
+    against the centroids and against their signs; ``input_group``
+    group-normalizes the input, then normalizes it and the centroids whole.
+    No config of either package sets these three."""
 
     def __init__(self, nfeat: int, nclass: int, dtype=torch.float32,
                  generator=None, *, codebook=None, learn_cent: bool = True,
                  group: int = 1, single_quan: bool = False,
                  input_group: int = 1):
         super().__init__()
-        if group != 1 or single_quan or input_group != 1:
-            raise NotImplementedError(
-                "CosSim's group, single_quan and input_group are not ported "
-                "yet (ROADMAP Queue 1 item 1, what remains)")
+        self.group = int(group)
+        self.single_quan = bool(single_quan)
+        self.input_group = int(input_group)
         self.dtype = dtype
         cent = (torch.as_tensor(codebook, dtype=torch.float32).cpu().clone()
                 if codebook is not None
@@ -106,9 +114,19 @@ class CosSim(nn.Module):
         cent = self.centroids.to(self.dtype)
         if sign_centroids:
             cent = torch.sign(cent)
-        xn = l2_normalize(x)
-        cn = l2_normalize(cent)
-        return xn.float() @ cn.float().t()
+        if self.single_quan:
+            xn = _group_normalize(x, self.group).float()
+            cn = _group_normalize(cent, self.group)
+            l1 = xn @ cn.float().t()
+            l2 = xn @ torch.sign(cn).float().t()
+            return (l1 + l2) * 0.5 / self.group
+        if self.input_group != 1:
+            xn = l2_normalize(_group_normalize(x, self.input_group))
+            cn = l2_normalize(cent)
+        else:
+            xn = _group_normalize(x, self.group)
+            cn = _group_normalize(cent, self.group)
+        return xn.float() @ cn.float().t() / self.group
 
 
 def sign_ste(x: torch.Tensor) -> torch.Tensor:
