@@ -118,9 +118,9 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    ``make_multi_train_step`` (a warm-up chunk, then a replay) against 16
    eager steps from the same state (the optimizer a ``train_chunk=1`` run
    builds), per-step losses and the parameters bit for bit, the per-step
-   ``lr`` equal to ``current_lr``; again with
+   ``lr`` equal to ``current_lr``; again in chunks of 2 with
    ``attention_impl="pallas"``, ``fused_ln="pallas"``, kernels 5 and 6
-   counted per replay, and again with sgd (momentum, weight decay); with
+   counted per replay, and with sgd (momentum, weight decay); with
    dropout 0.1, three chunks on the same batches:
    the generator advances, the loss is finite and falls, an eager twin
    printed beside it; (b) the multi eval step's codes at B=32 equal the
@@ -154,7 +154,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    per step (kernels 5 and 6 at 12 and 24, q/k/v/out adapters 12 and 0,
    remat twice that: the checkpointed forward runs again in the backward),
    the loss finite and falling; a remat step against a stored-activation
-   step, and graphed chunks (K=4) of SA + DBN, FILIP and lars against eager
+   step, and graphed chunks (K=2) of SA + DBN, FILIP and lars against eager
    steps, bit for bit; (c) after phase 15, on its synthetic set:
    ``main_gpu.py model=concepthash_sa`` and ``model=concepthash_filip``
    (FILIP's class-text token embeddings from phase 15 (d)'s local
@@ -179,7 +179,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    unchanged at weight decay 0), the frozen backbone bit-unchanged,
    hashnet's ``keep_train_size`` bank equal to its batch's detached
    tanh(beta * codes), and for every method but hashnet a graphed chunk
-   (a warm-up and a replay of 4) against eager steps bit for bit; (c)
+   (a warm-up and a replay of 2) against eager steps bit for bit; (c)
    after phase 16 (c), on phase 15's synthetic set: ``main_gpu.py
    model=orthohash_adapter``, ``model=hashnet_adapter`` (one step a
    dispatch) and ``model=clip_finetune`` (vision tower and class-text
@@ -202,7 +202,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    bit-unchanged, graphed chunks of the two CE heads bit for bit;
    ``solve_dcc`` at CUB-200's size on the card against the CPU (>= 99.9%
    of entries equal) and timed; ``ae_fit`` (``ae``,
-   ``induced_ae_norm_cossim``) on a (200, 512) embedding, 1,000 and 200
+   ``induced_ae_norm_cossim``) on a (200, 512) embedding, 300 and 60
    iterations card against CPU (signs on >= 99%), then ``ae``'s 10,000 on
    the card, timed; (c) after phase 17 (c), on phase 15's synthetic set:
    ``main_gpu.py model=a2net_ce_adapter`` and ``model=semicon_ce_adapter``
@@ -237,7 +237,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    losses take straight-through signs that one rounding moves: the
    backward of one loss gradient through both, at the same limits);
    graphed chunks
-   (a warm-up and a replay of 4) of cibhash (two views) and ssdh (a
+   (a warm-up and a replay of 2) of cibhash (two views) and ssdh (a
    staged (K, B, B) ``aux``) against eager steps, bit for bit;
    ``ssdh_structure`` and the four shallow fits timed at CUB-200's size
    (5,994 rows: 64-wide codes, 768-wide features); (c) after phase 18
@@ -289,7 +289,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    variance) within 1e-5 and ``num_batches_tracked`` counting steps,
    resnet18's frozen buffers bit-unchanged, vgg16's dropout replayed from
    the run's generator, vit_b16's kernel step against a plain one under
-   sgd; graphed chunks of 4 of resnet50, vgg16 and vit_b16 against eager
+   sgd; graphed chunks of 2 of resnet50, vgg16 and vit_b16 against eager
    steps bit for bit, buffers and the generator included; (c) after phase
    20 (c), on phase 15's set: ``main_gpu.py model=orthohash_adapter
    backbone=resnet50`` (with a resume bit for bit) and ``csq_adapter
@@ -302,6 +302,26 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    ``scripts/import_reference_checkpoint_torch.py`` and
    ``exp=validation``: the imported state and test codes equal the seeded
    model's bit for bit.
+22. kernel 1 in training (after phase 21 (b)): the flagship built with
+   ``fused_ln="pallas_layer"`` (ViT-B/32, both adapters 384, 4 concepts,
+   64 bits, seeded, bf16), whose layers run the kernel in the train
+   forward and recompute in torch in the backward
+   (``ops.fused_layer.EncoderLayerFn``): (a) under sgd at B=32, each
+   layer's train-forward output against the plain version on the same
+   input (``LAYER_ATOL + LAYER_RTOL |ref|``), then 3 counted steps (kernel
+   1 at one launch a layer, kernels 5 and 6 none), each first held against
+   a step from the same state with kernel 1 swapped for its plain version
+   (loss within 2%, the update's cosine over all trained tensors >= 0.99);
+   the same first step on the discrete path printed beside it; (b) under
+   adam with dropout 0.1, a warm-up chunk and a replayed chunk of 4 steps
+   against 8 eager steps, bit for bit (losses, parameters, the dropout
+   generator), kernel 1 counted per replay; (c) ``orthohash_adapter`` at
+   ``backbone_lr_scale=0.1``: its graphed chunk moves
+   ``backbone.tower.visual_projection.weight`` (a zero gradient each step)
+   and equals eager steps bit for bit; (d) recorded, not held, beside the
+   card's name and power limit: eager ms a step and peak allocated memory
+   at B=256 under ``pallas_layer``, the discrete path and kernels 5 and 6,
+   and one layer's recompute backward beside kernel 1's forward.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -358,6 +378,8 @@ TEXT_ATOL = 1e-4
 REPLAY_MAP_ATOL = 1e-6
 TRAIN_VISION = dict(attention_impl="pallas", fused_ln="pallas")
 XLA_VISION = dict(attention_impl="xla", fused_ln="xla")
+# phase 22: kernel 1 in training (its backward recomputes in torch)
+LAYER_VISION = dict(fused_ln="pallas_layer")
 # phase 21 (a)'s trunks, (b)'s trained ones and those of them held graphed
 TRUNK_GROUPS = ("resnet18", "resnet50", "resnet101", "swin_tiny", "swin_base",
                 "alexnet", "vgg16", "vit_s16", "vit_b16")
@@ -405,8 +427,10 @@ class Sizes:
     flagship_image: int = 256          # written at dataset.resize square
     flagship_args: tuple = ()          # overrides after the flagship's own
     graph_chunk: int = 8               # train_chunk 'auto' on the card
-    # phases 16 (b)-19 (b): steps a chunk in the graph-vs-eager checks
-    check_chunk: int = 4
+    # phases 15 (a) (kernels 5 and 6, sgd), 16 (b)-19 (b) and 21 (b): steps
+    # a chunk in the graph-vs-eager checks; phase 22 (b), (c): layer_chunk
+    check_chunk: int = 2
+    layer_chunk: int = 4
     # phases 15 (c) to 20 (c): 12 steps of 32 an epoch (a chunk of 8 and 4
     # single steps; mae's 6 of 64 are single), phase 14's set
     graph_per_class: tuple = (2, 1)
@@ -419,7 +443,7 @@ class Sizes:
     ae_embedding: tuple = (200, 512)   # classes x CLIP text width
     # card vs CPU, ae and induced_ae_norm_cossim (1,000 induced iterations
     # took 25-29 s on an 8-core host); ae's full fit, timed
-    ae_iters: tuple = (1000, 200, 10000)
+    ae_iters: tuple = (300, 60, 10000)
     # phase 19 (b): CUB-200's train rows, SSDH's code width and the
     # shallow fits' feature width (ViT-B/32's hidden size)
     unsup_fit: tuple = (5994, 64, 768)
@@ -434,14 +458,19 @@ class Sizes:
     trunk_batch: int = 32
     trunk_args: tuple = ()
     trunk_over: tuple = ()
+    # phase 22: counted steps each held against a plain step
+    layer_train_steps: int = 3
 
 
-def check_sizes(sizes: Sizes) -> Sizes:
-    """``sizes`` with ``graph_chunk`` at ``check_chunk``: the graph-vs-eager
-    checks of phases 16 (b) to 19 (b) capture and replay chunks of that many
-    steps (the capture and replay of the card's chunk of 8, in half the
-    steps; phases 15 (a) and 20 (b) keep 8)."""
-    return dataclasses.replace(sizes, graph_chunk=sizes.check_chunk)
+def check_sizes(sizes: Sizes, chunk: int = 0) -> Sizes:
+    """``sizes`` with ``graph_chunk`` at ``chunk`` (``check_chunk`` by
+    default): the graph-vs-eager checks of phases 15 (a) (but the default
+    settings' and the dropout chunks), 16 (b) to 19 (b) and 21 (b) capture
+    and replay chunks of that many steps (the capture and replay of the
+    card's chunk of 8, in fewer steps; phase 20 (b) and the rest of 15 (a)
+    keep 8, phase 22 takes ``layer_chunk``)."""
+    return dataclasses.replace(sizes,
+                               graph_chunk=chunk or sizes.check_chunk)
 
 
 def fail(msg: str) -> None:
@@ -992,6 +1021,22 @@ class plain_kernels:
         self.mods[0].ln_matmul_cuda, self.mods[1].attention_cuda = self.saved
 
 
+class plain_layer_kernel:
+    """Inside this block kernel 1's wrapper runs the layer's plain version:
+    a train step at ``fused_ln="pallas_layer"`` with the same recomputing
+    backward, its forward through ``layer_reference``."""
+
+    def __enter__(self):
+        from concepthash_tpu_torch.ops import fused_layer
+
+        self.mod, self.saved = fused_layer, fused_layer.encoder_layer_cuda
+        fused_layer.encoder_layer_cuda = (
+            lambda x, w, **kw: fused_layer.layer_reference(x, w, **kw))
+
+    def __exit__(self, *exc):
+        self.mod.encoder_layer_cuda = self.saved
+
+
 def grads_vs_plain(model, loss_fn, batch: dict) -> tuple:
     """The train-mode loss and the gradient of every trained tensor with
     the kernels and with their plain versions: (loss with the kernels,
@@ -1026,10 +1071,11 @@ def step_vs_plain(tr, batch: dict) -> tuple:
         for n in upd_k}
 
 
-def steps_kernels_plain(tr, batch: dict) -> tuple:
+def steps_kernels_plain(tr, batch: dict, plain=plain_kernels) -> tuple:
     """``step_vs_plain``'s two steps: (loss with the kernels, loss plain,
     {trained tensor: update with the kernels}, {...: update plain}), the
-    updates float64 and flat."""
+    updates float64 and flat. ``plain``: the block that swaps the kernels
+    for their plain versions (kernels 5 and 6 by default)."""
     model = tr.model
     trained = {n: p for n, p in model.named_parameters() if p.requires_grad}
     snap = (copy.deepcopy(model.state_dict()),
@@ -1048,7 +1094,7 @@ def steps_kernels_plain(tr, batch: dict) -> tuple:
         return loss, upd
 
     loss_k, upd_k = one_step()
-    with plain_kernels():
+    with plain():
         loss_p, upd_p = one_step()
     return loss_k, loss_p, upd_k, upd_p
 
@@ -2324,9 +2370,9 @@ def run_graphs(sizes: Sizes, device, flagship: dict) -> None:
 
     t_phase = time.perf_counter()
     graph_vs_eager_train(sizes, device, None)
-    tr, _ = graph_vs_eager_train(sizes, device, TRAIN_VISION)
+    tr, _ = graph_vs_eager_train(check_sizes(sizes), device, TRAIN_VISION)
     del tr
-    graph_vs_eager_train(sizes, device, None, SGD_OPTIM)
+    graph_vs_eager_train(check_sizes(sizes), device, None, SGD_OPTIM)
     graph_dropout(sizes, device)
     torch.cuda.empty_cache()
     t_c = time.perf_counter()
@@ -5538,6 +5584,342 @@ def import_reference_run(device, tmp: str, argv, eval_argv, model: str,
     del ev
 
 
+# ---------------------------------------------------------------------------
+# phase 22: kernel 1 in training, its recomputing backward, F4 on the card
+# ---------------------------------------------------------------------------
+
+def flagship_centers(sizes: Sizes) -> torch.Tensor:
+    """The flagship's seeded (nclass, center_dim) class centers."""
+    return torch.randn(sizes.head["nclass"], sizes.head.get("center_dim", 512),
+                       generator=torch.Generator().manual_seed(0))
+
+
+def flagship_batch(sizes: Sizes, vcfg, n: int, device, seed: int) -> dict:
+    """``n`` seeded uint8 images center-cropped and normalized, and seeded
+    one-hot labels."""
+    from concepthash_tpu_torch.data.preprocess import center_crop, normalize
+
+    nclass = sizes.head["nclass"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    raw = torch.randint(0, 256, (n, sizes.image_side, sizes.image_side, 3),
+                        generator=gen, device=device, dtype=torch.uint8)
+    y = torch.randint(0, nclass, (n,), generator=gen, device=device)
+    return {"image": normalize(center_crop(raw, vcfg.image_size), 3),
+            "label": F.one_hot(y, nclass).float()}
+
+
+def layer_train_forward(tr, batch: dict) -> None:
+    """Phase 22 (a): one train forward at ``fused_ln="pallas_layer"``, each
+    layer through kernel 1 once, its output held against the plain version
+    on the same inputs within ``LAYER_ATOL + LAYER_RTOL |ref|``."""
+    from concepthash_tpu_torch.ops import fused_layer as fl
+
+    seen = []
+    real = fl._forward
+
+    def recording(x, w, a1, a2, num_heads, eps, act):
+        out = real(x, w, a1, a2, num_heads, eps, act)
+        seen.append((x, w, dict(num_heads=num_heads, eps=eps, act=act,
+                                adapter_attn=a1, adapter_mlp=a2), out))
+        return out
+
+    # the layer's dispatch, which calls the counted wrapper
+    fl._forward = recording
+    try:
+        tr.generator.manual_seed(1)
+        out = tr.model(batch["image"], train=True, generator=tr.generator)
+    finally:
+        fl._forward = real
+    worst, excess = 0.0, -1.0
+    with torch.no_grad():
+        for x, w, kw, got in seen:
+            want = fl.layer_reference(x, w, **kw).float()
+            err = (got.float() - want).abs()
+            worst = max(worst, err.max().item())
+            excess = max(excess, (err - (LAYER_ATOL + LAYER_RTOL
+                                         * want.abs())).max().item())
+            if not torch.isfinite(got).all():
+                excess = math.inf
+    n, n_lay = len(seen), tr.model.vision_cfg.num_layers
+    L = seen[0][0].shape[1] if seen else 0
+    print(f"layer train forward (pallas_layer, B={batch['label'].shape[0]}, "
+          f"L={L}): {n} layer calls through kernel 1 under autograd "
+          f"({n_lay} expected), each against its plain version on the same "
+          f"input: max |d| {worst:.6g}")
+    if n != n_lay or excess > 0:
+        fail(f"kernel 1 in the train forward: {n} calls, or outside "
+             f"|d| <= {LAYER_ATOL} + {LAYER_RTOL}|ref|")
+    del seen, out
+
+
+def layer_train_steps(sizes: Sizes, device) -> None:
+    """Phase 22 (a): the flagship at ``fused_ln="pallas_layer"`` under sgd
+    at B=32, seeded adapters: the train forward layer by layer against the
+    plain version; ``sizes.layer_train_steps`` counted steps (kernel 1 at
+    one launch a layer, kernels 5 and 6 none), each first held against a
+    plain step from the same state (kernel 1 swapped for
+    ``layer_reference``): loss within ``TRAIN_LOSS_RTOL``, the update's
+    cosine over all trained tensors >= ``MIN_UPDATE_COSINE``; the same
+    first step on the discrete path (the default settings) printed beside
+    it, not held."""
+    from concepthash_tpu_torch.methods import build_training
+
+    cfg = train_config(sizes)
+    cfg["optim"] = dict(UNSUP_SGD)
+    centers = flagship_centers(sizes)
+    tr = build_training(cfg, centers, sizes.steps_per_epoch, device=device,
+                        vision=LAYER_VISION)
+    seed_adapters(tr.model, torch.Generator().manual_seed(83))
+    vcfg = tr.model.vision_cfg
+    n_lay = vcfg.num_layers
+    batch = flagship_batch(sizes, vcfg, sizes.train_batch, device, 89)
+    layer_train_forward(tr, batch)
+
+    trained = {n: p for n, p in tr.model.named_parameters()
+               if p.requires_grad}
+    disc = build_training(cfg, centers, sizes.steps_per_epoch, device=device)
+    disc.model.load_state_dict(tr.model.state_dict())
+    start = {n: p.detach().clone() for n, p in trained.items()}
+    disc.generator.manual_seed(1)
+    loss_d = float(disc.step(batch)["loss"])
+    upd_d = torch.cat([(p.detach() - start[n]).double().flatten()
+                       for n, p in disc.model.named_parameters()
+                       if n in trained])
+    del disc, start
+    expect = (n_lay, 0, 0, 0, 0, 0)
+    torch.cuda.synchronize()
+    count_reset()
+    losses, per_step, held = [], [], []
+    for i in range(sizes.layer_train_steps):
+        loss_k, loss_p, upd_k, upd_p = steps_kernels_plain(
+            tr, batch, plain_layer_kernel)
+        uk = torch.cat(list(upd_k.values()))
+        whole = F.cosine_similarity(uk, torch.cat(list(upd_p.values())),
+                                    dim=0).item()
+        held.append((loss_k, loss_p, whole))
+        if i == 0:
+            cos_d = F.cosine_similarity(uk, upd_d, dim=0).item()
+            print(f"layer train step 1 on the discrete path (the default "
+                  f"settings, sgd): loss {loss_d:.6f} against pallas_layer's "
+                  f"{loss_k:.6f}; update cosine with pallas_layer's step "
+                  f"{cos_d:.6f} (printed, not held)")
+        if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+                whole < MIN_UPDATE_COSINE:
+            fail(f"layer train step {i + 1}: kernel 1's step (loss {loss_k}) "
+                 f"differs from its plain version's (loss {loss_p}, update "
+                 f"cosine {whole})")
+        before = counts()
+        tr.generator.manual_seed(1)
+        losses.append(float(tr.step(batch)["loss"]))
+        per_step.append(tuple(a - b for a, b in zip(counts(), before)))
+    print(f"layer train steps (pallas_layer, sgd, B={sizes.train_batch}): "
+          f"loss " + ", ".join(f"{x:.5f}" for x in losses)
+          + "; against plain steps from the same states: "
+          + ", ".join(f"loss {k:.6f} vs {p:.6f}, update cosine {c:.6f}"
+                      for k, p, c in held)
+          + f"; launches per step {per_step[0]} (kernel 1 once a layer, "
+          f"kernels 5 and 6 never: {expect}), alike in every step: "
+          f"{len(set(per_step)) == 1}")
+    if any(p != expect for p in per_step):
+        fail(f"layer train: launches per step {per_step} != {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"layer train: loss {losses} not finite")
+    del tr
+
+
+def layer_graph_vs_eager(sizes: Sizes, device) -> None:
+    """Phase 22 (b): the flagship at ``fused_ln="pallas_layer"`` (adam,
+    dropout 0.1, seeded adapters) in two chunks of ``sizes.layer_chunk``
+    steps through ``make_multi_train_step`` (a warm-up, then a replay)
+    against as many eager steps of a twin, bit for bit: the losses, the
+    parameters and the dropout generator's state; kernel 1 at one launch a
+    layer a step, replays included, and none of kernels 5 and 6."""
+    from concepthash_tpu_torch.methods import build_training
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    sizes = check_sizes(sizes, sizes.layer_chunk)
+    cfg = train_config(sizes)
+    centers = flagship_centers(sizes)
+    graph, eager = [build_training(cfg, centers, sizes.steps_per_epoch,
+                                   device=device, vision=LAYER_VISION)
+                    for _ in range(2)]
+    seed_adapters(graph.model, torch.Generator().manual_seed(97))
+    eager.model.load_state_dict(graph.model.state_dict())
+    vcfg = graph.model.vision_cfg
+    K, n_lay = sizes.graph_chunk, vcfg.num_layers
+    batches, stacked = stacked_batches(sizes, vcfg, sizes.head["nclass"], 2,
+                                       device, 101)
+    start = graph.generator.get_state()
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    torch.cuda.synchronize()
+    count_reset()
+    g_loss = [x for chunk in stacked for x in multi(chunk)["loss"].tolist()]
+    torch.cuda.synchronize()
+    launches = counts()
+    e_loss = [float(eager.step(b)["loss"]) for b in batches]
+    gs, es = graph.model.state_dict(), eager.model.state_dict()
+    d = max((gs[k].float() - es[k].float()).abs().max().item() for k in gs)
+    g_state = graph.generator.get_state()
+    same_gen = torch.equal(g_state, eager.generator.get_state()) and \
+        not torch.equal(g_state, start)
+    same = g_loss == e_loss and d == 0.0 and same_gen
+    want = (2 * K * n_lay, 0, 0, 0, 0, 0)
+    per_replay = getattr(multi, "launches_per_replay",
+                         {"encoder_layer_cuda": K * n_lay})
+    print(f"layer graph vs eager train (pallas_layer, adam, dropout 0.1, "
+          f"K={K}, B={sizes.train_batch}, a warm-up chunk and a replay): "
+          f"losses " + ", ".join(f"{x:.5f}" for x in g_loss[K:]) + " / "
+          + ", ".join(f"{x:.5f}" for x in e_loss[K:])
+          + f" (the replay's), parameters max |d| {d:.3g}, the dropout "
+          f"generator at the eager twin's state: {same_gen}: bit for bit "
+          f"{same} (required), with {getattr(multi, 'replays', 0)} replays; "
+          f"launches per replay {per_replay}, counted over both chunks "
+          f"{launches}")
+    if not same:
+        fail("pallas_layer: the graphed chunk differs from eager steps "
+             "(losses, parameters or the dropout generator)")
+    if launches != want or per_replay != {"encoder_layer_cuda": K * n_lay}:
+        fail(f"pallas_layer in the graph: launches {launches} != {want}, or "
+             f"per replay {per_replay}")
+    del graph, eager, multi, batches, stacked
+
+
+def trainable_backbone_graph(sizes: Sizes, device) -> None:
+    """Phase 22 (c): orthohash_adapter at ``backbone_lr_scale=0.1``, whose
+    visual projection no loss reaches (its zero gradient from
+    ``optim.zero_missing_grads``, inside the graph too): two chunks of
+    ``sizes.layer_chunk`` steps (a warm-up, then a replay) against as many
+    eager steps, bit for bit, and the projection moved on both."""
+    from concepthash_tpu_torch.methods import build_model, training_for
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    sizes = check_sizes(sizes, sizes.layer_chunk)
+    cfg = baseline_config(sizes, "orthohash")
+    cfg["backbone_lr_scale"] = 0.1
+    cb = baseline_codebook(sizes, "orthohash", cfg)
+    trs = []
+    for _ in range(2):
+        model, loss_fn = build_model(cfg, cb, device=device)
+        trs.append(training_for(cfg, model, loss_fn, sizes.steps_per_epoch))
+    graph, eager = trs
+    seed_adapters(graph.model, torch.Generator().manual_seed(103))
+    eager.model.load_state_dict(graph.model.state_dict())
+    key = "backbone.tower.visual_projection.weight"
+    before = graph.model.state_dict()[key].clone()
+    groups = len(graph.optimizer.param_groups)
+    batches, stacked = stacked_batches(sizes, graph.model.vision_cfg,
+                                       sizes.head["nclass"], 2, device, 107)
+    multi = make_multi_train_step(graph.model, graph.loss_fn,
+                                  graph.optimizer, graph.scheduler,
+                                  generator=graph.generator)
+    g_loss = [x for chunk in stacked for x in multi(chunk)["loss"].tolist()]
+    e_loss = [float(eager.step(b)["loss"]) for b in batches]
+    gs, es = graph.model.state_dict(), eager.model.state_dict()
+    d = max((gs[k].float() - es[k].float()).abs().max().item() for k in gs)
+    moved = (gs[key] - before).abs().max().item()
+    same = g_loss == e_loss and d == 0.0
+    print(f"trainable backbone (orthohash, backbone_lr_scale 0.1, {groups} "
+          f"groups) graph vs eager train (K={sizes.graph_chunk}, a warm-up "
+          f"chunk and a replay): losses {g_loss[-1]:.5f} / {e_loss[-1]:.5f} "
+          f"at the last step, state max |d| {d:.3g}: bit for bit {same} "
+          f"(required); {key} moved by max |d| {moved:.3g} (required > 0), "
+          f"on the eager twin too: {not torch.equal(es[key], before)}")
+    if not same:
+        fail("trainable backbone: graphed steps differ from eager ones")
+    if moved == 0.0 or torch.equal(es[key], before) or groups != 2:
+        fail(f"trainable backbone: {key} did not move ({groups} groups)")
+    del graph, eager, trs, multi
+
+
+def layer_train_cost(sizes: Sizes, device) -> None:
+    """Phase 22 (d), recorded and not held: eager ms a step (host clock,
+    synchronized, 3 steps after a warm-up) and the peak of
+    ``torch.cuda.max_memory_allocated`` over them, at the flagship's
+    config (adam, frozen tower) at B=``sizes.train_batch_big``, under
+    ``fused_ln="pallas_layer"``, the discrete path (the default settings)
+    and kernels 5 and 6 (``TRAIN_VISION``); then one layer's recomputing
+    backward (x and both adapters asked for, as in the flagship) beside
+    kernel 1's forward at that batch (CUDA events)."""
+    from concepthash_tpu_torch.methods import build_training
+    from concepthash_tpu_torch.ops import fused_layer as fl
+
+    cuda = device.type == "cuda"
+    card = card_line() if cuda else "no card"
+    cfg = train_config(sizes)
+    centers = flagship_centers(sizes)
+    B = sizes.train_batch_big
+    state, big, rows, vc = None, None, [], None
+    for name, vision in (("pallas_layer", LAYER_VISION),
+                         ("discrete (default settings)", None),
+                         ("kernels 5 and 6", TRAIN_VISION)):
+        tr = build_training(cfg, centers, sizes.steps_per_epoch,
+                            device=device, vision=vision)
+        if state is None:
+            seed_adapters(tr.model, torch.Generator().manual_seed(109))
+            state = copy.deepcopy(tr.model.state_dict())
+            vc = tr.model.vision_cfg
+            big = flagship_batch(sizes, vc, B, device, 113)
+        else:
+            tr.model.load_state_dict(state)
+        tr.step(big)
+        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sec = host_s(lambda: tr.step(big), 3)
+        peak = (f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB"
+                if cuda else "not measured")
+        rows.append(f"{name} {sec * 1e3:.2f} ms a step, peak allocated "
+                    f"{peak}")
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+    print(f"layer train cost (B={B}, adam, frozen tower, eager; {card}): "
+          + "; ".join(rows))
+
+    D, F_, H = vc.hidden_size, vc.intermediate_size, vc.num_heads
+    L = vc.num_patches + 1 + sizes.head.get("ncontext", 4)
+    gen = torch.Generator().manual_seed(127)
+    w, a1, a2 = random_layer(gen, D, F_, sizes.bottleneck, True, device)
+    ads = [t.detach().requires_grad_(True) for a in (a1, a2) for t in a]
+    a1 = fl.AdapterWeights(*ads[:7])
+    a2 = fl.AdapterWeights(*ads[7:])
+    x = torch.randn(B, L, D, generator=gen).to(device, torch.bfloat16)
+    x.requires_grad_(True)
+    kw = dict(num_heads=H, eps=vc.layer_norm_eps, act=vc.hidden_act,
+              adapter_attn=a1, adapter_mlp=a2)
+    y = fl.encoder_layer(x, w, **kw)
+    g = torch.randn(y.shape, generator=gen).to(device, y.dtype)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(y, [x, *ads], g,
+                                                 retain_graph=True),
+                     sizes.reps)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: fl.encoder_layer_cuda(x, w, **kw),
+                         sizes.reps)
+    print(f"layer recompute backward (B={B}, L={L}, D={D}, both adapters, "
+          f"gradients of x and the adapters): {bwd_ms:.4f} ms a layer, "
+          f"beside kernel 1's forward {fwd_ms:.4f} ms ({card})")
+    del y, g, x, ads
+
+
+def run_layer_train(sizes: Sizes, device) -> None:
+    """Phase 22."""
+    t0 = time.perf_counter()
+    layer_train_steps(sizes, device)
+    t_b = time.perf_counter()
+    layer_graph_vs_eager(sizes, device)
+    t_c = time.perf_counter()
+    trainable_backbone_graph(sizes, device)
+    t_d = time.perf_counter()
+    layer_train_cost(sizes, device)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s ((a) {t_b - t0:.1f}, "
+          f"(b) {t_c - t_b:.1f}, (c) {t_d - t_c:.1f}, (d) "
+          f"{time.perf_counter() - t_d:.1f})")
+
+
 def _flatten(x):
     if isinstance(x, (list, tuple)):
         return [y for item in x for y in _flatten(item)]
@@ -5771,6 +6153,7 @@ def run(sizes: Sizes, device) -> dict:
     run_unsupervised(sizes, device)
     run_pretrain(sizes, device)
     run_trunks(sizes, device)
+    run_layer_train(sizes, device)
     run_graphs(sizes, device, flagship)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",

@@ -250,11 +250,67 @@ def test_token_embeds_forward_matches_jax():
 
 
 def test_unported_options_raise():
-    pm = ConceptHash(ClipVisionConfig(**VISION, fused_ln="pallas_layer"),
-                     ConceptHashConfig(**HEAD), device="cpu")
-    with pytest.raises(NotImplementedError):    # the whole-layer backward
-        pm(torch.zeros(1, 32, 32, 3), train=True,
-           generator=torch.Generator())
+    """fused_ln='pallas_layer' trains: its train forward goes through the
+    whole-layer function (``EncoderLayerFn``, no NotImplementedError), and
+    its outputs and the gradient of every parameter equal the discrete
+    path's ('xla', the same weights) at f32: outputs within
+    1e-5 + 1e-4 |ref|, each gradient within 1e-4 of its largest entry."""
+    from concepthash_tpu_torch.ops import fused_layer as tfl
+
+    seen = []
+    orig = tfl.EncoderLayerFn.forward
+
+    def counted(ctx, *args):
+        seen.append(1)
+        return orig(ctx, *args)
+
+    models = {}
+    for fused_ln in ("pallas_layer", "xla"):
+        models[fused_ln] = ConceptHash(
+            ClipVisionConfig(**VISION, fused_ln=fused_ln),
+            ConceptHashConfig(**HEAD),
+            AdapterConfig(bottleneck_dim=BOTTLENECK), device="cpu",
+            generator=torch.Generator().manual_seed(0))
+    models["xla"].load_state_dict(models["pallas_layer"].state_dict())
+    imgs = torch.tensor(np.random.default_rng(9).standard_normal(
+        (3, 32, 32, 3)).astype(np.float32))
+    outs, grads = {}, {}
+    for name, pm in models.items():
+        with torch.no_grad():
+            for n, p in pm.named_parameters():
+                if "adapter" in n and "up" in n:
+                    p.copy_(0.1 * torch.randn(p.shape, generator=torch
+                                              .Generator().manual_seed(4)))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tfl.EncoderLayerFn, "forward", staticmethod(counted))
+            out = pm(imgs, train=True,
+                     generator=torch.Generator().manual_seed(1))
+        outs[name] = out
+        # not the codes: the train-mode BatchNorm makes their sum of
+        # squares a constant, whose gradient is rounding noise
+        sum(out[k].float().square().sum() for k in (
+            "logits_cont", "logits_bin", "hash_features",
+            "logits_concept")).backward()
+        grads[name] = {n: p.grad for n, p in pm.named_parameters()}
+    assert len(seen) == VISION["num_layers"]     # pallas_layer's only
+    for k, v in outs["xla"].items():
+        if torch.is_tensor(v):
+            np.testing.assert_allclose(
+                outs["pallas_layer"][k].detach().numpy(),
+                v.detach().numpy(), rtol=1e-4, atol=1e-5, err_msg=k)
+    # hash_pe and the hash query's key bias have a gradient of zero in
+    # exact arithmetic (test_torch_train_slice.py): rounding noise, held
+    # against the largest gradient entry of the model instead
+    top = max(g.abs().max().item() for g in grads["xla"].values()
+              if g is not None)
+    for n, g in grads["xla"].items():
+        got = grads["pallas_layer"][n]
+        assert (got is None) == (g is None), n
+        if g is not None:
+            err = (got - g).abs().max().item()
+            null = n in ("hash_pe", "hash_attention.sa.key.bias")
+            assert err <= 1e-4 * (top if null else g.abs().max().item()), \
+                (n, err)
 
 
 def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
@@ -271,15 +327,16 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     pretraining methods', TBH's and ODC's encodes, steps and runs, kernel
     1 at the MAE's shape, k-means) and phase 21 (the non-CLIP trunks'
     encodes, steps and graphed chunks with their BatchNorm buffers, their
-    CLI runs, profile, disable_jit and the reference-layout import) pass
-    their checks, and the kernels' JSON line has every key the card run
-    prints, for all six TPU kernels."""
+    CLI runs, profile, disable_jit and the reference-layout import) and
+    phase 22 (kernel 1 in training: counted steps against plain ones, a
+    graphed chunk against eager steps, a trainable backbone's graphed
+    chunk, the recompute's cost) pass their checks, and the kernels' JSON
+    line has every key the card run prints, for all six TPU kernels."""
     import importlib.util
     import json
     import time
 
     from concepthash_tpu_torch import _build
-    from concepthash_tpu_torch.models import clip
     from concepthash_tpu_torch.ops import attention as tat
     from concepthash_tpu_torch.ops import fused_layer as fl
     from concepthash_tpu_torch.ops import fused_ln as tln
@@ -329,7 +386,12 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(cs, "cuda_ms", host_ms)
     monkeypatch.setattr(_build, "build", lambda *a: {})
     monkeypatch.setattr(fl, "encoder_layer_cuda", layer)
-    monkeypatch.setattr(clip, "encoder_layer", layer)
+    # the layer's dispatch calls the (swapped) wrapper whatever the device,
+    # under autograd too (EncoderLayerFn)
+    monkeypatch.setattr(fl, "_forward", lambda x, w, a1, a2, h, eps, act:
+                        fl.encoder_layer_cuda(x, w, num_heads=h, eps=eps,
+                                              act=act, adapter_attn=a1,
+                                              adapter_mlp=a2))
     monkeypatch.setattr(tts, "subblock_mins_cuda", mins)
     monkeypatch.setattr(tts, "_mins", lambda qi, db, n, nbit, s, dt,
                         superblocks=False: mins(qi, db, n, s, -(-n // s), dt,
@@ -372,7 +434,8 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
                                     "model.text_projection_dims=[32]",
                                     "batch_size=4", "dataset.nclass=3",
                                     "dataset.resize=64", "dataset.crop=48"),
-                     graph_chunk=2, check_chunk=2, graph_per_class=(4, 1),
+                     graph_chunk=2, check_chunk=2, layer_chunk=2,
+                     graph_per_class=(4, 1),
                      hf_text=dict(hidden_size=32, intermediate_size=64,
                                   num_layers=2, num_heads=4,
                                   max_position_embeddings=16,
@@ -642,6 +705,24 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert ("unused [], missing []; the imported state equal to the "
             "seeded one: True") in out
     assert ("equal to the seeded model's bit for bit: True (required)") in out
+    # phase 22: kernel 1 in training (a 2-layer tower), graphed, and F4
+    assert (f"layer train forward (pallas_layer, B=4, L=21): {n} layer "
+            f"calls through kernel 1 under autograd ({n} expected)") in out
+    assert (f"launches per step ({n}, 0, 0, 0, 0, 0) (kernel 1 once a layer, "
+            f"kernels 5 and 6 never: ({n}, 0, 0, 0, 0, 0)), alike in every "
+            "step: True") in out
+    assert out.count("update cosine 1.000000") >= 3
+    assert "layer train step 1 on the discrete path (the default" in out
+    assert ("the dropout generator at the eager twin's state: True: bit for "
+            "bit True (required), with 0 replays; launches per replay "
+            f"{{'encoder_layer_cuda': {2 * n}}}, counted over both chunks "
+            f"({4 * n}, 0, 0, 0, 0, 0)") in out
+    assert ("trainable backbone (orthohash, backbone_lr_scale 0.1, 2 groups) "
+            "graph vs eager train (K=2") in out
+    assert "(required > 0), on the eager twin too: True" in out
+    assert ("layer train cost (B=8, adam, frozen tower, eager; no card): "
+            "pallas_layer ") in out
+    assert "layer recompute backward (B=8, L=21, D=64, both adapters" in out
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
