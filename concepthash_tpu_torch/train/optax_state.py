@@ -21,9 +21,10 @@ sequences (or as dicts keyed '0', '1', ...). The chains:
 ``exp_avg_sq`` / ``step``; sgd's ``trace`` the momentum buffer of
 ``CapturableSGD`` as it is, and lars's that of ``Lars`` negated: lars
 scales by the learning rate (times -lr) before its ``trace``, so that
-sums -lr * u, where ``Lars``'s buffer sums +lr * u and is subtracted. Each tree of moments is a tree of the
-parameters' shape, so the model's flax -> torch bridge carries it across
-(transposes and the q|k|v concatenation act element by element).
+sums -lr * u, where ``Lars``'s buffer sums +lr * u and is subtracted.
+Each tree of moments is a tree of the parameters' shape, so the model's
+flax -> torch bridge carries it across (transposes and the q|k|v
+concatenation act element by element).
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def _seq(node) -> list:
 
 def _chain_slots(optim_cfg: dict) -> dict:
     """Where the moments sit in the config's chain: {'adam': i} or
-    {'trace': i}, or {} (sgd without momentum keeps none)."""
+    {'trace': i, 'sign': s} (s the sign that turns the trace into the
+    port's momentum buffer), or {} (sgd without momentum keeps none)."""
     name = optim_cfg.get("name", "adam")
     wd = float(optim_cfg.get("weight_decay", 0.0))
     if name == "adam":
@@ -49,10 +51,10 @@ def _chain_slots(optim_cfg: dict) -> dict:
     if name == "adamw":
         return {"adam": 0}
     if name == "sgd":
-        return ({"trace": 1 if wd else 0}
+        return ({"trace": 1 if wd else 0, "sign": 1.0}
                 if float(optim_cfg.get("momentum", 0.0)) else {})
     if name == "lars":
-        return {"trace": 3}
+        return {"trace": 3, "sign": -1.0}
     raise ValueError(f"unknown optimizer {name!r}")
 
 
@@ -115,8 +117,8 @@ def load_optax_state(optimizer: torch.optim.Optimizer,
             by_name[n] = {"exp_avg": mu[n], "exp_avg_sq": nu[n]}
     elif "trace" in slots:
         tr = moments(lambda s: _seq(s[slots["trace"]])[0])
-        sign = -1.0 if optim_cfg.get("name") == "lars" else 1.0
-        by_name = {n: {"momentum_buffer": sign * v} for n, v in tr.items()}
+        by_name = {n: {"momentum_buffer": slots["sign"] * v}
+                   for n, v in tr.items()}
     names = {p: n for n, p in model.named_parameters()}
     for group in optimizer.param_groups:
         capturable = bool(group.get("capturable", False))
