@@ -378,8 +378,11 @@ TEXT_ATOL = 1e-4
 REPLAY_MAP_ATOL = 1e-6
 TRAIN_VISION = dict(attention_impl="pallas", fused_ln="pallas")
 XLA_VISION = dict(attention_impl="xla", fused_ln="xla")
-# phase 22: kernel 1 in training (its backward recomputes in torch)
+# phase 22: kernel 1 in training (its backward recomputes in torch), and
+# (a)'s counted steps, each held against a plain step
 LAYER_VISION = dict(fused_ln="pallas_layer")
+LAYER_TRAIN_STEPS = 3
+LAYER_BWD_BATCH = 4      # (a)'s backward held against f32 on the CPU
 # phase 21 (a)'s trunks, (b)'s trained ones and those of them held graphed
 TRUNK_GROUPS = ("resnet18", "resnet50", "resnet101", "swin_tiny", "swin_base",
                 "alexnet", "vgg16", "vit_s16", "vit_b16")
@@ -458,8 +461,6 @@ class Sizes:
     trunk_batch: int = 32
     trunk_args: tuple = ()
     trunk_over: tuple = ()
-    # phase 22: counted steps each held against a plain step
-    layer_train_steps: int = 3
 
 
 def check_sizes(sizes: Sizes, chunk: int = 0) -> Sizes:
@@ -5655,7 +5656,7 @@ def layer_train_forward(tr, batch: dict) -> None:
 def layer_train_steps(sizes: Sizes, device) -> None:
     """Phase 22 (a): the flagship at ``fused_ln="pallas_layer"`` under sgd
     at B=32, seeded adapters: the train forward layer by layer against the
-    plain version; ``sizes.layer_train_steps`` counted steps (kernel 1 at
+    plain version; ``LAYER_TRAIN_STEPS`` counted steps (kernel 1 at
     one launch a layer, kernels 5 and 6 none), each first held against a
     plain step from the same state (kernel 1 swapped for
     ``layer_reference``): loss within ``TRAIN_LOSS_RTOL``, the update's
@@ -5690,7 +5691,7 @@ def layer_train_steps(sizes: Sizes, device) -> None:
     torch.cuda.synchronize()
     count_reset()
     losses, per_step, held = [], [], []
-    for i in range(sizes.layer_train_steps):
+    for i in range(LAYER_TRAIN_STEPS):
         loss_k, loss_p, upd_k, upd_p = steps_kernels_plain(
             tr, batch, plain_layer_kernel)
         uk = torch.cat(list(upd_k.values()))
@@ -5725,6 +5726,54 @@ def layer_train_steps(sizes: Sizes, device) -> None:
     if not all(math.isfinite(x) for x in losses):
         fail(f"layer train: loss {losses} not finite")
     del tr
+
+
+def layer_backward_check(sizes: Sizes, device) -> None:
+    """Phase 22 (a): ``EncoderLayerFn``'s backward on the card (the kernel's
+    forward, the bf16 ``layer_xla`` recompute) against autograd through
+    ``layer_reference`` at f32 on the CPU, an implementation it shares no
+    code with, from the same bf16 values: one layer at the flagship's
+    width with both adapters at B=``LAYER_BWD_BATCH``, a gradient for x and
+    for every weight, each at cosine >= ``MIN_UPDATE_COSINE``."""
+    from concepthash_tpu_torch.models.clip import ClipVisionConfig
+    from concepthash_tpu_torch.ops import fused_layer as fl
+
+    vc = ClipVisionConfig(**sizes.vision)
+    D, F_, H = vc.hidden_size, vc.intermediate_size, vc.num_heads
+    L = vc.num_patches + 1 + sizes.head.get("ncontext", 4)
+    gen = torch.Generator().manual_seed(131)
+    w, a1, a2 = random_layer(gen, D, F_, sizes.bottleneck, True, device)
+    x = torch.randn(LAYER_BWD_BATCH, L, D, generator=gen).to(torch.bfloat16)
+    names = ["x", *fl.LayerWeights._fields,
+             *(f"adapter_attn.{n}" for n in fl.AdapterWeights._fields),
+             *(f"adapter_mlp.{n}" for n in fl.AdapterWeights._fields)]
+
+    def grads(tensors, fn):
+        leaves = [t.detach().requires_grad_(True) for t in tensors]
+        n, m = 1 + len(w), len(a1)
+        y = fn(leaves[0], fl.LayerWeights(*leaves[1:n]),
+               fl.AdapterWeights(*leaves[n:n + m]),
+               fl.AdapterWeights(*leaves[n + m:]))
+        return torch.autograd.grad(y, leaves, g.to(y))
+
+    kw = dict(num_heads=H, eps=vc.layer_norm_eps, act=vc.hidden_act)
+    g = torch.randn(x.shape, generator=gen)
+    card = grads([x.to(device), *w, *a1, *a2],
+                 lambda x_, w_, b, c: fl.encoder_layer(
+                     x_, w_, adapter_attn=b, adapter_mlp=c, **kw))
+    plain = grads([t.cpu().float() for t in (x, *w, *a1, *a2)],
+                  lambda x_, w_, b, c: fl.layer_reference(x_, w_, b, c, **kw))
+    cos = {n: F.cosine_similarity(a.cpu().double().flatten(),
+                                  b.double().flatten(), dim=0).item()
+           for n, a, b in zip(names, card, plain)}
+    worst = min(cos, key=cos.get)
+    print(f"kernel 1's recomputing backward (B={LAYER_BWD_BATCH}, L={L}, "
+          f"D={D}, both adapters, {len(cos)} gradients) against autograd "
+          f"through layer_reference at f32 on the CPU: least cosine "
+          f"{cos[worst]:.6f} ({worst}; required >= {MIN_UPDATE_COSINE})")
+    if cos[worst] < MIN_UPDATE_COSINE:
+        fail(f"kernel 1's recomputing backward: {worst}'s gradient at cosine "
+             f"{cos[worst]} with the plain version's")
 
 
 def layer_graph_vs_eager(sizes: Sizes, device) -> None:
@@ -5766,23 +5815,27 @@ def layer_graph_vs_eager(sizes: Sizes, device) -> None:
         not torch.equal(g_state, start)
     same = g_loss == e_loss and d == 0.0 and same_gen
     want = (2 * K * n_lay, 0, 0, 0, 0, 0)
-    per_replay = getattr(multi, "launches_per_replay",
-                         {"encoder_layer_cuda": K * n_lay})
+    # the CPU's loop captures and replays nothing
+    cuda = device.type == "cuda"
+    per_replay = (multi.launches_per_replay if cuda
+                  else {"encoder_layer_cuda": K * n_lay})
+    replays = multi.replays if cuda else 0
     print(f"layer graph vs eager train (pallas_layer, adam, dropout 0.1, "
           f"K={K}, B={sizes.train_batch}, a warm-up chunk and a replay): "
           f"losses " + ", ".join(f"{x:.5f}" for x in g_loss[K:]) + " / "
           + ", ".join(f"{x:.5f}" for x in e_loss[K:])
           + f" (the replay's), parameters max |d| {d:.3g}, the dropout "
           f"generator at the eager twin's state: {same_gen}: bit for bit "
-          f"{same} (required), with {getattr(multi, 'replays', 0)} replays; "
+          f"{same} (required), with {replays} replays; "
           f"launches per replay {per_replay}, counted over both chunks "
           f"{launches}")
     if not same:
         fail("pallas_layer: the graphed chunk differs from eager steps "
              "(losses, parameters or the dropout generator)")
-    if launches != want or per_replay != {"encoder_layer_cuda": K * n_lay}:
-        fail(f"pallas_layer in the graph: launches {launches} != {want}, or "
-             f"per replay {per_replay}")
+    if launches != want or (cuda and replays < 1) or \
+            per_replay != {"encoder_layer_cuda": K * n_lay}:
+        fail(f"pallas_layer in the graph: launches {launches} != {want}, "
+             f"{replays} replays, or per replay {per_replay}")
     del graph, eager, multi, batches, stacked
 
 
@@ -5820,14 +5873,18 @@ def trainable_backbone_graph(sizes: Sizes, device) -> None:
     d = max((gs[k].float() - es[k].float()).abs().max().item() for k in gs)
     moved = (gs[key] - before).abs().max().item()
     same = g_loss == e_loss and d == 0.0
+    cuda = device.type == "cuda"
+    replays = multi.replays if cuda else 0
     print(f"trainable backbone (orthohash, backbone_lr_scale 0.1, {groups} "
           f"groups) graph vs eager train (K={sizes.graph_chunk}, a warm-up "
           f"chunk and a replay): losses {g_loss[-1]:.5f} / {e_loss[-1]:.5f} "
           f"at the last step, state max |d| {d:.3g}: bit for bit {same} "
           f"(required); {key} moved by max |d| {moved:.3g} (required > 0), "
-          f"on the eager twin too: {not torch.equal(es[key], before)}")
-    if not same:
-        fail("trainable backbone: graphed steps differ from eager ones")
+          f"on the eager twin too: {not torch.equal(es[key], before)}; "
+          f"{replays} replays")
+    if not same or (cuda and replays < 1):
+        fail(f"trainable backbone: graphed steps differ from eager ones, or "
+             f"{replays} replays")
     if moved == 0.0 or torch.equal(es[key], before) or groups != 2:
         fail(f"trainable backbone: {key} did not move ({groups} groups)")
     del graph, eager, trs, multi
@@ -5907,6 +5964,7 @@ def run_layer_train(sizes: Sizes, device) -> None:
     """Phase 22."""
     t0 = time.perf_counter()
     layer_train_steps(sizes, device)
+    layer_backward_check(sizes, device)
     t_b = time.perf_counter()
     layer_graph_vs_eager(sizes, device)
     t_c = time.perf_counter()

@@ -713,13 +713,16 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
             "step: True") in out
     assert out.count("update cosine 1.000000") >= 3
     assert "layer train step 1 on the discrete path (the default" in out
+    assert ("kernel 1's recomputing backward (B=4, L=21, D=64, both "
+            "adapters, 27 gradients) against autograd through "
+            "layer_reference at f32 on the CPU: least cosine") in out
     assert ("the dropout generator at the eager twin's state: True: bit for "
             "bit True (required), with 0 replays; launches per replay "
             f"{{'encoder_layer_cuda': {2 * n}}}, counted over both chunks "
             f"({4 * n}, 0, 0, 0, 0, 0)") in out
     assert ("trainable backbone (orthohash, backbone_lr_scale 0.1, 2 groups) "
             "graph vs eager train (K=2") in out
-    assert "(required > 0), on the eager twin too: True" in out
+    assert "(required > 0), on the eager twin too: True; 0 replays" in out
     assert ("layer train cost (B=8, adam, frozen tower, eager; no card): "
             "pallas_layer ") in out
     assert "layer recompute backward (B=8, L=21, D=64, both adapters" in out
