@@ -278,7 +278,7 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    swin_base, alexnet, vgg16, vit_s16 and vit_b16, and a2net_ce on
    resnet50's grid, each encode 64 seeded images at 224^2 on the card,
    counted (kernel 1 at 12 launches a vit encode, none otherwise), against
-   the same weights at f32 on the CPU (the first 16 images): codes in sign
+   the same weights at f32 on the CPU (the first 8 images): codes in sign
    on >= 99% of bits, features at cosine >= 0.99, logits within 5% of the
    largest; kernel 1 against its plain version at the two vit shapes
    (B=64, L=197, D=384 and 768, exact GELU, both adapters), timed beside
@@ -322,6 +322,25 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    card's name and power limit: eager ms a step and peak allocated memory
    at B=256 under ``pallas_layer``, the discrete path and kernels 5 and 6,
    and one layer's recompute backward beside kernel 1's forward.
+
+23. data parallelism at world size 1 (``parallel/``, ``ops/sharded.py``),
+   on a process group of one rank in this process (NCCL): (a) after phase
+   12, over phase 4's 2^20 gallery, ``make_sharded_topk(exact=True)``
+   dense over the plain signs, streaming over the packed rows (kernel 2)
+   and over the plain signs in one block and in four (kernel 3), counted,
+   each route's distances and indices equal to the one-process call of
+   that route bit for bit and its distances to ``retrieve_topk``'s, timed
+   beside them; (b) last of all, 3 eager flagship steps at B=32 (adam,
+   dropout 0.1) through the data-parallel step against plain steps from
+   the same state, bit for bit (metrics, parameters, buffers, the dropout
+   generator): every collective is an identity at one rank; (c) the same
+   two trainings on: a warm-up chunk and a replayed chunk of 2 steps with
+   the collectives captured, bit for bit against eager steps; the eager
+   B=256 step's ms with and without the group, alternated, and the host's
+   ms for one eager all-gather and the gradients' all-reduce; (d) inside
+   phase 14, ``python -m torch.distributed.run --standalone
+   --nproc_per_node=1 main_gpu.py`` at phase 14's overrides: its records,
+   mAP and ``models/last.pt`` equal phase 14's run bit for bit.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -457,7 +476,7 @@ class Sizes:
     trunk_groups: tuple = TRUNK_GROUPS
     trunk_images: int = 64
     trunk_side: int = 256              # the seeded images' side, cropped
-    trunk_cpu_images: int = 16
+    trunk_cpu_images: int = 8          # phase 21 (a): the CPU's f32 share
     trunk_batch: int = 32
     trunk_args: tuple = ()
     trunk_over: tuple = ()
@@ -1802,6 +1821,7 @@ def run_flagship(sizes: Sizes, device) -> None:
         if launches != want:
             fail("flagship: kernel 1 not launched 12 times an eval batch, "
                  "or another kernel launched")
+        torchrun_run(device, argv, logdir, train, test)
 
         # ---- models/last.pt reloads to the same codes ----
         codes = exp.encode_split("test")[0]["codes"]
@@ -5978,6 +5998,303 @@ def run_layer_train(sizes: Sizes, device) -> None:
           f"{time.perf_counter() - t_d:.1f})")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: data parallelism at world size 1
+# ---------------------------------------------------------------------------
+
+TORCHRUN_TIMEOUT_S = 300
+
+
+class one_rank_group:
+    """A process group of world size 1 in this process, joined through the
+    launcher's environment (NCCL on the card, gloo on the CPU) by
+    ``parallel.mesh.init_distributed``; on leaving, the group is destroyed
+    and the environment restored, so the phases after it run without a
+    group. ``as`` gives the mesh of its one rank."""
+
+    KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        import os
+        import socket
+
+        from concepthash_tpu_torch.parallel.mesh import (init_distributed,
+                                                         make_mesh)
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        self.saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        t0 = time.perf_counter()
+        if not init_distributed(self.device):
+            fail("no process group from the launcher's environment")
+        mesh = make_mesh()
+        print(f"process group: {mesh.backend}, world size {mesh.size}, rank "
+              f"{mesh.rank} on {mesh.device}, joined in "
+              f"{time.perf_counter() - t0:.2f} s")
+        return mesh
+
+    def __exit__(self, *exc):
+        import os
+
+        from concepthash_tpu_torch.parallel.mesh import shutdown
+
+        shutdown()
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def run_sharded_topk(sizes: Sizes, device, codes, flat, packed, want,
+                     n_codes: int) -> None:
+    """Phase 23 (a): ``make_sharded_topk(exact=True)`` on a mesh of one rank
+    over phase 4's gallery: dense over the plain (N, nbit) signs (kernel 2
+    on the packed view inside ``retrieve_topk``), streaming over the
+    packed rows (kernel 2) and over the plain signs (kernel 3) in one
+    block and in four, counted. Each route's distances and indices equal
+    the one-process call of that route bit for bit (``retrieve_topk``, or
+    ``retrieve_topk_streaming`` at the same block, whose subblock
+    selection orders ties its own way), and its distances equal phase 4's
+    ``retrieve_topk``'s bit for bit; the sharded calls timed beside the
+    one-process ones."""
+    from concepthash_tpu_torch.ops.retrieval import (retrieve_topk,
+                                                     retrieve_topk_streaming)
+    from concepthash_tpu_torch.ops.sharded import (make_sharded_topk,
+                                                   shard_gallery)
+
+    t_phase = time.perf_counter()
+    k = sizes.k
+    n_pad = flat.shape[0]
+    cases = (("dense, plain signs (kernel 2 inside)", flat, 0),
+             ("streaming, packed rows (kernel 2)", packed, 0),
+             ("streaming, plain signs in one block (kernel 3)", flat, n_pad),
+             ("streaming, plain signs in four blocks (kernel 3)", flat,
+              n_pad // 4))
+    with one_rank_group(device) as mesh, torch.inference_mode():
+        fns, shards, refs = [], [], []
+        for _, gallery, block in cases:
+            shard, _ = shard_gallery(gallery, mesh, streaming_block=block)
+            shards.append(shard)
+            fns.append(make_sharded_topk(mesh, k, exact=True,
+                                         streaming_block=block,
+                                         n_valid=n_codes))
+            refs.append(want if not block and gallery is flat else
+                        retrieve_topk_streaming(
+                            codes, gallery, k=k, db_block=block or n_pad,
+                            exact=True, n_valid=n_codes))
+        torch.cuda.synchronize()
+        count_reset()
+        got = [fn(codes, shard) for fn, shard in zip(fns, shards)]
+        torch.cuda.synchronize()
+        launches = counts()
+        same = [torch.equal(d, rd) and torch.equal(i, ri)
+                and torch.equal(d, want[0])
+                for (d, i), (rd, ri) in zip(got, refs)]
+        for (name, _, block), ok in zip(cases, same):
+            route = ("retrieve_topk" if not block and name.startswith("dense")
+                     else "retrieve_topk_streaming")
+            print(f"sharded top-{k} ({name}, {codes.shape[0]} queries over "
+                  f"{n_codes} codes, one rank): distances and indices equal "
+                  f"{route}'s, distances retrieve_topk's, bit for bit: {ok}")
+        print(f"sharded top-k launches (encoder_layer, subblock_mins packed, "
+              f"plain, ln_matmul, attention, bitplane_mins): {launches}")
+        reps = sizes.reps
+        dense_s = host_s(lambda: fns[0](codes, shards[0]), reps)
+        one_s = host_s(lambda: retrieve_topk(codes, flat, k=k, exact=True,
+                                             n_valid=n_codes), reps)
+        stream_s = host_s(lambda: fns[1](codes, shards[1]), reps)
+        one_stream_s = host_s(lambda: retrieve_topk_streaming(
+            codes, packed, k=k, db_block=n_pad, exact=True,
+            n_valid=n_codes), reps)
+    print(f"sharded top-k, one rank: dense {dense_s * 1e3:.3f} ms beside "
+          f"retrieve_topk's {one_s * 1e3:.3f} ms; streaming over the packed "
+          f"rows {stream_s * 1e3:.3f} ms beside retrieve_topk_streaming's "
+          f"{one_stream_s * 1e3:.3f} ms (host clock, synchronized, "
+          f"{reps} calls each); "
+          f"{card_line() if device.type == 'cuda' else 'the CPU'}")
+    if not all(same):
+        fail("the sharded top-k differs from retrieve_topk")
+    # the dense route reaches kernel 2 on the card only (retrieve_topk's
+    # CPU path selects from the full distances)
+    if launches[1] < (2 if device.type == "cuda" else 1) or \
+            launches[2] < 2 or launches[0] or any(launches[3:]):
+        fail(f"sharded top-k: kernels 2 and 3 not both launched, or another "
+             f"kernel launched: {launches}")
+    print(f"phase 23 (a): {time.perf_counter() - t_phase:.1f} s")
+
+
+def run_distributed_steps(sizes: Sizes, device) -> None:
+    """Phase 23 (b), (c): the flagship (adam, dropout 0.1, bf16) on a mesh
+    of one rank, whose every collective is an identity, against a plain
+    twin from the same state: (b) 3 eager steps at B=32 through the
+    data-parallel step against 3 plain steps, bit for bit (metrics,
+    parameters, buffers, the dropout generator); (c) then a warm-up chunk
+    and a replayed chunk of ``sizes.check_chunk`` steps with the
+    collectives captured in the graph against as many plain eager steps,
+    bit for bit. Then the same two at B=256: the eager step's ms with and
+    without the group, alternated."""
+    from concepthash_tpu_torch.methods import build_training
+    from concepthash_tpu_torch.parallel.collectives import (all_reduce_grads,
+                                                            gather_rows_)
+    from concepthash_tpu_torch.parallel.mesh import shard_batch
+    from concepthash_tpu_torch.train.state import make_multi_train_step
+
+    t_phase = time.perf_counter()
+    cfg = train_config(sizes)
+    centers = flagship_centers(sizes)
+    with one_rank_group(device) as mesh:
+        dp, plain = (build_training(cfg, centers, sizes.steps_per_epoch,
+                                    device=device, mesh=m)
+                     for m in (mesh, None))
+        plain.model.load_state_dict(dp.model.state_dict())
+        vcfg = dp.model.vision_cfg
+
+        def same_state():
+            gs, ps = dp.model.state_dict(), plain.model.state_dict()
+            d = max((gs[k].float() - ps[k].float()).abs().max().item()
+                    for k in gs)
+            return d, torch.equal(dp.generator.get_state(),
+                                  plain.generator.get_state())
+
+        same = []
+        for i in range(3):
+            b = flagship_batch(sizes, vcfg, sizes.train_batch, device, 60 + i)
+            got = dp.step(shard_batch(b, mesh))
+            want = plain.step(b)
+            same.append(all(torch.equal(got[k], want[k]) for k in want))
+        d, gen_ok = same_state()
+        eager_ok = all(same) and d == 0.0 and gen_ok
+        print(f"data-parallel steps on one rank (flagship, B="
+              f"{sizes.train_batch}, adam, dropout 0.1): metrics equal step "
+              f"by step {same}, parameters and buffers max |d| {d:.3g}, the "
+              f"dropout generator equal: {gen_ok}: bit for bit {eager_ok} "
+              f"(required)")
+        if not eager_ok:
+            fail("the data-parallel step on one rank differs from the plain "
+                 "step")
+
+        csizes = check_sizes(sizes)
+        K = csizes.graph_chunk
+        batches, stacked = stacked_batches(csizes, vcfg, sizes.head["nclass"],
+                                           2, device, 67)
+        multi = make_multi_train_step(dp.model, dp.loss_fn, dp.optimizer,
+                                      dp.scheduler, generator=dp.generator,
+                                      mesh=mesh)
+        g_loss = [x for chunk in stacked for x in multi(chunk)["loss"]
+                  .tolist()]
+        e_loss = [float(plain.step(b)["loss"]) for b in batches]
+        d, gen_ok = same_state()
+        replays = multi.replays if device.type == "cuda" else 0
+        graph_ok = g_loss == e_loss and d == 0.0 and gen_ok
+        print(f"data-parallel graphed chunk on one rank (flagship, K={K}, "
+              f"B={sizes.train_batch}, collectives captured; a warm-up chunk "
+              f"and a replay): losses " + ", ".join(
+                  f"{x:.5f}" for x in g_loss[K:]) + " / eager "
+              + ", ".join(f"{x:.5f}" for x in e_loss[K:])
+              + f", parameters max |d| {d:.3g}, generator equal {gen_ok}: "
+              f"bit for bit {graph_ok} (required), {replays} replays")
+        if not graph_ok or (device.type == "cuda" and replays < 1):
+            fail("the graphed data-parallel chunk differs from eager steps, "
+                 "or no graph was replayed")
+        del multi, batches, stacked
+
+        B = sizes.train_batch_big
+        b = flagship_batch(sizes, vcfg, B, device, 70)
+        local = shard_batch(b, mesh)
+        times = {"with the group": [], "without": []}
+        for name in ("without", "with the group", "with the group",
+                     "without"):
+            step = ((lambda: dp.step(local)) if name != "without"
+                    else (lambda: plain.step(b)))
+            times[name].append(host_s(step, 3) * 1e3)
+        # the host's cost of one eager collective: the gradients'
+        # all-reduce of this model, and a lone all-gather of (B, nbit)
+        reduce_ms = host_s(lambda: all_reduce_grads(dp.optimizer, mesh),
+                           sizes.reps) * 1e3
+        x = torch.randn(B, sizes.head["nbit"], device=device)
+        gather_ms = host_s(lambda: gather_rows_(x, mesh), sizes.reps) * 1e3
+        n_grad = sum(p.grad.numel() for g in dp.optimizer.param_groups
+                     for p in g["params"])
+        del dp, plain, b, local, x
+        torch.cuda.empty_cache()
+    print(f"eager collectives on one rank: all_reduce_grads {reduce_ms:.3f} "
+          f"ms over {n_grad} values, an all-gather of ({B}, "
+          f"{sizes.head['nbit']}) {gather_ms:.3f} ms (host clock, "
+          f"synchronized, {sizes.reps} calls each)")
+    print(f"eager flagship step at B={B}: "
+          + ", ".join(f"{k} {v[0]:.2f} and {v[1]:.2f} ms"
+                      for k, v in times.items())
+          + " (host clock, synchronized, 3 steps each, alternated: without, "
+          f"with, with, without); "
+          f"{card_line() if device.type == 'cuda' else 'the CPU'}")
+    print(f"phase 23 (b), (c): {time.perf_counter() - t_phase:.1f} s")
+
+
+def torchrun_run(device, argv, logdir: str, train: list, test: list) -> None:
+    """Phase 23 (d): phase 14's run again, at the same overrides, as one
+    rank of a process group: on the card ``python -m torch.distributed.run
+    --standalone --nproc_per_node=1 main_gpu.py ...`` (NCCL); on the CPU
+    in this process, on a gloo group of one rank. Its train records (but
+    the wall time), test records, mAP and ``models/last.pt`` equal phase
+    14's bit for bit, and its log names the mesh."""
+    import os
+
+    import main_gpu
+
+    t0 = time.perf_counter()
+    run = f"{logdir}_torchrun"
+    if device.type == "cuda":
+        here = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=1", os.path.join(here, "main_gpu.py"),
+               *argv(f"logdir={run}")]
+        proc = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                              timeout=TORCHRUN_TIMEOUT_S)
+        if proc.returncode:
+            print(proc.stdout[-4000:])
+            print(proc.stderr[-4000:])
+            fail(f"torchrun main_gpu.py exited with {proc.returncode}")
+        how = "torchrun, NCCL"
+    else:
+        with one_rank_group(device):
+            main_gpu.build_experiment(argv(f"logdir={run}")).main()
+        how = "in-process, gloo"
+    run_s = time.perf_counter() - t0
+
+    def untimed(recs):
+        return [{k: v for k, v in r.items() if k != "time"} for r in recs]
+
+    def records(name):
+        with open(os.path.join(run, f"{name}_history.json")) as f:
+            return untimed(json.load(f))
+
+    got_train, got_test = records("train"), records("test")
+    same_train = got_train == untimed(train)
+    same_test = got_test == untimed(test)
+    got_sd = torch.load(os.path.join(run, "models", "last.pt"),
+                        map_location="cpu")["model"]
+    want_sd = torch.load(os.path.join(logdir, "models", "last.pt"),
+                         map_location="cpu")["model"]
+    same_last = all(torch.equal(got_sd[k], v) for k, v in want_sd.items())
+    with open(os.path.join(run, "log.txt")) as f:
+        named = "data-parallel mesh: 1 of 1 ranks" in f.read()
+    print(f"flagship run as one rank of a process group ({how}, "
+          f"{run_s:.1f} s): train records {same_train}, test records "
+          f"{same_test} (mAP {[r['mAP'] for r in got_test]}), "
+          f"models/last.pt {same_last} equal to phase 14's bit for bit; "
+          f"the log names the mesh: {named}")
+    if not (same_train and same_test and same_last and named):
+        fail("the torchrun flagship run differs from phase 14's run")
+
+
 def _flatten(x):
     if isinstance(x, (list, tuple)):
         return [y for item in x for y in _flatten(item)]
@@ -6201,6 +6518,7 @@ def run(sizes: Sizes, device) -> dict:
     bp = run_bitplane(sizes, device, codes, nbit)
     run_approx(sizes, codes, gallery, packed, bits, n_pad)
     run_scoring(sizes, codes, nclass, device)
+    run_sharded_topk(sizes, device, codes, flat, packed, (d, idx), N)
     del gallery, packed, bits
     torch.cuda.empty_cache()
     run_text_tower(sizes, device)
@@ -6213,6 +6531,7 @@ def run(sizes: Sizes, device) -> dict:
     run_trunks(sizes, device)
     run_layer_train(sizes, device)
     run_graphs(sizes, device, flagship)
+    run_distributed_steps(sizes, device)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",
          "source": "concepthash_tpu_torch/csrc/fused_layer.cu",

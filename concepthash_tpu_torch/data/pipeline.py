@@ -11,11 +11,13 @@ One deliberate difference: the decode pool is the ``ImageSource``'s, and
 reference leaves its threads running). ``native_decode`` decodes with the
 C++ library (``native``), falling back to PIL per image as the reference
 does. ``ArrayDataset`` and ``array_loader`` batch in-memory feature rows
-(the ``identity`` backbone's input) under the same batch contract. Not
-ported: the per-process shards of a multi-host run, the ``dataloader``
-alias (callers build a ``Loader``) and the ``workers`` and ``prefetch``
-knobs (the pool's width follows the cores; the prefetch depth is
-``PREFETCH``).
+(the ``identity`` backbone's input) under the same batch contract.
+``process_index`` / ``process_count`` give a process its strided shard of
+the dataset, as the reference's multi-host loader does (the experiment
+loads the global batch on every rank and passes neither). Not ported: the
+``dataloader`` alias (callers build a ``Loader``) and the ``workers`` and
+``prefetch`` knobs (the pool's width follows the cores; the prefetch depth
+is ``PREFETCH``).
 """
 
 from __future__ import annotations
@@ -129,7 +131,8 @@ class Loader:
     def __init__(self, dataset: HashingDataset, batch_size: int,
                  resize: int = 256, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0, cache: bool = False,
-                 native_decode: bool = False):
+                 native_decode: bool = False, process_index: int = 0,
+                 process_count: int = 1):
         self.dataset = dataset
         self.source = ImageSource(dataset, resize, cache=cache,
                                   native_decode=native_decode)
@@ -139,21 +142,52 @@ class Loader:
         self.seed = seed
         self.epoch = 0
         self.onehot = dataset.onehot_labels()
+        # the process's strided shard, with EQUAL batch counts on every
+        # process (or one would step while the others wait in a
+        # collective): with drop_last (train) every shard is truncated to
+        # n // count items; else (eval) a shorter shard is padded to
+        # ceil(n / count) with -1 sentinels, kept trailing, which
+        # _make_batch strips into the batch's padded tail
+        n = len(dataset)
+        shard = np.arange(process_index, n, process_count)
+        if process_count > 1:
+            if drop_last:
+                shard = shard[: n // process_count]
+            else:
+                tgt = -(-n // process_count)
+                if len(shard) < tgt:
+                    shard = np.concatenate(
+                        [shard, np.full(tgt - len(shard), -1)])
+        self.indices = shard
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.indices)
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
     def _epoch_indices(self) -> np.ndarray:
-        idxs = np.arange(len(self.dataset))
+        idxs = self.indices.copy()
         if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(idxs)
+            rng = np.random.default_rng(self.seed + self.epoch)
+            if (idxs < 0).any():    # the shard's sentinels stay trailing
+                real = idxs[idxs >= 0]
+                rng.shuffle(real)
+                idxs = np.concatenate([real, idxs[idxs < 0]])
+            else:
+                rng.shuffle(idxs)
         return idxs
 
     def _make_batch(self, idxs, b: int) -> dict:
         sel = idxs[b * self.batch_size:(b + 1) * self.batch_size]
+        sel = sel[sel >= 0]     # a shard's pad sentinels (always trailing)
+        if len(sel) == 0:       # an all-sentinel batch (n < count)
+            r = self.source.resize
+            return {"image": np.zeros((self.batch_size, r, r, 3), np.uint8),
+                    "label": np.zeros((self.batch_size,
+                                       self.onehot.shape[1]), np.float32),
+                    "index": np.full(self.batch_size, -1, np.int32),
+                    "n_valid": 0}
         return _finish_batch(self.source.get_many(sel), self.onehot[sel],
                              sel, self.batch_size)
 

@@ -185,23 +185,37 @@ def apply_params(images: torch.Tensor, params: dict, crop: int = 224,
     return normalize(x, norm)
 
 
+def take_rows(params: dict, rows: slice) -> dict:
+    """The draws of ``sample_params`` for the batch rows ``rows``."""
+    def take(v):
+        return tuple(take(x) for x in v) if isinstance(v, tuple) else v[rows]
+
+    return {k: take(v) for k, v in params.items()}
+
+
 def preprocess_batch(images: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
                      crop: int = 224, norm: int = 2, train: bool = False,
                      augment: Optional[str] = "rrc",
-                     op_generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     op_generator: Optional[torch.Generator] = None,
+                     mesh=None) -> torch.Tensor:
     """uint8 (B, S, S, C) -> normalized float32 (B, crop, crop, C), on the
     images' device.
 
     train and augment 'rrc'/'simple': random resized crop + flip;
     'trivial'/'trivialaugment': then TrivialAugment; 'randcrop': a random
     crop + flip; any other augment: center crop + flip. Eval: center crop.
+    ``mesh`` (``parallel.mesh.Mesh``): the images are this rank's block of
+    the global batch, whose draws are made at its size and sliced.
     """
     if not train:
         return normalize(center_crop(images, crop), norm)
-    params = sample_params(images.shape[0], images.shape[1], crop, augment,
+    B = images.shape[0]
+    W = 1 if mesh is None else mesh.size
+    params = sample_params(B * W, images.shape[1], crop, augment,
                            generator, op_generator)
+    if mesh is not None:
+        params = take_rows(params, mesh.rows(B))
     return apply_params(images, params, crop, norm)
 
 

@@ -95,6 +95,25 @@ pseudo-labels, the centroids and the weights. Each evaluation adds
 ``test_nmi`` and ``db_nmi``: the NMI between the true classes and each
 split's nearest-centroid labels of its L2-normalized codes.
 
+Data parallelism (``parallel/``): launched by ``torchrun`` (or any
+launcher that sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``), the run joins the process group
+(NCCL on the card, gloo under ``--device cpu``) and builds its mesh of the
+first W ranks, W the largest rank count that divides ``batch_size`` (with
+the reference's warning); a rank past W writes nothing and returns. Every
+rank loads the same global batches and takes its block of each
+(``shard_batch``); its train and eval steps compute the one-process step's
+losses, metrics and codes (``train/state.py``), so every rank holds the
+same parameters, codes and records. An eval batch shorter than
+``batch_size`` (the padded tail) runs whole on every rank, as the
+reference runs it unsharded. Rank 0 alone writes the run directory, the
+log file, the records and the checkpoints; a resume loads on every rank,
+and rank 0's state is broadcast after the build, a resume or a finetune
+(``replicate``). Every method runs so; the regimes' host work (the
+adsh regime's DCC, the shallow fit, ODC's k-means, SSDH's structure)
+runs on every rank over the gathered codes, and V and ODC's memory are
+broadcast from rank 0.
+
 Diagnostics (``utils/diagnostics.py``): ``profile`` traces a window of
 train dispatches with ``torch.profiler`` into ``<logdir>/profile``;
 ``debug.nans`` raises ``FloatingPointError`` at the first non-finite loss
@@ -127,6 +146,10 @@ from concepthash_tpu_torch.models.backbone_factory import \
 from concepthash_tpu_torch.ops.retrieval import (calculate_mAP,
                                                  calculate_pr_curve, get_sim,
                                                  normalized_mutual_info)
+from concepthash_tpu_torch.parallel.mesh import (broadcast_, broadcast_array,
+                                                 init_distributed, make_mesh,
+                                                 mesh_size_for, replicate,
+                                                 shard_batch)
 from concepthash_tpu_torch.train.optim import current_lr
 from concepthash_tpu_torch.train.state import (create_train_state,
                                                make_eval_step,
@@ -224,15 +247,29 @@ class RetrievalExperiment:
         self.logdir = config["logdir"]
         trains = eval_logdir is None
         log_dir = self.logdir if trains else eval_logdir
-        os.makedirs(log_dir, exist_ok=True)
+        grouped = init_distributed(self.device)
+        # rank 0 alone writes the run directory (every rank when alone)
+        self.writes = not grouped or torch.distributed.get_rank() == 0
+        if self.writes:
+            os.makedirs(log_dir, exist_ok=True)
         io.init_save_queue()
-        setup_logging(os.path.join(log_dir, "log.txt"))
+        setup_logging(os.path.join(log_dir, "log.txt") if self.writes
+                      else None)
+        self.mesh = self._make_mesh() if grouped else None
+        self.idle = self.mesh is not None and not self.mesh.member
+        if self.idle:
+            logging.info("rank %d is outside the %d-rank mesh: idle",
+                         torch.distributed.get_rank(), self.mesh.size)
+            return
+        if self.mesh is not None:
+            self.device = self.mesh.device
         seeding(int(config.get("seed", 42)))
         print_stats(self.device)
-        if trains:
+        if trains and self.writes:
             save_config(config, os.path.join(self.logdir, "config.yaml"))
         self.debug = apply_debug_flags(config.get("debug"))
-        self.profiler = StepProfiler(config.get("profile"), log_dir)
+        self.profiler = StepProfiler(
+            config.get("profile") if self.writes else None, log_dir)
 
         self._load_data()
         self._build_model(pretrained=trains)
@@ -240,17 +277,41 @@ class RetrievalExperiment:
             return
         if self.method.regime != "shallow":     # a fit, not an optimizer
             self._build_training()
-        self.tracker = Tracker(config.get("wandb", False), self.logdir)
+        self.tracker = Tracker(config.get("wandb", False) and self.writes,
+                               self.logdir)
         self.train_history = HistoryWriter(self.logdir, "train",
-                                           tracker=self.tracker)
+                                           tracker=self.tracker,
+                                           write=self.writes)
         self.test_history = HistoryWriter(self.logdir, "test",
-                                          tracker=self.tracker)
+                                          tracker=self.tracker,
+                                          write=self.writes)
         self.best_metric = None
         self.start_epoch = 0
         if config.get("resume_logdir"):
             self.resume_training(config["resume_logdir"])
         elif config.get("finetune_path"):
             self.finetune_init(config["finetune_path"])
+        if self.mesh is not None and hasattr(self, "state"):
+            replicate(self.state, self.mesh)
+
+    def _make_mesh(self):
+        """The mesh of the run: the group's first W ranks, W the largest
+        rank count that divides ``batch_size`` (the reference's shrink)."""
+        bs = int(self.config.get("batch_size", 64))
+        world = torch.distributed.get_world_size()
+        n = mesh_size_for(bs, world)
+        if n != world:
+            logging.warning("batch_size %d not divisible by %d devices; "
+                            "using %d-device mesh", bs, world, n)
+        mesh = make_mesh(n)
+        logging.info("data-parallel mesh: %d of %d ranks (%s), this rank %d",
+                     n, world, mesh.backend, mesh.rank)
+        return mesh
+
+    def _local(self, batch: dict) -> dict:
+        """This rank's block of a host batch (the batch itself without a
+        mesh)."""
+        return batch if self.mesh is None else shard_batch(batch, self.mesh)
 
     # ------------------------------------------------------------------ data
     def _load_data(self):
@@ -349,8 +410,9 @@ class RetrievalExperiment:
         pretrained vision weights laid over the init."""
         cfg = self.config
         try:
-            self.codebook = prepare_codebook(self.method, cfg, self.logdir,
-                                             device=self.device)
+            self.codebook = prepare_codebook(
+                self.method, cfg, self.logdir if self.writes else None,
+                device=self.device)
         except Exception as e:
             logging.warning("codebook stage failed (%s); offline fallback", e)
             from concepthash_tpu_torch.data.manifest import read_class_names
@@ -368,6 +430,9 @@ class RetrievalExperiment:
             self.codebook = prepare_codebook(
                 self.method, cfg, self.logdir,
                 text_embedder=lambda n: offline_text_embedder(n, dim=dim))
+        if self.mesh is not None and self.codebook is not None:
+            self.codebook = broadcast_array(
+                np.asarray(self.codebook, np.float32), self.mesh)
 
         if cfg["model"].get("filip"):
             self._prepare_filip_tokens()
@@ -376,13 +441,17 @@ class RetrievalExperiment:
         if pretrained:      # the overlay after init, before any step
             maybe_load_pretrained_vision(cfg.get("backbone", {}) or {},
                                          self.model)
-        self.eval_step = make_eval_step(self.model, self.loss_fn)
+        self.eval_step = make_eval_step(self.model, self.loss_fn, self.mesh)
+        # a batch every rank runs whole (the padded eval tail)
+        self.eval_step_whole = (make_eval_step(self.model, self.loss_fn)
+                                if self.mesh is not None else self.eval_step)
         self.train_chunk = resolve_train_chunk(cfg.get("train_chunk", "auto"),
                                                self.device)
         if self.debug.disable_jit or self.debug.nans:
             # eager steps, each one checkable on the host
             self.train_chunk = 1
-        self.eval_multi_step = (make_multi_eval_step(self.model, self.loss_fn)
+        self.eval_multi_step = (make_multi_eval_step(self.model, self.loss_fn,
+                                                     self.mesh)
                                 if self.train_chunk > 1 else None)
         logging.info("train_chunk %d (%s)", self.train_chunk,
                      cfg.get("train_chunk", "auto"))
@@ -432,7 +501,7 @@ class RetrievalExperiment:
             self.steps_per_epoch = self.adsh_settings["steps"]
             loss_fn = self._adsh_loss()
         self.training = tr = training_for(cfg, self.model, loss_fn,
-                                          self.steps_per_epoch)
+                                          self.steps_per_epoch, self.mesh)
         self._structure = None      # SSDH's, built before its first epoch
         self._odc_ready = False     # ODC's memory, seeded before it
         self.train_step = tr.step
@@ -457,19 +526,22 @@ class RetrievalExperiment:
         self.train_multi_step = (make_multi_train_step(
             self.model, tr.loss_fn, tr.optimizer, tr.scheduler,
             output_attentions=self.method.needs_attentions(cfg),
-            generator=tr.generator)
+            generator=tr.generator, mesh=self.mesh,
+            views=2 if self.method.two_view else 1)
             if self.train_chunk > 1 and not single else None)
 
     # ------------------------------------------------------------------ train
     def _train_images(self, x: torch.Tensor) -> torch.Tensor:
         """The train preprocessing of a device batch of uint8 images; a
         ``two_view`` method's is two augmentations of the same images,
-        drawn one after the other, stacked ``[v1; v2]``."""
+        drawn one after the other, stacked ``[v1; v2]``. Under a mesh ``x``
+        is this rank's block, drawn for at the global batch's size."""
         def view():
             return preprocess_batch(x, self.aug_generator, crop=self.crop,
                                     norm=self.norm, train=True,
                                     augment=self.augment,
-                                    op_generator=self.op_generator)
+                                    op_generator=self.op_generator,
+                                    mesh=self.mesh)
 
         if self.method.two_view:
             return torch.cat([view(), view()])
@@ -499,12 +571,14 @@ class RetrievalExperiment:
         return feats
 
     def _eval_codes_batch(self, batch) -> torch.Tensor:
-        """The eval step's codes of a whole (padded) loader batch."""
-        images = preprocess_batch(self._on_device(batch["image"]),
+        """The eval step's codes of a whole (padded) loader batch (under a
+        mesh, each rank's block encoded and the codes gathered)."""
+        part = self._local(batch)
+        images = preprocess_batch(self._on_device(part["image"]),
                                   crop=self.crop, norm=self.norm,
                                   train=False)
         codes, _ = self.eval_step({"image": images,
-                                   "label": self._on_device(batch["label"])})
+                                   "label": self._on_device(part["label"])})
         return codes["codes"]
 
     def _prepare_structure(self):
@@ -542,6 +616,9 @@ class RetrievalExperiment:
         extra["labels"].copy_(labels)
         extra["centroids"].copy_(centers)
         extra["weights"].copy_(odc_init_weights(counts))
+        if self.mesh is not None:   # one clustering on every rank
+            for t in extra.values():
+                broadcast_(t, self.mesh)
         self._odc_ready = True
         logging.info("odc: initial k-means into %d clusters (largest "
                      "%.1f%%)", k, 100 * float(counts.max())
@@ -558,7 +635,7 @@ class RetrievalExperiment:
 
         def run_chunk():
             placed = self._place_chunk(self._stack_chunk(
-                [b for b, _ in pending]))
+                [self._local(b) for b, _ in pending]))
             placed["image"] = torch.stack([self._train_images(x)
                                            for x in placed["image"]])
             self.profiler.step_start()
@@ -568,6 +645,7 @@ class RetrievalExperiment:
             pending.clear()
 
         def run_single(batch, n):
+            batch = self._local(batch)
             step_batch = {"image": self._train_images(
                               self._on_device(batch["image"])),
                           "label": self._on_device(batch["label"])}
@@ -619,7 +697,7 @@ class RetrievalExperiment:
 
         def flush_chunk():
             placed = self._place_chunk(self._stack_chunk(
-                [b for b, _ in pending]))
+                [self._local(b) for b, _ in pending]))
             K, B = placed["image"].shape[:2]
             images = preprocess_batch(placed["image"].flatten(0, 1),
                                       crop=self.crop, norm=self.norm,
@@ -636,12 +714,16 @@ class RetrievalExperiment:
             pending.clear()
 
         def run_single(batch, n):
-            images = preprocess_batch(self._on_device(batch["image"][:n]),
+            # a full batch takes the (sharded) eval step; a shorter one
+            # runs whole on every rank, at its valid rows
+            part, step = ((self._local(batch), self.eval_step) if n == bs
+                          else ({k: v[:n] for k, v in batch.items()},
+                                self.eval_step_whole))
+            images = preprocess_batch(self._on_device(part["image"]),
                                       crop=self.crop, norm=self.norm,
                                       train=False)
-            codes, metrics = self.eval_step(
-                {"image": images,
-                 "label": self._on_device(batch["label"][:n])})
+            codes, metrics = step(
+                {"image": images, "label": self._on_device(part["label"])})
             if metrics:
                 meters.update_device(metrics, n)
             for k, v in codes.items():
@@ -706,6 +788,8 @@ class RetrievalExperiment:
         return {"model": self.model.state_dict(), "epoch": ep}
 
     def save_model(self, name: str, ep: int):
+        if not self.writes:
+            return
         io.fast_save(self.model_state_blob(ep),
                      os.path.join(self.logdir, "models", f"{name}.pt"))
         if self.config.get("save_training_state", False):
@@ -824,6 +908,8 @@ class RetrievalExperiment:
 
     # ------------------------------------------------------------------- main
     def main(self):
+        if self.idle:
+            return None
         if self.method.regime == "shallow":
             return self._main_shallow()
         if self.method.regime == "adsh":
@@ -869,6 +955,8 @@ class RetrievalExperiment:
         return self.best_metric
 
     def _dump_codes(self, dumps):
+        if not self.writes:
+            return
         test_codes, test_labels, db_codes, db_labels = dumps
         io.fast_save({"codes": test_codes["codes"], "labels": test_labels},
                      os.path.join(self.logdir, "outputs", "test_best.pt"))
@@ -888,13 +976,14 @@ class RetrievalExperiment:
         aug = torch.Generator(device=self.device).manual_seed(seed)
         ops = torch.Generator().manual_seed(seed + 1)
 
-        def encode(batch):
+        def encode(batch):      # a whole (padded) batch, as the draws see it
+            part = self._local(batch)
             images = preprocess_batch(
-                self._on_device(batch["image"]), aug, crop=self.crop,
+                self._on_device(part["image"]), aug, crop=self.crop,
                 norm=self.norm, train=True, augment=self.augment,
-                op_generator=ops)
+                op_generator=ops, mesh=self.mesh)
             codes, _ = self.eval_step({
-                "image": images, "label": self._on_device(batch["label"])})
+                "image": images, "label": self._on_device(part["label"])})
             return codes["codes"]
 
         return self._extract_train_matrix(encode)
@@ -913,8 +1002,9 @@ class RetrievalExperiment:
         fit_kwargs.pop("name", None)
         fit_state = FITTERS[name](fit_feats, int(cfg["model"]["nbit"]),
                                   **fit_kwargs)
-        io.fast_save({"criterion": fit_state, "epoch": 0},
-                     os.path.join(self.logdir, "models", "best.pt"))
+        if self.writes:
+            io.fast_save({"criterion": fit_state, "epoch": 0},
+                         os.path.join(self.logdir, "models", "best.pt"))
         test_feats, test_labels, _ = self.encode_split("test")
         db_feats, db_labels, _ = self.encode_split("db")
         test_codes, db_codes = (
@@ -985,15 +1075,18 @@ class RetrievalExperiment:
                 for batch in loader:
                     n = batch.pop("n_valid")
                     # drop_last: every row valid; positions within omega
+                    # (the global batch's: the loss reads gathered codes)
                     pos = torch.from_numpy(batch["index"].astype(np.int64)) \
                         .to(dev)
+                    part = self._local(batch)
                     images = preprocess_batch(
-                        self._on_device(batch["image"]), self.aug_generator,
+                        self._on_device(part["image"]), self.aug_generator,
                         crop=self.crop, norm=self.norm, train=True,
-                        augment=self.augment, op_generator=self.op_generator)
+                        augment=self.augment, op_generator=self.op_generator,
+                        mesh=self.mesh)
                     metrics = self.train_step({
                         "image": images,
-                        "label": self._on_device(batch["label"]),
+                        "label": self._on_device(part["label"]),
                         "adsh": {"S": S_full[pos], "V": V,
                                  "V_omega": V[omega_dev[pos]]}})
                     meters.update_device(metrics, n)
@@ -1004,9 +1097,9 @@ class RetrievalExperiment:
             us, sub_pos = [], []
             for batch in sub_loader:
                 n = batch.pop("n_valid")
-                images = preprocess_batch(self._on_device(batch["image"]),
-                                          crop=self.crop, norm=self.norm,
-                                          train=False)
+                images = preprocess_batch(
+                    self._on_device(self._local(batch)["image"]),
+                    crop=self.crop, norm=self.norm, train=False)
                 codes, _ = self.eval_step({"image": images})
                 us.append(self._act(codes["codes"][:n]))
                 sub_pos.append(batch["index"][:n])
@@ -1017,6 +1110,8 @@ class RetrievalExperiment:
             # confidence into the bit updates
             V = solve_dcc(V, torch.cat(us), S_full[sub_pos],
                           omega_dev[sub_pos], gamma, nbit)
+            if self.mesh is not None:   # one V on every rank
+                broadcast_(V, self.mesh)
             res = meters.materialize()
             self.train_history.append({"ep": ep, **res})
             logging.info("adsh ep %d: loss=%.4f (%.1fs)", ep,
@@ -1032,8 +1127,9 @@ class RetrievalExperiment:
                                   "recalls": recalls,
                                   "precisions": precisions})
         self.save_model("best", self.epochs - 1)
-        io.fast_save({"V": V}, os.path.join(self.logdir, "outputs",
-                                            "db_codes.pt"))
+        if self.writes:
+            io.fast_save({"V": V}, os.path.join(self.logdir, "outputs",
+                                                "db_codes.pt"))
         io.join_save_queue()
         for loader in self.loaders.values():
             loader.close()
@@ -1093,6 +1189,8 @@ class RetrievalEvaluation:
             "eval_logdir", os.path.join(config["logdir"], "evaluations"))
         self.exp = exp = RetrievalExperiment(config, device,
                                              eval_logdir=self.eval_logdir)
+        if exp.idle:
+            return
         name = "last" if config.get("use_last") else "best"
         for ext in (".pt", ".msgpack"):
             path = os.path.join(exp.logdir, "models", name + ext)
@@ -1109,10 +1207,13 @@ class RetrievalEvaluation:
     def main(self) -> dict:
         cfg = self.config
         exp = self.exp
+        if exp.idle:
+            return None
         test_codes, test_labels, test_meters = exp.encode_split("test")
         res = {f"test_{k}": v for k, v in test_meters.items()}
 
-        if cfg.get("exp") == "extract" or cfg.get("save_code"):
+        if exp.writes and (cfg.get("exp") == "extract"
+                           or cfg.get("save_code")):
             io.fast_save({"test": {**test_codes, "labels": test_labels}},
                          os.path.join(self.eval_logdir, "outputs.pt"))
         if cfg.get("exp") == "extract":
@@ -1168,7 +1269,7 @@ class RetrievalEvaluation:
         return self._finish(res, write=True)
 
     def _finish(self, res: dict, write: bool) -> dict:
-        if write:
+        if write and self.exp.writes:
             with open(os.path.join(self.eval_logdir, "history.json"),
                       "w") as f:
                 json.dump(_to_jsonable(res), f, indent=2)

@@ -523,13 +523,15 @@ def build_model(config: dict, codebook, *, device=None,
 
 
 def training_for(config: dict, model: torch.nn.Module, loss_fn: Callable,
-                 steps_per_epoch: int) -> Training:
+                 steps_per_epoch: int, mesh=None) -> Training:
     """The train step over a built ``model``: optimizer and schedule with
     the backbone policy, and a dropout generator on the model's device
     seeded from ``config['seed']`` + 1. On the card the optimizer is made
     capturable whatever ``train_chunk`` is, so that single steps and graphed
     chunks share one arithmetic (float32 device rates; adam's bias
-    correction on the device)."""
+    correction on the device). ``mesh`` (``parallel.mesh.Mesh``): the step
+    takes this rank's block of the global batch (``state.make_train_step``;
+    a method's own step takes the mesh too)."""
     method = get_method(config["model"]["name"])
     dev = next(model.parameters()).device
     optimizer, scheduler = build_optimizer(
@@ -542,21 +544,25 @@ def training_for(config: dict, model: torch.nn.Module, loss_fn: Callable,
         int(config.get("seed", 42)) + 1)
     extra = method.init_extra(config, model) if method.init_extra else {}
     if method.custom_step is not None:
+        kw = {} if mesh is None else {"mesh": mesh}
         step = method.custom_step(model, config, optimizer, scheduler,
-                                  generator, max(steps_per_epoch, 1), extra)
+                                  generator, max(steps_per_epoch, 1), extra,
+                                  **kw)
     else:
         step = make_train_step(
             model, loss_fn, optimizer, scheduler,
             output_attentions=method.needs_attentions(config),
-            generator=generator)
+            generator=generator, mesh=mesh,
+            views=2 if method.two_view else 1)
     return Training(model, optimizer, scheduler, loss_fn, generator, step,
                     extra, method.custom_step is not None)
 
 
 def build_training(config: dict, codebook, steps_per_epoch: int, *,
-                   device=None, vision: Optional[dict] = None) -> Training:
+                   device=None, vision: Optional[dict] = None,
+                   mesh=None) -> Training:
     """``build_model`` and ``training_for`` in one: the train step of
     ``config['model']['name']`` from main.py's config dicts."""
     model, loss_fn = build_model(config, codebook, device=device,
                                  vision=vision)
-    return training_for(config, model, loss_fn, steps_per_epoch)
+    return training_for(config, model, loss_fn, steps_per_epoch, mesh)

@@ -228,7 +228,9 @@ class HashQueryBlock(nn.Module):
         rate = self.dropout if train else 0.0
         x = layer_norm(self.norm1, x, dt) + self.sa(x, rate, generator)
         h = F.relu(dense(self.ffn_fc1, x, dt))
-        h = dense(self.ffn_fc2, dropout(h, rate, generator), dt)
+        # the hash queries carry no batch axis: one mask on every rank
+        h = dense(self.ffn_fc2, dropout(h, rate, generator, batched=False),
+                  dt)
         x = layer_norm(self.norm2, x, dt) + h
         return dense(self.ffn2, x, dt)
 

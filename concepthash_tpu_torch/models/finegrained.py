@@ -53,6 +53,7 @@ from concepthash_tpu_torch.models.layers import (MLP, dense, layer_norm,
                                                  linear, normal_)
 from concepthash_tpu_torch.models.trunk import model_trunk
 from concepthash_tpu_torch.ops.numerics import l2_normalize
+from concepthash_tpu_torch.parallel import collectives
 
 # flax LayerNorm's default epsilon, which the heads' LayerNorms keep
 LN_EPS = 1e-6
@@ -92,10 +93,19 @@ class TempCE(nn.Module):
 def _mask(y: torch.Tensor) -> torch.Tensor:
     """The suppression mask of a (B, P) branch activation: its softmax
     over P, standardized by the batch's mean and population std ** 0.3,
-    plus 1, clipped to [0, 2], detached."""
+    plus 1, clipped to [0, 2], detached. In a data-parallel forward the
+    mean and std are the global batch's."""
     a = torch.softmax(y, dim=1)
-    std = a.std(correction=0) + 1e-6
-    a = (a - a.mean()) / std ** 0.3 + 1.0
+    mesh = collectives.current()
+    if mesh is None:
+        std = a.std(correction=0) + 1e-6
+        mean = a.mean()
+    else:
+        with torch.no_grad():
+            mean = collectives.batch_mean(a.mean(), mesh)
+            std = collectives.batch_mean(((a - mean) ** 2).mean(),
+                                         mesh).sqrt() + 1e-6
+    a = (a - mean) / std ** 0.3 + 1.0
     return torch.clamp(a, 0.0, 2.0).detach()
 
 

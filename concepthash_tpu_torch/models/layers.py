@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from concepthash_tpu_torch.ops.numerics import l2_normalize
+from concepthash_tpu_torch.parallel import collectives
 
 
 def normal_(t: torch.Tensor, std: float, generator=None) -> torch.Tensor:
@@ -170,8 +171,14 @@ class CodeBatchNorm(nn.Module):
                                 self.bias.to(xf.dtype), training=False,
                                 eps=1e-5).to(self.dtype)
         dims = [d for d in range(x.dim()) if d != 1]
-        mean = xf.mean(dim=dims)
-        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        mesh = collectives.current()
+        if mesh is None:
+            mean = xf.mean(dim=dims)
+            mean_sq = (xf * xf).mean(dim=dims)
+        else:       # the global batch's, summed over the ranks' blocks
+            mean, mean_sq = collectives.batch_mean(torch.stack(
+                [xf.mean(dim=dims), (xf * xf).mean(dim=dims)]), mesh)
+        var = torch.clamp_min(mean_sq - mean * mean, 0.0)
         with torch.no_grad():
             m = 0.9
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -216,9 +223,17 @@ class DecorrelatedBN(nn.Module):
         if train:
             d = xg.shape[-1]
             eye = torch.eye(d, device=x.device)
-            mean = xg.mean(dim=0)                               # (G, d)
-            xc = xg - mean[None]
-            cov = torch.einsum("bgi,bgj->gij", xc, xc) / B + self.EPS * eye
+            mesh = collectives.current()
+            if mesh is None:
+                mean = xg.mean(dim=0)                           # (G, d)
+                xc = xg - mean[None]
+                cov = torch.einsum("bgi,bgj->gij", xc, xc) / B
+            else:   # the global batch's mean and covariance
+                mean = collectives.batch_mean(xg.mean(dim=0), mesh)
+                xc = xg - mean[None]
+                cov = collectives.sum_across(torch.einsum(
+                    "bgi,bgj->gij", xc, xc) / (B * mesh.size), mesh)
+            cov = cov + self.EPS * eye
             tr = cov.diagonal(dim1=1, dim2=2).sum(-1)[:, None, None]
             sigma_n = cov / tr
             p = eye.expand(G, d, d)
@@ -237,13 +252,15 @@ class DecorrelatedBN(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
-            broadcast_dims: tuple = ()) -> torch.Tensor:
+            broadcast_dims: tuple = (), batched: bool = True) -> torch.Tensor:
     """flax-style dropout: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate). The mask has size 1 along
     ``broadcast_dims`` (flax attention drops its weights with one mask for
     every batch element and head) and is drawn from ``generator``, a
     ``torch.Generator`` on x's device: the draws are explicit, and a fixed
-    generator state gives the same mask again."""
+    generator state gives the same mask again. ``batched``: x's first axis
+    is the batch, so in a data-parallel forward the mask is drawn at the
+    global batch's shape and this rank takes its rows."""
     if rate == 0.0:
         return x
     if generator is None:
@@ -253,7 +270,14 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
     keep_prob = 1.0 - rate
     shape = tuple(1 if i in broadcast_dims else n
                   for i, n in enumerate(x.shape))
-    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    def draw(n):
+        return torch.rand((n, *shape[1:]), generator=generator,
+                          device=x.device)
+
+    if batched and 0 not in broadcast_dims:
+        keep = collectives.rows_of(draw, shape[0]) < keep_prob
+    else:
+        keep = draw(shape[0]) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 

@@ -32,6 +32,7 @@ from concepthash_tpu_torch import resolve_device
 from concepthash_tpu_torch.models.clip import EncoderLayer
 from concepthash_tpu_torch.models.layers import (dense, layer_norm, linear,
                                                  normal_)
+from concepthash_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,9 +114,9 @@ class MAE(nn.Module):
         patches = self.patchify(images.to(dt))
         x = dense(self.patch_embed, patches, dt) + self.enc_pos.to(dt)[None]
         if train:
-            if noise is None:
-                noise = torch.rand((B, P), generator=generator,
-                                   device=images.device)
+            if noise is None:   # at the global batch's shape, sliced
+                noise = collectives.rows_of(lambda n: torch.rand(
+                    (n, P), generator=generator, device=images.device), B)
             order = torch.argsort(noise, dim=1, stable=True)
             keep_idx = order[:, :c.n_keep]
             mask = torch.ones((B, P), device=images.device).scatter(

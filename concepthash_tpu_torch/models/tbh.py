@@ -30,6 +30,7 @@ from concepthash_tpu_torch.models.layers import dense, linear
 from concepthash_tpu_torch.models.pretrain import gelu_tanh
 from concepthash_tpu_torch.models.trunk import (model_trunk,
                                                 trunk_features_size)
+from concepthash_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +81,12 @@ class TBHNet(nn.Module):
         p = torch.sigmoid(b_logits)
         b = (p > 0.5).float() + (p - p.detach())     # straight through
         z = torch.sigmoid(dense(self.enc_z, h, dt).float())
-        sim = (b @ b.t() + (1 - b) @ (1 - b).t()) / c.nbit
+        # the graph over the batch: in a data-parallel forward, this rank's
+        # rows of it over the global batch
+        b_all, z_all = (collectives.gather_batch_rows(t) for t in (b, z))
+        sim = (b @ b_all.t() + (1 - b) @ (1 - b_all).t()) / c.nbit
         deg = sim.sum(dim=1, keepdim=True).clamp_min(1e-6)
-        z_mix = torch.relu(dense(self.gcn, (sim / deg) @ z, dt).float())
+        z_mix = torch.relu(dense(self.gcn, (sim / deg) @ z_all, dt).float())
         rec = dense(self.dec, torch.cat([z_mix, b], dim=-1), dt)
         return {"codes": 2 * b - 1, "b_logits": b_logits, "z": z,
                 "recon": rec.float(), "features": feat.float()}

@@ -38,8 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from concepthash_tpu_torch.losses.baselines import pairwise_exp_loss
-from concepthash_tpu_torch.train.optim import (follow_schedule,
-                                               zero_missing_grads)
+from concepthash_tpu_torch.train.optim import follow_schedule
 
 
 def hashnet_beta(step: int, steps_per_epoch: int,
@@ -53,12 +52,15 @@ def hashnet_beta(step: int, steps_per_epoch: int,
 def hashnet_step(model: nn.Module, config: dict,
                  optimizer: torch.optim.Optimizer, scheduler,
                  generator: Optional[torch.Generator], steps_per_epoch: int,
-                 extra: dict):
+                 extra: dict, mesh=None):
     """step(batch) -> metrics: HashNet's update. batch holds image (B, H,
     W, C) normalized, label (B, C) one-hot and, with the bank, index (B,)
     the dataset rows; metrics are the loss, its ``pairwise`` part, ``beta``
-    and the accuracies, detached 0-d tensors."""
-    from concepthash_tpu_torch.train.state import accuracy_metrics
+    and the accuracies, detached 0-d tensors. Under a ``mesh`` the batch is
+    this rank's block, and the loss, the bank's rows and the metrics are
+    the global batch's on every rank."""
+    from concepthash_tpu_torch.train.state import (accuracy_metrics,
+                                                   backward, sharded_forward)
 
     crit = dict(config.get("criterion", {}) or {})
     alpha = float(crit.get("alpha", 1.0))
@@ -68,8 +70,9 @@ def hashnet_step(model: nn.Module, config: dict,
     def step(batch: dict) -> dict:
         beta = hashnet_beta(int(scheduler.last_epoch), steps_per_epoch,
                             step_cont)
+        out, batch = sharded_forward(model, batch, mesh, train=True,
+                                     generator=generator)
         y = batch["label"].float()
-        out = model(batch["image"], train=True, generator=generator)
         u = torch.tanh(beta * out["codes"])
         if keep:
             idx = batch["index"].long()
@@ -78,9 +81,7 @@ def hashnet_step(model: nn.Module, config: dict,
             loss = pairwise_exp_loss(u, y, extra["U"], extra["Y"], alpha)
         else:
             loss = pairwise_exp_loss(u, y, u, y, alpha)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        zero_missing_grads(optimizer)
+        backward(loss, optimizer, mesh)
         follow_schedule(optimizer, scheduler)
         optimizer.step()
         scheduler.step()
@@ -148,11 +149,14 @@ def odc_init_weights(counts: torch.Tensor) -> torch.Tensor:
 def odc_step(model: nn.Module, config: dict,
              optimizer: torch.optim.Optimizer, scheduler,
              generator: Optional[torch.Generator], steps_per_epoch: int,
-             extra: dict):
+             extra: dict, mesh=None):
     """step(batch) -> metrics: ODC's update. batch holds image (B, H, W,
     C) normalized and index (B,) the dataset rows (distinct); metrics are
-    the loss, ``ce`` and the accuracy against the pseudo-labels."""
-    from concepthash_tpu_torch.train.state import accuracy_metrics
+    the loss, ``ce`` and the accuracy against the pseudo-labels. Under a
+    ``mesh`` the batch is this rank's block, and the loss and the memory's
+    updates are the gathered global batch's on every rank."""
+    from concepthash_tpu_torch.train.state import (accuracy_metrics,
+                                                   backward, sharded_forward)
 
     momentum, interval, k = odc_settings(config)
     mem, labels = extra["features"], extra["labels"]
@@ -160,16 +164,15 @@ def odc_step(model: nn.Module, config: dict,
 
     def step(batch: dict) -> dict:
         refresh = int(scheduler.last_epoch) % interval == 0
+        out, batch = sharded_forward(model, batch, mesh, train=True,
+                                     generator=generator)
         idx = batch["index"].long()
         pseudo = labels[idx]
         y = F.one_hot(pseudo, k).float()
         w = weights[pseudo]
-        out = model(batch["image"], train=True, generator=generator)
         ce = -(y * torch.log_softmax(out["logits"].float(), -1)).sum(-1)
         loss = (ce * w).sum() / w.sum().clamp_min(1e-12)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        zero_missing_grads(optimizer)
+        backward(loss, optimizer, mesh)
         follow_schedule(optimizer, scheduler)
         optimizer.step()
         scheduler.step()

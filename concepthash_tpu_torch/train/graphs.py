@@ -26,6 +26,11 @@ What keeps a captured step equal to an eager one:
   backward leaves none), so the captured step updates the parameters an
   eager step updates.
 
+Under a mesh (``parallel.mesh.Mesh``) each step's collectives (the batch
+statistics' all-reduces, the outputs' all-gathers, the gradients'
+all-reduce) are captured with it: the warm-up chunk runs them first, so
+the communicator exists and is warm before the capture.
+
 Kernel wrappers count their launches in Python, which a replay does not
 run: the graph records what its capture launched, and each replay adds that
 to each wrapper's count (``launches_per_replay``).
@@ -39,8 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from concepthash_tpu_torch.train.optim import (make_capturable, scheduled_lrs,
-                                               zero_missing_grads)
+from concepthash_tpu_torch.train.optim import make_capturable, scheduled_lrs
 
 
 def _counted_wrappers() -> tuple:
@@ -147,9 +151,11 @@ class GraphedTrainSteps(_GraphedSteps):
     def __init__(self, model: nn.Module, loss_fn: Callable,
                  optimizer: torch.optim.Optimizer, scheduler=None,
                  output_attentions: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 views: int = 1):
         super().__init__(generator)
         self.model, self.loss_fn = model, loss_fn
+        self.mesh, self.views = mesh, views
         self.optimizer, self.scheduler = optimizer, scheduler
         self.output_attentions = output_attentions
         self.lr_tensors = make_capturable(optimizer)
@@ -191,7 +197,9 @@ class GraphedTrainSteps(_GraphedSteps):
         self._lr_event[self._flip] = event
 
     def _run(self) -> None:
-        from concepthash_tpu_torch.train.state import accuracy_metrics
+        from concepthash_tpu_torch.train.state import (accuracy_metrics,
+                                                       backward,
+                                                       sharded_forward)
 
         K = self.K
         for k in range(K):
@@ -199,13 +207,12 @@ class GraphedTrainSteps(_GraphedSteps):
                 lr.copy_(self.lr_dev[k, g])
             self.lr_used[k].copy_(self.lr_tensors[0])
             batch = {n: v[k] for n, v in self.static.items()}
-            out = self.model(batch["image"], train=True,
-                             output_attentions=self.output_attentions,
-                             generator=self.generator)
+            out, batch = sharded_forward(
+                self.model, batch, self.mesh, self.views, train=True,
+                output_attentions=self.output_attentions,
+                generator=self.generator)
             total, parts = self.loss_fn(out, batch)
-            self.optimizer.zero_grad(set_to_none=True)
-            total.backward()
-            zero_missing_grads(self.optimizer)
+            backward(total, self.optimizer, self.mesh)
             self.optimizer.step()
             with torch.no_grad():
                 metrics = {"loss": total.detach(),
@@ -234,11 +241,12 @@ class GraphedEvalSteps(_GraphedSteps):
     metrics)``, batches {'image': (K, B, H, W, C) preprocessed[, 'label']},
     codes (K, B, nbit) and metrics (K,), in inference mode."""
 
-    def __init__(self, model: nn.Module, loss_fn: Optional[Callable] = None):
+    def __init__(self, model: nn.Module, loss_fn: Optional[Callable] = None,
+                 mesh=None):
         super().__init__()
         from concepthash_tpu_torch.train.state import make_eval_step
 
-        self.step = make_eval_step(model, loss_fn)
+        self.step = make_eval_step(model, loss_fn, mesh)
         self.metrics_out: Optional[dict] = None
 
     def _run(self) -> None:

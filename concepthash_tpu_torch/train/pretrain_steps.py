@@ -46,8 +46,7 @@ from torch import nn
 
 from concepthash_tpu_torch.models.tbh import Discriminator
 from concepthash_tpu_torch.ops.numerics import l2_normalize
-from concepthash_tpu_torch.train.optim import (follow_schedule, make_capturable,
-                                               zero_missing_grads)
+from concepthash_tpu_torch.train.optim import follow_schedule, make_capturable
 
 
 def cosine_momentum(step: int, total_steps: int, base_m: float) -> float:
@@ -96,10 +95,10 @@ def _views(batch: dict) -> tuple:
     return x[:B], x[B:]
 
 
-def _update(loss, optimizer, scheduler) -> None:
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    zero_missing_grads(optimizer)
+def _update(loss, optimizer, scheduler, mesh=None) -> None:
+    from concepthash_tpu_torch.train.state import backward
+
+    backward(loss, optimizer, mesh)
     follow_schedule(optimizer, scheduler)
     optimizer.step()
     scheduler.step()
@@ -108,9 +107,13 @@ def _update(loss, optimizer, scheduler) -> None:
 def moco_step(model: nn.Module, config: dict,
               optimizer: torch.optim.Optimizer, scheduler,
               generator: Optional[torch.Generator], steps_per_epoch: int,
-              extra: dict):
+              extra: dict, mesh=None):
     """step(batch) -> {loss, momentum}: MoCo v3's update. batch['image'] is
-    (2B, H, W, C), the two views stacked."""
+    (2B, H, W, C), the two views stacked. Under a ``mesh`` each view is
+    this rank's block of the global batch's view, and the InfoNCE takes
+    its negatives from the gathered global views."""
+    from concepthash_tpu_torch.train.state import sharded_forward
+
     crit = dict(config.get("criterion", {}) or {})
     base_m = float(crit.get("momentum", 0.99))
     temperature = float(crit.get("temperature", 0.2))
@@ -120,14 +123,19 @@ def moco_step(model: nn.Module, config: dict,
     def step(batch: dict) -> dict:
         m = cosine_momentum(int(scheduler.last_epoch), total, base_m)
         v1, v2 = _views(batch)
+
+        def fwd(net, v):
+            return sharded_forward(net, {"image": v}, mesh, train=True,
+                                   generator=generator)[0]
+
         with torch.no_grad():
-            t1 = teacher(v1, train=True, generator=generator)["proj"]
-            t2 = teacher(v2, train=True, generator=generator)["proj"]
-        s1 = model(v1, train=True, generator=generator)["pred"]
-        s2 = model(v2, train=True, generator=generator)["pred"]
+            t1 = fwd(teacher, v1)["proj"]
+            t2 = fwd(teacher, v2)["proj"]
+        s1 = fwd(model, v1)["pred"]
+        s2 = fwd(model, v2)["pred"]
         loss = 0.5 * (info_nce(s1, t2, temperature)
                       + info_nce(s2, t1, temperature))
-        _update(loss, optimizer, scheduler)
+        _update(loss, optimizer, scheduler, mesh)
         ema_(teacher, model, m)
         loss = loss.detach()
         return {"loss": loss, "momentum": torch.full_like(loss, m)}
@@ -138,9 +146,12 @@ def moco_step(model: nn.Module, config: dict,
 def dino_step(model: nn.Module, config: dict,
               optimizer: torch.optim.Optimizer, scheduler,
               generator: Optional[torch.Generator], steps_per_epoch: int,
-              extra: dict):
+              extra: dict, mesh=None):
     """step(batch) -> {loss}: DINO's update. batch['image'] is (2B, H, W,
-    C), the two views stacked."""
+    C), the two views stacked. Under a ``mesh`` each view is this rank's
+    block, and the loss and the center are the gathered global batch's."""
+    from concepthash_tpu_torch.train.state import sharded_forward
+
     crit = dict(config.get("criterion", {}) or {})
     momentum = float(crit.get("momentum", 0.996))
     center_m = float(crit.get("center_momentum", 0.9))
@@ -150,17 +161,20 @@ def dino_step(model: nn.Module, config: dict,
 
     def step(batch: dict) -> dict:
         v1, v2 = _views(batch)
+
+        def fwd(net, v):
+            return sharded_forward(net, {"image": v}, mesh, train=True,
+                                   generator=generator)[0]["proj"]
+
         with torch.no_grad():
-            t1 = teacher(v1, train=True, generator=generator)["proj"]
-            t2 = teacher(v2, train=True, generator=generator)["proj"]
+            t1, t2 = fwd(teacher, v1), fwd(teacher, v2)
             pt1 = torch.softmax((t1 - center) / tau_t, dim=-1)
             pt2 = torch.softmax((t2 - center) / tau_t, dim=-1)
-        s1 = model(v1, train=True, generator=generator)["proj"]
-        s2 = model(v2, train=True, generator=generator)["proj"]
+        s1, s2 = fwd(model, v1), fwd(model, v2)
         l12 = -(pt1 * torch.log_softmax(s2 / tau_s, -1)).sum(-1).mean()
         l21 = -(pt2 * torch.log_softmax(s1 / tau_s, -1)).sum(-1).mean()
         loss = 0.5 * (l12 + l21)
-        _update(loss, optimizer, scheduler)
+        _update(loss, optimizer, scheduler, mesh)
         ema_(teacher, model, momentum)
         with torch.no_grad():
             batch_center = torch.cat([t1, t2]).mean(dim=0)
@@ -203,19 +217,26 @@ def tbh_extra(config: dict, model: nn.Module) -> dict:
 def tbh_step(model: nn.Module, config: dict,
              optimizer: torch.optim.Optimizer, scheduler,
              generator: Optional[torch.Generator], steps_per_epoch: int,
-             extra: dict):
+             extra: dict, mesh=None):
     """step(batch) -> {loss, rec, adv, disc}: TBH's actor step, then its
-    critic step."""
+    critic step. Under a ``mesh`` the batch is this rank's block: both
+    losses read the gathered global batch, the prior is drawn at its
+    shape, the model's gradients are summed over the ranks, and the
+    discriminator, which the loss reaches after the gather, takes on
+    every rank the gradient every rank computes whole."""
+    from concepthash_tpu_torch.train.state import sharded_forward
+
     crit = dict(config.get("criterion", {}) or {})
     adv_weight = float(crit.get("adv_weight", 1.0))
     disc, disc_opt = extra["disc"], extra["disc_opt"]
 
     def step(batch: dict) -> dict:
-        out = model(batch["image"], train=True, generator=generator)
+        out, _ = sharded_forward(model, batch, mesh, train=True,
+                                 generator=generator)
         rec = ((out["recon"] - out["features"].detach()) ** 2).mean()
         adv = _bce(disc(out["z"]), 1.0)
         loss = rec + adv_weight * adv
-        _update(loss, optimizer, scheduler)
+        _update(loss, optimizer, scheduler, mesh)
 
         z = out["z"].detach()
         dloss = _bce(disc(uniform_prior(z, generator)), 1.0) \

@@ -17,6 +17,16 @@ The steps take preprocessed images: the reference runs its device
 augmentation inside the step (``preprocess_fn``), the port runs it on the
 card before the step, outside the graph, since TrivialAugment's grouping by
 op gives shapes that depend on the draws.
+
+With a ``mesh`` (``parallel.mesh.Mesh``, the reference's ``mesh=``) a
+step takes this rank's block of the global batch (``shard_batch``; of
+each view, stacked, for a two-view batch of ``views`` 2) and
+computes what the one-process step computes on the whole batch: the
+forward's batch statistics and draws are the global batch's, the loss,
+the metrics and the codes are computed from the outputs, labels and
+indices gathered over the ranks (``parallel.collectives``), and the
+gradients are summed over the ranks after ``zero_missing_grads`` and
+before the optimizer's step.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from concepthash_tpu_torch.parallel import collectives
 from concepthash_tpu_torch.train.optim import (follow_schedule,
                                                zero_missing_grads)
 
@@ -129,10 +140,39 @@ def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                       dict(extra or {}))
 
 
+def sharded_forward(model: nn.Module, batch: dict, mesh, views: int = 1,
+                    **kw) -> tuple:
+    """(outputs, batch) as the loss reads them: ``model(batch['image'],
+    **kw)`` and the batch, or, under a mesh, the forward of this rank's
+    block (of each of ``views`` stacked views) with the global batch's
+    statistics and draws, its outputs gathered as they are read and the
+    batch's other keys gathered."""
+    if mesh is None:
+        return model(batch["image"], **kw), batch
+    with collectives.sharded_batch(mesh, views):
+        out = model(batch["image"], **kw)
+    return (collectives.GatheredOutputs(out, mesh, batch["image"].shape[0],
+                                        views),
+            collectives.gather_batch(batch, mesh))
+
+
+def backward(total: torch.Tensor, optimizer: torch.optim.Optimizer,
+             mesh=None) -> None:
+    """The gradients of ``total`` for the optimizer's step: every trained
+    parameter's (``zero_missing_grads``), summed over the mesh's ranks
+    under one."""
+    optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    zero_missing_grads(optimizer)
+    if mesh is not None:
+        collectives.all_reduce_grads(optimizer, mesh)
+
+
 def make_train_step(model: nn.Module, loss_fn: Callable,
                     optimizer: torch.optim.Optimizer, scheduler=None,
                     output_attentions: bool = False,
-                    generator: Optional[torch.Generator] = None) -> Callable:
+                    generator: Optional[torch.Generator] = None,
+                    mesh=None, views: int = 1) -> Callable:
     """loss_fn(outputs, batch) -> (total, parts). Returns step(batch) ->
     metrics: one call runs the forward with ``train=True`` (dropout drawn
     from ``generator``), the loss, the backward, the optimizer step and the
@@ -145,12 +185,11 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
     ``optim.EpochLambdaLR``."""
 
     def step(batch: dict) -> dict:
-        out = model(batch["image"], train=True,
-                    output_attentions=output_attentions, generator=generator)
+        out, batch = sharded_forward(model, batch, mesh, views, train=True,
+                                     output_attentions=output_attentions,
+                                     generator=generator)
         total, parts = loss_fn(out, batch)
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        zero_missing_grads(optimizer)
+        backward(total, optimizer, mesh)
         follow_schedule(optimizer, scheduler)
         optimizer.step()
         if scheduler is not None:
@@ -164,20 +203,21 @@ def make_train_step(model: nn.Module, loss_fn: Callable,
 
 
 def make_eval_step(model: nn.Module,
-                   loss_fn: Optional[Callable] = None) -> Callable:
+                   loss_fn: Optional[Callable] = None, mesh=None) -> Callable:
     """step(batch) -> (codes, metrics): the forward in inference mode; codes
-    are the 2-d outputs whose key contains 'codes'."""
+    are the 2-d outputs whose key contains 'codes'. Under a mesh, the
+    codes and metrics of the global batch, on every rank."""
 
     def step(batch: dict):
         with torch.inference_mode():
-            out = model(batch["image"], train=False)
+            out, batch = sharded_forward(model, batch, mesh, train=False)
             metrics = {}
             if loss_fn is not None:
                 total, parts = loss_fn(out, batch)
                 metrics = {"loss": total, **parts,
                            **accuracy_metrics(out, batch["label"])}
-            codes = {k: v for k, v in out.items()
-                     if "codes" in k and v.dim() == 2}
+            codes = {k: out[k] for k in out
+                     if "codes" in k and out[k].dim() == 2}
         return codes, metrics
 
     return step
@@ -190,8 +230,8 @@ def _stacked(per_step: list) -> dict:
 def make_multi_train_step(model: nn.Module, loss_fn: Callable,
                           optimizer: torch.optim.Optimizer, scheduler=None,
                           output_attentions: bool = False,
-                          generator: Optional[torch.Generator] = None
-                          ) -> Callable:
+                          generator: Optional[torch.Generator] = None,
+                          mesh=None, views: int = 1) -> Callable:
     """K train steps per call: ``multi_step(batches) -> metrics``, batches a
     dict of (K, B, ...) tensors, each metric stacked (K,). Equal to K calls
     of ``make_train_step``'s step in order. On the CPU it is that loop; on
@@ -205,9 +245,9 @@ def make_multi_train_step(model: nn.Module, loss_fn: Callable,
         from concepthash_tpu_torch.train.graphs import GraphedTrainSteps
 
         return GraphedTrainSteps(model, loss_fn, optimizer, scheduler,
-                                 output_attentions, generator)
+                                 output_attentions, generator, mesh, views)
     step = make_train_step(model, loss_fn, optimizer, scheduler,
-                           output_attentions, generator)
+                           output_attentions, generator, mesh, views)
 
     def multi_step(batches: dict) -> dict:
         per_step, lrs = [], []
@@ -222,7 +262,8 @@ def make_multi_train_step(model: nn.Module, loss_fn: Callable,
 
 
 def make_multi_eval_step(model: nn.Module,
-                         loss_fn: Optional[Callable] = None) -> Callable:
+                         loss_fn: Optional[Callable] = None,
+                         mesh=None) -> Callable:
     """K eval batches per call: ``multi(batches) -> (codes, metrics)``,
     batches (K, B, ...), codes (K, B, nbit) and metrics (K,). Equal to K
     calls of ``make_eval_step``'s step. On the card, one CUDA graph replay
@@ -231,8 +272,8 @@ def make_multi_eval_step(model: nn.Module,
     if dev.type == "cuda":
         from concepthash_tpu_torch.train.graphs import GraphedEvalSteps
 
-        return GraphedEvalSteps(model, loss_fn)
-    step = make_eval_step(model, loss_fn)
+        return GraphedEvalSteps(model, loss_fn, mesh)
+    step = make_eval_step(model, loss_fn, mesh)
 
     def multi(batches: dict):
         outs = [step({n: v[k] for n, v in batches.items()})
@@ -249,8 +290,11 @@ def accuracy_metrics(outputs: dict, onehot: torch.Tensor) -> dict:
     averaged over concepts first."""
     y = onehot.argmax(dim=-1)
     metrics = {}
-    for key, val in outputs.items():
-        if "logits" not in key or not torch.is_tensor(val):
+    for key in outputs:
+        if "logits" not in key:
+            continue
+        val = outputs[key]
+        if not torch.is_tensor(val):
             continue
         if val.dim() == 3:
             pred = val.mean(dim=0).argmax(dim=-1)

@@ -64,12 +64,16 @@ class Tracker:
 
 class HistoryWriter:
     """Append-only experiment history persisted as JSON
-    (``<logdir>/<name>_history.json``), the reference's file layout."""
+    (``<logdir>/<name>_history.json``), the reference's file layout.
+    ``write=False`` keeps the history in memory only (a data-parallel
+    run's ranks but the first)."""
 
-    def __init__(self, logdir: str, name: str, tracker: Tracker | None = None):
+    def __init__(self, logdir: str, name: str, tracker: Tracker | None = None,
+                 write: bool = True):
         self.path = os.path.join(logdir, f"{name}_history.json")
         self.name = name
         self.tracker = tracker
+        self.write = write
         self.history: list[dict] = []
 
     def append(self, record: dict):
@@ -82,6 +86,8 @@ class HistoryWriter:
         self.save()
 
     def save(self):
+        if not self.write:
+            return
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         with open(self.path, "w") as f:
             json.dump(self.history, f, indent=2)

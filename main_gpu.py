@@ -23,6 +23,13 @@ eval keys laid over it; 'extract' writes the test codes only):
     python3 main_gpu.py dataset=cub200 model=concepthash \\
         resume_logdir=runs/cub logdir=runs/cub_resumed
 
+Data-parallel over W GPUs (or W CPU processes with ``--device cpu``, over
+gloo): the same command under ``torchrun``, the same run with each global
+batch split over the ranks; rank 0 writes the run directory:
+
+    torchrun --standalone --nproc_per_node=W main_gpu.py dataset=cub200 \
+        model=concepthash compute_dtype=bfloat16 logdir=runs/cub
+
 ``train_chunk`` (default auto: 8 on CUDA, 1 on the CPU) is the number of
 train and eval steps per dispatch; ``backbone.name`` may name a local CLIP
 checkpoint directory (or a model in the Hugging Face cache), whose weights
@@ -112,7 +119,12 @@ def build_experiment(argv=None):
 
 
 def main(argv=None):
-    return build_experiment(argv).main()
+    from concepthash_tpu_torch.parallel.mesh import shutdown
+
+    try:
+        return build_experiment(argv).main()
+    finally:
+        shutdown()      # the group a launcher's environment started
 
 
 if __name__ == "__main__":

@@ -150,7 +150,9 @@ def test_port_imports_nothing_of_jax():
         "losses.shallow", "models.pretrain", "models.mae", "models.tbh",
         "train.pretrain_steps", "train.kmeans", "models.resnet",
         "models.convnets", "models.swin", "models.cnn_loader",
-        "utils.torch_import", "train.optax_state")] + ["main_gpu"]
+        "utils.torch_import", "train.optax_state", "parallel",
+        "parallel.mesh", "parallel.collectives", "ops.sharded")] + \
+        ["main_gpu"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'transformers', 'safetensors', "
@@ -330,8 +332,12 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     CLI runs, profile, disable_jit and the reference-layout import) and
     phase 22 (kernel 1 in training: counted steps against plain ones, a
     graphed chunk against eager steps, a trainable backbone's graphed
-    chunk, the recompute's cost) pass their checks, and the kernels' JSON
-    line has every key the card run prints, for all six TPU kernels."""
+    chunk, the recompute's cost) and phase 23 (on a gloo group of one rank
+    in this process: the sharded top-k through both mins layouts, the
+    data-parallel steps and chunk against plain ones, and the flagship
+    run again as one rank, in-process) pass their checks, and the kernels'
+    JSON line has every key the card run prints, for all six TPU
+    kernels."""
     import importlib.util
     import json
     import time
@@ -726,6 +732,30 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert ("layer train cost (B=8, adam, frozen tower, eager; no card): "
             "pallas_layer ") in out
     assert "layer recompute backward (B=8, L=21, D=64, both adapters" in out
+    # phase 23: one rank of a gloo group, left after each part
+    assert out.count("process group: gloo, world size 1, rank 0 on cpu") == 3
+    assert out.count("distances retrieve_topk's, bit for bit: True") == 4
+    assert ("sharded top-k launches (encoder_layer, subblock_mins packed, "
+            "plain, ln_matmul, attention, bitplane_mins): (0, ") in out
+    assert "sharded top-k, one rank: dense " in out
+    assert ("data-parallel steps on one rank (flagship, B=4, adam, dropout "
+            "0.1): metrics equal step by step [True, True, True], parameters "
+            "and buffers max |d| 0, the dropout generator equal: True: bit "
+            "for bit True (required)") in out
+    assert ("collectives captured; a warm-up chunk and a replay): losses"
+            ) in out and "generator equal True: bit for bit True" in out
+    assert "eager flagship step at B=8: " in out
+    assert "eager collectives on one rank: all_reduce_grads " in out
+    assert ("flagship run as one rank of a process group (in-process, gloo"
+            ) in out
+    assert ("train records True, test records True (mAP") in out
+    assert ("models/last.pt True equal to phase 14's bit for bit; the log "
+            "names the mesh: True") in out
+    import os
+
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    assert "WORLD_SIZE" not in os.environ
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     kernels = json.loads(json.dumps(result))["kernels"]
