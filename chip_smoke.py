@@ -323,24 +323,26 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    at B=256 under ``pallas_layer``, the discrete path and kernels 5 and 6,
    and one layer's recompute backward beside kernel 1's forward.
 
-23. data parallelism at world size 1 (``parallel/``, ``ops/sharded.py``),
-   on a process group of one rank in this process (NCCL): (a) after phase
-   12, over phase 4's 2^20 gallery, ``make_sharded_topk(exact=True)``
-   dense over the plain signs, streaming over the packed rows (kernel 2)
-   and over the plain signs in one block and in four (kernel 3), counted,
-   each route's distances and indices equal to the one-process call of
-   that route bit for bit and its distances to ``retrieve_topk``'s, timed
-   beside them; (b) last of all, 3 eager flagship steps at B=32 (adam,
-   dropout 0.1) through the data-parallel step against plain steps from
-   the same state, bit for bit (metrics, parameters, buffers, the dropout
-   generator): every collective is an identity at one rank; (c) the same
-   two trainings on: a warm-up chunk and a replayed chunk of 2 steps with
-   the collectives captured, bit for bit against eager steps; the eager
-   B=256 step's ms with and without the group, alternated, and the host's
-   ms for one eager all-gather and the gradients' all-reduce; (d) inside
-   phase 14, ``python -m torch.distributed.run --standalone
-   --nproc_per_node=1 main_gpu.py`` at phase 14's overrides: its records,
-   mAP and ``models/last.pt`` equal phase 14's run bit for bit.
+23. data parallelism at world size 1 (``parallel/``, ``ops/sharded.py``)
+   on a process group of one rank in this process (NCCL), last of all, so
+   that no group lives while the phases before it capture their graphs:
+   (a) over phase 4's 2^20 gallery, kept until then,
+   ``make_sharded_topk(exact=True)`` dense over the plain signs, streaming
+   over the packed rows (kernel 2) and over the plain signs in one block
+   and in four (kernel 3), counted, each route's distances and indices
+   equal to the one-process call of that route bit for bit and its
+   distances to ``retrieve_topk``'s, timed beside them; (b) 3 eager
+   flagship steps at B=32 (adam, dropout 0.1) through the data-parallel
+   step against plain steps from the same state, bit for bit (metrics,
+   parameters, buffers, the dropout generator): every collective is an
+   identity at one rank; (c) the same two trainings on: a warm-up chunk
+   and a replayed chunk of 2 steps with the collectives captured, bit for
+   bit against eager steps; the eager B=256 step's ms with and without
+   the group, alternated, and the host's ms for one eager all-gather and
+   the gradients' all-reduce; (d) inside phase 14, ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1 main_gpu.py`` at
+   phase 14's overrides, in its own processes: its records, mAP and
+   ``models/last.pt`` equal phase 14's run bit for bit.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -6053,8 +6055,8 @@ class one_rank_group:
         return False
 
 
-def run_sharded_topk(sizes: Sizes, device, codes, flat, packed, want,
-                     n_codes: int) -> None:
+def run_sharded_topk(sizes: Sizes, device, mesh, codes, flat, packed,
+                     want, n_codes: int) -> None:
     """Phase 23 (a): ``make_sharded_topk(exact=True)`` on a mesh of one rank
     over phase 4's gallery: dense over the plain (N, nbit) signs (kernel 2
     on the packed view inside ``retrieve_topk``), streaming over the
@@ -6078,7 +6080,7 @@ def run_sharded_topk(sizes: Sizes, device, codes, flat, packed, want,
              ("streaming, plain signs in one block (kernel 3)", flat, n_pad),
              ("streaming, plain signs in four blocks (kernel 3)", flat,
               n_pad // 4))
-    with one_rank_group(device) as mesh, torch.inference_mode():
+    with torch.inference_mode():
         fns, shards, refs = [], [], []
         for _, gallery, block in cases:
             shard, _ = shard_gallery(gallery, mesh, streaming_block=block)
@@ -6131,7 +6133,7 @@ def run_sharded_topk(sizes: Sizes, device, codes, flat, packed, want,
     print(f"phase 23 (a): {time.perf_counter() - t_phase:.1f} s")
 
 
-def run_distributed_steps(sizes: Sizes, device) -> None:
+def run_distributed_steps(sizes: Sizes, device, mesh) -> None:
     """Phase 23 (b), (c): the flagship (adam, dropout 0.1, bf16) on a mesh
     of one rank, whose every collective is an identity, against a plain
     twin from the same state: (b) 3 eager steps at B=32 through the
@@ -6150,81 +6152,80 @@ def run_distributed_steps(sizes: Sizes, device) -> None:
     t_phase = time.perf_counter()
     cfg = train_config(sizes)
     centers = flagship_centers(sizes)
-    with one_rank_group(device) as mesh:
-        dp, plain = (build_training(cfg, centers, sizes.steps_per_epoch,
-                                    device=device, mesh=m)
-                     for m in (mesh, None))
-        plain.model.load_state_dict(dp.model.state_dict())
-        vcfg = dp.model.vision_cfg
+    dp, plain = (build_training(cfg, centers, sizes.steps_per_epoch,
+                                device=device, mesh=m)
+                 for m in (mesh, None))
+    plain.model.load_state_dict(dp.model.state_dict())
+    vcfg = dp.model.vision_cfg
 
-        def same_state():
-            gs, ps = dp.model.state_dict(), plain.model.state_dict()
-            d = max((gs[k].float() - ps[k].float()).abs().max().item()
-                    for k in gs)
-            return d, torch.equal(dp.generator.get_state(),
-                                  plain.generator.get_state())
+    def same_state():
+        gs, ps = dp.model.state_dict(), plain.model.state_dict()
+        d = max((gs[k].float() - ps[k].float()).abs().max().item()
+                for k in gs)
+        return d, torch.equal(dp.generator.get_state(),
+                              plain.generator.get_state())
 
-        same = []
-        for i in range(3):
-            b = flagship_batch(sizes, vcfg, sizes.train_batch, device, 60 + i)
-            got = dp.step(shard_batch(b, mesh))
-            want = plain.step(b)
-            same.append(all(torch.equal(got[k], want[k]) for k in want))
-        d, gen_ok = same_state()
-        eager_ok = all(same) and d == 0.0 and gen_ok
-        print(f"data-parallel steps on one rank (flagship, B="
-              f"{sizes.train_batch}, adam, dropout 0.1): metrics equal step "
-              f"by step {same}, parameters and buffers max |d| {d:.3g}, the "
-              f"dropout generator equal: {gen_ok}: bit for bit {eager_ok} "
-              f"(required)")
-        if not eager_ok:
-            fail("the data-parallel step on one rank differs from the plain "
-                 "step")
+    same = []
+    for i in range(3):
+        b = flagship_batch(sizes, vcfg, sizes.train_batch, device, 60 + i)
+        got = dp.step(shard_batch(b, mesh))
+        want = plain.step(b)
+        same.append(all(torch.equal(got[k], want[k]) for k in want))
+    d, gen_ok = same_state()
+    eager_ok = all(same) and d == 0.0 and gen_ok
+    print(f"data-parallel steps on one rank (flagship, B="
+          f"{sizes.train_batch}, adam, dropout 0.1): metrics equal step "
+          f"by step {same}, parameters and buffers max |d| {d:.3g}, the "
+          f"dropout generator equal: {gen_ok}: bit for bit {eager_ok} "
+          f"(required)")
+    if not eager_ok:
+        fail("the data-parallel step on one rank differs from the plain "
+             "step")
 
-        csizes = check_sizes(sizes)
-        K = csizes.graph_chunk
-        batches, stacked = stacked_batches(csizes, vcfg, sizes.head["nclass"],
-                                           2, device, 67)
-        multi = make_multi_train_step(dp.model, dp.loss_fn, dp.optimizer,
-                                      dp.scheduler, generator=dp.generator,
-                                      mesh=mesh)
-        g_loss = [x for chunk in stacked for x in multi(chunk)["loss"]
-                  .tolist()]
-        e_loss = [float(plain.step(b)["loss"]) for b in batches]
-        d, gen_ok = same_state()
-        replays = multi.replays if device.type == "cuda" else 0
-        graph_ok = g_loss == e_loss and d == 0.0 and gen_ok
-        print(f"data-parallel graphed chunk on one rank (flagship, K={K}, "
-              f"B={sizes.train_batch}, collectives captured; a warm-up chunk "
-              f"and a replay): losses " + ", ".join(
-                  f"{x:.5f}" for x in g_loss[K:]) + " / eager "
-              + ", ".join(f"{x:.5f}" for x in e_loss[K:])
-              + f", parameters max |d| {d:.3g}, generator equal {gen_ok}: "
-              f"bit for bit {graph_ok} (required), {replays} replays")
-        if not graph_ok or (device.type == "cuda" and replays < 1):
-            fail("the graphed data-parallel chunk differs from eager steps, "
-                 "or no graph was replayed")
-        del multi, batches, stacked
+    csizes = check_sizes(sizes)
+    K = csizes.graph_chunk
+    batches, stacked = stacked_batches(csizes, vcfg, sizes.head["nclass"],
+                                       2, device, 67)
+    multi = make_multi_train_step(dp.model, dp.loss_fn, dp.optimizer,
+                                  dp.scheduler, generator=dp.generator,
+                                  mesh=mesh)
+    g_loss = [x for chunk in stacked for x in multi(chunk)["loss"]
+              .tolist()]
+    e_loss = [float(plain.step(b)["loss"]) for b in batches]
+    d, gen_ok = same_state()
+    replays = multi.replays if device.type == "cuda" else 0
+    graph_ok = g_loss == e_loss and d == 0.0 and gen_ok
+    print(f"data-parallel graphed chunk on one rank (flagship, K={K}, "
+          f"B={sizes.train_batch}, collectives captured; a warm-up chunk "
+          f"and a replay): losses " + ", ".join(
+              f"{x:.5f}" for x in g_loss[K:]) + " / eager "
+          + ", ".join(f"{x:.5f}" for x in e_loss[K:])
+          + f", parameters max |d| {d:.3g}, generator equal {gen_ok}: "
+          f"bit for bit {graph_ok} (required), {replays} replays")
+    if not graph_ok or (device.type == "cuda" and replays < 1):
+        fail("the graphed data-parallel chunk differs from eager steps, "
+             "or no graph was replayed")
+    del multi, batches, stacked
 
-        B = sizes.train_batch_big
-        b = flagship_batch(sizes, vcfg, B, device, 70)
-        local = shard_batch(b, mesh)
-        times = {"with the group": [], "without": []}
-        for name in ("without", "with the group", "with the group",
-                     "without"):
-            step = ((lambda: dp.step(local)) if name != "without"
-                    else (lambda: plain.step(b)))
-            times[name].append(host_s(step, 3) * 1e3)
-        # the host's cost of one eager collective: the gradients'
-        # all-reduce of this model, and a lone all-gather of (B, nbit)
-        reduce_ms = host_s(lambda: all_reduce_grads(dp.optimizer, mesh),
-                           sizes.reps) * 1e3
-        x = torch.randn(B, sizes.head["nbit"], device=device)
-        gather_ms = host_s(lambda: gather_rows_(x, mesh), sizes.reps) * 1e3
-        n_grad = sum(p.grad.numel() for g in dp.optimizer.param_groups
-                     for p in g["params"])
-        del dp, plain, b, local, x
-        torch.cuda.empty_cache()
+    B = sizes.train_batch_big
+    b = flagship_batch(sizes, vcfg, B, device, 70)
+    local = shard_batch(b, mesh)
+    times = {"with the group": [], "without": []}
+    for name in ("without", "with the group", "with the group",
+                 "without"):
+        step = ((lambda: dp.step(local)) if name != "without"
+                else (lambda: plain.step(b)))
+        times[name].append(host_s(step, 3) * 1e3)
+    # the host's cost of one eager collective: the gradients'
+    # all-reduce of this model, and a lone all-gather of (B, nbit)
+    reduce_ms = host_s(lambda: all_reduce_grads(dp.optimizer, mesh),
+                       sizes.reps) * 1e3
+    x = torch.randn(B, sizes.head["nbit"], device=device)
+    gather_ms = host_s(lambda: gather_rows_(x, mesh), sizes.reps) * 1e3
+    n_grad = sum(p.grad.numel() for g in dp.optimizer.param_groups
+                 for p in g["params"])
+    del dp, plain, b, local, x
+    torch.cuda.empty_cache()
     print(f"eager collectives on one rank: all_reduce_grads {reduce_ms:.3f} "
           f"ms over {n_grad} values, an all-gather of ({B}, "
           f"{sizes.head['nbit']}) {gather_ms:.3f} ms (host clock, "
@@ -6518,8 +6519,9 @@ def run(sizes: Sizes, device) -> dict:
     bp = run_bitplane(sizes, device, codes, nbit)
     run_approx(sizes, codes, gallery, packed, bits, n_pad)
     run_scoring(sizes, codes, nclass, device)
-    run_sharded_topk(sizes, device, codes, flat, packed, (d, idx), N)
-    del gallery, packed, bits
+    # phase 4's packed and plain galleries stay for phase 23 (a), last: no
+    # process group lives while the phases between capture their graphs
+    del gallery, bits
     torch.cuda.empty_cache()
     run_text_tower(sizes, device)
     flagship = run_flagship(sizes, device)
@@ -6531,7 +6533,12 @@ def run(sizes: Sizes, device) -> dict:
     run_trunks(sizes, device)
     run_layer_train(sizes, device)
     run_graphs(sizes, device, flagship)
-    run_distributed_steps(sizes, device)
+    with one_rank_group(device) as mesh:
+        run_sharded_topk(sizes, device, mesh, codes, flat, packed, (d, idx),
+                         N)
+        del packed, flat
+        torch.cuda.empty_cache()
+        run_distributed_steps(sizes, device, mesh)
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",
          "source": "concepthash_tpu_torch/csrc/fused_layer.cu",

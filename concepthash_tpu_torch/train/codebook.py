@@ -362,8 +362,10 @@ def _repeat(iteration, n: int, device: torch.device) -> None:
         for _ in range(warm):
             iteration()
     torch.cuda.current_stream(device).wait_stream(side)
+    from concepthash_tpu_torch.parallel.mesh import capture_error_mode
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode=capture_error_mode()):
         iteration()
     for _ in range(n - warm):
         graph.replay()

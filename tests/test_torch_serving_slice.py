@@ -732,8 +732,9 @@ def test_chip_smoke_rehearses_on_cpu(monkeypatch, capsys):
     assert ("layer train cost (B=8, adam, frozen tower, eager; no card): "
             "pallas_layer ") in out
     assert "layer recompute backward (B=8, L=21, D=64, both adapters" in out
-    # phase 23: one rank of a gloo group, left after each part
-    assert out.count("process group: gloo, world size 1, rank 0 on cpu") == 3
+    # phase 23: one rank of a gloo group in (d), then in (a)-(c), left after
+    # each
+    assert out.count("process group: gloo, world size 1, rank 0 on cpu") == 2
     assert out.count("distances retrieve_topk's, bit for bit: True") == 4
     assert ("sharded top-k launches (encoder_layer, subblock_mins packed, "
             "plain, ln_matmul, attention, bitplane_mins): (0, ") in out
