@@ -323,10 +323,9 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    at B=256 under ``pallas_layer``, the discrete path and kernels 5 and 6,
    and one layer's recompute backward beside kernel 1's forward.
 
-23. data parallelism at world size 1 (``parallel/``, ``ops/sharded.py``)
-   on a process group of one rank in this process (NCCL), last of all, so
-   that no group lives while the phases before it capture their graphs:
-   (a) over phase 4's 2^20 gallery, kept until then,
+23. data parallelism at world size 1 (``parallel/``, ``ops/sharded.py``),
+   last of all: (a)-(c) on a process group of one rank in this process
+   (NCCL): (a) over phase 4's 2^20 gallery, kept until then,
    ``make_sharded_topk(exact=True)`` dense over the plain signs, streaming
    over the packed rows (kernel 2) and over the plain signs in one block
    and in four (kernel 3), counted, each route's distances and indices
@@ -339,10 +338,10 @@ check; it imports nothing of JAX or of the JAX package. Phases:
    and a replayed chunk of 2 steps with the collectives captured, bit for
    bit against eager steps; the eager B=256 step's ms with and without
    the group, alternated, and the host's ms for one eager all-gather and
-   the gradients' all-reduce; (d) inside phase 14, ``python -m
-   torch.distributed.run --standalone --nproc_per_node=1 main_gpu.py`` at
-   phase 14's overrides, in its own processes: its records, mAP and
-   ``models/last.pt`` equal phase 14's run bit for bit.
+   the gradients' all-reduce; (d) then phase 14's run again, on its set
+   kept until then, as ``python -m torch.distributed.run --standalone
+   --nproc_per_node=1 main_gpu.py`` at phase 14's overrides: its records,
+   mAP and ``models/last.pt`` equal phase 14's run bit for bit.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -356,6 +355,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1716,14 +1716,15 @@ def run_text_tower(sizes: Sizes, device) -> None:
         fail(f"text tower: card and CPU differ by {errs}")
 
 
-def run_flagship(sizes: Sizes, device) -> None:
+def run_flagship(sizes: Sizes, device, tmp: str) -> dict:
     """Phase 14: main_gpu's flagship run (dataset=cub200 model=concepthash
     compute_dtype=bfloat16, 2 epochs, an evaluation after each) on a
     synthetic set of ``sizes.flagship_classes`` classes written by the
-    port's maker, with the launch counts from zero; then the checks, a
-    reload of models/last.pt, and the timings."""
+    port's maker into ``tmp``, with the launch counts from zero; then the
+    checks, a reload of models/last.pt, and the timings. Returns the
+    timings and, under ``rerun``, what phase 23 (d) runs the same run
+    again with: the command line, the run directory and its records."""
     import os
-    import tempfile
 
     import main_gpu
     from concepthash_tpu_torch.data.preprocess import preprocess_batch
@@ -1731,171 +1732,170 @@ def run_flagship(sizes: Sizes, device) -> None:
     from concepthash_tpu_torch.train.optim import current_lr
 
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        n_train, n_test = sizes.flagship_per_class
-        t0 = time.perf_counter()
-        make_synthetic_dataset(os.path.join(tmp, "synth"),
-                               nclass=sizes.flagship_classes,
-                               per_class_train=n_train,
-                               per_class_test=n_test,
-                               image_size=sizes.flagship_image, seed=0)
-        write_s = time.perf_counter() - t0
-        logdir = os.path.join(tmp, "run")
+    n_train, n_test = sizes.flagship_per_class
+    t0 = time.perf_counter()
+    make_synthetic_dataset(os.path.join(tmp, "synth"),
+                           nclass=sizes.flagship_classes,
+                           per_class_train=n_train,
+                           per_class_test=n_test,
+                           image_size=sizes.flagship_image, seed=0)
+    write_s = time.perf_counter() - t0
+    logdir = os.path.join(tmp, "run")
 
-        def argv(*extra):
-            # one step a dispatch (phase 15 runs several)
-            args = ["dataset=cub200", "model=concepthash", f"data_dir={tmp}",
-                    "dataset.data_folder=synth", "compute_dtype=bfloat16",
-                    "epochs=2", "eval_interval=1", "train_chunk=1", *extra,
-                    *sizes.flagship_args]
-            return (args if device.type == "cuda"
-                    else ["--device", str(device), *args])
+    def argv(*extra):
+        # one step a dispatch (phase 15 runs several)
+        args = ["dataset=cub200", "model=concepthash", f"data_dir={tmp}",
+                "dataset.data_folder=synth", "compute_dtype=bfloat16",
+                "epochs=2", "eval_interval=1", "train_chunk=1", *extra,
+                *sizes.flagship_args]
+        return (args if device.type == "cuda"
+                else ["--device", str(device), *args])
 
-        exp = main_gpu.build_experiment(argv(f"logdir={logdir}"))
-        torch.cuda.synchronize()
+    exp = main_gpu.build_experiment(argv(f"logdir={logdir}"))
+    torch.cuda.synchronize()
 
-        # ---- the main path, with the launch counts from zero ----
-        count_reset()
-        t0 = time.perf_counter()
-        best = exp.main()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = counts()
+    # ---- the main path, with the launch counts from zero ----
+    count_reset()
+    t0 = time.perf_counter()
+    best = exp.main()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
 
-        # ---- what came out ----
-        with open(os.path.join(logdir, "train_history.json")) as f:
-            train = json.load(f)
-        with open(os.path.join(logdir, "test_history.json")) as f:
-            test = json.load(f)
-        with open(os.path.join(logdir, "log.txt")) as f:
-            log = f.read()
-        files = ["config.yaml", "log.txt", "train_history.json",
-                 "test_history.json", "models/best.pt", "models/last.pt",
-                 "outputs/test_best.pt", "outputs/db_best.pt"]
-        if exp.config.get("wandb"):
-            files.append("events.jsonl")
-        missing = [f for f in files
-                   if not os.path.exists(os.path.join(logdir, f))]
-        loaders = exp.loaders
-        steps = len(loaders["train"])
-        batch = int(exp.config["batch_size"])
-        eval_batches = len(loaders["test"]) + len(loaders["db"])
-        n_layers = exp.model.vision_cfg.num_layers
-        want = (2 * n_layers * eval_batches, 0, 0, 0, 0, 0)
-        lrs = [current_lr(exp.config["optim"], exp.config["scheduler"], 2,
-                          steps, steps * (ep + 1)) for ep in range(2)]
-        print(f"flagship run: {len(exp.datasets['train'])} train, "
-              f"{len(exp.datasets['test'])} test, {len(exp.datasets['db'])} "
-              f"database images of {sizes.flagship_image}^2 "
-              f"({exp.config['dataset']['nclass']} classes, written in "
-              f"{write_s:.1f} s); {steps} steps of {batch} an epoch; "
-              f"codebook {tuple(exp.codebook.shape)}; best mAP {best}")
-        print("flagship train records: " + "; ".join(
-            f"ep {r['ep']} loss {r['loss']:.5f} lr {r['lr']:.6g} "
-            f"{r['time']:.2f} s" for r in train))
-        print("flagship test records: " + "; ".join(
-            f"ep {r['ep']} mAP {r['mAP']:.6f} recalls "
-            f"{[round(x, 4) for x in r['recalls']]} precisions "
-            f"{[round(x, 4) for x in r['precisions']]}" for r in test))
-        print(f"flagship launches (encoder_layer, subblock_mins packed, "
-              f"plain, ln_matmul, attention, bitplane_mins): {launches}; "
-              f"expected {want} ({n_layers} layers x {eval_batches} eval "
-              f"batches x 2 evaluations)")
-        if missing:
-            fail(f"flagship run directory lacks {missing}")
-        if len(train) != 2 or not all(math.isfinite(r["loss"])
-                                      for r in train):
-            fail("flagship: not two train records with a finite loss")
-        if [r["lr"] for r in train] != lrs:
-            fail(f"flagship lr {[r['lr'] for r in train]} != current_lr "
-                 f"{lrs}")
-        if len(test) != 2 or not all(
-                0.0 <= r["mAP"] <= 1.0 and len(r["recalls"]) == 3
-                and len(r["precisions"]) == 3 for r in test):
-            fail("flagship: not two test records with mAP in [0, 1] and "
-                 "the recalls and precisions")
-        cb_shape = (exp.config["model"]["nclass"],
-                    exp.model.vision_cfg.projection_dim)
-        if exp.codebook.shape != cb_shape or "offline fallback" not in log \
-                or "pseudo-embeddings" not in log:
-            fail(f"flagship: the codebook is not the offline fallback's "
-                 f"{cb_shape}, or its warning is not in log.txt")
-        if launches != want:
-            fail("flagship: kernel 1 not launched 12 times an eval batch, "
-                 "or another kernel launched")
-        torchrun_run(device, argv, logdir, train, test)
+    # ---- what came out ----
+    with open(os.path.join(logdir, "train_history.json")) as f:
+        train = json.load(f)
+    with open(os.path.join(logdir, "test_history.json")) as f:
+        test = json.load(f)
+    with open(os.path.join(logdir, "log.txt")) as f:
+        log = f.read()
+    files = ["config.yaml", "log.txt", "train_history.json",
+             "test_history.json", "models/best.pt", "models/last.pt",
+             "outputs/test_best.pt", "outputs/db_best.pt"]
+    if exp.config.get("wandb"):
+        files.append("events.jsonl")
+    missing = [f for f in files
+               if not os.path.exists(os.path.join(logdir, f))]
+    loaders = exp.loaders
+    steps = len(loaders["train"])
+    batch = int(exp.config["batch_size"])
+    eval_batches = len(loaders["test"]) + len(loaders["db"])
+    n_layers = exp.model.vision_cfg.num_layers
+    want = (2 * n_layers * eval_batches, 0, 0, 0, 0, 0)
+    lrs = [current_lr(exp.config["optim"], exp.config["scheduler"], 2,
+                      steps, steps * (ep + 1)) for ep in range(2)]
+    print(f"flagship run: {len(exp.datasets['train'])} train, "
+          f"{len(exp.datasets['test'])} test, {len(exp.datasets['db'])} "
+          f"database images of {sizes.flagship_image}^2 "
+          f"({exp.config['dataset']['nclass']} classes, written in "
+          f"{write_s:.1f} s); {steps} steps of {batch} an epoch; "
+          f"codebook {tuple(exp.codebook.shape)}; best mAP {best}")
+    print("flagship train records: " + "; ".join(
+        f"ep {r['ep']} loss {r['loss']:.5f} lr {r['lr']:.6g} "
+        f"{r['time']:.2f} s" for r in train))
+    print("flagship test records: " + "; ".join(
+        f"ep {r['ep']} mAP {r['mAP']:.6f} recalls "
+        f"{[round(x, 4) for x in r['recalls']]} precisions "
+        f"{[round(x, 4) for x in r['precisions']]}" for r in test))
+    print(f"flagship launches (encoder_layer, subblock_mins packed, "
+          f"plain, ln_matmul, attention, bitplane_mins): {launches}; "
+          f"expected {want} ({n_layers} layers x {eval_batches} eval "
+          f"batches x 2 evaluations)")
+    if missing:
+        fail(f"flagship run directory lacks {missing}")
+    if len(train) != 2 or not all(math.isfinite(r["loss"])
+                                  for r in train):
+        fail("flagship: not two train records with a finite loss")
+    if [r["lr"] for r in train] != lrs:
+        fail(f"flagship lr {[r['lr'] for r in train]} != current_lr "
+             f"{lrs}")
+    if len(test) != 2 or not all(
+            0.0 <= r["mAP"] <= 1.0 and len(r["recalls"]) == 3
+            and len(r["precisions"]) == 3 for r in test):
+        fail("flagship: not two test records with mAP in [0, 1] and "
+             "the recalls and precisions")
+    cb_shape = (exp.config["model"]["nclass"],
+                exp.model.vision_cfg.projection_dim)
+    if exp.codebook.shape != cb_shape or "offline fallback" not in log \
+            or "pseudo-embeddings" not in log:
+        fail(f"flagship: the codebook is not the offline fallback's "
+             f"{cb_shape}, or its warning is not in log.txt")
+    if launches != want:
+        fail("flagship: kernel 1 not launched 12 times an eval batch, "
+             "or another kernel launched")
 
-        # ---- models/last.pt reloads to the same codes ----
-        codes = exp.encode_split("test")[0]["codes"]
-        fresh = main_gpu.build_experiment(argv(
-            f"logdir={logdir}_reload",
-            f"finetune_path={logdir}/models/last.pt"))
-        same = torch.equal(fresh.encode_split("test")[0]["codes"], codes)
-        print(f"flagship: models/last.pt reloaded encodes the test split to "
-              f"the same codes, bit for bit: {same}")
-        if not same:
-            fail("flagship: the reloaded model's codes differ")
-        del fresh
+    # ---- models/last.pt reloads to the same codes ----
+    codes = exp.encode_split("test")[0]["codes"]
+    fresh = main_gpu.build_experiment(argv(
+        f"logdir={logdir}_reload",
+        f"finetune_path={logdir}/models/last.pt"))
+    same = torch.equal(fresh.encode_split("test")[0]["codes"], codes)
+    print(f"flagship: models/last.pt reloaded encodes the test split to "
+          f"the same codes, bit for bit: {same}")
+    if not same:
+        fail("flagship: the reloaded model's codes differ")
+    del fresh
 
-        # ---- the eval codes against the kernel's plain version ----
-        kernel_codes = {"test": codes,
-                        "db": exp.encode_split("db")[0]["codes"]}
-        with plain_layers():
-            plain = {k: exp.encode_split(k)[0]["codes"] for k in kernel_codes}
-        agree = {k: ((kernel_codes[k] > 0) == (plain[k] > 0)).float().mean()
-                 .item() for k in plain}
-        print(f"flagship eval codes vs an encode through the layer's plain "
-              f"version: sign agreement test {agree['test']:.6f}, database "
-              f"{agree['db']:.6f} (batches of {batch} and the tails of "
-              f"{len(exp.datasets['test']) % batch} and "
-              f"{len(exp.datasets['db']) % batch})")
-        if min(agree.values()) < MIN_SIGN_AGREEMENT:
-            fail(f"flagship: eval codes agree in sign with the plain "
-                 f"encode on {agree} < {MIN_SIGN_AGREEMENT}")
+    # ---- the eval codes against the kernel's plain version ----
+    kernel_codes = {"test": codes,
+                    "db": exp.encode_split("db")[0]["codes"]}
+    with plain_layers():
+        plain = {k: exp.encode_split(k)[0]["codes"] for k in kernel_codes}
+    agree = {k: ((kernel_codes[k] > 0) == (plain[k] > 0)).float().mean()
+             .item() for k in plain}
+    print(f"flagship eval codes vs an encode through the layer's plain "
+          f"version: sign agreement test {agree['test']:.6f}, database "
+          f"{agree['db']:.6f} (batches of {batch} and the tails of "
+          f"{len(exp.datasets['test']) % batch} and "
+          f"{len(exp.datasets['db']) % batch})")
+    if min(agree.values()) < MIN_SIGN_AGREEMENT:
+        fail(f"flagship: eval codes agree in sign with the plain "
+             f"encode on {agree} < {MIN_SIGN_AGREEMENT}")
 
-        # ---- timings (host clock, synchronized) ----
-        n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
-        enc_s = host_s(lambda: (exp.encode_split("test"),
-                                exp.encode_split("db")), 1)
-        epoch_s = train[1]["time"]
-        print(f"flagship: train {steps * batch / epoch_s:.1f} img/s in epoch "
-              f"2 ({epoch_s:.2f} s, data, augmentation and copies included); "
-              f"eval encode {n_eval / enc_s:.1f} img/s ({n_eval} images, "
-              f"{enc_s:.2f} s); the run {run_s:.1f} s")
-        # where an epoch's time goes: the loader alone (decode, stack), the
-        # on-card preprocessing of one batch, the bare train and eval steps
-        loader_s = {k: host_s(lambda: sum(1 for _ in exp.loaders[k]), 1)
-                    for k in ("train", "test", "db")}
-        raw = next(iter(exp.loaders["train"]))
-        images = exp._on_device(raw["image"])
-        labels = exp._on_device(raw["label"])
-        pre_s = host_s(lambda: preprocess_batch(
-            images, exp.aug_generator, crop=exp.crop, norm=exp.norm,
-            train=True, augment=exp.augment,
-            op_generator=exp.op_generator), 5)
-        x = preprocess_batch(images, crop=exp.crop, norm=exp.norm)
-        step_s = host_s(lambda: exp.train_step({"image": x, "label": labels}),
-                        5)
-        eval_s = host_s(lambda: exp.eval_step({"image": x, "label": labels}),
-                        5)
-        print(f"flagship epoch parts (host clock, batch {batch}): loader "
-              f"alone {loader_s['train']:.2f} s a train epoch ("
-              f"{steps * batch / loader_s['train']:.1f} img/s), "
-              f"{loader_s['test'] + loader_s['db']:.2f} s over test + db ("
-              f"{n_eval / (loader_s['test'] + loader_s['db']):.1f} img/s); "
-              f"crop + flip + TrivialAugment + normalize {pre_s * 1e3:.2f} "
-              f"ms a batch; train step {step_s * 1e3:.2f} ms; eval step "
-              f"{eval_s * 1e3:.2f} ms")
-        t0 = time.perf_counter()
-        kernels = device_breakdown("flagship train epoch",
-                                   lambda: exp.train_one_epoch(2), epoch_s,
-                                   rows=8, warm=False)
-        print(f"flagship: traced epoch took {time.perf_counter() - t0:.1f} s")
-        for loader in exp.loaders.values():
-            loader.close()
+    # ---- timings (host clock, synchronized) ----
+    n_eval = len(exp.datasets["test"]) + len(exp.datasets["db"])
+    enc_s = host_s(lambda: (exp.encode_split("test"),
+                            exp.encode_split("db")), 1)
+    epoch_s = train[1]["time"]
+    print(f"flagship: train {steps * batch / epoch_s:.1f} img/s in epoch "
+          f"2 ({epoch_s:.2f} s, data, augmentation and copies included); "
+          f"eval encode {n_eval / enc_s:.1f} img/s ({n_eval} images, "
+          f"{enc_s:.2f} s); the run {run_s:.1f} s")
+    # where an epoch's time goes: the loader alone (decode, stack), the
+    # on-card preprocessing of one batch, the bare train and eval steps
+    loader_s = {k: host_s(lambda: sum(1 for _ in exp.loaders[k]), 1)
+                for k in ("train", "test", "db")}
+    raw = next(iter(exp.loaders["train"]))
+    images = exp._on_device(raw["image"])
+    labels = exp._on_device(raw["label"])
+    pre_s = host_s(lambda: preprocess_batch(
+        images, exp.aug_generator, crop=exp.crop, norm=exp.norm,
+        train=True, augment=exp.augment,
+        op_generator=exp.op_generator), 5)
+    x = preprocess_batch(images, crop=exp.crop, norm=exp.norm)
+    step_s = host_s(lambda: exp.train_step({"image": x, "label": labels}),
+                    5)
+    eval_s = host_s(lambda: exp.eval_step({"image": x, "label": labels}),
+                    5)
+    print(f"flagship epoch parts (host clock, batch {batch}): loader "
+          f"alone {loader_s['train']:.2f} s a train epoch ("
+          f"{steps * batch / loader_s['train']:.1f} img/s), "
+          f"{loader_s['test'] + loader_s['db']:.2f} s over test + db ("
+          f"{n_eval / (loader_s['test'] + loader_s['db']):.1f} img/s); "
+          f"crop + flip + TrivialAugment + normalize {pre_s * 1e3:.2f} "
+          f"ms a batch; train step {step_s * 1e3:.2f} ms; eval step "
+          f"{eval_s * 1e3:.2f} ms")
+    t0 = time.perf_counter()
+    kernels = device_breakdown("flagship train epoch",
+                               lambda: exp.train_one_epoch(2), epoch_s,
+                               rows=8, warm=False)
+    print(f"flagship: traced epoch took {time.perf_counter() - t0:.1f} s")
+    for loader in exp.loaders.values():
+        loader.close()
     print(f"flagship phase: {time.perf_counter() - t_phase:.1f} s")
     return {"train_img_s": steps * batch / epoch_s, "epoch_s": epoch_s,
-            "busy": busy_share(kernels, epoch_s), "steps": steps}
+            "busy": busy_share(kernels, epoch_s), "steps": steps,
+            "rerun": (argv, logdir, train, test)}
 
 
 def busy_share(kernels, wall_s: float) -> float:
@@ -6524,7 +6524,9 @@ def run(sizes: Sizes, device) -> dict:
     del gallery, bits
     torch.cuda.empty_cache()
     run_text_tower(sizes, device)
-    flagship = run_flagship(sizes, device)
+    # phase 14's set and run stay until phase 23 (d) runs it again, last
+    flagship_tmp = tempfile.TemporaryDirectory()
+    flagship = run_flagship(sizes, device, flagship_tmp.name)
     run_variants(sizes, device)
     run_baselines(sizes, device)
     run_finegrained(sizes, device)
@@ -6539,6 +6541,8 @@ def run(sizes: Sizes, device) -> dict:
         del packed, flat
         torch.cuda.empty_cache()
         run_distributed_steps(sizes, device, mesh)
+    torchrun_run(device, *flagship["rerun"])
+    flagship_tmp.cleanup()
     return {"kernels": [
         {"name": "encoder_layer", "route": "cuda",
          "source": "concepthash_tpu_torch/csrc/fused_layer.cu",

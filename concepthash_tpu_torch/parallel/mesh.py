@@ -110,15 +110,6 @@ def shutdown() -> None:
     _initialized_here = False
 
 
-def capture_error_mode() -> str:
-    """What a CUDA graph capture forbids of the process's other threads:
-    while a process group lives, its watchdog thread polls its
-    collectives' events, which a process-wide ('global') capture would
-    count as an error, so the capture forbids unsafe calls of its own
-    thread only."""
-    return "thread_local" if dist.is_initialized() else "global"
-
-
 def group_device() -> torch.device:
     """The device this process's collectives run on: its card under NCCL,
     the CPU under gloo."""

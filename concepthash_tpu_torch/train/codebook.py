@@ -362,10 +362,10 @@ def _repeat(iteration, n: int, device: torch.device) -> None:
         for _ in range(warm):
             iteration()
     torch.cuda.current_stream(device).wait_stream(side)
-    from concepthash_tpu_torch.parallel.mesh import capture_error_mode
+    from concepthash_tpu_torch.train.graphs import CAPTURE_ERROR_MODE
 
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode=capture_error_mode()):
+    with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
         iteration()
     for _ in range(n - warm):
         graph.replay()

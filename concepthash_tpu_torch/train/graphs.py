@@ -29,10 +29,10 @@ What keeps a captured step equal to an eager one:
 Under a mesh (``parallel.mesh.Mesh``) each step's collectives (the batch
 statistics' all-reduces, the outputs' all-gathers, the gradients'
 all-reduce) are captured with it: the warm-up chunk runs them first, so
-the communicator exists and is warm before the capture. While a process
-group lives, a capture forbids unsafe CUDA calls of the capturing thread
-only (``parallel.mesh.capture_error_mode``): the group's watchdog thread
-queries its collectives' events while the main thread captures.
+the communicator exists and is warm before the capture. A capture
+forbids unsafe CUDA calls of the capturing thread only
+(``CAPTURE_ERROR_MODE``): the group's watchdog thread, like the loader's
+threads, may call CUDA while the main thread captures.
 
 Kernel wrappers count their launches in Python, which a replay does not
 run: the graph records what its capture launched, and each replay adds that
@@ -47,8 +47,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from concepthash_tpu_torch.parallel.mesh import capture_error_mode
 from concepthash_tpu_torch.train.optim import make_capturable, scheduled_lrs
+
+# A capture checks the CUDA calls of its own thread only: the process's
+# other threads (a process group's watchdog, the loader's, the profiler's)
+# may call CUDA while a chunk is captured, which a process-wide ('global')
+# check would count against the capture.
+CAPTURE_ERROR_MODE = "thread_local"
 
 
 def _counted_wrappers() -> tuple:
@@ -117,8 +122,7 @@ class _GraphedSteps:
             graph.register_generator_state(self.generator)
         wrappers = _counted_wrappers()
         before = [w.launches for w in wrappers]
-        with torch.cuda.graph(graph,
-                              capture_error_mode=capture_error_mode()):
+        with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
             self._run()
         # capture records the launches and runs none of them
         self._counted = []

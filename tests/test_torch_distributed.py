@@ -277,14 +277,12 @@ def _worker(rank: int, port: int, workdir: str) -> None:
     torch.set_num_threads(2)
     import torch.distributed as dist
 
-    from concepthash_tpu_torch.parallel.mesh import (capture_error_mode,
-                                                     init_distributed,
+    from concepthash_tpu_torch.parallel.mesh import (init_distributed,
                                                      make_mesh)
 
     results = {}
     try:
         assert init_distributed("cpu")
-        results["capture_mode"] = capture_error_mode()
         _topk(make_mesh(), results)
         mesh2 = make_mesh(2)
         results["mesh2"] = (mesh2.rank, mesh2.size)
@@ -525,16 +523,6 @@ def test_main_gpu_run_resumes_on_two_ranks(world):
     for k, w in want.items():
         np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=RTOL,
                                    atol=ATOL, err_msg=k)
-
-
-def test_a_live_group_captures_thread_locally(world):
-    """While a process group lives, a CUDA graph capture forbids unsafe
-    calls of its own thread only (the group's watchdog thread polls its
-    events); without one it stays process-wide."""
-    from concepthash_tpu_torch.parallel.mesh import capture_error_mode
-
-    assert {r["capture_mode"] for r in world["ranks"]} == {"thread_local"}
-    assert capture_error_mode() == "global"
 
 
 def test_rank_zero_alone_writes_the_run(world):
