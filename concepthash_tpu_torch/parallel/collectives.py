@@ -64,6 +64,8 @@ def current():
 
 
 def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    # newer torch names it all_gather_single and warns on the older name,
+    # which older torch has alone
     gather = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
     gather(out, x, group=group)
